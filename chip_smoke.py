@@ -8,20 +8,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. identify the card (torch/CUDA versions, name and power limit);
 2. build the CUDA kernels from ``semivl_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into the ignored ``semivl_tpu_torch/_build``;
-3. packed attention kernel against its plain version at the flagship
-   shapes (encoder and semantic transformer, and a ``valid_len`` case);
-4. fused VLG decoder kernel against its plain version at the flagship
-   decoder shapes;
-5. the slice: the full-width flagship model (ViT-B/16 + VLG, VOC-21, bf16
+3. packed attention kernels, forward and backward, against their plain
+   versions and their rounded references at the flagship shapes (encoder
+   and semantic transformer, and a ``valid_len`` case);
+4. fused VLG decoder kernels, forward and backward (tail and input), against
+   their plain versions and their rounded references at the flagship
+   decoder shapes, with planted faults that the backward's limit must
+   catch;
+5. evaluation: the full-width flagship model (ViT-B/16 + VLG, VOC-21, bf16
    compute, seeded random weights) evaluated with ``zegclip_sliding_window``
    over synthetic uint8 images at VOC val geometry, with the launch counts
-   of both kernels read around that run; then one crop batch through the
-   kernels and through the plain versions;
-6. a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
+   of the forward kernels read around that run; then one crop batch through
+   the kernels and through the plain versions;
+6. training: the full-width flagship training bundle (student + frozen
+   MaskCLIP guidance encoder + VLG) takes SemiVL steps (exp 40: 2 labeled +
+   2 unlabeled 512^2 crops, AdamW) on a synthetic batch, with every
+   kernel's launches read around the timed steps; one step with the
+   kernels against one with the rounded references from the same state,
+   batch and feature-perturbation masks, and a step with a planted fault
+   that must fail; a profile of one step;
+7. a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
 
 Comparisons run with TF32 off. Times are CUDA-event means after warm-up.
 """
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -33,8 +44,43 @@ import torch
 
 PEAK_BF16_FLOPS = 989e12    # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12        # H100 SXM HBM3
-ATTN_TOL = 2e-2             # bf16 output, p rounded at other points
-DEC_TOL = 5e-2              # relative to the logit scale, bf16 storage
+# Two references per kernel. The plain version (the JAX package's math in
+# bf16) rounds at other points than the kernel, so it is held to loose
+# absolute limits. The rounded reference (``*_rounded``: float32 sums, bf16
+# rounding where the kernel stores bf16) differs from the kernel only in the
+# order of float32 sums, which flips rare bf16 roundings; it is held to
+# tight relative-L2 limits, and planted faults must fail them.
+ATTN_TOL = 2e-2             # vs plain, absolute: bf16 logits in the plain
+ATTN_REL_TOL = 2e-3         # vs rounded, relative L2
+DEC_TOL = 5e-2              # vs plain, relative to the logit scale
+DEC_REL_TOL = 1e-2          # vs rounded, relative L2 (GroupNorm amplifies a
+                            # flipped rounding of a raw conv output)
+ATTN_BWD_TOL = 2e-2         # vs plain (same rounding points), of the scale
+ATTN_BWD_REL_TOL = 5e-3     # relative L2
+DEC_BWD_TOL = 2e-2          # per gradient leaf vs rounded, relative L2
+                            # (H100: worst leaf 6.3e-3 at P = 126, 1.1e-2
+                            # at P = 3; a 3% fault must fail)
+STEP_DEC_BWD_TOL = 5e-2     # per leaf, the decoder backward on a step's own
+                            # inputs: the loss gradient sums to ~0 over each
+                            # pixel's class planes, so the parameter
+                            # gradients cancel (H100: kernel 2.0e-2, float64
+                            # against float32 sums of the reference 8.3e-2)
+STEP_LOSS_TOL = 1e-3        # kernels vs rounded step: loss terms, relative
+STEP_GRAD_TOL = 0.15        # median over the trainable leaves of the
+                            # gradient's relative L2 (bf16 noise: 6.6e-2)
+STEP_NORM_TOL = 1e-2        # global gradient norm ratio
+STEP_AGREE_MIN = 0.995      # pseudo-label agreement (teacher and MaskCLIP)
+VANISHING = 1e-6            # leaves whose gradient is below this share of
+                            # the largest leaf's carry only rounding
+TOTAL_ITERS = 1000          # schedule length of the training slice
+# attention forward: teacher 14 + guidance encoder 12 + two student passes
+# of 14 (12 encoder blocks + 2 semantic layers); backward: 13 per student
+# pass, since the last encoder block's attention output feeds only the
+# cls-token embedding, which the decoder does not read, so autograd never
+# reaches its backward. Decoder: 2 stage launches per pass; its backward 2
+# tail + 2 input per student pass.
+EXPECTED_PER_STEP = dict(attention_fwd=54, attention_bwd=26, decoder_fwd=6,
+                         decoder_bwd_tail=4, decoder_bwd_input=4)
 
 
 def log(*a):
@@ -63,6 +109,11 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def _rel_l2(a, ref):
+    return ((a.float() - ref.float()).norm()
+            / ref.float().norm().clamp(min=1e-30)).item()
+
+
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
     return max(t_ops, t_bytes) * 1e3, ('operations' if t_ops >= t_bytes
@@ -81,16 +132,18 @@ def check_attention(gen):
         c = 64 * heads
         qkv = torch.randn(b, length, 3 * c, generator=gen, device='cuda',
                           dtype=torch.bfloat16)
-        q, k, v = qkv.chunk(3, dim=-1)
-        got = fa.flash_mha(q, k, v, heads, valid_len=valid)
-        want = fa.flash_mha_plain(q, k, v, heads, valid)
+        got = fa.packed_attention(qkv, heads, valid)
+        want = fa.packed_attention_plain(qkv, heads, valid)
+        rounded = fa.packed_attention_rounded(qkv, heads, valid)
         torch.cuda.synchronize()
         assert torch.isfinite(got.float()).all(), name
         err = (got.float() - want.float()).abs().max().item()
-        ms = cuda_ms(lambda: fa.flash_mha(q, k, v, heads, valid_len=valid))
-        plain_ms = cuda_ms(lambda: fa.flash_mha_plain(q, k, v, heads, valid))
+        rel = _rel_l2(got, rounded)
+        ms = cuda_ms(lambda: fa.packed_attention(qkv, heads, valid))
+        plain_ms = cuda_ms(lambda: fa.packed_attention_plain(qkv, heads,
+                                                             valid))
         qh, kh, vh = (t.unflatten(-1, (heads, 64)).transpose(1, 2)
-                      for t in (q, k, v))
+                      for t in qkv.chunk(3, dim=-1))
         mask = None
         if valid is not None:
             mask = (torch.arange(length, device='cuda') < valid).view(
@@ -102,11 +155,68 @@ def check_attention(gen):
         nbytes = 4 * b * length * c * 2
         bound_ms, by = bound(flops, nbytes)
         log(f'attention {name} ({b}, {length}, {c})/{heads}: max_abs_err '
-            f'{err:.3e} (tol {ATTN_TOL}) kernel_ms {ms:.4f} plain_ms '
+            f'vs plain {err:.3e} (tol {ATTN_TOL}), rel-L2 vs rounded '
+            f'{rel:.3e} (tol {ATTN_REL_TOL}) kernel_ms {ms:.4f} plain_ms '
             f'{plain_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} '
             f'({by}) TFLOP/s {flops / ms / 1e9:.1f}')
         assert err <= ATTN_TOL, (name, err)
-        rows.append(dict(case=name, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+        assert rel <= ATTN_REL_TOL, (name, rel)
+        rows.append(dict(case=name, max_abs_err=err, rel_err=rel,
+                         tol=ATTN_REL_TOL, ms=ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+    return rows
+
+
+def check_attention_bwd(gen):
+    import torch.nn.functional as F
+    from semivl_tpu_torch.ops import flash_attention as fa
+    rows = []
+    for name, b, length, heads, valid in (
+            ('encoder', 4, 1025, 12, None), ('semantic', 384, 21, 4, None),
+            ('encoder valid_len', 4, 1025, 12, 1000)):
+        c = 64 * heads
+        qkv = torch.randn(b, length, 3 * c, generator=gen, device='cuda',
+                          dtype=torch.bfloat16)
+        g = torch.randn(b, length, c, generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        q, k, v = qkv.split(c, dim=-1)
+        keys = valid or length
+        out, lse = fa._fwd_kernel(q, k, v, heads, keys, True)
+        got = fa.flash_mha_bwd(qkv, out, lse, g, heads, valid)
+        want = fa.flash_mha_bwd_plain(qkv, out, g, heads, valid)
+        again = fa.flash_mha_bwd(qkv, out, lse, g, heads, valid)
+        torch.cuda.synchronize()
+        assert torch.isfinite(got.float()).all(), name
+        assert torch.equal(got, again), name     # deterministic
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        rel = _rel_l2(got, want)
+        ms = cuda_ms(lambda: fa.flash_mha_bwd(qkv, out, lse, g, heads, valid))
+        plain_ms = cuda_ms(
+            lambda: fa.flash_mha_bwd_plain(qkv, out, g, heads, valid), 5)
+        qh, kh, vh = (t.unflatten(-1, (heads, 64)).transpose(1, 2).detach()
+                      .requires_grad_(True) for t in (q, k, v))
+        mask = None
+        if valid is not None:
+            mask = (torch.arange(length, device='cuda') < valid).view(
+                1, 1, 1, length)
+        o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+        gh = g.unflatten(-1, (heads, 64)).transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(
+            o, (qh, kh, vh), gh, retain_graph=True))
+        flops = 8 * b * heads * length * keys * 64   # dp, dv, dk, dq
+        nbytes = 2 * 8 * b * length * c + 4 * b * heads * length
+        bound_ms, by = bound(flops, nbytes)
+        log(f'attention bwd {name} ({b}, {length}, {c})/{heads}: '
+            f'max_abs_err {err:.3e} grad scale {scale:.3f} (tol '
+            f'{ATTN_BWD_TOL} x scale), rel-L2 {rel:.3e} (tol '
+            f'{ATTN_BWD_REL_TOL}) kernel_ms {ms:.4f} plain_ms '
+            f'{plain_ms:.4f} sdpa_bwd_ms {lib_ms:.4f} bound_ms '
+            f'{bound_ms:.4f} ({by}) TFLOP/s {flops / ms / 1e9:.1f}')
+        assert err <= ATTN_BWD_TOL * scale, (name, err, scale)
+        assert rel <= ATTN_BWD_REL_TOL, (name, rel)
+        rows.append(dict(case=name, max_abs_err=err, rel_err=rel,
+                         tol=ATTN_BWD_REL_TOL, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
     return rows
 
@@ -131,6 +241,24 @@ def _random_decoder(gen, channels=128, ups=(64, 32), skips=(32, 16)):
     return up1.cuda(), up2.cuda(), head.cuda()
 
 
+def _cudnn_chain(up1, up2, head, y, s1, s2):
+    """The decoder as cuDNN convolutions in y's dtype: the library time."""
+    import torch.nn.functional as F
+    for up, skip in ((up1, s1), (up2, s2)):
+        dt = y.dtype
+        t = F.conv_transpose2d(y, up.up.weight.to(dt), up.up.bias.to(dt),
+                               stride=2)
+        sk = skip.repeat_interleave(y.shape[0] // skip.shape[0], dim=0)
+        y = torch.cat([t, sk], dim=1)
+        for i in (0, 3):
+            y = F.conv2d(y, up.conv[i].weight.to(dt), padding=1)
+            gn = up.conv[i + 1]
+            y = F.relu(F.group_norm(y.float(), gn.num_groups, gn.weight,
+                                    gn.bias)).to(dt)
+    return F.conv2d(y, head.weight.to(y.dtype), head.bias.to(y.dtype),
+                    padding=1)
+
+
 def _decoder_flops(p, c, h, w, cs, cu, c1, c2, b):
     hw2, hw4 = 4 * h * w, 16 * h * w
     s1 = 2 * p * hw2 * (cu[0] * c + 9 * c1 * (cu[0] + c1)) \
@@ -141,7 +269,6 @@ def _decoder_flops(p, c, h, w, cs, cu, c1, c2, b):
 
 
 def check_decoder(gen):
-    import torch.nn.functional as F
     from semivl_tpu_torch.ops import fused_decoder as fd
     b, n, c, h = 2, 21, 128, 32
     p = b * n
@@ -151,8 +278,11 @@ def check_decoder(gen):
     s2 = torch.randn(b, 16, 4 * h, 4 * h, generator=gen).cuda().bfloat16()
     p1, p2 = up1.stage_params(), up2.stage_params()
     hp = dict(weight=head.weight, bias=head.bias)
-    got = fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp)
-    want = fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp)
+    with torch.no_grad():
+        got = fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp)
+        want = fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp)
+        rel = _rel_l2(got, fd.fused_vlg_decoder_rounded(x, s1, s2, p1, p2,
+                                                        hp))
     torch.cuda.synchronize()
     assert got.shape == want.shape == (p, 1, 4 * h, 4 * h)
     assert torch.isfinite(got.float()).all()
@@ -162,35 +292,204 @@ def check_decoder(gen):
     ms = cuda_ms(lambda: fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp), 10)
     plain_ms = cuda_ms(
         lambda: fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp), 10)
-
-    def cudnn_chain():
-        y = x
-        for up, skip in ((up1, s1), (up2, s2)):
-            dt = y.dtype
-            t = F.conv_transpose2d(y, up.up.weight.to(dt), up.up.bias.to(dt),
-                                   stride=2)
-            sk = skip.repeat_interleave(y.shape[0] // skip.shape[0], dim=0)
-            y = torch.cat([t, sk], dim=1)
-            for i in (0, 3):
-                y = F.conv2d(y, up.conv[i].weight.to(dt), padding=1)
-                gn = up.conv[i + 1]
-                y = F.relu(F.group_norm(y.float(), gn.num_groups, gn.weight,
-                                        gn.bias)).to(dt)
-        return F.conv2d(y, head.weight.to(y.dtype), head.bias.to(y.dtype),
-                        padding=1)
-
-    lib_ms = cuda_ms(cudnn_chain, 10)
+    lib_ms = cuda_ms(lambda: _cudnn_chain(up1, up2, head, x, s1, s2), 10)
     flops = _decoder_flops(p, c, h, h, (32, 16), (96, 48), 64, 32, b)
     nbytes = 2 * (x.numel() + s1.numel() + s2.numel() + got.numel())
     bound_ms, by = bound(flops, nbytes)
     log(f'decoder x {tuple(x.shape)} skips {tuple(s1.shape)} '
-        f'{tuple(s2.shape)}: max_abs_err {err:.3e} mean_abs_err '
+        f'{tuple(s2.shape)}: max_abs_err vs plain {err:.3e} mean_abs_err '
         f'{diff.mean().item():.3e} logit scale {scale:.3f} (tol {DEC_TOL} x '
-        f'scale) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} cudnn_ms '
-        f'{lib_ms:.4f} bound_ms {bound_ms:.4f} ({by}) GFLOP {flops / 1e9:.2f}')
+        f'scale), rel-L2 vs rounded {rel:.3e} (tol {DEC_REL_TOL}) kernel_ms '
+        f'{ms:.4f} plain_ms {plain_ms:.4f} cudnn_ms {lib_ms:.4f} bound_ms '
+        f'{bound_ms:.4f} ({by}) GFLOP {flops / 1e9:.2f}')
     assert err <= DEC_TOL * max(scale, 1.0), (err, scale)
-    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=bound_ms, bound_by=by)
+    assert rel <= DEC_REL_TOL, rel
+    return dict(max_abs_err=err, rel_err=rel, tol=DEC_REL_TOL, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
+                bound_by=by)
+
+
+def _stage_bwd_flops(p, b, cin, cs, cout, h, w, head):
+    """(tail, input) flops of one stage's backward: dgrad + wgrad of each
+    conv (twice its forward), the recompute not counted."""
+    hw = 4 * h * w
+    cu = cin - cs
+    tail = 2 * 2 * p * hw * 9 * cout * cout + (
+        2 * 2 * p * hw * 9 * cout if head else 0)
+    inp = (2 * 2 * p * hw * 9 * cout * cu + 2 * 2 * b * hw * 9 * cout * cs
+           + 2 * 2 * p * hw * cin * cu)
+    return tail, inp
+
+
+@contextlib.contextmanager
+def conv1_dgrad_without_a_tap():
+    """Planted fault: the decoder backward's conv1 dgrad misses its
+    top-left tap (a halo or tap-index bug of the input kernel)."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    real = fd._stage_bwd_input
+
+    def faulty(g_c1, up, xin, skip, p):
+        w = p['conv1_weight'].detach().clone()
+        w[:, :, 0, 0] = 0
+        return real(g_c1, up, xin, skip, dict(p, conv1_weight=w))
+
+    with mock.patch.object(fd, '_stage_bwd_input', faulty):
+        yield
+
+
+@contextlib.contextmanager
+def conv2_wgrad_off_by(factor):
+    """Planted fault: both stages' conv2 weight gradients scaled by
+    ``factor`` (a lost or doubled share of the tail kernel's reduction)."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    real = fd._stage_bwd_tail
+
+    def faulty(*args, **kwargs):
+        out = real(*args, **kwargs)
+        return dict(out, conv2_weight=out['conv2_weight'] * factor)
+
+    with mock.patch.object(fd, '_stage_bwd_tail', faulty):
+        yield
+
+
+def _rounded_float64(*args):
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    return fd.fused_vlg_decoder_rounded(*args, dtype=torch.float64)
+
+
+def decoder_leaves():
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    return ['x', 'skip1', 'skip2'] + [
+        f'up{i}.{k}' for i in (1, 2) for k in fd.STAGE_KEYS] + [
+        'head.weight', 'head.bias']
+
+
+def decoder_grads(fn, acts, params, g):
+    """Gradients of the decoder chain ``fn`` w.r.t. copies of its inputs
+    ``acts`` (x, skip1, skip2) and of the parameter dicts ``params`` (up1,
+    up2, head), in ``decoder_leaves()`` order."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    xs = [t.detach().clone().requires_grad_(True) for t in acts]
+    ps = [{k: v.detach().clone().requires_grad_(True) for k, v in d.items()}
+          for d in params]
+    flat = ([ps[0][k] for k in fd.STAGE_KEYS]
+            + [ps[1][k] for k in fd.STAGE_KEYS] + [ps[2]['weight'],
+                                                   ps[2]['bias']])
+    return torch.autograd.grad(fn(*xs, *ps), xs + flat, g)
+
+
+DECODER_FAULTS = {'conv1 dgrad without its top-left tap':
+                  conv1_dgrad_without_a_tap,
+                  'conv2 weight gradients 3% off':
+                  lambda: conv2_wgrad_off_by(1.03)}
+
+
+def check_decoder_bwd(gen):
+    """The decoder backward at the student pass-1 shape (P = 6 x 21 = 126):
+    gradients of every input and parameter through the kernels against
+    autograd through ``fused_vlg_decoder_rounded``, each within
+    DEC_BWD_TOL; each planted fault must exceed it."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    b, n, c, h = 6, 21, 128, 32
+    p = b * n
+    up1, up2, head = _random_decoder(gen)
+    params = [up1.stage_params(), up2.stage_params(),
+              dict(weight=head.weight, bias=head.bias)]
+    acts = [torch.randn(p, c, h, h, generator=gen),
+            torch.randn(b, 32, 2 * h, 2 * h, generator=gen),
+            torch.randn(b, 16, 4 * h, 4 * h, generator=gen)]
+    acts = [t.cuda().bfloat16() for t in acts]
+    g = torch.randn(p, 1, 4 * h, 4 * h, generator=gen).cuda().bfloat16()
+    names = decoder_leaves()
+    tail = [nm for nm in names if 'conv2' in nm or 'gn' in nm
+            or nm.startswith('head')]
+
+    def grads(fn):
+        return decoder_grads(fn, acts, params, g)
+
+    got = grads(fd.fused_vlg_decoder)
+    ref = grads(fd.fused_vlg_decoder_rounded)
+    ref64 = grads(_rounded_float64)
+    again = grads(fd.fused_vlg_decoder)
+    torch.cuda.synchronize()
+    noise = max(_rel_l2(a, r) for a, r in zip(ref64, ref))
+    rel, abs_err = {}, {}
+    for name, a, r, a2 in zip(names, got, ref, again):
+        assert a.dtype == r.dtype and a.shape == r.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), name          # deterministic
+        rel[name] = _rel_l2(a, r)
+        abs_err[name] = (a.float() - r.float()).abs().max().item()
+    worst = max(rel, key=rel.get)
+    log(f'decoder bwd P={p}: per-leaf rel-L2 vs rounded: worst {worst} '
+        f'{rel[worst]:.3e} (tol {DEC_BWD_TOL}; the reference\'s float64 '
+        f'against its float32 sums: worst leaf {noise:.3e}); '
+        f'{json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})}')
+    faults = {}
+    for what, planted in DECODER_FAULTS.items():
+        with planted():
+            bad = grads(fd.fused_vlg_decoder)
+        errs = {nm: _rel_l2(a, r) for nm, a, r in zip(names, bad, ref)}
+        faults[what] = max(errs.values())
+        log(f'decoder bwd planted fault "{what}": worst rel-L2 '
+            f'{faults[what]:.3e} ({max(errs, key=errs.get)}), '
+            f'{sum(e > DEC_BWD_TOL for e in errs.values())} of {len(errs)} '
+            f'leaves past the tol')
+    assert rel[worst] <= DEC_BWD_TOL, (worst, rel[worst])
+    assert all(e > DEC_BWD_TOL for e in faults.values()), faults
+
+    # per-kernel times: both stages' tail calls, then both input calls
+    with torch.no_grad():
+        x, s1, s2 = acts
+        _, c2, part2 = fd._forward(x, s1, s2, *params)
+        gn_in = (part2, params[0]['gn2_weight'].float().contiguous(),
+                 params[0]['gn2_bias'].float().contiguous())
+        t2 = fd._stage_bwd_tail(c2, s2, params[1], gn_in, params[2], g)
+        i2 = fd._stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], s2,
+                                 params[1])
+        t1 = fd._stage_bwd_tail(x, s1, params[0], g=i2['g_x'])
+        tail_ms = cuda_ms(lambda: (
+            fd._stage_bwd_tail(c2, s2, params[1], gn_in, params[2], g),
+            fd._stage_bwd_tail(x, s1, params[0], g=i2['g_x'])), 5)
+        input_ms = cuda_ms(lambda: (
+            fd._stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], s2,
+                                params[1]),
+            fd._stage_bwd_input(t1['g_c1'], t1['up'], t1['xin'], s1,
+                                params[0])), 5)
+
+    prms = ([params[0][k] for k in fd.STAGE_KEYS]
+            + [params[1][k] for k in fd.STAGE_KEYS] + [head.weight, head.bias])
+
+    def bwd_ms(fn):
+        xs = [t.detach().requires_grad_(True) for t in acts]
+        out = fn(*xs, *params)
+        return cuda_ms(lambda: torch.autograd.grad(out, xs + prms, g,
+                                                   retain_graph=True), 5)
+
+    ms = bwd_ms(fd.fused_vlg_decoder)
+    plain_ms = bwd_ms(fd.fused_vlg_decoder_plain)
+    lib_ms = bwd_ms(lambda *a: _cudnn_chain(up1, up2, head, *a[:3]))
+    f1 = _stage_bwd_flops(p, b, c, 32, 64, h, h, False)
+    f2 = _stage_bwd_flops(p, b, 64, 16, 32, 2 * h, 2 * h, True)
+    nbytes = 2 * 2 * sum(t.numel() for t in acts + [g])
+    tail_bound, tail_by = bound(f1[0] + f2[0], nbytes)
+    input_bound, input_by = bound(f1[1] + f2[1], nbytes)
+    log(f'decoder bwd P={p} x {tuple(acts[0].shape)}: whole backward '
+        f'kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} cudnn_ms {lib_ms:.3f}; '
+        f'tail_ms {tail_ms:.3f} bound {tail_bound:.4f} ({tail_by}) GFLOP '
+        f'{(f1[0] + f2[0]) / 1e9:.1f}; input_ms {input_ms:.3f} bound '
+        f'{input_bound:.4f} ({input_by}) GFLOP {(f1[1] + f2[1]) / 1e9:.1f}')
+    common = dict(tol=DEC_BWD_TOL, plain_ms=plain_ms, library_ms=lib_ms,
+                  whole_bwd_ms=ms, planted_faults=faults)
+    rows = []
+    for names_, t_ms, t_bound, t_by in (
+            (tail, tail_ms, tail_bound, tail_by),
+            ([nm for nm in names if nm not in tail], input_ms, input_bound,
+             input_by)):
+        rows.append(dict(max_abs_err=max(abs_err[nm] for nm in names_),
+                         rel_err=max(rel[nm] for nm in names_), ms=t_ms,
+                         bound_ms=t_bound, bound_by=t_by, **common))
+    return rows
 
 
 # ------------------------------------------------------------ phase 5
@@ -278,7 +577,8 @@ def run_slice():
     with torch.no_grad():
         inp = evaluator._to_model_input(crops)
         k_logits = model(inp, evaluator.text)
-        with mock.patch.object(fa, 'flash_mha', fa.flash_mha_plain), \
+        with mock.patch.object(fa, 'packed_attention',
+                               fa.packed_attention_plain), \
                 mock.patch.object(fd, 'fused_vlg_decoder',
                                   fd.fused_vlg_decoder_plain):
             p_logits = model(inp, evaluator.text)
@@ -297,12 +597,402 @@ def run_slice():
     return launches
 
 
+# ------------------------------------------------------------ phase 6
+
+def _counters():
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    return dict(attention_fwd=fa.launches, attention_bwd=fa.bwd_launches,
+                decoder_fwd=fd.launches,
+                decoder_bwd_tail=fd.bwd_tail_launches,
+                decoder_bwd_input=fd.bwd_input_launches)
+
+
+def _reset_counters():
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    fa.launches = fa.bwd_launches = 0
+    fd.launches = fd.bwd_tail_launches = fd.bwd_input_launches = 0
+
+
+def train_batch(gen, b=2, size=512):
+    """A synthetic exp-40 batch on the card: normalised-scale images, label
+    maps with ignored (255) borders, CutMix boxes as (y, x, h, w)."""
+    def img():
+        return torch.randn(b, size, size, 3, generator=gen, device='cuda')
+
+    mask = torch.randint(0, 21, (b, size, size), generator=gen,
+                         device='cuda')
+    mask[:, :16] = 255
+    ign = torch.zeros(b, size, size, dtype=torch.long, device='cuda')
+    ign[:, :, -24:] = 255
+    ign_o = ign.clone()
+    ign_o[:, -24:] = 255
+
+    def boxes():
+        hw = torch.randint(size // 4, size // 2 + 1, (b, 2), generator=gen,
+                           device='cuda')
+        yx = torch.randint(0, size // 2, (b, 2), generator=gen, device='cuda')
+        return torch.cat([yx, hw], dim=1).int()
+
+    return dict(img_x=img(), mask_x=mask, img_w=img(), img_s1=img(),
+                img_s2=img(), ignore_mask=ign, img_w_other=img(),
+                img_s1_other=img(), img_s2_other=img(),
+                ignore_mask_other=ign_o, cutmix_box1=boxes(),
+                cutmix_box2=boxes())
+
+
+def train_bundle(cfg):
+    from semivl_tpu_torch.models.builder import build_model
+    bundle = build_model(cfg, dtype=torch.bfloat16, device='cuda', seed=0)
+    with torch.no_grad():   # weight scales that keep 12 layers finite
+        m = bundle.model
+        for mod, s in ((m.backbone, 0.05), (m.clip_encoder, 0.05),
+                       (m.decode_head, 0.2)):
+            for prm in mod.parameters():
+                if prm.ndim >= 2:
+                    prm.mul_(s)
+    return bundle
+
+
+def run_train(cfg, bundle, batch, steps=3):
+    """The training main path: a warm-up step, then ``steps`` timed steps
+    with every kernel's launch count read around them."""
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    model = bundle.model
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    gen = torch.Generator(device='cuda').manual_seed(3)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    t0 = time.perf_counter()
+    step(batch, gen)
+    torch.cuda.synchronize()
+    log(f'train: warm-up step {time.perf_counter() - t0:.2f} s')
+
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counters()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    dt = (time.perf_counter() - t0) / steps
+    launches = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    metrics = {k: float(v) for k, v in metrics.items()}
+    imgs = 2 * batch['mask_x'].shape[0]    # labeled + unlabeled (bench.py)
+    log(f'train: {steps} steps at 512^2, batch 2 labeled + 2 unlabeled: '
+        f'{dt * 1e3:.1f} ms/step, {imgs / dt:.2f} images/s, peak memory '
+        f'{peak / 2**20:.1f} MiB')
+    log(f'train: metrics {json.dumps(metrics)}')
+    log(f'train: launches over {steps} steps {launches} (expected per step '
+        f'{EXPECTED_PER_STEP})')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    for k, v in EXPECTED_PER_STEP.items():
+        assert launches[k] == v * steps, (k, launches[k], v)
+    n_train = n_frozen = 0
+    for n, p in model.named_parameters():
+        if p.requires_grad:
+            n_train += 1
+            assert not torch.equal(p.detach(), before[n]), f'{n} unchanged'
+        else:
+            n_frozen += 1
+            assert torch.equal(p.detach(), before[n]), f'{n} changed'
+    log(f'train: {n_train} trainable leaves all changed, {n_frozen} frozen '
+        f'leaves bit-identical')
+    return step, {k: v // steps for k, v in launches.items()}, dict(
+        ms_per_step=dt * 1e3, images_per_s=imgs / dt, peak_mib=peak / 2**20)
+
+
+def _gap_threshold(conf, lo_q=0.5, hi_q=0.95):
+    """A threshold in the widest gap of the sorted confidences between two
+    quantiles, and its distance to the nearest confidence."""
+    v = conf.double().flatten().sort().values
+    lo, hi = int(lo_q * len(v)), int(hi_q * len(v))
+    i = lo + int(torch.argmax(v[lo + 1:hi] - v[lo:hi - 1]))
+    return ((v[i] + v[i + 1]) / 2).item(), ((v[i + 1] - v[i]) / 2).item()
+
+
+def _step_readings(got, ref):
+    """Each limit's reading of one step (metrics, gradients, pseudo-labels)
+    against the reference step's."""
+    (m, g, lab), (m_r, g_r, lab_r) = got, ref
+    top = max(t.abs().max().item() for t in g_r.values())
+    leaves = {n: _rel_l2(g[n], g_r[n]) for n in g_r
+              if g_r[n].abs().max().item() > VANISHING * top}
+    norm = torch.stack([t.norm() for t in g.values()]).norm()
+    norm_r = torch.stack([t.norm() for t in g_r.values()]).norm()
+    worst = max(leaves, key=leaves.get)
+    return dict(
+        loss=max(abs(m[k] - m_r[k]) / abs(m_r[k]) for k in m_r),
+        grad_median=sorted(leaves.values())[len(leaves) // 2],
+        grad_worst=leaves[worst], worst_leaf=worst, leaves=len(leaves),
+        vanishing=[n for n in g_r if n not in leaves],
+        norm_ratio=(norm / norm_r).item(),
+        agree=(lab == lab_r).float().mean().item())
+
+
+class PerCallCheck:
+    """Holds every kernel call of a step against its rounded reference on
+    that call's own inputs: the forward kernels' outputs and the attention
+    backward's gradient as they happen, the decoder backward afterwards from
+    each call's recorded inputs, parameters and output gradient. ``worst``
+    holds each kernel's worst relative L2 and the number of calls."""
+
+    def __init__(self):
+        from semivl_tpu_torch.ops import flash_attention as fa
+        from semivl_tpu_torch.ops import fused_decoder as fd
+        self.fa, self.fd = fa, fd
+        self.worst = {k: [0.0, 0] for k in ('attention_fwd', 'attention_bwd',
+                                            'decoder_fwd', 'decoder_bwd')}
+        self.decoder_calls = []
+
+    def note(self, key, err):
+        w = self.worst[key]
+        w[0], w[1] = max(w[0], err), w[1] + 1
+
+    def patches(self):
+        fa, fd = self.fa, self.fd
+        real_fwd, real_bwd = fa._fwd_kernel, fa.flash_mha_bwd
+        real_dec = fd.fused_vlg_decoder
+
+        def fwd(q, k, v, heads, valid_len, with_lse):
+            out, lse = real_fwd(q, k, v, heads, valid_len, with_lse)
+            self.note('attention_fwd', _rel_l2(
+                out, fa._fwd_rounded(q, k, v, heads, valid_len)))
+            return out, lse
+
+        def bwd(qkv, out, lse, g, heads, valid_len=None):
+            got = real_bwd(qkv, out, lse, g, heads, valid_len)
+            self.note('attention_bwd', _rel_l2(got, fa.flash_mha_bwd_plain(
+                qkv, out, g, heads, valid_len)))
+            return got
+
+        def dec(x, skip1, skip2, p1, p2, head):
+            out = real_dec(x, skip1, skip2, p1, p2, head)
+            with torch.no_grad():
+                ref = fd.fused_vlg_decoder_rounded(x, skip1, skip2, p1, p2,
+                                                   head)
+            self.note('decoder_fwd', _rel_l2(out, ref))
+            if out.requires_grad:   # the step updates the parameters
+                inputs = [t.detach().clone() for t in (x, skip1, skip2)]
+                params = [{k: v.detach().clone() for k, v in d.items()}
+                          for d in (p1, p2, head)]
+                out.register_hook(lambda g: self.decoder_calls.append(
+                    (inputs, params, g)))
+            return out
+
+        return [mock.patch.object(fa, '_fwd_kernel', fwd),
+                mock.patch.object(fa, 'flash_mha_bwd', bwd),
+                mock.patch.object(fd, 'fused_vlg_decoder', dec)]
+
+    def finish(self):
+        """The decoder backward of each recorded call, kernels against the
+        rounded reference, every gradient leaf but those that vanish (a
+        sum that is zero in exact arithmetic, as the head bias's is under
+        the cross entropy over class planes, carries only rounding)."""
+        fd, names = self.fd, decoder_leaves()
+        for inputs, params, g in self.decoder_calls:
+            got, ref, ref64 = (decoder_grads(fn, inputs, params, g) for fn in (
+                fd.fused_vlg_decoder, fd.fused_vlg_decoder_rounded,
+                _rounded_float64))
+            top = max(r.abs().max().item() for r in ref)
+            kept = [i for i, r in enumerate(ref)
+                    if r.abs().max().item() > VANISHING * top]
+            errs = {names[i]: _rel_l2(got[i], ref[i]) for i in kept}
+            noise = max(_rel_l2(ref64[i], ref[i]) for i in kept)
+            log(f'compare: decoder backward call P={inputs[0].shape[0]}, '
+                f'per-leaf rel-L2 vs rounded: ' + json.dumps(
+                    {k: float(f'{v:.3e}') for k, v in errs.items()})
+                + f'; vanishing: {sorted(set(names) - set(errs))}; the '
+                f'reference\'s float64 against its float32 sums: worst leaf '
+                f'{noise:.3e}')
+            self.note('decoder_bwd', max(errs.values()))
+        return self.worst
+
+
+def compare_step(cfg, bundle, batch):
+    """One step with the kernels against one with the rounded references
+    patched in (``packed_attention_rounded``, ``fused_vlg_decoder_rounded``:
+    plain PyTorch that rounds to bf16 where the kernels do), from the same
+    state, batch and injected feature-perturbation masks. The confidence
+    thresholds are lowered into gaps of this batch's confidences, so every
+    loss term carries gradient; the pseudo-labels and confidences the
+    kernels step draws are replayed in the others (argmax labels of a
+    near-uniform random-init teacher flip under any change of rounding),
+    and each route's own labels are compared apart.
+
+    Two kinds of reading. Per call (``PerCallCheck``): every kernel launch
+    of the kernels step against its rounded reference on that call's own
+    inputs, held to the kernel limits of phases 3-4. Whole step: loss
+    terms, pseudo-label agreement, the global gradient norm and the median
+    of the trainable leaves' gradient errors. The whole-step gradient
+    cannot be held tighter than the network's own bf16 noise: the two
+    routes' decoder inputs differ by ~1e-4, and GroupNorm over
+    bf16-stored raw convolutions turns that into several per cent of
+    gradient. A step with a planted fault (the decoder's conv1 dgrad
+    without a tap) must fail the whole-step gradient limits."""
+    from semivl_tpu_torch.models import vlm as vlm_mod
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.train import step as step_mod
+    from semivl_tpu_torch.train.optim import build_optimizer
+    model = bundle.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    gen = torch.Generator(device='cuda').manual_seed(5)
+    b = batch['mask_x'].shape[0]
+    keeps = [torch.rand(b, 1, 1, c, generator=gen, device='cuda') < 0.5
+             for c in (768, 768, 512)]
+    calls = [0]
+
+    def fp_dropout(x, rate, generator=None):
+        keep = keeps[calls[0] % len(keeps)]
+        calls[0] += 1
+        return torch.where(keep, x / (1.0 - rate),
+                           torch.zeros((), dtype=x.dtype, device=x.device))
+
+    text = torch.as_tensor(bundle.text_feats).cuda()
+    mcc_text = torch.as_tensor(bundle.mcc_text_feats).cuda()
+    unlabeled = torch.cat([batch['img_w_other'], batch['img_w']])
+    guided = torch.cat([batch['img_w'], batch['img_w_other']])
+    with torch.no_grad():
+        conf = torch.softmax(model(unlabeled, text).float(), 1).amax(1)
+        mc_conf = model.maskclip_probs(guided, mcc_text).amax(-1)
+    (th, th_gap), (mc_th, mc_gap) = _gap_threshold(conf), _gap_threshold(
+        mc_conf)
+    cfg = dict(cfg, conf_thresh=th, mcc_conf_thresh=mc_th)
+    log(f'compare: thresholds lowered into gaps of this batch\'s '
+        f'confidences: conf_thresh {th:.6f} (gap +-{th_gap:.2e}), '
+        f'mcc_conf_thresh {mc_th:.6f} (gap +-{mc_gap:.2e})')
+
+    recorded = {}
+
+    def pinned(owner, name):
+        """The step's label source ``owner.name``: its outputs recorded in
+        the first (kernels) step and replayed in the later ones."""
+        if name not in recorded:
+            real, recorded[name] = getattr(owner, name), []
+
+            def record(*args, **kwargs):
+                recorded[name].append(real(*args, **kwargs))
+                return recorded[name][-1]
+
+            return mock.patch.object(owner, name, record)
+        replay = iter(recorded[name])
+        return mock.patch.object(owner, name, lambda *a, **k: next(replay))
+
+    def one(*patches):
+        model.load_state_dict(state)
+        opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+        step = step_mod.make_semivl_train_step(bundle, cfg, opt,
+                                              TOTAL_ITERS)
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(mock.patch.object(vlm_mod, 'dropout2d',
+                                                  fp_dropout))
+            for patch in patches:
+                stack.enter_context(patch)
+            with torch.no_grad():   # this route's own pseudo-labels
+                c, lab = torch.softmax(model(unlabeled, text).float(),
+                                       1).max(1)
+                labels = torch.cat([
+                    torch.where(c >= th, lab, 255).flatten(),
+                    model.forward_maskclip(guided, mcc_text,
+                                           mc_th).flatten()])
+            stack.enter_context(pinned(step_mod, '_softmax_conf_label'))
+            stack.enter_context(pinned(vlm_mod.VLM, 'forward_maskclip'))
+            metrics = {k: float(v) for k, v in step(batch).items()}
+        grads = {n: p.grad.float().clone() for n, p in model.named_parameters()
+                 if p.requires_grad}   # every trainable leaf has a gradient
+        return metrics, grads, labels
+
+    per_call = PerCallCheck()
+    kern = one(*per_call.patches())
+    worst = per_call.finish()
+    ref = one(mock.patch.object(fa, 'packed_attention',
+                                fa.packed_attention_rounded),
+              mock.patch.object(fd, 'fused_vlg_decoder',
+                                fd.fused_vlg_decoder_rounded))
+    fault = one(conv1_dgrad_without_a_tap())
+    model.load_state_dict(state)
+    torch.cuda.synchronize()
+    tols = dict(attention_fwd=ATTN_REL_TOL, attention_bwd=ATTN_BWD_REL_TOL,
+                decoder_fwd=DEC_REL_TOL, decoder_bwd=STEP_DEC_BWD_TOL)
+    log('compare: per call, kernels vs rounded on the step\'s own inputs '
+        '(worst rel-L2, calls, tol): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), n, tols[k]] for k, (e, n) in
+             worst.items()}))
+    log(f'compare: loss terms kernels {json.dumps(kern[0])}')
+    log(f'compare: loss terms rounded {json.dumps(ref[0])}')
+    limits = dict(loss=STEP_LOSS_TOL, grad_median=STEP_GRAD_TOL,
+                  norm_ratio=STEP_NORM_TOL, agree=STEP_AGREE_MIN)
+    r = _step_readings(kern, ref)
+    rf = _step_readings(fault, ref)
+    for what, rd in (('kernels', r), ('planted fault (decoder conv1 dgrad '
+                                      'without a tap)', rf)):
+        log(f'compare: {what} vs rounded: loss terms rel diff '
+            f'{rd["loss"]:.3e}; per-leaf gradient rel-L2 median '
+            f'{rd["grad_median"]:.3e} over {rd["leaves"]} leaves, worst '
+            f'{rd["grad_worst"]:.3e} ({rd["worst_leaf"]}); global grad '
+            f'norm ratio {rd["norm_ratio"]:.6f}; pseudo-label agreement '
+            f'{rd["agree"]:.6f}; limits {json.dumps(limits)}')
+    log(f'compare: vanishing leaves (not compared): {r["vanishing"]}')
+    assert calls[0] == 9, calls
+    assert all(kern[0][k] > 0 for k in step_mod.LOSS_KEYS), kern[0]
+    for k, (err, n) in worst.items():
+        assert n > 0 and err <= tols[k], (k, err, n)
+    assert r['loss'] <= STEP_LOSS_TOL, r
+    assert r['grad_median'] <= STEP_GRAD_TOL, r
+    assert abs(r['norm_ratio'] - 1) <= STEP_NORM_TOL, r
+    assert r['agree'] >= STEP_AGREE_MIN, r
+    assert rf['grad_median'] > STEP_GRAD_TOL, rf
+    assert abs(rf['norm_ratio'] - 1) > STEP_NORM_TOL, rf
+    return worst
+
+
+def profile_step(step, batch, top=15):
+    """Device time by kernel for one training step, against the
+    unprofiled wall time of a step: the device's idle share."""
+    gen = torch.Generator(device='cuda').manual_seed(4)
+
+    def run():
+        step(batch, gen)
+        torch.cuda.synchronize()
+
+    run()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    return _profile(run, wall_ms, 'one training step', top)
+
+
+def _profile(run, wall_ms, what, top):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    # device-side events only (an op's own entry repeats its kernels' time);
+    # busy time counts kernels: a copy to pageable host memory lasts as long
+    # as the host's staging does, so copies are listed apart
+    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
+    copies = [r for r in rows if r[2].startswith(('Memcpy', 'Memset'))]
+    rows = [r for r in rows if r not in copies]
+    dev_ms = sum(r[0] for r in rows)
+    log(f'profile: {what}: wall {wall_ms:.2f} ms (unprofiled), device busy '
+        f'(kernels) {dev_ms:.2f} ms, idle share {1 - dev_ms / wall_ms:.3f}; '
+        f'copies {[(round(ms, 3), key) for ms, _, key in copies]}')
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        log(f'profile:   {ms:8.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} '
+            f'{key[:90]}')
+    return dict(wall_ms=wall_ms, busy_ms=dev_ms)
+
+
 def profile_image(evaluator, sample, cfg, top=12):
     """Device time by kernel for one image (2 crops), against the
     unprofiled wall time of the same call: the device's idle share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     def run():
         evaluator.predict(sample['img'][None], sample['mask'].shape,
                           cfg['eval_mode'])
@@ -313,20 +1003,8 @@ def profile_image(evaluator, sample, cfg, top=12):
     for _ in range(5):
         run()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 5
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    # device-side events only (an op's own entry repeats its kernels' time)
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    dev_ms = sum(r[0] for r in rows)
-    log(f'profile: one {sample["img"].shape[:2]} image: wall {wall_ms:.2f} ms '
-        f'(unprofiled), device busy {dev_ms:.2f} ms, idle share '
-        f'{1 - dev_ms / wall_ms:.3f}')
-    for ms, count, key in sorted(rows, reverse=True)[:top]:
-        log(f'profile:   {ms:8.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} '
-            f'{key[:90]}')
+    return _profile(run, wall_ms, f'one {sample["img"].shape[:2]} image',
+                    top)
 
 
 def main():
@@ -343,23 +1021,62 @@ def main():
     log(f'build: kernels built in {_build.build_all():.1f} s')
     gen = torch.Generator(device='cuda').manual_seed(0)
     attn = check_attention(gen)
+    attn_bwd = check_attention_bwd(gen)
     dec = check_decoder(torch.Generator().manual_seed(1))
-    launches = run_slice()
-    enc = attn[0]
+    dec_tail, dec_input = check_decoder_bwd(torch.Generator().manual_seed(2))
+    eval_launches = run_slice()
+
+    from semivl_tpu_torch.configs import flagship_train_cfg
+    cfg = flagship_train_cfg(512)
+    t0 = time.perf_counter()
+    bundle = train_bundle(cfg)
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(2))
+    prms = list(bundle.model.parameters())
+    log(f'train: built the training bundle in {time.perf_counter() - t0:.1f}'
+        f' s, {sum(p.numel() for p in prms) / 1e6:.1f} M params, '
+        f'{sum(p.numel() for p in prms if p.requires_grad) / 1e6:.1f} M '
+        'trainable')
+    step_err = compare_step(cfg, bundle, batch)
+    step, launches, _ = run_train(cfg, bundle, batch)
+    profile_step(step, batch)
+
+    def row(name, source, replaces, count, meas, shape):
+        # the worst relative error of the kernel's calls in the step
+        step_key = ('decoder_bwd' if name.startswith('decoder_stage_bwd')
+                    else name.replace('packed_', '').replace('_stage', ''))
+        return dict(name=name, route='cuda',
+                    source=f'semivl_tpu_torch/csrc/{source}',
+                    replaces=replaces, launches=count, shape=shape,
+                    step_rel_err=step_err[step_key][0],
+                    **{k: meas[k] for k in ('max_abs_err', 'rel_err', 'tol',
+                                            'ms', 'plain_ms', 'bound_ms',
+                                            'bound_by', 'library_ms')})
+
+    enc, enc_bwd = attn[0], attn_bwd[0]
     kernels = [
-        dict(name='packed_attention_fwd', route='cuda',
-             source='semivl_tpu_torch/csrc/flash_attention.cu',
-             replaces='semivl_tpu/ops/flash_attention.py:328',
-             launches=launches['attention'], shape='(2, 1025, 768) 12 heads',
-             **{k: enc[k] for k in ('max_abs_err', 'ms', 'plain_ms',
-                                    'bound_ms', 'bound_by', 'library_ms')}),
-        dict(name='decoder_stage_fwd', route='cuda',
-             source='semivl_tpu_torch/csrc/fused_decoder.cu',
-             replaces='semivl_tpu/ops/fused_decoder.py:459',
-             launches=launches['decoder'],
-             shape='fused_vlg_decoder call (2 stage launches), P=42',
-             **{k: dec[k] for k in ('max_abs_err', 'ms', 'plain_ms',
-                                    'bound_ms', 'bound_by', 'library_ms')}),
+        row('packed_attention_fwd', 'flash_attention.cu',
+            'semivl_tpu/ops/flash_attention.py:328',
+            launches['attention_fwd'], enc,
+            '(2, 1025, 768) 12 heads; launches per training step '
+            f'(evaluation run: {eval_launches["attention"]})'),
+        row('packed_attention_bwd', 'flash_attention.cu',
+            'semivl_tpu/ops/flash_attention.py:368',
+            launches['attention_bwd'], enc_bwd,
+            '(4, 1025, 768) 12 heads; launches per training step'),
+        row('decoder_stage_fwd', 'fused_decoder.cu',
+            'semivl_tpu/ops/fused_decoder.py:459', launches['decoder_fwd'],
+            dec, 'fused_vlg_decoder call (2 stage launches), P=42; launches '
+            f'per training step (evaluation run: {eval_launches["decoder"]})'),
+        row('decoder_stage_bwd_tail', 'fused_decoder_bwd.cu',
+            'semivl_tpu/ops/fused_decoder.py:534',
+            launches['decoder_bwd_tail'], dec_tail,
+            'both stages at P=126 (ms); plain/library ms are the whole '
+            'decoder backward; launches per training step'),
+        row('decoder_stage_bwd_input', 'fused_decoder_bwd.cu',
+            'semivl_tpu/ops/fused_decoder.py:728',
+            launches['decoder_bwd_input'], dec_input,
+            'both stages at P=126 (ms); plain/library ms are the whole '
+            'decoder backward; launches per training step'),
     ]
     log(json.dumps({'kernels': kernels}))
     log(card)

@@ -1,8 +1,9 @@
-"""Run configs: the values of the flagship evaluation (reference exp 40)."""
+"""Run configs: the values of the flagship evaluation and training step
+(reference exp 40)."""
 
 from semivl_tpu_torch.configs.models import get_model_config
 
-__all__ = ['flagship_cfg', 'get_model_config']
+__all__ = ['flagship_cfg', 'flagship_train_cfg', 'get_model_config']
 
 
 def flagship_cfg(crop_size=512):
@@ -21,3 +22,44 @@ def flagship_cfg(crop_size=512):
         text_embedding_variant='single',
         pl_text='single',
     )
+
+
+def flagship_train_cfg(crop_size=512):
+    """The reference exp-40 run config as the SemiVL training step reads it
+    (reference experiments.py:317-333 with its defaults; JAX
+    ``semivl_tpu/configs/experiments.py:240-268``): per-GPU batch of 2
+    labeled + 2 unlabeled crops, AdamW lr 1e-4 with the mmseg
+    ``paramwise_cfg`` multipliers (backbone lr x0.01), weight decay 0.01,
+    poly schedule without warm-up, pixelwise confidence at 0.95, and the
+    MaskCLIP consistency loss: lambda 0.1 -> 0 linearly over the run, the
+    frozen ``mcvit16`` guidance encoder with the ``concept4_single`` text,
+    confidence 0.9, ``mean_all`` reduction."""
+    cfg = flagship_cfg(crop_size)
+    cfg.update(
+        method='semivl',
+        batch_size=2,
+        criterion=dict(name='CELoss', kwargs=dict(ignore_index=255)),
+        criterion_u='CELoss',
+        use_fp=True,
+        fp_rate=0.5,
+        conf_mode='pixelwise',
+        conf_thresh=0.95,
+        maskclip_consistency_lambda=[0.1, 0],
+        clip_encoder='mcvit16',
+        mcc_text='concept4_single',
+        mcc_conf_thresh=0.9,
+        mcc_loss_reduce='mean_all',
+        optimizer=dict(
+            type='AdamW', lr=1e-4, weight_decay=0.01,
+            paramwise_cfg=dict(custom_keys={
+                'backbone': dict(lr_mult=0.01),
+                'text_encoder': dict(lr_mult=0.0),
+                'conv_encoder': dict(lr_mult=1.0),
+                'norm': dict(decay_mult=0.),
+                'ln': dict(decay_mult=0.),
+                'head': dict(lr_mult=10.),
+            })),
+        warmup_iters=0,
+        warmup_ratio=1e-6,
+    )
+    return cfg

@@ -2,7 +2,7 @@
 ``semivl_tpu/configs/models.py``).
 
 Plain dicts mirroring the reference's mmseg config files; only the flagship
-SemiVL model is carried here.
+SemiVL model and its frozen MaskCLIP guidance encoder are carried here.
 """
 
 import copy
@@ -64,8 +64,17 @@ def _vlm_vlg_sk04(img_size=512):
     )
 
 
+def _mcvit16(img_size=512):
+    """Frozen MaskCLIP guidance encoder (reference
+    configs/_base_/models/mcvit16.py): out_indices None -> only the dense
+    CLIP embedding."""
+    return dict(img_size=img_size,
+                backbone=_maskclip_vitb16(img_size, out_indices=None))
+
+
 _MODEL_CONFIGS = {
     'vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb': _vlm_vlg_sk04,
+    'mcvit16': _mcvit16,
 }
 
 

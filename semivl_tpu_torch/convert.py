@@ -103,10 +103,14 @@ def export_vlg_head(out, p, prefix='decode_head.'):
 
 
 def vlm_state_dict(params):
-    """JAX VLM params ({'backbone', 'decode_head'}) -> numpy state dict."""
+    """JAX VLM params ({'backbone', 'decode_head'} and, in a training tree,
+    'clip_encoder') -> numpy state dict."""
     out = {}
     export_maskclip_vit(out, params['backbone'])
     export_vlg_head(out, params['decode_head'])
+    if 'clip_encoder' in params:
+        export_maskclip_vit(out, params['clip_encoder'],
+                            prefix='clip_encoder.')
     return out
 
 

@@ -1,5 +1,5 @@
 """Model factory (counterpart of ``semivl_tpu/models/builder.py``), for the
-VLGHead / MaskClipViT flagship family."""
+VLGHead / MaskClipViT flagship family and its frozen guidance encoder."""
 
 import dataclasses
 import math
@@ -19,11 +19,24 @@ from semivl_tpu_torch.text.embeddings import (
 
 @dataclasses.dataclass
 class ModelBundle:
-    """What inference (and later training) needs about the model."""
+    """What inference and training need about the model."""
     model: VLM
     text_feats: np.ndarray            # (N, 512) decoder text embedding
     freeze_backbone: bool = False
     exclude_keys: Optional[list] = None
+    mcc_text_feats: Optional[np.ndarray] = None  # guidance-label text
+
+
+def is_trainable(name, freeze_backbone, exclude_keys):
+    """The freeze rule of JAX ``train/optim.py::trainable_mask`` on a
+    parameter name: ``clip_encoder.*`` is always frozen; with
+    ``freeze_backbone``, ``backbone.*`` is frozen unless one of
+    ``exclude_keys`` occurs in the name (reference vlm.py:80-93)."""
+    if name.startswith('clip_encoder'):
+        return False
+    if freeze_backbone and name.startswith('backbone'):
+        return bool(exclude_keys) and any(k in name for k in exclude_keys)
+    return True
 
 
 def init_weights(model, generator):
@@ -49,10 +62,12 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
 
     Resolves the named model config, takes num_classes and img_size from
     the run config and the text embedding from dataset + variant
-    (reference model/builder.py:104-159). The weights are random from
-    ``seed`` (load trained ones with ``convert.load_jax_params``);
-    parameters are float32, computation runs in ``dtype``. ``device``
-    defaults to the CUDA card and raises without one."""
+    (reference model/builder.py:104-159). With ``cfg['clip_encoder']`` (the
+    training configs) it adds the frozen guidance encoder and its text.
+    The weights are random from ``seed`` (load trained ones with
+    ``convert.load_jax_params``); parameters are float32, computation runs
+    in ``dtype``; frozen parameters have ``requires_grad=False``.
+    ``device`` defaults to the CUDA card and raises without one."""
     device = resolve_device(device)
     model_type = cfg['model']
     if not model_type.startswith('mmseg.'):
@@ -66,11 +81,25 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
         raise ValueError('pl_text must equal text_embedding_variant')
     text_feats = load_text_embedding(
         text_embedding_path(cfg['dataset'], cfg['text_embedding_variant']))
+    clip_cfg, mcc_text, mcc_name = None, None, ''
+    if cfg.get('clip_encoder'):
+        # the guidance encoder keeps the 512 positional grid (JAX builder
+        # without mcc_fix_resize_pos)
+        clip_cfg = get_model_config(cfg['clip_encoder'])['backbone']
+        mcc_name = text_embedding_path(cfg['dataset'], cfg['mcc_text'])
+        mcc_text = load_text_embedding(mcc_name)
 
-    model = VLM(model_cfg['backbone'], model_cfg['decode_head'], dtype=dtype)
+    model = VLM(model_cfg['backbone'], model_cfg['decode_head'],
+                clip_encoder_cfg=clip_cfg, fp_rate=cfg.get('fp_rate', 0.5),
+                mcc_text_name=mcc_name, dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
+    freeze = model_cfg.get('freeze_backbone', False)
+    exclude = model_cfg.get('exclude_keys')
+    for name, p in model.named_parameters():
+        p.requires_grad_(is_trainable(name, freeze, exclude))
     return ModelBundle(
         model=model.to(device).eval(),
         text_feats=text_feats,
-        freeze_backbone=model_cfg.get('freeze_backbone', False),
-        exclude_keys=model_cfg.get('exclude_keys'))
+        freeze_backbone=freeze,
+        exclude_keys=exclude,
+        mcc_text_feats=mcc_text)

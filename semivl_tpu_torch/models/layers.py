@@ -55,10 +55,11 @@ class _PackedProj(nn.Module):
 class Attention(nn.Module):
     """Packed-QKV multi-head self-attention (torch MultiheadAttention math).
 
-    q, k and v stay views of the one in_proj output (row stride 3C): the
-    attention kernel reads them in place. Every self-attention of the model
-    goes through ``flash_attention.flash_mha``: the kernel on the card, the
-    plain version on the CPU (JAX ``ops/attention.py::multi_head_attention``
+    The attention reads q, k and v in place from the one in_proj output
+    (row stride 3C) and returns one (B, L, 3C) gradient for it. Every
+    self-attention of the model goes through
+    ``flash_attention.packed_attention``: the kernels on the card, the plain
+    versions on the CPU (JAX ``ops/attention.py::multi_head_attention``
     routes the same way on a TPU)."""
 
     def __init__(self, dim, num_heads, qkv_bias=True):
@@ -70,10 +71,10 @@ class Attention(nn.Module):
         p = self.attn
         b = None if p.in_proj_bias is None else p.in_proj_bias.to(x.dtype)
         qkv = F.linear(x, p.in_proj_weight.to(x.dtype), b)
-        q, k, v = qkv.chunk(3, dim=-1)
-        out = linear(flash_attention.flash_mha(q, k, v, self.num_heads),
+        out = linear(flash_attention.packed_attention(qkv, self.num_heads),
                      p.out_proj)
         if return_v:
+            v = qkv[..., 2 * qkv.shape[-1] // 3:]
             return out, linear(v, p.out_proj)
         return out, None
 

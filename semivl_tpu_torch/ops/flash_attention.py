@@ -1,45 +1,95 @@
-"""Packed multi-head self-attention: the Hopper kernel and its plain version.
+"""Packed multi-head self-attention: the Hopper kernels and their plain
+versions.
 
 Counterpart of ``semivl_tpu/ops/flash_attention.py::flash_mha`` (packed
-path, ``_packed_fwd_kernel``) and of the routing in
-``semivl_tpu/ops/attention.py::multi_head_attention``; the plain version is
-that module's ``_mha_xla``. ``flash_mha`` takes (B, L, C) tensors, with
-q, k and v allowed to be column slices of one (B, L, 3C) projection. CUDA
-tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64) or raise;
-CPU tensors take ``flash_mha_plain``.
+path: ``_packed_fwd_kernel`` and ``_packed_bwd_kernel``) and of the routing
+in ``semivl_tpu/ops/attention.py::multi_head_attention``; the plain forward
+is that module's ``_mha_xla``.
+
+``packed_attention`` takes the packed (B, L, 3C) in_proj output, reads q,
+k and v in place as its column thirds, and is differentiable: its
+``torch.autograd.Function`` returns one (B, L, 3C) gradient, so autograd
+never re-concatenates three.
+
+CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64) or
+raise; CPU tensors take the plain versions (``flash_mha_plain`` forward,
+``flash_mha_bwd_plain`` backward). ``packed_attention_rounded`` is the
+kernels' own arithmetic in plain PyTorch, the reference the kernels are
+held to on the card.
 """
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
 
 from semivl_tpu_torch.ops import _build
 
-launches = 0  # kernel launches since the last reset (read by chip_smoke.py)
+launches = 0      # forward kernel launches since the last reset
+bwd_launches = 0  # backward kernel launches (read by chip_smoke.py)
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
+                 + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _split_heads(x, num_heads):
+    b, l, c = x.shape
+    return x.reshape(b, l, num_heads, c // num_heads).transpose(1, 2)
+
+
+def _merge_heads(x):
+    b, h, l, d = x.shape
+    return x.transpose(1, 2).reshape(b, l, h * d)
 
 
 def flash_mha_plain(q, k, v, num_heads, valid_len=None):
     """The JAX ``_mha_xla`` math: q scaled by 1/sqrt(d) in its own dtype,
     logits in the input dtype, float32 softmax with keys at or past
     ``valid_len`` masked to -1e30, probabilities cast back before p v."""
-    b, lq, c = q.shape
-    d = c // num_heads
-
-    def split(x):
-        return x.reshape(b, x.shape[1], num_heads, d).transpose(1, 2)
-
-    qh = split(q) * torch.tensor(d ** -0.5, dtype=q.dtype)
-    logits = torch.matmul(qh, split(k).transpose(-1, -2)).float()
+    d = q.shape[-1] // num_heads
+    qh = _split_heads(q, num_heads) * torch.tensor(d ** -0.5, dtype=q.dtype)
+    logits = torch.matmul(qh, _split_heads(k, num_heads).transpose(-1, -2))
+    logits = logits.float()
     if valid_len is not None and valid_len < k.shape[1]:
         kidx = torch.arange(k.shape[1], device=q.device)
         logits = logits.masked_fill(kidx >= valid_len, -1e30)
     probs = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
     probs = probs / probs.sum(dim=-1, keepdim=True)
-    out = torch.matmul(probs.to(v.dtype), split(v))
-    return out.transpose(1, 2).reshape(b, lq, c)
+    out = torch.matmul(probs.to(v.dtype), _split_heads(v, num_heads))
+    return _merge_heads(out)
+
+
+def flash_mha_bwd_plain(qkv, out, g, num_heads, valid_len=None):
+    """Gradient of ``packed_attention`` w.r.t. the packed (B, L, 3C) qkv, as
+    the JAX ``_packed_bwd_kernel`` computes it: p recomputed with a
+    full-row float32 softmax, delta = rowsum(g o), ds = p (g v^T - delta),
+    dv = p^T g, dq = ds k / sqrt(d), dk = ds^T q / sqrt(d), with p and ds
+    rounded to the input dtype before their products and every product
+    accumulated in float32."""
+    dt = qkv.dtype
+    c = qkv.shape[-1] // 3
+    d = c // num_heads
+    scale = d ** -0.5
+    q, k, v = (_split_heads(t, num_heads) for t in qkv.split(c, dim=-1))
+    qs = (q * torch.tensor(scale, dtype=dt)).float()
+    k32, v32 = k.float(), v.float()
+    gh = _split_heads(g.to(dt), num_heads).float()
+    s = torch.matmul(qs, k32.transpose(-1, -2))
+    length = qkv.shape[1]
+    if valid_len is not None and valid_len < length:
+        kidx = torch.arange(length, device=qkv.device)
+        s = s.masked_fill(kidx >= valid_len, -1e30)
+    p = torch.softmax(s, dim=-1)
+    delta = (gh * _split_heads(out.to(dt), num_heads).float()).sum(
+        -1, keepdim=True)
+    ds = p * (torch.matmul(gh, v32.transpose(-1, -2)) - delta)
+    p_r, ds_r = p.to(dt).float(), ds.to(dt).float()
+    dv = torch.matmul(p_r.transpose(-1, -2), gh)
+    dq = torch.matmul(ds_r, k32) * scale
+    dk = torch.matmul(ds_r.transpose(-1, -2), q.float()) * scale
+    return torch.cat([_merge_heads(t) for t in (dq, dk, dv)], dim=-1).to(dt)
 
 
 def _check(q, k, v, num_heads, valid_len):
@@ -65,24 +115,158 @@ def _check(q, k, v, num_heads, valid_len):
         raise ValueError(f'valid_len {valid_len} outside [1, {l}]')
 
 
-def flash_mha(q, k, v, num_heads, valid_len=None):
-    """(B, L, C) self-attention over ``num_heads`` heads.
+def _stream(t):
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
 
-    ``valid_len``: keys at positions >= valid_len are masked out."""
+
+def _fwd_kernel(q, k, v, num_heads, valid_len, with_lse):
+    """Launch the forward kernel; returns (out, lse or None)."""
     global launches
-    if not q.is_cuda:
-        return flash_mha_plain(q, k, v, num_heads, valid_len)
     b, l, c = q.shape
-    valid_len = l if valid_len is None else int(valid_len)
     _check(q, k, v, num_heads, valid_len)
-    lib = _build.load('flash_attention')
-    fn = lib.packed_attention_fwd
+    fn = _build.load('flash_attention').packed_attention_fwd
     fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
     out = torch.empty((b, l, c), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((b, num_heads, l), dtype=torch.float32,
+                       device=q.device) if with_lse else None)
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+             _build.ptr(lse) if with_lse else ctypes.c_void_p(None),
              b, l, num_heads, valid_len, q.stride(0), q.stride(1),
-             out.stride(0), out.stride(1), 0.125,
-             ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+             out.stride(0), out.stride(1), 0.125, _stream(q))
     _build.check(err, 'packed_attention_fwd')
     launches += 1
-    return out
+    return out, lse
+
+
+def flash_mha_bwd(qkv, out, lse, g, num_heads, valid_len=None):
+    """Backward kernel: the (B, L, 3C) gradient of ``packed_attention``
+    from the forward's output ``out``, its row log-sum-exp ``lse`` (float32
+    (B, H, L)) and the output gradient ``g``."""
+    global bwd_launches
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    valid_len = l if valid_len is None else int(valid_len)
+    q, k, v = qkv.split(c, dim=-1)
+    _check(q, k, v, num_heads, valid_len)
+    out, g = out.contiguous(), g.to(qkv.dtype).contiguous()
+    if out.shape != (b, l, c) or g.shape != (b, l, c) \
+            or lse.shape != (b, num_heads, l) or not lse.is_contiguous():
+        raise ValueError('flash_mha_bwd: out / g (B, L, C) and lse '
+                         '(B, H, L) do not match qkv')
+    dqkv = torch.empty((b, l, c3), dtype=qkv.dtype, device=qkv.device)
+    delta = torch.empty((b, num_heads, l), dtype=torch.float32,
+                        device=qkv.device)
+    dq, dk, dv = dqkv.split(c, dim=-1)
+    fn = _build.load('flash_attention').packed_attention_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    err = fn(*(_build.ptr(t) for t in (q, k, v, out, g, lse, delta, dq, dk,
+                                       dv)),
+             b, l, num_heads, valid_len, q.stride(0), q.stride(1),
+             g.stride(0), g.stride(1), dqkv.stride(0), dqkv.stride(1), 0.125,
+             _stream(qkv))
+    _build.check(err, 'packed_attention_bwd')
+    bwd_launches += 1
+    return dqkv
+
+
+class _PackedAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, valid_len):
+        c = qkv.shape[-1] // 3
+        q, k, v = qkv.split(c, dim=-1)
+        if qkv.is_cuda:
+            vl = qkv.shape[1] if valid_len is None else int(valid_len)
+            out, lse = _fwd_kernel(q, k, v, num_heads, vl, with_lse=True)
+        else:
+            out, lse = flash_mha_plain(q, k, v, num_heads, valid_len), None
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.valid_len = num_heads, valid_len
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        if qkv.is_cuda:
+            dqkv = flash_mha_bwd(qkv, out, lse, g, ctx.num_heads,
+                                 ctx.valid_len)
+        else:
+            dqkv = flash_mha_bwd_plain(qkv, out, g, ctx.num_heads,
+                                       ctx.valid_len)
+        return dqkv, None, None
+
+
+def packed_attention_plain(qkv, num_heads, valid_len=None):
+    """``packed_attention`` as plain PyTorch, differentiated by autograd."""
+    c = qkv.shape[-1] // 3
+    return flash_mha_plain(*qkv.split(c, dim=-1), num_heads, valid_len)
+
+
+def packed_attention(qkv, num_heads, valid_len=None):
+    """Self-attention over the packed (B, L, 3C) in_proj output -> (B, L, C).
+
+    Differentiable w.r.t. ``qkv`` (one (B, L, 3C) gradient); without
+    autograd the forward kernel alone (no log-sum-exp is written).
+    ``valid_len``: keys at positions >= valid_len are masked out."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _PackedAttention.apply(qkv, num_heads, valid_len)
+    c = qkv.shape[-1] // 3
+    q, k, v = qkv.split(c, dim=-1)
+    if not qkv.is_cuda:
+        return flash_mha_plain(q, k, v, num_heads, valid_len)
+    vl = qkv.shape[1] if valid_len is None else int(valid_len)
+    return _fwd_kernel(q, k, v, num_heads, vl, with_lse=False)[0]
+
+
+# ---------------------------------------------------------------------------
+# the kernels' arithmetic in plain PyTorch
+
+_BK = 64   # keys per tile of the forward kernel
+
+
+def _fwd_rounded(q, k, v, num_heads, valid_len):
+    """The forward kernel's arithmetic: s = (q / 8) k^T in float32, an
+    online softmax over 64-key tiles whose unnormalised p = exp(s - the
+    running row max) is rounded to bf16 before p v, the float32 row sum
+    divided out at the end, the output rounded to bf16."""
+    d = q.shape[-1] // num_heads
+    qs = _split_heads(q, num_heads).float() * d ** -0.5
+    kh, vh = (_split_heads(t, num_heads).float() for t in (k, v))
+    length = k.shape[1]
+    pad = -length % _BK
+    s = F.pad(torch.matmul(qs, kh.transpose(-1, -2)), (0, pad))
+    kidx = torch.arange(length + pad, device=q.device)
+    s = s.masked_fill(kidx >= (valid_len or length), -1e30)
+    tiles = s.unflatten(-1, (-1, _BK))
+    run_max = tiles.amax(-1).cummax(-1).values
+    p = torch.exp(tiles - run_max[..., None]).to(torch.bfloat16).float()
+    last = run_max[..., -1:]
+    weights = (p * torch.exp(run_max - last)[..., None]).flatten(-2)
+    row_sum = torch.exp(s - last).sum(-1, keepdim=True)
+    out = torch.matmul(weights, F.pad(vh, (0, 0, 0, pad))) / row_sum
+    return _merge_heads(out).to(torch.bfloat16).to(q.dtype)
+
+
+class _RoundedAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, valid_len):
+        c = qkv.shape[-1] // 3
+        out = _fwd_rounded(*qkv.split(c, dim=-1), num_heads, valid_len)
+        ctx.save_for_backward(qkv, out)
+        ctx.num_heads, ctx.valid_len = num_heads, valid_len
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out = ctx.saved_tensors
+        return (flash_mha_bwd_plain(qkv, out, g, ctx.num_heads,
+                                    ctx.valid_len), None, None)
+
+
+def packed_attention_rounded(qkv, num_heads, valid_len=None):
+    """``packed_attention`` as plain PyTorch that rounds to bf16 where the
+    kernels do (bf16 ``qkv``): the forward of ``_fwd_rounded``, the backward
+    of ``flash_mha_bwd_plain``. The kernels differ from it only in the
+    order of float32 sums."""
+    return _RoundedAttention.apply(qkv, num_heads, valid_len)

@@ -2,7 +2,8 @@
 plain version.
 
 Counterpart of ``semivl_tpu/ops/fused_decoder.py::fused_vlg_decoder``
-(``_stage_fwd_kernel``, forward only). Stage parameters are dicts of torch
+(``_stage_fwd_kernel`` forward; ``_stage_bwd_tail_kernel`` and
+``_stage_bwd_input_kernel`` backward). Stage parameters are dicts of torch
 tensors in torch layout, as ``models.vlg_head.Up.stage_params`` gives them:
 
 - ``up_weight`` (Cin, Cu, 2, 2) and ``up_bias`` (Cu,): the transpose conv;
@@ -10,8 +11,15 @@ tensors in torch layout, as ``models.vlg_head.Up.stage_params`` gives them:
 - ``conv2_weight`` (Cout, Cout, 3, 3), ``gn2_weight``, ``gn2_bias``;
 
 and the head is ``{'weight': (1, C, 3, 3), 'bias': (1,)}``. CUDA tensors
-launch ``csrc/fused_decoder.cu`` once per stage (bf16) or raise; CPU
-tensors take ``fused_vlg_decoder_plain``.
+launch ``csrc/fused_decoder.cu`` once per stage (bf16) or raise; under
+autograd the call is a ``torch.autograd.Function`` whose backward launches
+``csrc/fused_decoder_bwd.cu`` twice per stage (tail, then input). CPU
+tensors take ``fused_vlg_decoder_plain``, and autograd through it is the
+plain backward. The forward rounds the float32 weights to the activation
+dtype; the gradient passes that rounding straight through, as autograd of
+``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the kernels' own
+arithmetic in plain PyTorch, the reference the kernels are held to on the
+card.
 """
 
 import ctypes
@@ -21,7 +29,12 @@ import torch.nn.functional as F
 
 from semivl_tpu_torch.ops import _build
 
-launches = 0  # stage launches since the last reset (read by chip_smoke.py)
+launches = 0            # forward stage launches since the last reset
+bwd_tail_launches = 0   # backward launches (read by chip_smoke.py)
+bwd_input_launches = 0
+
+STAGE_KEYS = ('up_weight', 'up_bias', 'conv1_weight', 'gn1_weight',
+              'gn1_bias', 'conv2_weight', 'gn2_weight', 'gn2_bias')
 
 
 # ---------------------------------------------------------------------------
@@ -64,6 +77,48 @@ def fused_vlg_decoder_plain(x, skip1, skip2, params1, params2, head_params):
     dt = y.dtype
     return F.conv2d(y, head_params['weight'].to(dt),
                     head_params['bias'].to(dt), padding=1)
+
+
+def _round_bf16(t):
+    """``t`` rounded to bf16 values in its own dtype; the gradient passes
+    straight through unrounded."""
+    return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
+
+
+def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
+                              head_params, dtype=torch.float32):
+    """The decoder kernels' arithmetic in plain PyTorch: products and
+    GroupNorm in ``dtype`` (float32, as the kernels sum) over weights
+    rounded to bf16, and a bf16 rounding wherever the kernels store bf16
+    (the transpose conv output, the raw conv1 output after its up and skip
+    halves are summed, the raw conv2 output, both activations, the logits).
+    Every rounding passes the gradient straight through, so autograd
+    computes the backward kernels' float32 gradients; the kernels differ
+    from it only in the order of float32 sums (``dtype=torch.float64``
+    measures how much that order matters). Returns (P, 1, 4h, 4w) logits
+    in x's dtype."""
+    def gn_relu_rounded(c, weight, bias):
+        y = F.group_norm(c, c.shape[1] // 16, weight.to(dtype),
+                         bias.to(dtype), eps=1e-5)
+        return _round_bf16(F.relu(y))
+
+    y = x.to(dtype)
+    for p, skip in ((params1, skip1), (params2, skip2)):
+        w = {k: _round_bf16(p[k].to(dtype)) for k in ('up_weight', 'up_bias',
+                                                      'conv1_weight',
+                                                      'conv2_weight')}
+        up = _round_bf16(conv_transpose_2x2(y, w['up_weight'], w['up_bias']))
+        cu = up.shape[1]
+        ym = F.conv2d(up, w['conv1_weight'][:, :cu], padding=1)
+        ys = F.conv2d(skip.to(dtype), w['conv1_weight'][:, cu:], padding=1)
+        c1 = _round_bf16((ym.unflatten(0, (skip.shape[0], -1))
+                          + ys[:, None]).flatten(0, 1))
+        a1 = gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias'])
+        c2 = _round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1))
+        y = gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias'])
+    out = F.conv2d(y, _round_bf16(head_params['weight'].to(dtype)),
+                   head_params['bias'].to(dtype), padding=1)
+    return _round_bf16(out).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +227,186 @@ def _stage(x, skip, p, gn_in=None, head=None):
     return c2, part2
 
 
+# ---------------------------------------------------------------------------
+# backward kernel wrappers
+
+_R = 256   # blocks that share a weight-gradient reduction (partials per block)
+_TAIL_SLOTS = (
+    'x gn_part gn_gamma gn_beta skip up_w up_b w1u w1s w2 g1w g1b g2w g2b '
+    'w2_d head_wd g_out g_a2 xin up ys c1 part1 c2 part2 a1 a2 gy gc gpart '
+    'wpart bpart g_c1 g_w2 g_g1w g_g1b g_g2w g_g2b g_hw g_hb').split()
+_INPUT_SLOTS = (
+    'g_c1 up xin skip up_w w1u_d w1s_d g_up g_img wpart bpart g_xin g_skip '
+    'g_w1u g_w1s g_up_w g_up_b').split()
+_BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+
+
+def _dgrad_weight(w):
+    """(co, ci, 3, 3) conv weight -> the dgrad conv's [co][9][ci] layout:
+    flipped taps, input and output channels swapped."""
+    return w.flip(2, 3).permute(0, 2, 3, 1).contiguous()
+
+
+def _from_k3(g, ci, co):
+    """[ci][9][co] weight gradient -> torch (co, ci, 3, 3)."""
+    return g.reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
+
+
+def _call(fn_name, slots, tensors, dims, x):
+    ptrs = (ctypes.c_void_p * len(slots))(
+        *[None if tensors.get(s) is None else tensors[s].data_ptr()
+          for s in slots])
+    fn = getattr(_build.load('fused_decoder_bwd'), fn_name)
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    err = fn(ptrs, (ctypes.c_int * len(dims))(*dims),
+             ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
+    _build.check(err, fn_name)
+
+
+def _check_bwd(x, skip, p):
+    _check(x, skip, p)
+    cu = p['up_weight'].shape[1]
+    if cu not in (16, 32, 48, 64, 96) or skip.shape[1] not in (16, 32, 48,
+                                                               64, 96):
+        raise ValueError(f'decoder backward kernel takes Cu and Cs in (16, '
+                         f'32, 48, 64, 96); got {cu}, {skip.shape[1]}')
+
+
+def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None):
+    """Stage backward, tail half (kernel #6): recompute the stage, then the
+    head (with ``head``; ``g`` the logits' gradient) or GN2+ReLU (``g`` the
+    float32 gradient of the stage's normalised output) down to g_raw1.
+    Returns a dict with g_c1, the recomputed up / xin, and the gradients of
+    conv2, the GroupNorms and the head in torch layouts."""
+    global bwd_tail_launches
+    _check_bwd(x, skip, p)
+    pl, cin, h, w = x.shape
+    b, cs = skip.shape[:2]
+    cu = p['up_weight'].shape[1]
+    cout = p['conv2_weight'].shape[0]
+    dt, dev = x.dtype, x.device
+    hh, ww = 2 * h, 2 * w
+    tiles = -(-hh // 16) * -(-ww // 16)
+    eb = -(-hh * ww // 256)
+
+    def e(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    t = dict(_kernel_weights(p, dt), x=x, skip=skip,
+             w2_d=_dgrad_weight(p['conv2_weight'].to(dt).float()))
+    t['xin'] = x
+    if gn_in is not None:
+        t.update(gn_part=gn_in[0], gn_gamma=gn_in[1], gn_beta=gn_in[2],
+                 xin=e((pl, cin, h, w), dt))
+    plane = (pl, cout, hh, ww)
+    t.update(up=e((pl, cu, hh, ww), dt), ys=e((b, cout, hh, ww)),
+             c1=e(plane, dt), c2=e(plane, dt), a1=e(plane, dt),
+             part1=e((pl, cout // 16, tiles, 2)),
+             part2=e((pl, cout // 16, tiles, 2)), gy=e(plane), gc=e(plane),
+             gpart=e((pl, cout, eb, 2)), wpart=e((_R, cout * 9 * cout)),
+             bpart=e((_R, 1)), g_c1=e(plane), g_w2=e((cout, 9, cout)),
+             g_g1w=e((cout,)), g_g1b=e((cout,)), g_g2w=e((cout,)),
+             g_g2b=e((cout,)))
+    if head is not None:
+        t.update(head_wd=_dgrad_weight(head['weight'].to(dt).float()),
+                 g_out=g.to(dt).contiguous(), g_a2=e(plane), a2=e(plane, dt),
+                 g_hw=e((cout, 9, 1)), g_hb=e((1,)))
+    else:
+        t['g_a2'] = g.float().contiguous()
+    gn_nparts = 0 if gn_in is None else gn_in[0].shape[2]
+    _call('decoder_stage_bwd_tail', _TAIL_SLOTS, t,
+          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, _R), x)
+    bwd_tail_launches += 1
+    out = dict(g_c1=t['g_c1'], up=t['up'], xin=t['xin'],
+               conv2_weight=_from_k3(t['g_w2'], cout, cout),
+               gn1_weight=t['g_g1w'], gn1_bias=t['g_g1b'],
+               gn2_weight=t['g_g2w'], gn2_bias=t['g_g2b'])
+    if head is not None:
+        out.update(head_weight=_from_k3(t['g_hw'], cout, 1),
+                   head_bias=t['g_hb'])
+    return out
+
+
+def _stage_bwd_input(g_c1, up, xin, skip, p):
+    """Stage backward, input half (kernel #7): from g_raw1, the gradients of
+    the stage input (float32), the skip (float32, summed over each image's
+    planes), conv1 and the transpose conv, in torch layouts."""
+    global bwd_input_launches
+    pl, cin, h, w = xin.shape
+    b, cs, hh, ww = skip.shape
+    cu = p['up_weight'].shape[1]
+    cout = p['conv2_weight'].shape[0]
+    dt, dev = xin.dtype, xin.device
+
+    def e(shape):
+        return torch.empty(shape, dtype=torch.float32, device=dev)
+
+    w1 = p['conv1_weight'].to(dt).float()
+    m = max(cu * 9 * cout, cs * 9 * cout, cin * 4 * cu)
+    t = dict(g_c1=g_c1, up=up, xin=xin, skip=skip,
+             up_w=_kernel_weights(p, dt)['up_w'],
+             w1u_d=_dgrad_weight(w1[:, :cu]), w1s_d=_dgrad_weight(w1[:, cu:]),
+             g_up=e((pl, cu, hh, ww)), g_img=e((b, cout, hh, ww)),
+             wpart=e((_R, m)), bpart=e((_R, cu)), g_xin=e((pl, cin, h, w)),
+             g_skip=e((b, cs, hh, ww)), g_w1u=e((cu, 9, cout)),
+             g_w1s=e((cs, 9, cout)), g_up_w=e((cin, 4, cu)), g_up_b=e((cu,)))
+    _call('decoder_stage_bwd_input', _INPUT_SLOTS, t,
+          (pl, cin, h, w, 0, b, cs, cu, cout, _R), xin)
+    bwd_input_launches += 1
+    return dict(
+        g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
+        up_weight=t['g_up_w'].reshape(cin, 2, 2, cu).permute(0, 3, 1, 2),
+        conv1_weight=torch.cat([_from_k3(t['g_w1u'], cu, cout),
+                                _from_k3(t['g_w1s'], cs, cout)], dim=1))
+
+
+def _unflatten(flat):
+    p1 = dict(zip(STAGE_KEYS, flat[:8]))
+    p2 = dict(zip(STAGE_KEYS, flat[8:16]))
+    return p1, p2, dict(weight=flat[16], bias=flat[17])
+
+
+def _forward(x, skip1, skip2, params1, params2, head_params):
+    """Both stage launches; returns (logits, stage-1 raw conv2, partials)."""
+    c2, part2 = _stage(x, skip1, params1)
+    gn_in = (part2, params1['gn2_weight'].float().contiguous(),
+             params1['gn2_bias'].float().contiguous())
+    return _stage(c2, skip2, params2, gn_in=gn_in, head=head_params), c2, part2
+
+
+class _FusedDecoder(torch.autograd.Function):
+    """The kernel chain with the kernel backward. Only the stage inputs
+    (x, the skips and stage 1's raw conv2 with its GroupNorm partials) are
+    kept for the backward, which recomputes everything else."""
+
+    @staticmethod
+    def forward(ctx, x, skip1, skip2, *flat):
+        out, c2, part2 = _forward(x, skip1, skip2, *_unflatten(flat))
+        ctx.save_for_backward(x, skip1, skip2, *flat)
+        ctx.c2, ctx.part2 = c2, part2
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        x, skip1, skip2, *flat = ctx.saved_tensors
+        p1, p2, head = _unflatten(flat)
+        gn_in = (ctx.part2, p1['gn2_weight'].float().contiguous(),
+                 p1['gn2_bias'].float().contiguous())
+        t2 = _stage_bwd_tail(ctx.c2, skip2, p2, gn_in=gn_in, head=head,
+                             g=g_out)
+        i2 = _stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], skip2, p2)
+        t1 = _stage_bwd_tail(x, skip1, p1, g=i2['g_x'])
+        i1 = _stage_bwd_input(t1['g_c1'], t1['up'], t1['xin'], skip1, p1)
+        grads = [{**t, **i}[k] for t, i in ((t1, i1), (t2, i2))
+                 for k in STAGE_KEYS]
+        grads += [t2['head_weight'], t2['head_bias']]
+        grads = [g.to(prm.dtype) for g, prm in zip(grads, flat)]
+        return (i1['g_x'].to(x.dtype), i1['g_skip'].to(skip1.dtype),
+                i2['g_skip'].to(skip2.dtype), *grads)
+
+
 def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params):
-    """Full up1 -> up2 -> head decoder tail, forward.
+    """Full up1 -> up2 -> head decoder tail, differentiable.
 
     x: (P, C, h, w) class planes (P = B*N); skip1: (B, Cs1, 2h, 2w); skip2:
     (B, Cs2, 4h, 4w), both already resized to their stage's output size.
@@ -181,7 +414,9 @@ def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params):
     if not x.is_cuda:
         return fused_vlg_decoder_plain(x, skip1, skip2, params1, params2,
                                        head_params)
-    c2, part2 = _stage(x, skip1, params1)
-    gn_in = (part2, params1['gn2_weight'].float().contiguous(),
-             params1['gn2_bias'].float().contiguous())
-    return _stage(c2, skip2, params2, gn_in=gn_in, head=head_params)
+    flat = ([params1[k] for k in STAGE_KEYS] + [params2[k] for k in STAGE_KEYS]
+            + [head_params['weight'], head_params['bias']])
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, skip1, skip2, *flat)):
+        return _FusedDecoder.apply(x, skip1, skip2, *flat)
+    return _forward(x, skip1, skip2, params1, params2, head_params)[0]

@@ -4,13 +4,18 @@
 Embeddings are precomputed with CLIP ViT-B/16's text encoder over
 ``"a photo of a {c}"`` prompts and L2-normalised (reference
 model/text_embeddings.py:156-186); the ``.npy`` assets are float16 of shape
-(num_classes_or_concepts, 512). This package carries only the asset its
-flagship needs (``voc12_wbg_single``, one row per VOC class).
+(num_classes_or_concepts, 512). This package carries the assets its
+flagship needs: ``voc12_wbg_single`` (one row per VOC class, the decoder's
+text) and ``voc12_wbg_concept4_single`` (98 concepts of the 21 classes, the
+guidance labels' text, aggregated back to classes by a max).
 """
 
 import os
 
 import numpy as np
+import torch
+
+from semivl_tpu_torch.text import concepts as _concepts
 
 _ASSET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), 'assets', 'text_embedding')
@@ -28,3 +33,38 @@ def text_embedding_path(dataset, variant):
 def load_text_embedding(path):
     """(N, 512) float32 L2-normalised text embedding from an asset path."""
     return np.load(path).astype(np.float32)
+
+
+def get_class_to_concept_idxs(path_or_name):
+    """Class index -> list of concept row indices of a concept embedding,
+    keyed by the asset's base name (reference
+    model/text_embeddings.py:208-215)."""
+    name = os.path.basename(str(path_or_name))
+    if name.endswith('.npy'):
+        name = name[:-len('.npy')]
+    if name not in _concepts.CONCEPT_LISTS:
+        raise ValueError(f'No concept list known for embedding {name!r}')
+    return _concepts.flatten_class_concepts(
+        _concepts.CONCEPT_LISTS[name])[2]
+
+
+def concept_aggregation_matrix(class_to_concept_idxs, num_concepts):
+    """(num_classes, num_concepts) bool matrix: M[c, k] = concept k in
+    class c."""
+    mat = np.zeros((len(class_to_concept_idxs), num_concepts), dtype=bool)
+    for cls_i, conc_idxs in class_to_concept_idxs.items():
+        mat[cls_i, conc_idxs] = True
+    return mat
+
+
+def aggregate_concept_predictions(pred, class_to_concept_idxs):
+    """Max-aggregate (B, num_concepts, H, W) concept logits to
+    (B, num_classes, H, W) class logits (reference
+    model/text_embeddings.py:188-193), as a masked max over the membership
+    matrix."""
+    mask = torch.from_numpy(concept_aggregation_matrix(
+        class_to_concept_idxs, pred.shape[1])).to(pred.device)
+    masked = torch.where(mask[None, :, :, None, None], pred[:, None],
+                         torch.tensor(float('-inf'), dtype=pred.dtype,
+                                      device=pred.device))
+    return masked.amax(dim=2)

@@ -1,0 +1,195 @@
+"""The SemiVL train step (counterpart of
+``semivl_tpu/train/step.py::make_semivl_train_step``) on one device.
+
+One iteration (reference semivl.py:203-328): CutMix of the strong views,
+teacher pseudo-labels for the mixed-in images, MaskCLIP guidance labels from
+the frozen encoder, student pass 1 on ``[img_x | img_w]`` with feature
+perturbation of the w half, student pass 2 on ``[s1 | s2]``, the weighted
+loss mix, one backward and one AdamW update of the trainable parameters.
+Per-device loss normalisation is the JAX step's; with one device there is
+no gradient all-reduce.
+"""
+
+import torch
+
+from semivl_tpu_torch.device import resolve_device
+from semivl_tpu_torch.losses.ce import cross_entropy
+from semivl_tpu_torch.losses.conf_weight import confidence_weighted_loss
+from semivl_tpu_torch.train.optim import lr_schedule
+
+LOSS_KEYS = ('loss_x', 'loss_s1', 'loss_s2', 'loss_fp', 'loss_mc_s1',
+             'loss_mc_s2', 'loss_mc_fp', 'loss_all')
+
+
+def cutmix_image(img, img_other, box):
+    """Paste ``img_other`` under the box (reference train_utils.py:19-21)."""
+    return torch.where(box[..., None] == 1, img_other, img)
+
+
+def cutmix_mask(mask, mask_other, box):
+    """(reference train_utils.py:24-27)"""
+    return torch.where(box == 1, mask_other, mask)
+
+
+def cutmix_box_from_coords(coords, hw):
+    """(B, 4) integer (y, x, h, w) boxes -> (B, hw, hw) {0, 1} float masks."""
+    y, x, h, w = (coords[:, i, None, None] for i in range(4))
+    yy = torch.arange(hw, device=coords.device)[None, :, None]
+    xx = torch.arange(hw, device=coords.device)[None, None, :]
+    return ((yy >= y) & (yy < y + h) & (xx >= x) & (xx < x + w)).float()
+
+
+def _unpack_compact(batch, device):
+    """Batch arrays -> tensors on ``device``: label maps as int64, coordinate
+    boxes rasterised."""
+    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    hw = out['mask_x'].shape[1]
+    for k in ('mask_x', 'ignore_mask', 'ignore_mask_other'):
+        out[k] = out[k].long()
+    for k in ('cutmix_box1', 'cutmix_box2'):
+        if out[k].ndim == 2:
+            out[k] = cutmix_box_from_coords(out[k], hw)
+    return out
+
+
+def _softmax_conf_label(logits):
+    conf, label = torch.softmax(logits.float(), dim=1).max(dim=1)
+    return conf, label
+
+
+def _mc_loss(logits, mc_label, ignore_mask, reduce_mode):
+    """MaskCLIP-consistency loss (reference semivl.py:52-58)."""
+    if reduce_mode == 'mean':
+        return cross_entropy(logits, mc_label)
+    ce = cross_entropy(logits, mc_label, reduction='none')
+    if reduce_mode == 'mean_valid':
+        return ce.sum() / (ignore_mask != 255).sum().clamp(min=1)
+    if reduce_mode == 'mean_all':
+        return ce.sum() / ignore_mask.numel()
+    raise ValueError(reduce_mode)
+
+
+def _criterion_name(cfg):
+    crit = cfg['criterion']
+    return crit['name'] if isinstance(crit, dict) else crit
+
+
+class SemiVLStep:
+    """``step(batch, generator) -> metrics``; ``iteration`` counts the
+    updates made (the JAX ``TrainState.step``)."""
+
+    def __init__(self, bundle, cfg, optimizer, total_iters, device=None):
+        if _criterion_name(cfg) != 'CELoss' or cfg['criterion_u'] != 'CELoss':
+            raise NotImplementedError('only the CELoss criteria are ported')
+        if not cfg.get('use_fp', True):
+            raise ValueError('the reference asserts use_fp (semivl.py:114)')
+        self.device = resolve_device(device)
+        self.model = bundle.model
+        self.cfg = cfg
+        self.optimizer = optimizer
+        self.total_iters = total_iters
+        self.sched = lr_schedule(cfg, total_iters)
+        self.text = torch.as_tensor(bundle.text_feats).to(self.device)
+        self.mcc_lambda = cfg.get('maskclip_consistency_lambda', 0)
+        self.use_mcc = self.mcc_lambda != 0
+        if self.use_mcc and bundle.mcc_text_feats is None:
+            raise ValueError('maskclip_consistency_lambda is set but the '
+                             'bundle has no guidance encoder text')
+        self.mcc_text = (torch.as_tensor(bundle.mcc_text_feats).to(
+            self.device) if self.use_mcc else None)
+        self.iteration = 0
+
+    def _lambda(self):
+        if isinstance(self.mcc_lambda, (list, tuple)):
+            a, b = self.mcc_lambda
+            prog = self.iteration / self.total_iters
+            return a * (1 - prog) + b * prog
+        return float(self.mcc_lambda)
+
+    def _unlabeled_loss(self, logits, pl, conf, ignore):
+        ce = cross_entropy(logits, pl, reduction='none')
+        return confidence_weighted_loss(ce, conf, ignore,
+                                        self.cfg['conf_mode'],
+                                        self.cfg['conf_thresh'])
+
+    def __call__(self, batch, generator=None):
+        cfg, model, text = self.cfg, self.model, self.text
+        batch = _unpack_compact(batch, self.device)
+        b = batch['mask_x'].shape[0]
+        box1, box2 = batch['cutmix_box1'], batch['cutmix_box2']
+        img_s1 = cutmix_image(batch['img_s1'], batch['img_s1_other'], box1)
+        img_s2 = cutmix_image(batch['img_s2'], batch['img_s2_other'], box2)
+        ign, ign_o = batch['ignore_mask'], batch['ignore_mask_other']
+
+        with torch.no_grad():
+            # teacher pseudo-labels for the mixed-in halves (228-232)
+            conf_w_other, mask_w_other = _softmax_conf_label(
+                model(batch['img_w_other'], text))
+            if self.use_mcc:   # MaskCLIP guidance labels (234-240)
+                mclip_all = model.forward_maskclip(
+                    torch.cat([batch['img_w'], batch['img_w_other']]),
+                    self.mcc_text, cfg.get('mcc_conf_thresh', 0.75))
+                mclip = torch.where(ign == 255, 255, mclip_all[:b])
+                mclip_other = torch.where(ign_o == 255, 255, mclip_all[b:])
+
+        preds, pred_w_fp = model(torch.cat([batch['img_x'], batch['img_w']]),
+                                 text, need_fp=True, generator=generator)
+        pred_x, pred_w = preds[:b], preds[b:]
+        pred_s = model(torch.cat([img_s1, img_s2]), text)
+        pred_s1, pred_s2 = pred_s[:b], pred_s[b:]
+
+        conf_w, mask_w = _softmax_conf_label(pred_w.detach())
+        ign_m1 = cutmix_mask(ign, ign_o, box1)
+        ign_m2 = cutmix_mask(ign, ign_o, box2)
+        m = dict(
+            loss_x=cross_entropy(pred_x, batch['mask_x']),
+            loss_s1=self._unlabeled_loss(
+                pred_s1, cutmix_mask(mask_w, mask_w_other, box1),
+                cutmix_mask(conf_w, conf_w_other, box1), ign_m1),
+            loss_s2=self._unlabeled_loss(
+                pred_s2, cutmix_mask(mask_w, mask_w_other, box2),
+                cutmix_mask(conf_w, conf_w_other, box2), ign_m2),
+            loss_fp=self._unlabeled_loss(pred_w_fp, mask_w, conf_w, ign))
+        loss = (m['loss_x'] + m['loss_s1'] * 0.25 + m['loss_s2'] * 0.25
+                + m['loss_fp'] * 0.5) / 2.0
+        if self.use_mcc:
+            red = cfg.get('mcc_loss_reduce', 'mean')
+            m['loss_mc_s1'] = _mc_loss(
+                pred_s1, cutmix_mask(mclip, mclip_other, box1), ign_m1, red)
+            m['loss_mc_s2'] = _mc_loss(
+                pred_s2, cutmix_mask(mclip, mclip_other, box2), ign_m2, red)
+            m['loss_mc_fp'] = _mc_loss(pred_w_fp, mclip, ign, red)
+            loss = loss + self._lambda() * (
+                m['loss_mc_s1'] * 0.25 + m['loss_mc_s2'] * 0.25
+                + m['loss_mc_fp'] * 0.5)
+        m['loss_all'] = loss
+
+        self.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        if cfg.get('log_grad_norm'):
+            grads = [p.grad for g in self.optimizer.param_groups
+                     for p in g['params'] if p.grad is not None]
+            m['grad_norm'] = torch.linalg.vector_norm(
+                torch.stack([torch.linalg.vector_norm(g.float())
+                             for g in grads]))
+        lr = self.sched(self.iteration)
+        for group in self.optimizer.param_groups:
+            group['lr'] = lr * group['lr_mult']
+        self.optimizer.step()
+        self.iteration += 1
+        return {k: v.detach() for k, v in m.items()}
+
+
+def make_semivl_train_step(bundle, cfg, optimizer, total_iters, device=None):
+    """The SemiVL train step for ``bundle`` (a ``ModelBundle`` with the
+    guidance encoder) and an optimizer from ``train.optim.build_optimizer``:
+    ``step(batch, generator) -> metrics`` with the JAX step's metric names.
+
+    ``batch`` holds (B, H, W, 3) float images ``img_x``, ``img_w``,
+    ``img_s1``, ``img_s2``, ``img_w_other``, ``img_s1_other``,
+    ``img_s2_other``, label maps ``mask_x``, ``ignore_mask``,
+    ``ignore_mask_other`` (255 = ignore) and CutMix boxes ``cutmix_box1``,
+    ``cutmix_box2`` as (B, 4) (y, x, h, w) coordinates or (B, H, W) masks.
+    ``generator`` drives the feature-perturbation dropout. Runs on the card
+    unless ``device='cpu'`` is given."""
+    return SemiVLStep(bundle, cfg, optimizer, total_iters, device)

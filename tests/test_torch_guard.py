@@ -13,8 +13,12 @@ import pytest
 import torch
 
 import semivl_tpu_torch
-from semivl_tpu_torch.configs import flagship_cfg
+from semivl_tpu_torch.configs import flagship_cfg, flagship_train_cfg
 from semivl_tpu_torch.ops import _build
+from semivl_tpu_torch.text.embeddings import (
+    load_text_embedding,
+    text_embedding_path,
+)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.dirname(semivl_tpu_torch.__file__)
@@ -69,18 +73,33 @@ def test_entry_points_need_a_device_on_a_host_without_card():
     if torch.cuda.is_available():
         pytest.skip('this host has a card: the default device exists')
     from semivl_tpu_torch.evaluation.predict import Evaluator
-    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.models.builder import ModelBundle, build_model
+    from semivl_tpu_torch.train.step import make_semivl_train_step
     with pytest.raises(RuntimeError, match='no CUDA device'):
         build_model(flagship_cfg())
     with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_model(flagship_train_cfg())
+    with pytest.raises(RuntimeError, match='no CUDA device'):
         Evaluator(torch.nn.Identity(), np.zeros((21, 512)), flagship_cfg())
+    bundle = ModelBundle(model=torch.nn.Identity(),
+                         text_feats=np.zeros((21, 512)),
+                         mcc_text_feats=np.zeros((98, 512)))
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        make_semivl_train_step(bundle, flagship_train_cfg(), None, 10)
 
 
 def test_flagship_config_and_text_asset():
+    train = flagship_train_cfg()
+    assert (train['clip_encoder'], train['mcc_text']) == ('mcvit16',
+                                                          'concept4_single')
+    from semivl_tpu_torch.text.embeddings import get_class_to_concept_idxs
+    concept = load_text_embedding(text_embedding_path('pascal',
+                                                      train['mcc_text']))
+    assert concept.shape == (98, 512)
+    idxs = get_class_to_concept_idxs('voc12_wbg_concept4_single')
+    assert sorted(i for v in idxs.values() for i in v) == list(range(98))
     cfg = flagship_cfg()
     assert (cfg['crop_size'], cfg['stride'], cfg['nclass']) == (512, 426, 21)
-    from semivl_tpu_torch.text.embeddings import (
-        load_text_embedding, text_embedding_path)
     path = text_embedding_path(cfg['dataset'], cfg['text_embedding_variant'])
     assert path.startswith(PKG)
     text = load_text_embedding(path)
@@ -90,9 +109,10 @@ def test_flagship_config_and_text_asset():
 
 def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
-    assert _build.sources() == ['flash_attention', 'fused_decoder']
+    assert _build.sources() == ['flash_attention', 'fused_decoder',
+                                'fused_decoder_bwd']
     paths = {n: _build.library_path(n) for n in _build.sources()}
-    assert len(set(paths.values())) == 2
+    assert len(set(paths.values())) == 3
     for n, p in paths.items():
         assert os.path.dirname(p) == _build.BUILD_DIR
         assert os.path.basename(p).startswith(n + '-') and p.endswith('.so')

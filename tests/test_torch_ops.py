@@ -1,9 +1,14 @@
-"""Port ops vs the JAX package on the CPU: resize, attention (plain version
-of the packed attention kernel) and the fused VLG decoder (plain version of
-the stage kernel). Float32 on both sides; tolerances relative to the output
-scale: 1e-5 for resize and attention, 2e-4 for the decoder chain (the bound
-tests/test_fused_decoder.py holds the JAX kernel to)."""
+"""Port ops vs the JAX package on the CPU: resize, attention (plain versions
+of the packed attention kernels, forward and backward) and the fused VLG
+decoder (plain version of the stage kernels, forward and backward).
+Float32 on the port's side; tolerances relative to the output scale: 1e-5
+for resize and attention, 2e-4 for the decoder chain (the bound
+tests/test_fused_decoder.py holds the JAX kernel to), and for decoder
+gradients 1e-4 against the XLA chain and 5e-4 against the JAX kernels'
+backward run with float32 storage (the bound the JAX package's own
+gradient test holds it to)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -66,11 +71,41 @@ def test_attention_plain_matches_jax(length, valid):
                                            valid_len=valid_len))
     want_xla = np.asarray(_mha_xla(jq, jk, jv, 2, valid_len=valid_len))
     before = flash_attention.launches
-    tq, tk, tv = torch.from_numpy(qkv).chunk(3, dim=-1)
-    got = flash_attention.flash_mha(tq, tk, tv, 2, valid_len=valid_len)
+    got = flash_attention.packed_attention(torch.from_numpy(qkv), 2,
+                                           valid_len=valid_len)
     assert flash_attention.launches == before   # CPU: plain version
     assert rel_err(got.numpy(), want_kernel) < 1e-5
     assert rel_err(got.numpy(), want_xla) < 1e-5
+
+
+@pytest.mark.parametrize('length,valid_len', [(21, None), (130, 125)])
+def test_attention_bwd_plain_matches_jax(length, valid_len):
+    """The plain backward against jax.vjp of the Pallas packed kernels
+    (interpret mode), and autograd through the plain forward and through
+    the port's Function against both."""
+    rs = np.random.RandomState(length + 1)
+    qkv = rs.randn(2, length, 3 * 128).astype(np.float32)
+    g = rs.randn(2, length, 128).astype(np.float32)
+
+    def jax_attn(q, k, v):
+        return jax_flash_mha(q, k, v, 2, interpret=True, valid_len=valid_len)
+
+    _, vjp = jax.vjp(jax_attn, *(jnp.asarray(a)
+                                 for a in np.split(qkv, 3, axis=-1)))
+    want = np.concatenate([np.asarray(t) for t in vjp(jnp.asarray(g))], -1)
+    tqkv, tg = torch.from_numpy(qkv), torch.from_numpy(g)
+    out = flash_attention.flash_mha_plain(*tqkv.chunk(3, dim=-1), 2,
+                                          valid_len)
+    got = flash_attention.flash_mha_bwd_plain(tqkv, out, tg, 2, valid_len)
+    assert got.shape == qkv.shape
+    assert rel_err(got.numpy(), want) < 1e-5
+    before = flash_attention.bwd_launches
+    for fn in (flash_attention.packed_attention_plain,
+               flash_attention.packed_attention):
+        x = tqkv.clone().requires_grad_(True)
+        (ag,) = torch.autograd.grad(fn(x, 2, valid_len), x, tg)
+        assert rel_err(ag.numpy(), want) < 1e-5
+    assert flash_attention.bwd_launches == before   # CPU: plain versions
 
 
 # --------------------------------------------------------------- decoder
@@ -143,3 +178,155 @@ def test_decoder_plain_matches_jax_kernel_and_reference():
     assert got.shape == want_kernel.shape == (4, 1, 32, 32)
     assert rel_err(got, want_kernel) < 2e-4
     assert rel_err(got, want_ref) < 2e-4
+
+
+def test_decoder_bwd_plain_matches_jax_kernel_and_reference():
+    """Autograd of the port's plain chain against jax.vjp of the XLA Up
+    chain and of the fused Pallas chain (interpret mode, float32 storage:
+    with bf16 storage the kernels' own rounding, not the algorithm, sets
+    the difference), for every input and parameter."""
+    x, skip1, skip2, p1, p2, head = _decoder_setup()
+    g = np.random.RandomState(30).randn(4, 1, 32, 32).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, skip1, skip2)]
+
+    def xla_chain(x, s1, s2, p1, p2, hd):
+        return from_phases(chain_reference(x, to_phases(s1, 1),
+                                           to_phases(s2, 2), p1, p2, hd), 2)
+
+    def kernel_chain(x, s1, s2, p1, p2, hd):
+        return jax_decoder(x, s1, s2, p1, p2, hd, interpret=True,
+                           storage=jnp.float32)
+
+    grads = {}
+    for name, fn in (('xla', xla_chain), ('kernel', kernel_chain)):
+        _, vjp = jax.vjp(fn, *jargs, p1, p2, head)
+        gx, gs1, gs2, gp1, gp2, gh = vjp(jnp.asarray(g))
+        tp1, tp2, th = _port_params(*(jax.tree.map(
+            lambda a: np.asarray(a, np.float32), t) for t in (gp1, gp2, gh)))
+        grads[name] = [np.asarray(a, np.float32) for a in (gx, gs1, gs2)] + [
+            t[k].numpy() for t in (tp1, tp2) for k in
+            fused_decoder.STAGE_KEYS] + [th['weight'].numpy(),
+                                         th['bias'].numpy()]
+
+    tp1, tp2, th = _port_params(p1, p2, head)
+    acts = [torch.from_numpy(a).requires_grad_(True)
+            for a in (x, skip1, skip2)]
+    prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
+            + [tp2[k] for k in fused_decoder.STAGE_KEYS]
+            + [th['weight'], th['bias']])
+    for t in prms:
+        t.requires_grad_(True)
+    out = fused_decoder.fused_vlg_decoder(*acts, tp1, tp2, th)
+    got = torch.autograd.grad(out, acts + prms, torch.from_numpy(g))
+    assert len(got) == len(grads['xla']) == 21
+    for i, a in enumerate(got):
+        a = a.numpy()
+        assert a.shape == grads['xla'][i].shape, i
+        assert rel_err(a, grads['xla'][i]) < 1e-4, i
+        assert rel_err(a, grads['kernel'][i]) < 5e-4, i
+
+
+# ---------------------------------------------- rounded references (card)
+# ``packed_attention_rounded`` and ``fused_vlg_decoder_rounded`` are what
+# the CUDA kernels are held to on the card: plain PyTorch that rounds to
+# bf16 where the kernels do. Here their structure is checked on the CPU.
+
+def _rel_l2(a, b):
+    a, b = (np.asarray(t, np.float64) for t in (a, b))
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def _online_softmax_loop(qkv, heads, valid_len):
+    """The forward kernel's loop written out: per row, 64-key tiles, the
+    running max, p = exp(s - max) rounded to bf16 before p v, the earlier
+    sums rescaled by exp(old max - new max), the row sum of the unrounded p
+    divided out at the end, the output rounded to bf16."""
+    b, length, c3 = qkv.shape
+    x = qkv.float()
+    out = torch.empty(b, length, c3 // 3)
+    for bi in range(b):
+        for h in range(heads):
+            q, k, v = (x[bi, :, j * c3 // 3 + 64 * h:][:, :64] for j in
+                       range(3))
+            m = torch.full((length,), float('-inf'))
+            row_sum, acc = torch.zeros(length), torch.zeros(length, 64)
+            for k0 in range(0, valid_len, 64):
+                s = (q / 8) @ k[k0:k0 + 64].T
+                s[:, torch.arange(k0, k0 + s.shape[1]) >= valid_len] = -1e30
+                m_new = torch.maximum(m, s.amax(1))
+                p = torch.exp(s - m_new[:, None])
+                corr = torch.exp(m - m_new)
+                acc = acc * corr[:, None] + (p.bfloat16().float()
+                                             @ v[k0:k0 + 64])
+                row_sum = row_sum * corr + p.sum(1)
+                m = m_new
+            out[bi, :, 64 * h:64 * (h + 1)] = acc / row_sum[:, None]
+    return out.bfloat16()
+
+
+@pytest.mark.parametrize('length,valid_len', [(21, None), (130, 125),
+                                              (200, None)])
+def test_attention_rounded_reference(length, valid_len):
+    """Its forward is the kernel's tiled online softmax (to the order of
+    float32 sums: 1e-3 relative L2, under one bf16 rounding step); its
+    gradient is ``flash_mha_bwd_plain``; both stay within bf16 rounding of
+    p, ds and the outputs (5e-3 relative L2) of the float32 plain
+    version."""
+    rs = np.random.RandomState(length + 2)
+    qkv = torch.from_numpy(rs.randn(2, length, 3 * 128).astype(
+        np.float32)).bfloat16()
+    g = torch.from_numpy(rs.randn(2, length, 128).astype(
+        np.float32)).bfloat16()
+    x = qkv.clone().requires_grad_(True)
+    out = flash_attention.packed_attention_rounded(x, 2, valid_len)
+    (got,) = torch.autograd.grad(out, x, g)
+    assert out.dtype == got.dtype == torch.bfloat16
+    out = out.detach()
+    assert _rel_l2(out.float(), _online_softmax_loop(
+        qkv, 2, valid_len or length).float()) < 1e-3
+    assert torch.equal(got, flash_attention.flash_mha_bwd_plain(
+        qkv, out, g, 2, valid_len))
+    x32 = qkv.float().requires_grad_(True)
+    out32 = flash_attention.packed_attention_plain(x32, 2, valid_len)
+    (want,) = torch.autograd.grad(out32, x32, g.float())
+    assert _rel_l2(out.float(), out32.detach()) < 5e-3
+    assert _rel_l2(got.float(), want) < 5e-3
+
+
+def test_round_bf16_passes_the_gradient_straight_through():
+    t = torch.randn(64, dtype=torch.float32, requires_grad=True)
+    r = fused_decoder._round_bf16(t)
+    assert torch.equal(r, t.detach().bfloat16().float())
+    g = torch.randn(64)
+    (got,) = torch.autograd.grad(r, t, g)
+    assert torch.equal(got, g)
+
+
+def test_decoder_rounded_reference(monkeypatch):
+    """Without its roundings it is the plain chain in float32 (values and
+    every gradient to 1e-5); with them its logits stay within bf16 storage
+    (1e-2 relative L2) of that chain."""
+    x, skip1, skip2, p1, p2, head = _decoder_setup()
+    tp1, tp2, th = _port_params(p1, p2, head)
+    prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
+            + [tp2[k] for k in fused_decoder.STAGE_KEYS]
+            + [th['weight'], th['bias']])
+    for t in prms:
+        t.requires_grad_(True)
+    g = torch.from_numpy(np.random.RandomState(31).randn(
+        4, 1, 32, 32).astype(np.float32))
+
+    def run(fn):
+        acts = [torch.from_numpy(a).requires_grad_(True)
+                for a in (x, skip1, skip2)]
+        out = fn(*acts, tp1, tp2, th)
+        return out, torch.autograd.grad(out, acts + prms, g)
+
+    want, want_grads = run(fused_decoder.fused_vlg_decoder_plain)
+    rounded, _ = run(fused_decoder.fused_vlg_decoder_rounded)
+    assert _rel_l2(rounded.detach(), want.detach()) < 1e-2
+    monkeypatch.setattr(fused_decoder, '_round_bf16', lambda t: t)
+    got, got_grads = run(fused_decoder.fused_vlg_decoder_rounded)
+    assert rel_err(got.detach().numpy(), want.detach().numpy()) < 1e-5
+    for i, (a, w) in enumerate(zip(got_grads, want_grads)):
+        assert rel_err(a.numpy(), w.numpy()) < 1e-5, i

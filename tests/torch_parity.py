@@ -1,6 +1,7 @@
 """Shared fixtures for the PyTorch port's parity tests (tests/test_torch_*.py):
-a small flagship-shaped VLM, random JAX parameters made with numpy, and the
-port model carrying the same weights through ``semivl_tpu_torch.convert``."""
+a small flagship-shaped VLM (with the frozen guidance encoder for
+training), random JAX parameters made with numpy, and the port model
+carrying the same weights through ``semivl_tpu_torch.convert``."""
 
 import jax
 import jax.numpy as jnp
@@ -23,6 +24,9 @@ HEAD = dict(
     text_channels=32, up_channels=(32, 16), skip_in_channels=(128, 128),
     skip_channels=(16, 16), num_layers=2, num_heads=1, channels=32,
     pool_size=(2, 2), conv1_ksize=7, align_corners=False)
+# the guidance encoder: the same small ViT, only the dense CLIP embedding
+CLIP = dict(BACKBONE, out_indices=None)
+MCC_TEXT = 'voc12_wbg_concept4_single'
 
 
 def random_tree(shapes, seed):
@@ -44,11 +48,11 @@ def random_tree(shapes, seed):
     return jax.tree_util.tree_map_with_path(leaf, shapes)
 
 
-def init_params(module, seed, *args):
+def init_params(module, seed, *args, **kwargs):
     """Random numpy params for a flax ``module`` without running its init
     (``eval_shape`` only traces)."""
     shapes = jax.eval_shape(
-        lambda: module.init(jax.random.PRNGKey(0), *args))['params']
+        lambda: module.init(jax.random.PRNGKey(0), *args, **kwargs))['params']
     return random_tree(shapes, seed)
 
 
@@ -64,6 +68,32 @@ def tiny_vlm(seed=0, img=IMG):
                          jnp.zeros((21, 512)))
     pm = load_jax_params(VLM(BACKBONE, HEAD), params).eval()
     return jm, params, pm
+
+
+def tiny_train_vlm(seed=0, img=IMG, logit_scale=1.0):
+    """(jax module, numpy params, port model, guidance text) of the small
+    VLM with the guidance encoder and the real ``concept4`` text; the
+    port's frozen leaves have ``requires_grad=False`` (flagship freeze
+    rule). ``logit_scale`` multiplies the decoder head's weights, to give
+    the random model confident pseudo-labels."""
+    from semivl_tpu_torch.models.builder import is_trainable
+    from semivl_tpu_torch.text.embeddings import (
+        load_text_embedding, text_embedding_path)
+    mcc = load_text_embedding(text_embedding_path('pascal',
+                                                  'concept4_single'))
+    jm = JaxVLM(backbone_cfg=BACKBONE, decode_head_cfg=HEAD,
+                clip_encoder_cfg=CLIP, mcc_text_embedding_name=MCC_TEXT)
+    params = init_params(jm, seed, jnp.zeros((1, img, img, 3)),
+                         jnp.zeros((21, 512)), jnp.asarray(mcc),
+                         method='init_variables')
+    head = params['decode_head']['head']
+    head['kernel'] = head['kernel'] * np.float32(logit_scale)
+    head['bias'] = head['bias'] * np.float32(logit_scale)
+    pm = load_jax_params(VLM(BACKBONE, HEAD, clip_encoder_cfg=CLIP,
+                             mcc_text_name=MCC_TEXT), params).eval()
+    for name, p in pm.named_parameters():
+        p.requires_grad_(is_trainable(name, True, ['attn', 'pos_embed']))
+    return jm, params, pm, mcc
 
 
 def rel_err(got, want):
