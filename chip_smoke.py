@@ -10,11 +10,18 @@ Phases, each of which fails the run (non-zero exit, no result line):
    source, all at once) into the ignored ``semivl_tpu_torch/_build``;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
-   and semantic transformer, and a ``valid_len`` case);
+   and semantic transformer, and a ``valid_len`` case) and the Cityscapes
+   ones (the 801^2 encoder at L = 2602 and an edge crop at L = 869), with
+   SDPA's times beside;
 4. fused VLG decoder kernels, forward and backward (tail and input), against
    their plain versions and their rounded references at the flagship
-   decoder shapes, with planted faults that the backward's limit must
-   catch;
+   decoder shapes (the forward also at the Cityscapes 51^2 and edge-crop
+   grids), with planted faults that the backward's limit must catch; the
+   banded backward (passes A, B and C) at the Cityscapes stage shapes: each
+   pass against its plain pass on its own inputs, the composed backward
+   against the rounded reference (its float64 distance logged first) and
+   against the whole-plane kernels, planted faults that must fail, and the
+   times of each pass, the whole-plane pair and cuDNN's chain;
 5. evaluation: the full-width flagship model (ViT-B/16 + VLG, VOC-21, bf16
    compute, seeded random weights) evaluated with ``zegclip_sliding_window``
    over synthetic uint8 images at VOC val geometry, with the launch counts
@@ -27,7 +34,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    kernels against one with the rounded references from the same state,
    batch and feature-perturbation masks, and a step with a planted fault
    that must fail; a profile of one step;
-7. a ``kernels`` JSON line, and last ``{"ok": true, "device": ...}``.
+7. Cityscapes evaluation: the full-width exp-44 model (ViT-B/16 + ResNetV1c
+   skip encoder + VLG, 19 classes, seeded random weights) evaluated with
+   ``sliding_window`` over one synthetic 1024x2048 image (8 windows of 4
+   shapes), launch counts read around it, one crop batch through the
+   kernels and the plain versions, a profile of the image;
+8. Cityscapes training: exp 44's step (1 labeled + 1 unlabeled 801^2 crop,
+   the decoder backward on the banded route): one step with every kernel
+   call held to its rounded reference on that call's own inputs, then
+   timed steps with launch counts asserted (banded passes 4 each, the
+   whole-plane backward 0), BatchNorm running statistics changed and
+   frozen leaves unchanged, a profile of one step;
+9. a ``kernels`` JSON line (eight kernels), and last ``{"ok": true,
+   "device": ...}``.
 
 Comparisons run with TF32 off. Times are CUDA-event means after warm-up.
 """
@@ -80,7 +99,25 @@ TOTAL_ITERS = 1000          # schedule length of the training slice
 # reaches its backward. Decoder: 2 stage launches per pass; its backward 2
 # tail + 2 input per student pass.
 EXPECTED_PER_STEP = dict(attention_fwd=54, attention_bwd=26, decoder_fwd=6,
-                         decoder_bwd_tail=4, decoder_bwd_input=4)
+                         decoder_bwd_tail=4, decoder_bwd_input=4,
+                         banded_pass_a=0, banded_pass_b=0, banded_pass_c=0)
+# exp 44 (1 + 1 crops): the same attention and forward counts (a launch
+# serves a whole batch), the decoder backward on the banded route: passes
+# A, B, C once per stage and student pass, no whole-plane launch
+EXPECTED_CITYSCAPES = dict(EXPECTED_PER_STEP, decoder_bwd_tail=0,
+                           decoder_bwd_input=0, banded_pass_a=4,
+                           banded_pass_b=4, banded_pass_c=4)
+PASS_TOL = 5e-3             # each banded pass vs its plain pass on the same
+                            # inputs, relative L2 of every output (the same
+                            # bf16 rounding points: float32 sum order only)
+ATTN_CASES = (('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
+              ('encoder valid_len', 2, 1025, 12, 1000),
+              ('cityscapes encoder', 2, 2602, 12, None),
+              ('cityscapes edge crop', 1, 869, 12, None))
+ATTN_BWD_CASES = (('encoder', 4, 1025, 12, None),
+                  ('semantic', 384, 21, 4, None),
+                  ('encoder valid_len', 4, 1025, 12, 1000),
+                  ('cityscapes encoder', 2, 2602, 12, None))
 
 
 def log(*a):
@@ -126,9 +163,7 @@ def check_attention(gen):
     import torch.nn.functional as F
     from semivl_tpu_torch.ops import flash_attention as fa
     rows = []
-    for name, b, length, heads, valid in (
-            ('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
-            ('encoder valid_len', 2, 1025, 12, 1000)):
+    for name, b, length, heads, valid in ATTN_CASES:
         c = 64 * heads
         qkv = torch.randn(b, length, 3 * c, generator=gen, device='cuda',
                           dtype=torch.bfloat16)
@@ -171,9 +206,7 @@ def check_attention_bwd(gen):
     import torch.nn.functional as F
     from semivl_tpu_torch.ops import flash_attention as fa
     rows = []
-    for name, b, length, heads, valid in (
-            ('encoder', 4, 1025, 12, None), ('semantic', 384, 21, 4, None),
-            ('encoder valid_len', 4, 1025, 12, 1000)):
+    for name, b, length, heads, valid in ATTN_BWD_CASES:
         c = 64 * heads
         qkv = torch.randn(b, length, 3 * c, generator=gen, device='cuda',
                           dtype=torch.bfloat16)
@@ -268,14 +301,16 @@ def _decoder_flops(p, c, h, w, cs, cu, c1, c2, b):
     return s1 + s2
 
 
-def check_decoder(gen):
+def check_decoder(gen, b=2, n=21, h=32, w=32, skips=(32, 16)):
+    """The forward kernel at P = b n planes on an h x w base grid:
+    flagship (2 x 21 at 32^2, skips 32/16) by default."""
     from semivl_tpu_torch.ops import fused_decoder as fd
-    b, n, c, h = 2, 21, 128, 32
+    c = 128
     p = b * n
-    up1, up2, head = _random_decoder(gen)
-    x = torch.randn(p, c, h, h, generator=gen).cuda().bfloat16()
-    s1 = torch.randn(b, 32, 2 * h, 2 * h, generator=gen).cuda().bfloat16()
-    s2 = torch.randn(b, 16, 4 * h, 4 * h, generator=gen).cuda().bfloat16()
+    up1, up2, head = _random_decoder(gen, skips=skips)
+    x = torch.randn(p, c, h, w, generator=gen).cuda().bfloat16()
+    s1 = torch.randn(b, skips[0], 2 * h, 2 * w, generator=gen).cuda().bfloat16()
+    s2 = torch.randn(b, skips[1], 4 * h, 4 * w, generator=gen).cuda().bfloat16()
     p1, p2 = up1.stage_params(), up2.stage_params()
     hp = dict(weight=head.weight, bias=head.bias)
     with torch.no_grad():
@@ -284,7 +319,7 @@ def check_decoder(gen):
         rel = _rel_l2(got, fd.fused_vlg_decoder_rounded(x, s1, s2, p1, p2,
                                                         hp))
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (p, 1, 4 * h, 4 * h)
+    assert got.shape == want.shape == (p, 1, 4 * h, 4 * w)
     assert torch.isfinite(got.float()).all()
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
@@ -293,7 +328,8 @@ def check_decoder(gen):
     plain_ms = cuda_ms(
         lambda: fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp), 10)
     lib_ms = cuda_ms(lambda: _cudnn_chain(up1, up2, head, x, s1, s2), 10)
-    flops = _decoder_flops(p, c, h, h, (32, 16), (96, 48), 64, 32, b)
+    flops = _decoder_flops(p, c, h, w, skips, (c - skips[0], 64 - skips[1]),
+                           64, 32, b)
     nbytes = 2 * (x.numel() + s1.numel() + s2.numel() + got.numel())
     bound_ms, by = bound(flops, nbytes)
     log(f'decoder x {tuple(x.shape)} skips {tuple(s1.shape)} '
@@ -306,7 +342,7 @@ def check_decoder(gen):
     assert rel <= DEC_REL_TOL, rel
     return dict(max_abs_err=err, rel_err=rel, tol=DEC_REL_TOL, ms=ms,
                 plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by)
+                bound_by=by, shape=f'P={p} at {h}x{w}')
 
 
 def _stage_bwd_flops(p, b, cin, cs, cout, h, w, head):
@@ -350,6 +386,14 @@ def conv2_wgrad_off_by(factor):
 
     with mock.patch.object(fd, '_stage_bwd_tail', faulty):
         yield
+
+
+def _route_blind(fn):
+    """A decoder reference in the place of ``fused_vlg_decoder``: it takes
+    and ignores the backward route argument."""
+    def call(*args, bwd='whole'):
+        return fn(*args)
+    return call
 
 
 def _rounded_float64(*args):
@@ -492,18 +536,249 @@ def check_decoder_bwd(gen):
     return rows
 
 
+def _banded_pass_work(p, b, cin, cs, cout, h, w, head, gn):
+    """(flops, bytes) of passes A, B and C of one stage: A recomputes the
+    stage's convolutions (and the head's two gradients), B is conv2's two
+    gradients, C conv1's and the transpose conv's; bytes are each pass's
+    tensor inputs read once and outputs written once."""
+    hw, cu = 4 * h * w, cin - cs
+    macs = (p * hw * cin * cu + p * hw * 9 * cu * cout + b * hw * 9 * cs * cout
+            + p * hw * 9 * cout * cout + (2 * p * hw * 9 * cout if head else 0),
+            2 * p * hw * 9 * cout * cout,
+            2 * p * hw * 9 * cu * cout + 2 * b * hw * 9 * cs * cout
+            + 2 * p * hw * cin * cu)
+    x2, raw2, f4 = p * cin * h * w * 2, p * cout * hw * 2, p * cout * hw * 4
+    nbytes = (x2 + b * cs * hw * 2 + (p * hw * 2 if head else f4)
+              + (x2 if gn else 0) + p * cu * hw * 2 + 2 * raw2 + f4,
+              2 * raw2 + 2 * f4,
+              x2 + p * cu * hw * 2 + b * cs * hw * 2 + raw2 + f4 + 2 * x2
+              + b * cs * hw * 4)
+    return [(2 * m, n) for m, n in zip(macs, nbytes)]
+
+
+@contextlib.contextmanager
+def pass_b_band_twice():
+    """Planted fault: pass B's conv2 weight gradient reads its first 16-row
+    band twice (a band-loop bound off by one band)."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    real = fdb.pass_b
+
+    def faulty(raw1, raw2, gy2, p, stats, mg2):
+        out = real(raw1, raw2, gy2, p, stats, mg2)
+        extra = fdb.pass_b_plain(raw1[:, :, :16], raw2[:, :, :16],
+                                 gy2[:, :, :16], p, stats, mg2)
+        return dict(out, conv2_weight=out['conv2_weight']
+                    + extra['conv2_weight'])
+
+    with mock.patch.object(fdb, 'pass_b', faulty):
+        yield
+
+
+@contextlib.contextmanager
+def pass_a_sums_without_last_band():
+    """Planted fault: pass A's GN2 reduction sums miss the plane's last
+    16-row band (a ragged last band dropped)."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    real = fdb.pass_a
+
+    def faulty(x, skip, p, stats, g, gn_x=None, head=None):
+        out = real(x, skip, p, stats, g, gn_x, head)
+        m2, r2 = (t[..., None, None] for t in stats[2:])
+        gy = out['gy2'][:, :, -16:].double()
+        xhat = ((out['raw2'][:, :, -16:].float() - m2) * r2).double()
+        return dict(out, sgy2=out['sgy2'] - gy.sum((2, 3)).float(),
+                    sgyx2=out['sgyx2'] - (gy * xhat).sum((2, 3)).float())
+
+    with mock.patch.object(fdb, 'pass_a', faulty):
+        yield
+
+
+@contextlib.contextmanager
+def pass_c_dgrad_without_a_tap():
+    """Planted fault: pass C's conv1 dgrad misses its top-left tap."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    real = fdb.pass_c
+
+    def faulty(xin, up, skip, raw1, gy1, p, stats, mg1):
+        w = p['conv1_weight'].detach().clone()
+        w[:, :, 0, 0] = 0
+        return real(xin, up, skip, raw1, gy1, dict(p, conv1_weight=w),
+                    stats, mg1)
+
+    with mock.patch.object(fdb, 'pass_c', faulty):
+        yield
+
+
+BANDED_FAULTS = {
+    'pass B conv2 wgrad reads its first 16-row band twice': pass_b_band_twice,
+    'pass A GN2 sums miss the last 16-row band':
+        pass_a_sums_without_last_band,
+    'pass C conv1 dgrad without its top-left tap': pass_c_dgrad_without_a_tap}
+
+
+def check_banded_bwd(gen):
+    """The banded backward at the Cityscapes student pass-1 shape (P = 3 x
+    19 = 57 planes, 51^2 base grid: stages of 102^2 and 204^2): each pass
+    of each stage against its plain pass on the same inputs (the kernels'
+    outputs of the pass before), the composed backward against autograd
+    through ``fused_vlg_decoder_rounded`` (float64 distance logged) and
+    against the whole-plane kernels #6/#7, planted faults that must fail,
+    and times."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    b, n, c, h = 3, 19, 128, 51
+    p = b * n
+    up1, up2, head = _random_decoder(gen, skips=(32, 32))
+    params = [up1.stage_params(), up2.stage_params(),
+              dict(weight=head.weight, bias=head.bias)]
+    acts = [torch.randn(p, c, h, h, generator=gen),
+            torch.randn(b, 32, 2 * h, 2 * h, generator=gen),
+            torch.randn(b, 32, 4 * h, 4 * h, generator=gen)]
+    acts = [t.cuda().bfloat16() for t in acts]
+    g = torch.randn(p, 1, 4 * h, 4 * h, generator=gen).cuda().bfloat16()
+    p1, p2, hp = params
+
+    # each pass on its own inputs, against its plain pass
+    calls = {k: [] for k in 'ABC'}
+    with torch.no_grad():
+        _, c2, st1, st2 = fdb.decoder_fwd_stats(*acts, p1, p2, hp)
+        gn_x = (st1[2], st1[3], p1['gn2_weight'], p1['gn2_bias'])
+        g_in = g
+        for xin, skip, prm, st, gx, hd in ((c2, acts[2], p2, st2, gn_x, hp),
+                                           (acts[0], acts[1], p1, st1, None,
+                                            None)):
+            ins = (xin, skip, prm, st, g_in, gx, hd)
+            a = fdb.pass_a(*ins)
+            calls['A'].append((fdb.pass_a, fdb.pass_a_plain, ins, a))
+            hw = a['raw2'].shape[2] * a['raw2'].shape[3]
+            mg2 = fdb.close_gn(a['sgy2'], a['sgyx2'], prm['gn2_weight'],
+                               hw)[2:]
+            ins = (a['raw1'], a['raw2'], a['gy2'], prm, st, mg2)
+            bb = fdb.pass_b(*ins)
+            calls['B'].append((fdb.pass_b, fdb.pass_b_plain, ins, bb))
+            mg1 = fdb.close_gn(bb['sgy1'], bb['sgyx1'], prm['gn1_weight'],
+                               hw)[2:]
+            ins = (a['xin'], a['up'], skip, a['raw1'], bb['gy1'], prm, st,
+                   mg1)
+            cc = fdb.pass_c(*ins)
+            calls['C'].append((fdb.pass_c, fdb.pass_c_plain, ins, cc))
+            g_in = cc['g_x']
+        passes = {}
+        for k, lst in calls.items():
+            rel, err = {}, 0.0
+            for stage, (fn, plain, ins, got) in zip((2, 1), lst):
+                want = plain(*ins)
+                again = fn(*ins)
+                for name, t in want.items():
+                    assert torch.isfinite(got[name].float()).all(), (k, name)
+                    assert torch.equal(got[name], again[name]), (k, name)
+                    rel[f'{name}{stage}'] = _rel_l2(got[name], t)
+                    err = max(err, (got[name].float() - t.float()).abs()
+                              .max().item())
+            ms = cuda_ms(lambda: [fn(*ins) for fn, _, ins, _ in lst], 5)
+            plain_ms = cuda_ms(lambda: [pl(*ins) for _, pl, ins, _ in lst],
+                               3, 1)
+            passes[k] = dict(rel=rel, max_abs_err=err, ms=ms,
+                             plain_ms=plain_ms)
+            worst = max(rel, key=rel.get)
+            log(f'banded pass {k} (both stages, P={p}, 51^2 base): '
+                f'vs plain worst rel-L2 {rel[worst]:.3e} ({worst}, tol '
+                f'{PASS_TOL}), max_abs_err {err:.3e}, kernel_ms {ms:.3f} '
+                f'plain_ms {plain_ms:.3f}; ' + json.dumps(
+                    {n_: float(f'{v:.2e}') for n_, v in rel.items()}))
+            assert rel[worst] <= PASS_TOL, (k, worst, rel[worst])
+
+    # the composed backward
+    names = decoder_leaves()
+
+    def banded(*a):
+        return fd.fused_vlg_decoder(*a, bwd='banded')
+
+    def grads(fn):
+        return decoder_grads(fn, acts, params, g)
+
+    ref64 = grads(_rounded_float64)
+    ref = grads(fd.fused_vlg_decoder_rounded)
+    noise = {nm: _rel_l2(a, r) for nm, a, r in zip(names, ref64, ref)}
+    log(f'banded bwd P={p}: the rounded reference\'s float64 against its '
+        f'float32 sums: worst leaf {max(noise.values()):.3e} '
+        f'({max(noise, key=noise.get)})')
+    got = grads(banded)
+    whole = grads(fd.fused_vlg_decoder)
+    torch.cuda.synchronize()
+    rel = {nm: _rel_l2(a, r) for nm, a, r in zip(names, got, ref)}
+    vs_whole = {nm: _rel_l2(a, r) for nm, a, r in zip(names, got, whole)}
+    whole_rel = {nm: _rel_l2(a, r) for nm, a, r in zip(names, whole, ref)}
+    worst = max(rel, key=rel.get)
+    log(f'banded bwd P={p}: per-leaf rel-L2 vs rounded: worst {worst} '
+        f'{rel[worst]:.3e} (tol {DEC_BWD_TOL}); whole-plane kernels vs '
+        f'rounded: worst {max(whole_rel.values()):.3e}; banded vs '
+        f'whole-plane: worst {max(vs_whole.values()):.3e} '
+        f'({max(vs_whole, key=vs_whole.get)}); ' + json.dumps(
+            {k: float(f'{v:.2e}') for k, v in rel.items()}))
+    faults = {}
+    for what, planted in BANDED_FAULTS.items():
+        with planted():
+            bad = grads(banded)
+        errs = {nm: _rel_l2(a, r) for nm, a, r in zip(names, bad, ref)}
+        faults[what] = max(errs.values())
+        log(f'banded bwd planted fault "{what}": worst rel-L2 '
+            f'{faults[what]:.3e} ({max(errs, key=errs.get)}), '
+            f'{sum(e > DEC_BWD_TOL for e in errs.values())} of {len(errs)} '
+            f'leaves past the tol')
+    assert rel[worst] <= DEC_BWD_TOL, (worst, rel[worst])
+    assert max(vs_whole.values()) <= DEC_BWD_TOL, vs_whole
+    assert all(e > DEC_BWD_TOL for e in faults.values()), faults
+
+    prms = ([p1[k] for k in fd.STAGE_KEYS] + [p2[k] for k in fd.STAGE_KEYS]
+            + [head.weight, head.bias])
+
+    def bwd_ms(fn):
+        xs = [t.detach().requires_grad_(True) for t in acts]
+        out = fn(*xs, *params)
+        return cuda_ms(lambda: torch.autograd.grad(out, xs + prms, g,
+                                                   retain_graph=True), 3)
+
+    banded_ms = bwd_ms(banded)
+    whole_ms = bwd_ms(fd.fused_vlg_decoder)
+    plain_ms = bwd_ms(fd.fused_vlg_decoder_plain)
+    lib_ms = bwd_ms(lambda *a: _cudnn_chain(up1, up2, head, *a[:3]))
+    work = [_banded_pass_work(p, b, 128, 32, 64, h, h, False, False),
+            _banded_pass_work(p, b, 64, 32, 32, 2 * h, 2 * h, True, True)]
+    log(f'banded bwd P={p} x {tuple(acts[0].shape)}: whole backward banded '
+        f'kernels_ms {banded_ms:.3f}, whole-plane kernels (#6/#7) ms '
+        f'{whole_ms:.3f}, plain_ms {plain_ms:.3f}, cudnn_ms {lib_ms:.3f}')
+    rows = {}
+    for i, k in enumerate('ABC'):
+        flops = work[0][i][0] + work[1][i][0]
+        nbytes = work[0][i][1] + work[1][i][1]
+        bound_ms, by = bound(flops, nbytes)
+        q = passes[k]
+        log(f'banded pass {k}: bound {bound_ms:.4f} ms ({by}), GFLOP '
+            f'{flops / 1e9:.1f}, MB {nbytes / 1e6:.1f}')
+        rows[k] = dict(max_abs_err=q['max_abs_err'],
+                       rel_err=max(q['rel'].values()), tol=PASS_TOL,
+                       ms=q['ms'], plain_ms=q['plain_ms'],
+                       bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                       composed_rel_err_vs_rounded=rel[worst],
+                       banded_bwd_ms=banded_ms, whole_plane_bwd_ms=whole_ms,
+                       plain_bwd_ms=plain_ms, planted_faults=faults)
+    return rows
+
+
 # ------------------------------------------------------------ phase 5
 
-class SynthVOC:
-    """uint8 images at VOC val geometry (short side 512) with label maps."""
+class SynthImages:
+    """uint8 images with label maps, by default at VOC val geometry (short
+    side 512)."""
 
     def __init__(self, seed, sizes=((512, 683), (683, 512), (512, 512),
-                                    (512, 768))):
+                                    (512, 768)), nclass=21):
         rs = np.random.RandomState(seed)
         self.items = []
         for h, w in sizes:
             img = rs.randint(0, 256, (h, w, 3), dtype=np.uint8)
-            mask = rs.randint(0, 21, (h, w)).astype(np.uint8)
+            mask = rs.randint(0, nclass, (h, w)).astype(np.uint8)
             mask[:8] = 255
             self.items.append({'img': img, 'mask': mask})
 
@@ -532,7 +807,7 @@ def run_slice():
                 if prm.ndim >= 2:
                     prm.mul_(s)
     evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
-    ds = SynthVOC(seed=0)
+    ds = SynthImages(seed=0)
     log(f'slice: built flagship model in {time.perf_counter() - t0:.1f} s, '
         f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params')
 
@@ -580,7 +855,7 @@ def run_slice():
         with mock.patch.object(fa, 'packed_attention',
                                fa.packed_attention_plain), \
                 mock.patch.object(fd, 'fused_vlg_decoder',
-                                  fd.fused_vlg_decoder_plain):
+                                  _route_blind(fd.fused_vlg_decoder_plain)):
             p_logits = model(inp, evaluator.text)
     torch.cuda.synchronize()
     assert k_logits.shape == (crops.shape[0], 21, 512, 512)
@@ -602,26 +877,33 @@ def run_slice():
 def _counters():
     from semivl_tpu_torch.ops import flash_attention as fa
     from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     return dict(attention_fwd=fa.launches, attention_bwd=fa.bwd_launches,
                 decoder_fwd=fd.launches,
                 decoder_bwd_tail=fd.bwd_tail_launches,
-                decoder_bwd_input=fd.bwd_input_launches)
+                decoder_bwd_input=fd.bwd_input_launches,
+                banded_pass_a=fdb.pass_a_launches,
+                banded_pass_b=fdb.pass_b_launches,
+                banded_pass_c=fdb.pass_c_launches)
 
 
 def _reset_counters():
     from semivl_tpu_torch.ops import flash_attention as fa
     from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     fa.launches = fa.bwd_launches = 0
     fd.launches = fd.bwd_tail_launches = fd.bwd_input_launches = 0
+    fdb.pass_a_launches = fdb.pass_b_launches = fdb.pass_c_launches = 0
 
 
-def train_batch(gen, b=2, size=512):
-    """A synthetic exp-40 batch on the card: normalised-scale images, label
-    maps with ignored (255) borders, CutMix boxes as (y, x, h, w)."""
+def train_batch(gen, b=2, size=512, nclass=21):
+    """A synthetic training batch on the card (exp 40 by default):
+    normalised-scale images, label maps with ignored (255) borders, CutMix
+    boxes as (y, x, h, w)."""
     def img():
         return torch.randn(b, size, size, 3, generator=gen, device='cuda')
 
-    mask = torch.randint(0, 21, (b, size, size), generator=gen,
+    mask = torch.randint(0, nclass, (b, size, size), generator=gen,
                          device='cuda')
     mask[:, :16] = 255
     ign = torch.zeros(b, size, size, dtype=torch.long, device='cuda')
@@ -655,9 +937,11 @@ def train_bundle(cfg):
     return bundle
 
 
-def run_train(cfg, bundle, batch, steps=3):
-    """The training main path: a warm-up step, then ``steps`` timed steps
-    with every kernel's launch count read around them."""
+def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP):
+    """A training main path: a warm-up step, then ``steps`` timed steps
+    with every kernel's launch count read around them (``expected`` per
+    step); trainable leaves and BatchNorm running statistics must change,
+    frozen leaves must not."""
     from semivl_tpu_torch.train.optim import build_optimizer
     from semivl_tpu_torch.train.step import make_semivl_train_step
     model = bundle.model
@@ -665,6 +949,7 @@ def run_train(cfg, bundle, batch, steps=3):
     step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
     gen = torch.Generator(device='cuda').manual_seed(3)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    buffers = {n: t.clone() for n, t in model.named_buffers()}
     t0 = time.perf_counter()
     step(batch, gen)
     torch.cuda.synchronize()
@@ -680,16 +965,21 @@ def run_train(cfg, bundle, batch, steps=3):
     launches = _counters()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: float(v) for k, v in metrics.items()}
-    imgs = 2 * batch['mask_x'].shape[0]    # labeled + unlabeled (bench.py)
-    log(f'train: {steps} steps at 512^2, batch 2 labeled + 2 unlabeled: '
-        f'{dt * 1e3:.1f} ms/step, {imgs / dt:.2f} images/s, peak memory '
-        f'{peak / 2**20:.1f} MiB')
+    b, size = batch['mask_x'].shape[:2]
+    imgs = 2 * b    # labeled + unlabeled (bench.py)
+    log(f'train: {steps} steps at {size}^2, batch {b} labeled + {b} '
+        f'unlabeled: {dt * 1e3:.1f} ms/step, {imgs / dt:.2f} images/s, '
+        f'peak memory {peak / 2**20:.1f} MiB')
     log(f'train: metrics {json.dumps(metrics)}')
     log(f'train: launches over {steps} steps {launches} (expected per step '
-        f'{EXPECTED_PER_STEP})')
+        f'{expected})')
     assert all(np.isfinite(v) for v in metrics.values()), metrics
-    for k, v in EXPECTED_PER_STEP.items():
+    for k, v in expected.items():
         assert launches[k] == v * steps, (k, launches[k], v)
+    for n, t in model.named_buffers():
+        assert not torch.equal(t, buffers[n]), f'{n} unchanged'
+    if buffers:
+        log(f'train: {len(buffers)} BatchNorm running statistics all changed')
     n_train = n_frozen = 0
     for n, p in model.named_parameters():
         if p.requires_grad:
@@ -702,6 +992,144 @@ def run_train(cfg, bundle, batch, steps=3):
         f'leaves bit-identical')
     return step, {k: v // steps for k, v in launches.items()}, dict(
         ms_per_step=dt * 1e3, images_per_s=imgs / dt, peak_mib=peak / 2**20)
+
+
+# ---------------------------------------------------------- phases 7-8
+
+def cityscapes_bundle(cfg):
+    """The full-width exp-44 model with seeded random weights, scaled as
+    the flagship's (12 layers stay finite); the conv encoder keeps its
+    init (BatchNorm normalises it)."""
+    from semivl_tpu_torch.models.builder import build_model
+    bundle = build_model(cfg, dtype=torch.bfloat16, device='cuda', seed=0)
+    with torch.no_grad():
+        m = bundle.model
+        for mod, s in ((m.backbone, 0.05), (m.clip_encoder, 0.05),
+                       (m.decode_head, 0.2)):
+            if mod is None:
+                continue
+            for prm in mod.parameters():
+                if prm.ndim >= 2:
+                    prm.mul_(s)
+    return bundle
+
+
+def run_cityscapes_eval():
+    """exp 44's evaluation: ``sliding_window`` over one synthetic 1024x2048
+    image, launch counts read around ``evaluate``."""
+    from semivl_tpu_torch.configs import cityscapes_cfg
+    from semivl_tpu_torch.evaluation.predict import (
+        Evaluator, _chunk_sizes, evaluate)
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    cfg = cityscapes_cfg()
+    t0 = time.perf_counter()
+    bundle = cityscapes_bundle(cfg)
+    model = bundle.model
+    evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
+    ds = SynthImages(seed=0, sizes=((1024, 2048),), nclass=19)
+    windows = evaluator.sliding_windows(1024, 2048)
+    calls = sum(len(_chunk_sizes(len(v))) for v in windows.values())
+    log(f'cityscapes eval: built exp-44 model in {time.perf_counter() - t0:.1f}'
+        f' s, {sum(p.numel() for p in model.parameters()) / 1e6:.1f} M '
+        f'params; windows {json.dumps({str(k): len(v) for k, v in windows.items()})}'
+        f' -> {calls} model calls per image')
+    assert sum(len(v) for v in windows.values()) == 8 and len(windows) == 4
+    s = ds.get(0)
+    pred = evaluator.predict(s['img'][None], s['mask'].shape, cfg['eval_mode'])
+    assert pred.shape == (1, 1024, 2048) and 0 <= pred.min() \
+        and pred.max() < 19
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fd.launches = 0
+    t0 = time.perf_counter()
+    miou, iou = evaluate(evaluator, ds, cfg['eval_mode'], cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {'attention': fa.launches, 'decoder': fd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'cityscapes eval: 1 image 1024x2048, 8 windows: mIoU {miou:.4f} in '
+        f'{dt * 1e3:.1f} ms per image, peak memory {peak / 2**20:.1f} MiB; '
+        f'launches {launches} (expected {14 * calls} and {2 * calls})')
+    assert np.isfinite(miou) and iou.shape == (19,)
+    assert launches == {'attention': 14 * calls, 'decoder': 2 * calls}
+
+    # one crop batch (the two 801^2 windows) through the kernels and plain
+    img = torch.from_numpy(s['img']).cuda()
+    crops = torch.stack([img[y:y + 801, x:x + 801]
+                         for y, x in windows[(801, 801)][:2]])
+    text = evaluator.text
+    with torch.no_grad():
+        inp = evaluator._to_model_input(crops)
+        k_logits = model(inp, text)
+        with mock.patch.object(fa, 'packed_attention',
+                               fa.packed_attention_plain), \
+                mock.patch.object(fd, 'fused_vlg_decoder',
+                                  _route_blind(fd.fused_vlg_decoder_plain)):
+            p_logits = model(inp, text)
+    torch.cuda.synchronize()
+    assert k_logits.shape == (2, 19, 801, 801)
+    assert torch.isfinite(k_logits).all()
+    diff = (k_logits - p_logits).abs()
+    scale = p_logits.abs().max().item()
+    agree = (k_logits.argmax(1) == p_logits.argmax(1)).float().mean().item()
+    log(f'cityscapes eval: crop batch {tuple(crops.shape)} kernels vs plain: '
+        f'max_abs_err {diff.max().item():.3e} mean_abs_err '
+        f'{diff.mean().item():.3e} logit scale {scale:.3f} argmax agreement '
+        f'{agree:.5f}')
+    assert diff.max().item() <= DEC_TOL * scale
+    prof = profile_image(evaluator, s, cfg)
+    return launches, dict(ms_per_image=dt * 1e3, peak_mib=peak / 2**20,
+                          calls=calls, **prof)
+
+
+def run_cityscapes_train():
+    """exp 44's training step on the banded route: the timed steps with
+    launch counts, a profile, then one step with every kernel call held to
+    its rounded reference on the call's own inputs."""
+    from semivl_tpu_torch.configs import cityscapes_train_cfg
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    cfg = cityscapes_train_cfg()
+    t0 = time.perf_counter()
+    bundle = cityscapes_bundle(cfg)
+    model = bundle.model
+    prms = list(model.parameters())
+    log(f'cityscapes train: built the exp-44 training bundle in '
+        f'{time.perf_counter() - t0:.1f} s, '
+        f'{sum(p.numel() for p in prms) / 1e6:.1f} M params, '
+        f'{sum(p.numel() for p in prms if p.requires_grad) / 1e6:.1f} M '
+        f'trainable, decoder backward {model.decode_head.decoder_bwd}')
+    assert model.decode_head.decoder_bwd == 'banded'
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(6), b=1,
+                        size=801, nclass=19)
+    # the timed steps first: run after the per-call check's float64
+    # references, the same steps measured ~50 % slower
+    step, launches, perf = run_train(cfg, bundle, batch,
+                                     expected=EXPECTED_CITYSCAPES)
+    prof = profile_step(step, batch)
+    del step
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    per_call = PerCallCheck(bwd='banded')
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in check_step(
+            batch, torch.Generator(device='cuda').manual_seed(7)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    tols = dict(attention_fwd=ATTN_REL_TOL, attention_bwd=ATTN_BWD_REL_TOL,
+                decoder_fwd=DEC_REL_TOL, decoder_banded=STEP_DEC_BWD_TOL)
+    log('cityscapes compare: per call, kernels vs rounded on the step\'s own '
+        'inputs (worst rel-L2, calls, tol): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), n, tols[k]] for k, (e, n) in
+             worst.items()}) + f'; loss terms {json.dumps(metrics)}')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    for k, (err, n) in worst.items():
+        assert n > 0 and err <= tols[k], (k, err, n)
+    return worst, launches, dict(perf, **prof)
 
 
 def _gap_threshold(conf, lo_q=0.5, hi_q=0.95):
@@ -739,12 +1167,13 @@ class PerCallCheck:
     each call's recorded inputs, parameters and output gradient. ``worst``
     holds each kernel's worst relative L2 and the number of calls."""
 
-    def __init__(self):
+    def __init__(self, bwd='whole'):
         from semivl_tpu_torch.ops import flash_attention as fa
         from semivl_tpu_torch.ops import fused_decoder as fd
         self.fa, self.fd = fa, fd
+        self.bwd_key = 'decoder_bwd' if bwd == 'whole' else 'decoder_banded'
         self.worst = {k: [0.0, 0] for k in ('attention_fwd', 'attention_bwd',
-                                            'decoder_fwd', 'decoder_bwd')}
+                                            'decoder_fwd', self.bwd_key)}
         self.decoder_calls = []
 
     def note(self, key, err):
@@ -768,8 +1197,8 @@ class PerCallCheck:
                 qkv, out, g, heads, valid_len)))
             return got
 
-        def dec(x, skip1, skip2, p1, p2, head):
-            out = real_dec(x, skip1, skip2, p1, p2, head)
+        def dec(x, skip1, skip2, p1, p2, head, bwd='whole'):
+            out = real_dec(x, skip1, skip2, p1, p2, head, bwd=bwd)
             with torch.no_grad():
                 ref = fd.fused_vlg_decoder_rounded(x, skip1, skip2, p1, p2,
                                                    head)
@@ -779,7 +1208,7 @@ class PerCallCheck:
                 params = [{k: v.detach().clone() for k, v in d.items()}
                           for d in (p1, p2, head)]
                 out.register_hook(lambda g: self.decoder_calls.append(
-                    (inputs, params, g)))
+                    (inputs, params, g, bwd)))
             return out
 
         return [mock.patch.object(fa, '_fwd_kernel', fwd),
@@ -792,22 +1221,25 @@ class PerCallCheck:
         sum that is zero in exact arithmetic, as the head bias's is under
         the cross entropy over class planes, carries only rounding)."""
         fd, names = self.fd, decoder_leaves()
-        for inputs, params, g in self.decoder_calls:
+        for inputs, params, g, bwd in self.decoder_calls:
+            def kernels(*a):
+                return fd.fused_vlg_decoder(*a, bwd=bwd)
+
             got, ref, ref64 = (decoder_grads(fn, inputs, params, g) for fn in (
-                fd.fused_vlg_decoder, fd.fused_vlg_decoder_rounded,
-                _rounded_float64))
+                kernels, fd.fused_vlg_decoder_rounded, _rounded_float64))
             top = max(r.abs().max().item() for r in ref)
             kept = [i for i, r in enumerate(ref)
                     if r.abs().max().item() > VANISHING * top]
             errs = {names[i]: _rel_l2(got[i], ref[i]) for i in kept}
             noise = max(_rel_l2(ref64[i], ref[i]) for i in kept)
-            log(f'compare: decoder backward call P={inputs[0].shape[0]}, '
-                f'per-leaf rel-L2 vs rounded: ' + json.dumps(
+            log(f'compare: decoder backward ({bwd}) call P='
+                f'{inputs[0].shape[0]}, per-leaf rel-L2 vs rounded: '
+                + json.dumps(
                     {k: float(f'{v:.3e}') for k, v in errs.items()})
                 + f'; vanishing: {sorted(set(names) - set(errs))}; the '
                 f'reference\'s float64 against its float32 sums: worst leaf '
                 f'{noise:.3e}')
-            self.note('decoder_bwd', max(errs.values()))
+            self.note(self.bwd_key, max(errs.values()))
         return self.worst
 
 
@@ -911,7 +1343,7 @@ def compare_step(cfg, bundle, batch):
     ref = one(mock.patch.object(fa, 'packed_attention',
                                 fa.packed_attention_rounded),
               mock.patch.object(fd, 'fused_vlg_decoder',
-                                fd.fused_vlg_decoder_rounded))
+                                _route_blind(fd.fused_vlg_decoder_rounded)))
     fault = one(conv1_dgrad_without_a_tap())
     model.load_state_dict(state)
     torch.cuda.synchronize()
@@ -987,7 +1419,8 @@ def _profile(run, wall_ms, what, top):
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f'profile:   {ms:8.3f} ms {100 * ms / dev_ms:5.1f}% x{count:<5d} '
             f'{key[:90]}')
-    return dict(wall_ms=wall_ms, busy_ms=dev_ms)
+    return dict(wall_ms=wall_ms, busy_ms=dev_ms,
+                idle_share=1 - dev_ms / wall_ms)
 
 
 def profile_image(evaluator, sample, cfg, top=12):
@@ -1020,10 +1453,15 @@ def main():
     log(f'card: {card}')
     log(f'build: kernels built in {_build.build_all():.1f} s')
     gen = torch.Generator(device='cuda').manual_seed(0)
-    attn = check_attention(gen)
-    attn_bwd = check_attention_bwd(gen)
+    attn = {r['case']: r for r in check_attention(gen)}
+    attn_bwd = {r['case']: r for r in check_attention_bwd(gen)}
     dec = check_decoder(torch.Generator().manual_seed(1))
+    dec_cs = check_decoder(torch.Generator().manual_seed(3), b=3, n=19, h=51,
+                           w=51, skips=(32, 32))
+    dec_edge = check_decoder(torch.Generator().manual_seed(4), b=1, n=19,
+                             h=31, w=28, skips=(32, 32))
     dec_tail, dec_input = check_decoder_bwd(torch.Generator().manual_seed(2))
+    banded = check_banded_bwd(torch.Generator().manual_seed(5))
     eval_launches = run_slice()
 
     from semivl_tpu_torch.configs import flagship_train_cfg
@@ -1039,45 +1477,89 @@ def main():
     step_err = compare_step(cfg, bundle, batch)
     step, launches, _ = run_train(cfg, bundle, batch)
     profile_step(step, batch)
+    del bundle, batch, prms, step
+    torch.cuda.empty_cache()
 
-    def row(name, source, replaces, count, meas, shape):
-        # the worst relative error of the kernel's calls in the step
-        step_key = ('decoder_bwd' if name.startswith('decoder_stage_bwd')
-                    else name.replace('packed_', '').replace('_stage', ''))
+    cs_eval_launches, cs_eval = run_cityscapes_eval()
+    torch.cuda.empty_cache()
+    cs_err, cs_launches, cs_train = run_cityscapes_train()
+    log(f'cityscapes: evaluation {json.dumps(cs_eval)}; training '
+        f'{json.dumps(cs_train)}')
+
+    keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
+            'bound_by', 'library_ms')
+
+    def times(meas):
+        return {k: meas[k] for k in keys if k in meas}
+
+    def row(name, source, replaces, count, meas, shape, step_rel_err,
+            **extra):
         return dict(name=name, route='cuda',
                     source=f'semivl_tpu_torch/csrc/{source}',
                     replaces=replaces, launches=count, shape=shape,
-                    step_rel_err=step_err[step_key][0],
-                    **{k: meas[k] for k in ('max_abs_err', 'rel_err', 'tol',
-                                            'ms', 'plain_ms', 'bound_ms',
-                                            'bound_by', 'library_ms')})
+                    step_rel_err=step_rel_err, **times(meas), **extra)
 
-    enc, enc_bwd = attn[0], attn_bwd[0]
+    def paths(key, flagship_eval=None, cityscapes_eval=None):
+        return dict(launches_by_path=dict(
+            flagship_eval=flagship_eval, flagship_train_step=launches[key],
+            cityscapes_eval_image=cityscapes_eval,
+            cityscapes_train_step=cs_launches[key]))
+
+    def worst(key):
+        return max(step_err[key][0], cs_err[key][0])
+
     kernels = [
         row('packed_attention_fwd', 'flash_attention.cu',
             'semivl_tpu/ops/flash_attention.py:328',
-            launches['attention_fwd'], enc,
-            '(2, 1025, 768) 12 heads; launches per training step '
-            f'(evaluation run: {eval_launches["attention"]})'),
+            cs_launches['attention_fwd'], attn['cityscapes encoder'],
+            '(2, 2602, 768) 12 heads (801^2 crops); launches per Cityscapes '
+            'training step', worst('attention_fwd'),
+            flagship_1025=times(attn['encoder']),
+            cityscapes_edge_869=times(attn['cityscapes edge crop']),
+            **paths('attention_fwd', eval_launches['attention'],
+                    cs_eval_launches['attention'])),
         row('packed_attention_bwd', 'flash_attention.cu',
             'semivl_tpu/ops/flash_attention.py:368',
-            launches['attention_bwd'], enc_bwd,
-            '(4, 1025, 768) 12 heads; launches per training step'),
+            cs_launches['attention_bwd'], attn_bwd['cityscapes encoder'],
+            '(2, 2602, 768) 12 heads; launches per Cityscapes training step',
+            worst('attention_bwd'), flagship_1025=times(attn_bwd['encoder']),
+            **paths('attention_bwd')),
         row('decoder_stage_fwd', 'fused_decoder.cu',
-            'semivl_tpu/ops/fused_decoder.py:459', launches['decoder_fwd'],
-            dec, 'fused_vlg_decoder call (2 stage launches), P=42; launches '
-            f'per training step (evaluation run: {eval_launches["decoder"]})'),
+            'semivl_tpu/ops/fused_decoder.py:459', cs_launches['decoder_fwd'],
+            dec_cs, 'fused_vlg_decoder call (2 stage launches), P=57 at '
+            '51x51; launches per Cityscapes training step',
+            worst('decoder_fwd'), flagship_p42_32x32=times(dec),
+            cityscapes_edge_p19_31x28=times(dec_edge),
+            **paths('decoder_fwd', eval_launches['decoder'],
+                    cs_eval_launches['decoder'])),
         row('decoder_stage_bwd_tail', 'fused_decoder_bwd.cu',
             'semivl_tpu/ops/fused_decoder.py:534',
             launches['decoder_bwd_tail'], dec_tail,
             'both stages at P=126 (ms); plain/library ms are the whole '
-            'decoder backward; launches per training step'),
+            'decoder backward; launches per flagship training step (0 on '
+            'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            **paths('decoder_bwd_tail')),
         row('decoder_stage_bwd_input', 'fused_decoder_bwd.cu',
             'semivl_tpu/ops/fused_decoder.py:728',
             launches['decoder_bwd_input'], dec_input,
             'both stages at P=126 (ms); plain/library ms are the whole '
-            'decoder backward; launches per training step'),
+            'decoder backward; launches per flagship training step (0 on '
+            'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            **paths('decoder_bwd_input')),
     ]
+    for k, line in (('A', 168), ('B', 318), ('C', 414)):
+        key = f'banded_pass_{k.lower()}'
+        kernels.append(row(
+            key, 'fused_decoder_banded.cu',
+            f'semivl_tpu/ops/fused_decoder_banded.py:{line}',
+            cs_launches[key], banded[k],
+            'both stages at P=57, 51x51 base (ms, plain_ms: this pass); '
+            'library_ms is cuDNN\'s whole decoder chain backward; launches '
+            'per Cityscapes training step', cs_err['decoder_banded'][0],
+            **{x: banded[k][x] for x in (
+                'composed_rel_err_vs_rounded', 'banded_bwd_ms',
+                'whole_plane_bwd_ms', 'plain_bwd_ms')},
+            **paths(key)))
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

@@ -1,9 +1,10 @@
 """Run configs: the values of the flagship evaluation and training step
-(reference exp 40)."""
+(reference exp 40, Pascal VOC) and of the Cityscapes model (exp 44)."""
 
 from semivl_tpu_torch.configs.models import get_model_config
 
-__all__ = ['flagship_cfg', 'flagship_train_cfg', 'get_model_config']
+__all__ = ['cityscapes_cfg', 'cityscapes_train_cfg', 'flagship_cfg',
+           'flagship_train_cfg', 'get_model_config']
 
 
 def flagship_cfg(crop_size=512):
@@ -61,5 +62,70 @@ def flagship_train_cfg(crop_size=512):
             })),
         warmup_iters=0,
         warmup_ratio=1e-6,
+    )
+    return cfg
+
+
+def cityscapes_cfg(crop_size=801):
+    """The reference exp-44 run config, as far as inference reads it:
+    Cityscapes with 19 classes, the ``skr04`` model (ViT-B/16 + a
+    ResNetV1c-101 skip encoder), ``conceptavg3_single`` decoder text, the
+    ViT and guidance-encoder inputs renormalised to CLIP's statistics, and
+    ``sliding_window`` evaluation: stride int(crop * 2 / 3), softmax
+    probabilities summed over windows, edge windows at their natural size
+    (JAX ``semivl_tpu/configs/experiments.py:393-414``)."""
+    return dict(
+        exp=44,
+        dataset='cityscapes',
+        nclass=19,
+        model='mmseg.vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb',
+        crop_size=crop_size,
+        eval_mode='sliding_window',
+        text_embedding_variant='conceptavg3_single',
+        pl_text='conceptavg3_single',
+        model_args=dict(renorm_clip_img=True),
+    )
+
+
+def cityscapes_train_cfg(crop_size=801):
+    """The exp-44 run config as the SemiVL training step reads it (the
+    defaults of JAX ``config_from_vars`` where exp 44 sets nothing): per-GPU
+    batch of 1 labeled + 1 unlabeled crop (the reference runs 8 GPUs x 1),
+    AdamW lr 5e-5 with backbone and conv_encoder lr x0.1, weight decay 0.01,
+    poly schedule without warm-up, ``pixelavg`` confidence at 0.95, and the
+    MaskCLIP consistency loss: lambda 0.1 -> 0, the frozen ``mcvit16``
+    guidance encoder (its 512 positional grid, resized) with the
+    ``concept3_single`` text, confidence 0.9, ``mean_all``. The decoder's
+    backward takes the banded route (``decoder_bwd='banded'``), the
+    counterpart of the JAX fused route under ``SEMIVL_FORCE_BANDED_BWD=1``
+    at this geometry."""
+    cfg = cityscapes_cfg(crop_size)
+    cfg.update(
+        method='semivl',
+        batch_size=1,
+        criterion=dict(name='CELoss', kwargs=dict(ignore_index=255)),
+        criterion_u='CELoss',
+        use_fp=True,
+        fp_rate=0.5,
+        conf_mode='pixelavg',
+        conf_thresh=0.95,
+        maskclip_consistency_lambda=[0.1, 0],
+        clip_encoder='mcvit16',
+        mcc_text='concept3_single',
+        mcc_conf_thresh=0.9,
+        mcc_loss_reduce='mean_all',
+        optimizer=dict(
+            type='AdamW', lr=5e-5, weight_decay=0.01,
+            paramwise_cfg=dict(custom_keys={
+                'backbone': dict(lr_mult=0.1),
+                'text_encoder': dict(lr_mult=0.0),
+                'conv_encoder': dict(lr_mult=0.1),
+                'norm': dict(decay_mult=0.),
+                'ln': dict(decay_mult=0.),
+                'head': dict(lr_mult=10.),
+            })),
+        warmup_iters=0,
+        warmup_ratio=1e-6,
+        decoder_bwd='banded',
     )
     return cfg

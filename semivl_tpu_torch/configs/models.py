@@ -1,8 +1,9 @@
 """Model architecture configs (counterpart of
 ``semivl_tpu/configs/models.py``).
 
-Plain dicts mirroring the reference's mmseg config files; only the flagship
-SemiVL model and its frozen MaskCLIP guidance encoder are carried here.
+Plain dicts mirroring the reference's mmseg config files; carried here are
+the flagship SemiVL model (VOC), its Cityscapes variant with the ResNet skip
+encoder, and the frozen MaskCLIP guidance encoder of both.
 """
 
 import copy
@@ -28,8 +29,13 @@ def _maskclip_vitb16(img_size, out_indices):
     )
 
 
-def _vlg_head(img_size, skip_in_channels, skip_channels):
-    """VLG decoder (reference vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb.py:49-66)."""
+def _vlg_head(img_size, skip_in_channels, skip_channels,
+              skip_from_conv_feat=False):
+    """VLG decoder (reference vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb.py:49-66).
+    ``decoder_bwd`` routes the backward of the fused Up stages: 'whole'
+    (whole-plane kernels) or 'banded' (the three-pass kernels that take the
+    forward's GroupNorm statistics); the JAX package chooses by its VMEM
+    gate and ``SEMIVL_FORCE_BANDED_BWD``."""
     return dict(
         type='VLGHead',
         img_size=img_size,
@@ -39,12 +45,14 @@ def _vlg_head(img_size, skip_in_channels, skip_channels):
         up_channels=(64, 32),
         skip_in_channels=skip_in_channels,
         skip_channels=skip_channels,
+        skip_from_conv_feat=skip_from_conv_feat,
         num_layers=2,
         num_heads=4,
         channels=128,
         pool_size=(4, 4),
         conv1_ksize=7,
         align_corners=False,
+        decoder_bwd='whole',
     )
 
 
@@ -64,6 +72,27 @@ def _vlm_vlg_sk04(img_size=512):
     )
 
 
+def _vlm_vlg_skr04(img_size=512):
+    """Cityscapes variant (exp 44): VLG skips from ViT layer 4 and from the
+    first stage of a ResNetV1c-101 (1 stage, BatchNorm) that sees the
+    ImageNet-normalised image (reference
+    configs/_base_/models/vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb.py)."""
+    return dict(
+        img_size=img_size,
+        model=dict(
+            type='VLM',
+            backbone=_maskclip_vitb16(img_size, out_indices=[4, 12]),
+            conv_encoder=dict(type='ResNetV1c', depth=101, num_stages=1,
+                              out_indices=[0]),
+            decode_head=_vlg_head(img_size, skip_in_channels=(768, 256),
+                                  skip_channels=(32, 32),
+                                  skip_from_conv_feat=True),
+            freeze_backbone=True,
+            exclude_keys=['attn', 'pos_embed'],
+        ),
+    )
+
+
 def _mcvit16(img_size=512):
     """Frozen MaskCLIP guidance encoder (reference
     configs/_base_/models/mcvit16.py): out_indices None -> only the dense
@@ -74,6 +103,7 @@ def _mcvit16(img_size=512):
 
 _MODEL_CONFIGS = {
     'vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb': _vlm_vlg_sk04,
+    'vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb': _vlm_vlg_skr04,
     'mcvit16': _mcvit16,
 }
 

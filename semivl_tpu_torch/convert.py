@@ -8,7 +8,9 @@ exporter (reference tools/convert_to_torch.py):
 - Dense kernels (in, out) transpose to (out, in);
 - conv kernels (H, W, I, O) become (O, I, H, W);
 - transpose-conv kernels (kH, kW, I, O) become (I, O, kH, kW);
-- norm ``scale``/``bias`` become ``weight``/``bias``.
+- norm ``scale``/``bias`` become ``weight``/``bias``;
+- the conv encoder's BatchNorm statistics (the JAX ``batch_stats``
+  collection, ``mean``/``var``) become ``running_mean``/``running_var``.
 
 Only numpy is needed to build the state dict.
 """
@@ -102,22 +104,62 @@ def export_vlg_head(out, p, prefix='decode_head.'):
                  up['conv2'])
 
 
-def vlm_state_dict(params):
+def _conv_bn(out, conv_key, bn_key, p, s):
+    _conv(out, conv_key, p['conv'])
+    _norm(out, bn_key, p['bn'])
+    if s is not None:
+        out[bn_key + '.running_mean'] = _f(s['bn']['mean'])
+        out[bn_key + '.running_var'] = _f(s['bn']['var'])
+
+
+def export_resnet_v1c(out, p, s=None, prefix='conv_encoder.'):
+    """JAX ResNetV1c params ``p`` and batch statistics ``s`` (None: the
+    parameters only) -> mmseg names (reference tools/convert_to_torch.py:
+    ``stem.0/1``, ``stem.3/4``, ``stem.6/7``, ``layer<i>.<b>.conv<k>`` /
+    ``bn<k>``, ``downsample.0/1``)."""
+    def stats(*keys):
+        node = s
+        for k in keys:
+            node = None if node is None else node[k]
+        return node
+
+    for name, ck, bk in (('stem1', 'stem.0', 'stem.1'),
+                         ('stem2', 'stem.3', 'stem.4'),
+                         ('stem3', 'stem.6', 'stem.7')):
+        _conv_bn(out, prefix + ck, prefix + bk, p[name], stats(name))
+    for key in sorted(k for k in p if k.startswith('layer')):
+        stage, b = key.split('_')
+        bp = f'{prefix}{stage}.{b}.'
+        for i in (1, 2, 3):
+            _conv_bn(out, bp + f'conv{i}', bp + f'bn{i}', p[key][f'conv{i}'],
+                     stats(key, f'conv{i}'))
+        if 'downsample' in p[key]:
+            _conv_bn(out, bp + 'downsample.0', bp + 'downsample.1',
+                     p[key]['downsample'], stats(key, 'downsample'))
+
+
+def vlm_state_dict(params, batch_stats=None):
     """JAX VLM params ({'backbone', 'decode_head'} and, in a training tree,
-    'clip_encoder') -> numpy state dict."""
+    'clip_encoder'; in the Cityscapes model 'conv_encoder') and the
+    ``batch_stats`` collection -> numpy state dict."""
     out = {}
     export_maskclip_vit(out, params['backbone'])
     export_vlg_head(out, params['decode_head'])
+    if 'conv_encoder' in params:
+        export_resnet_v1c(out, params['conv_encoder'],
+                          None if batch_stats is None
+                          else batch_stats['conv_encoder'])
     if 'clip_encoder' in params:
         export_maskclip_vit(out, params['clip_encoder'],
                             prefix='clip_encoder.')
     return out
 
 
-def load_jax_params(model, params):
-    """Load JAX VLM params into ``model`` (a ``models.vlm.VLM``) with
-    ``strict=True``: every key of the model must be given, and no other."""
+def load_jax_params(model, params, batch_stats=None):
+    """Load JAX VLM params (and the conv encoder's ``batch_stats``) into
+    ``model`` (a ``models.vlm.VLM``) with ``strict=True``: every key of the
+    model must be given, and no other."""
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
-          for k, v in vlm_state_dict(params).items()}
+          for k, v in vlm_state_dict(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
     return model

@@ -1,8 +1,8 @@
 // Device code shared by the fused VLG decoder kernels (fused_decoder.cu,
-// the forward, and fused_decoder_bwd.cu, the backward): GroupNorm
-// statistics reduced from per-tile partial sums, the direct 3x3
-// convolution and the 2x2 stride-2 transpose convolution, all on the CUDA
-// cores in float32.
+// the forward; fused_decoder_bwd.cu and fused_decoder_banded.cu, the two
+// backward routes): GroupNorm statistics reduced from per-tile partial
+// sums or read as saved, the direct 3x3 convolution and the 2x2 stride-2
+// transpose convolution, all on the CUDA cores in float32.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -27,30 +27,54 @@ __device__ __forceinline__ float bf16_round(float x) {
 __device__ __forceinline__ float ld(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
 __device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 
-// GroupNorm + ReLU applied to an input as it is loaded: the statistics are
-// reduced from the producer's per-tile partials, [plane][group][tile][2].
+// GroupNorm + ReLU applied to an input as it is loaded. The statistics are
+// either reduced from the producer's per-tile partials, [plane][group]
+// [tile][2] (part), or read as saved (mean, rstd: [plane][channel] float32,
+// one value per group repeated over its GSIZE channels), as the banded
+// backward takes them from the forward.
 struct GNIn {
-  const float* part;   // null: no normalisation
+  const float* part;   // null (and mean null): no normalisation
   const float* gamma;
   const float* beta;
   int nparts;
   float inv_count;     // 1 / (GSIZE * H * W)
+  const float* mean;   // saved statistics; take precedence over part
+  const float* rstd;
 };
+
+__device__ __forceinline__ bool gn_on(const GNIn& gn) {
+  return gn.part != nullptr || gn.mean != nullptr;
+}
+
+// Mean and 1/sqrt(var + eps) of one group from its nparts (sum, sum of
+// squares) partials, summed in order in double. The forward's prologue and
+// the statistics it saves for the backward both come from here, so they
+// agree bit for bit.
+__device__ __forceinline__ void gn_group_stats(const float* p, int nparts, float inv_count,
+                                               float* mean_out, float* rstd_out) {
+  double s = 0.0, ss = 0.0;
+  for (int t = 0; t < nparts; ++t) {
+    s += p[2 * t];
+    ss += p[2 * t + 1];
+  }
+  const double mean = s * inv_count;
+  double var = ss * inv_count - mean * mean;
+  var = var > 0.0 ? var : 0.0;
+  *mean_out = (float)mean;
+  *rstd_out = (float)(1.0 / sqrt(var + 1e-5));
+}
 
 __device__ void gn_prologue(const GNIn& gn, int plane, int groups, float* s_mean,
                             float* s_rstd) {
-  if (gn.part != nullptr && threadIdx.x < groups) {
-    const float* p = gn.part + ((size_t)plane * groups + threadIdx.x) * gn.nparts * 2;
-    double s = 0.0, ss = 0.0;
-    for (int t = 0; t < gn.nparts; ++t) {
-      s += p[2 * t];
-      ss += p[2 * t + 1];
+  if (threadIdx.x < groups) {
+    const size_t pg = (size_t)plane * groups + threadIdx.x;
+    if (gn.mean != nullptr) {
+      s_mean[threadIdx.x] = gn.mean[pg * GSIZE];
+      s_rstd[threadIdx.x] = gn.rstd[pg * GSIZE];
+    } else if (gn.part != nullptr) {
+      gn_group_stats(gn.part + pg * gn.nparts * 2, gn.nparts, gn.inv_count,
+                     &s_mean[threadIdx.x], &s_rstd[threadIdx.x]);
     }
-    const double mean = s * gn.inv_count;
-    double var = ss * gn.inv_count - mean * mean;
-    var = var > 0.0 ? var : 0.0;
-    s_mean[threadIdx.x] = (float)mean;
-    s_rstd[threadIdx.x] = (float)(1.0 / sqrt(var + 1e-5));
   }
   __syncthreads();
 }
@@ -124,7 +148,7 @@ conv3x3_kernel(const TIn* __restrict__ in, int cin, int H, int W, GNIn gn,
       float v = 0.f;  // zero padding applies after the activation
       if (c0 + c < cin && y >= 0 && y < H && x >= 0 && x < W) {
         v = ld(in, ((size_t)p * cin + c0 + c) * hw + (size_t)y * W + x);
-        if (gn.part != nullptr) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
+        if (gn_on(gn)) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
       }
       s_in[c][r][col] = v;
     }
@@ -238,7 +262,7 @@ tconv2x2_kernel(const bf16* __restrict__ in, int cin, int h, int w_in, GNIn gn,
       float v = 0.f;
       if (y < h && x < w_in) {
         v = __bfloat162float(in[((size_t)p * cin + c0 + c) * hw_in + (size_t)y * w_in + x]);
-        if (gn.part != nullptr) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
+        if (gn_on(gn)) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
       }
       s_in[c][r][col] = v;
     }
@@ -299,6 +323,6 @@ void conv(int cout, const TIn* in, int planes, int cin, int H, int W, GNIn gn,
 #undef SEMIVL_CONV_CASE
 }
 
-constexpr GNIn NO_GN{nullptr, nullptr, nullptr, 0, 0.f};
+constexpr GNIn NO_GN{nullptr, nullptr, nullptr, 0, 0.f, nullptr, nullptr};
 
 }  // namespace

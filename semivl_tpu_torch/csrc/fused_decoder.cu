@@ -82,3 +82,37 @@ extern "C" int decoder_stage_fwd(
   }
   return (int)cudaGetLastError();
 }
+
+namespace {
+
+// mean, rstd [P][groups * GSIZE] from a conv's partials [P][groups][nparts]
+// [2]: one thread per (plane, group), the prologue's own reduction.
+__global__ void gn_stats_kernel(const float* __restrict__ part, int P, int groups, int nparts,
+                                float inv_count, float* __restrict__ mean,
+                                float* __restrict__ rstd) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= P * groups) return;
+  float m, r;
+  gn_group_stats(part + (size_t)i * nparts * 2, nparts, inv_count, &m, &r);
+  for (int c = 0; c < GSIZE; ++c) {
+    mean[(size_t)i * GSIZE + c] = m;
+    rstd[(size_t)i * GSIZE + c] = r;
+  }
+}
+
+}  // namespace
+
+// The GroupNorm statistics that decoder_stage_fwd normalised with, for the
+// banded backward: from the partials part1 or part2 of a stage whose conv
+// output is (P, C, H, W), mean and rstd (P, C) float32 (each group's value
+// on its GSIZE channels), bit-identical to the forward's prologue. Returns
+// cudaGetLastError() after the launch.
+extern "C" int decoder_gn_stats(const void* part, int P, int C, int H, int W, void* mean,
+                                void* rstd, void* stream) {
+  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const float inv = 1.f / (GSIZE * (float)H * (float)W);   // as decoder_stage_fwd
+  const int n = P * (C / GSIZE);
+  gn_stats_kernel<<<(n + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)part, P, C / GSIZE, tiles, inv, (float*)mean, (float*)rstd);
+  return (int)cudaGetLastError();
+}

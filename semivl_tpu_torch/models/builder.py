@@ -1,5 +1,6 @@
 """Model factory (counterpart of ``semivl_tpu/models/builder.py``), for the
-VLGHead / MaskClipViT flagship family and its frozen guidance encoder."""
+VLGHead / MaskClipViT family (the VOC flagship and the Cityscapes model with
+its ResNetV1c skip encoder) and its frozen guidance encoder."""
 
 import dataclasses
 import math
@@ -66,8 +67,13 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     training configs) it adds the frozen guidance encoder and its text.
     The weights are random from ``seed`` (load trained ones with
     ``convert.load_jax_params``); parameters are float32, computation runs
-    in ``dtype``; frozen parameters have ``requires_grad=False``.
-    ``device`` defaults to the CUDA card and raises without one."""
+    in ``dtype``; frozen parameters have ``requires_grad=False``; the conv
+    encoder's BatchNorm running statistics are buffers (the JAX
+    ``batch_stats`` collection) and its parameters stay trainable.
+    ``cfg['model_args']['renorm_clip_img']`` renormalises the ViT inputs to
+    CLIP statistics and ``cfg['decoder_bwd']`` ('whole' or 'banded')
+    routes the decoder backward. ``device`` defaults to the CUDA card and
+    raises without one."""
     device = resolve_device(device)
     model_type = cfg['model']
     if not model_type.startswith('mmseg.'):
@@ -75,6 +81,8 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     mcfg = get_model_config(model_type, img_size=cfg['crop_size'])
     model_cfg = mcfg['model']
     model_cfg['decode_head']['num_classes'] = cfg['nclass']
+    if 'decoder_bwd' in cfg:
+        model_cfg['decode_head']['decoder_bwd'] = cfg['decoder_bwd']
     if cfg.get('pl_text', cfg['text_embedding_variant']) != \
             cfg['text_embedding_variant']:
         # reference vlm.py:42: pseudo-label text == decoder text
@@ -89,9 +97,13 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
         mcc_name = text_embedding_path(cfg['dataset'], cfg['mcc_text'])
         mcc_text = load_text_embedding(mcc_name)
 
+    model_args = cfg.get('model_args') or {}
     model = VLM(model_cfg['backbone'], model_cfg['decode_head'],
-                clip_encoder_cfg=clip_cfg, fp_rate=cfg.get('fp_rate', 0.5),
-                mcc_text_name=mcc_name, dtype=dtype)
+                clip_encoder_cfg=clip_cfg,
+                conv_encoder_cfg=model_cfg.get('conv_encoder'),
+                renorm_clip_img=bool(model_args.get('renorm_clip_img')),
+                fp_rate=cfg.get('fp_rate', 0.5), mcc_text_name=mcc_name,
+                dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
     freeze = model_cfg.get('freeze_backbone', False)
     exclude = model_cfg.get('exclude_keys')

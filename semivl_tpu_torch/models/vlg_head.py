@@ -7,7 +7,8 @@
 3. SemanticTransformer layers attending across the class axis at every
    pooled location, with a projected text token per class;
 4. two Up stages (transpose conv, skip conv, GN/ReLU twice) and the 3x3
-   head, through ``ops.fused_decoder.fused_vlg_decoder``;
+   head, through ``ops.fused_decoder.fused_vlg_decoder``, whose backward
+   takes the route ``decoder_bwd`` names ('whole' or 'banded');
 5. bilinear resize to the output size.
 
 Planes are NCHW inside; parameters carry the reference's torch names
@@ -144,11 +145,17 @@ class VLGHead(nn.Module):
     def __init__(self, img_size, num_classes, text_in_channels=512,
                  text_channels=128, up_channels=(64, 32),
                  skip_in_channels=(768, 768), skip_channels=(32, 16),
-                 num_layers=2, num_heads=4, channels=128, pool_size=(4, 4),
-                 conv1_ksize=7, align_corners=False, dtype=torch.float32):
+                 skip_from_conv_feat=False, num_layers=2, num_heads=4,
+                 channels=128, pool_size=(4, 4), conv1_ksize=7,
+                 align_corners=False, decoder_bwd='whole',
+                 dtype=torch.float32):
         super().__init__()
+        if decoder_bwd not in ('whole', 'banded'):
+            raise ValueError(f'decoder_bwd {decoder_bwd!r}: whole or banded')
         self.img_size = img_size
         self.num_classes = num_classes
+        self.skip_from_conv_feat = skip_from_conv_feat
+        self.decoder_bwd = decoder_bwd
         self.align_corners = align_corners
         self.dtype = dtype
         self.conv1 = nn.Conv2d(1, channels, conv1_ksize,
@@ -167,13 +174,17 @@ class VLGHead(nn.Module):
         self.up2 = Up(up_channels[0], up_channels[1], skip_channels[1])
         self.head = nn.Conv2d(up_channels[1], 1, 3, padding=1)
 
-    def forward(self, feats, text_feats, output_size=None):
+    def forward(self, feats, text_feats, conv_feats=None, output_size=None):
         """feats: NHWC maps (pyramid..., dense CLIP embedding last);
-        text_feats: (N, Ct) or (B, N, Ct). Returns float32
-        (B, num_classes, out_h, out_w) logits."""
+        text_feats: (N, Ct) or (B, N, Ct); conv_feats: the conv encoder's
+        NHWC maps, the later skips with ``skip_from_conv_feat`` (reference
+        vlg_head.py:202-206). Returns float32 (B, num_classes, out_h, out_w)
+        logits."""
         dt = self.dtype
         img_feats = feats[-1]
         skip_feats = list(feats[:-1])[::-1]
+        if self.skip_from_conv_feat:
+            skip_feats += list(conv_feats)[::-1]
         b, h, w, _ = img_feats.shape
         if text_feats.ndim == 2:
             text_feats = text_feats[None].expand(b, -1, -1)
@@ -207,7 +218,7 @@ class VLGHead(nn.Module):
         logits = fused_decoder.fused_vlg_decoder(
             x.reshape(b * n, -1, h, w).contiguous(), s1.contiguous(),
             s2.contiguous(), self.up1.stage_params(),
-            self.up2.stage_params(), head)
+            self.up2.stage_params(), head, bwd=self.decoder_bwd)
         x = logits.reshape(b, n, 4 * h, 4 * w)
 
         # 5. resize to the output size (reference vlg_head.py:246-249)

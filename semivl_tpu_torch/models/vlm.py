@@ -1,17 +1,21 @@
 """VLM segmentor (counterpart of ``semivl_tpu/models/vlm.py``).
 
 CLIP encoder + VLG decoder, plus the frozen MaskCLIP guidance encoder
-(``clip_encoder``) of training. Text embeddings are arguments. Feature
+(``clip_encoder``) of training and, in the Cityscapes model, the ResNetV1c
+skip encoder (``conv_encoder``). Text embeddings are arguments. Feature
 perturbation (channel dropout on the encoder's feature maps) takes an
 explicit ``torch.Generator``; ``need_fp`` runs one decoder pass over the
 clean batch and the perturbed slice together (reference
-model/builder.py:56-102).
+model/builder.py:56-102). With ``renorm_clip_img`` the ViT and the guidance
+encoder see the image renormalised from ImageNet to CLIP statistics; the
+conv encoder sees it as given (reference vlm.py:69-78, 112-123).
 """
 
 import torch
 from torch import nn
 
 from semivl_tpu_torch.models.clip_vit import MaskClipViT
+from semivl_tpu_torch.models.resnet import ResNetV1c
 from semivl_tpu_torch.models.vlg_head import VLGHead
 from semivl_tpu_torch.ops.dropout import dropout2d
 from semivl_tpu_torch.ops.resize import resize
@@ -21,7 +25,28 @@ from semivl_tpu_torch.text.embeddings import (
 )
 
 
+IMAGENET_MEAN = (0.485, 0.456, 0.406)
+IMAGENET_STD = (0.229, 0.224, 0.225)
+CLIP_MEAN = (0.48145466, 0.4578275, 0.40821073)
+CLIP_STD = (0.26862954, 0.26130258, 0.27577711)
+
+
+def renormalize_img_for_clip(img):
+    """ImageNet-normalised -> CLIP-normalised NHWC image (reference
+    vlm.py:69-78)."""
+    def c(v):
+        return torch.tensor(v, dtype=img.dtype, device=img.device)
+
+    return (img * c(IMAGENET_STD) + c(IMAGENET_MEAN) - c(CLIP_MEAN)) \
+        / c(CLIP_STD)
+
+
 def build_backbone(cfg, dtype):
+    if cfg['type'] == 'ResNetV1c':
+        return ResNetV1c(depth=cfg.get('depth', 101),
+                         num_stages=cfg.get('num_stages', 1),
+                         out_indices=tuple(cfg.get('out_indices', (0,))),
+                         dtype=dtype)
     if cfg['type'] != 'MaskClipVisionTransformer':
         raise ValueError(f'Unknown backbone type {cfg["type"]!r}')
     keys = ('patch_size', 'in_channels', 'embed_dims', 'num_layers',
@@ -35,49 +60,71 @@ def build_head(cfg, dtype):
     if cfg['type'] != 'VLGHead':
         raise ValueError(f'Unknown head type {cfg["type"]!r}')
     keys = ('text_in_channels', 'text_channels', 'up_channels',
-            'skip_in_channels', 'skip_channels', 'num_layers', 'num_heads',
-            'channels', 'pool_size', 'conv1_ksize', 'align_corners')
+            'skip_in_channels', 'skip_channels', 'skip_from_conv_feat',
+            'num_layers', 'num_heads', 'channels', 'pool_size',
+            'conv1_ksize', 'align_corners', 'decoder_bwd')
     return VLGHead(img_size=cfg['img_size'], num_classes=cfg['num_classes'],
                    dtype=dtype, **{k: cfg[k] for k in keys if k in cfg})
 
 
 class VLM(nn.Module):
-    """``backbone``, ``decode_head`` and, for training with guidance labels,
-    ``clip_encoder``: the reference's top-level names."""
+    """``backbone``, ``decode_head``, for training with guidance labels
+    ``clip_encoder`` and for the Cityscapes model ``conv_encoder``: the
+    reference's top-level names."""
 
     def __init__(self, backbone_cfg, decode_head_cfg, clip_encoder_cfg=None,
-                 fp_rate=0.5, mcc_text_name='', dtype=torch.float32):
+                 conv_encoder_cfg=None, renorm_clip_img=False, fp_rate=0.5,
+                 mcc_text_name='', dtype=torch.float32):
         super().__init__()
         self.decode_head_cfg = decode_head_cfg
+        self.renorm_clip_img = renorm_clip_img
         self.fp_rate = fp_rate
         self.mcc_text_name = mcc_text_name
         self.backbone = build_backbone(backbone_cfg, dtype)
         self.decode_head = build_head(decode_head_cfg, dtype)
+        self.conv_encoder = (build_backbone(conv_encoder_cfg, dtype)
+                             if conv_encoder_cfg else None)
         self.clip_encoder = (build_backbone(clip_encoder_cfg, dtype)
                              if clip_encoder_cfg else None)
 
-    def extract_feat(self, img):
-        """(feats tuple, global_emb) — reference vlm.py:112-123."""
-        out = self.backbone(img)
-        return out['feats'], out['global_emb']
+    def _renorm(self, img):
+        return renormalize_img_for_clip(img) if self.renorm_clip_img else img
 
-    def forward(self, img, text_feats, need_fp=False, generator=None):
+    def extract_feat(self, img, train=False):
+        """(feats tuple, global_emb, conv_feats) — reference
+        vlm.py:112-123; ``train`` puts the conv encoder's BatchNorm in
+        train mode."""
+        out = self.backbone(self._renorm(img))
+        conv_feats = None
+        if self.conv_encoder is not None:
+            conv_feats = self.conv_encoder(img, train=train)
+        return out['feats'], out['global_emb'], conv_feats
+
+    def forward(self, img, text_feats, need_fp=False, generator=None,
+                train=False):
         """img: (B, H, W, 3) normalised float; text_feats: (N, 512).
         Returns float32 (B, num_classes, H, W) logits.
 
         ``need_fp``: also decode a perturbed copy of the second half of the
         batch (the unlabeled ``img_w``) with channel dropout on every
-        feature map, in the same decoder pass; returns ``(logits,
-        logits_fp)``. The reference perturbs the whole batch and drops the
-        x half (builder.py:81-99 vs semivl.py:245-247); GroupNorm and
-        LayerNorm are per sample, so the kept half is the same."""
-        feats, _ = self.extract_feat(img)
+        feature map (the ViT's, then the conv encoder's), in the same
+        decoder pass; returns ``(logits, logits_fp)``. The reference
+        perturbs the whole batch and drops the x half (builder.py:81-99 vs
+        semivl.py:245-247); GroupNorm and LayerNorm are per sample, so the
+        kept half is the same. ``train``: BatchNorm of the conv encoder
+        normalises with batch statistics and updates its running ones (the
+        student passes); otherwise it uses the running ones."""
+        feats, _, conv_feats = self.extract_feat(img, train)
         b = img.shape[0]
         if need_fp:
             feats = tuple(torch.cat([f, dropout2d(f[b // 2:], self.fp_rate,
                                                   generator)])
                           for f in feats)
-        logits = self.decode_head(feats, text_feats,
+            if conv_feats is not None:
+                conv_feats = [torch.cat([f, dropout2d(
+                    f[b // 2:], self.fp_rate, generator)])
+                    for f in conv_feats]
+        logits = self.decode_head(feats, text_feats, conv_feats,
                                   output_size=tuple(img.shape[1:3]))
         if need_fp:
             return logits[:b], logits[b:]
@@ -92,7 +139,7 @@ class VLM(nn.Module):
         100x."""
         num_classes = self.decode_head_cfg['num_classes']
         h, w = img.shape[1:3]
-        visual = self.clip_encoder(img)['feats'][-1]   # (B, h', w', 512)
+        visual = self.clip_encoder(self._renorm(img))['feats'][-1]
         text = torch.as_tensor(text_feats_mcc).to(visual)
         dense = torch.einsum('bhwc,nc->bhwn', visual, text)
         if dense.shape[-1] != num_classes:

@@ -20,6 +20,11 @@ dtype; the gradient passes that rounding straight through, as autograd of
 ``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the kernels' own
 arithmetic in plain PyTorch, the reference the kernels are held to on the
 card.
+
+``bwd='banded'`` routes the backward through ``ops.fused_decoder_banded``
+instead: the forward then also saves each stage's GroupNorm statistics
+(``_stage(..., stats=True)`` on the card, ``stage_fwd_stats_plain`` on the
+CPU), and the backward is three passes per stage that normalise with them.
 """
 
 import ctypes
@@ -121,6 +126,76 @@ def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
     return _round_bf16(out).to(x.dtype)
 
 
+def _store(t, dt):
+    """float32 ``t`` as it is stored in ``dt``, back in float32."""
+    return t.to(dt).float()
+
+
+def gn_stats_plain(c):
+    """GroupNorm statistics (mean, rstd), each (P, C) float32 with every
+    group's value on its 16 channels, of raw conv outputs c (P, C, H, W):
+    sums in double, var = E[c^2] - E[c]^2 clamped at 0, as the kernels'
+    prologue reduces their partials."""
+    p, ch = c.shape[:2]
+    g = c.double().reshape(p, ch // 16, -1)
+    mean = g.mean(-1)
+    var = ((g * g).mean(-1) - mean * mean).clamp(min=0)
+    rstd = 1 / torch.sqrt(var + 1e-5)
+    return (mean.float().repeat_interleave(16, 1),
+            rstd.float().repeat_interleave(16, 1))
+
+
+def gn_act(c, mean, rstd, gamma, beta, dt):
+    """ReLU((c - mean) rstd gamma + beta) stored in ``dt`` (float32 out),
+    with (P, C) statistics."""
+    y = ((c - mean[..., None, None]) * rstd[..., None, None]
+         * gamma.float()[:, None, None] + beta.float()[:, None, None])
+    return _store(F.relu(y), dt)
+
+
+def stage_recompute_plain(x, skip, p, m1, r1, gn_x=None):
+    """The stage forward up to the raw conv2 in float32, rounding to x's
+    dtype where the kernels store, with conv1's GroupNorm from the given
+    statistics (None: computed here). ``gn_x``: (mean, rstd, gamma, beta)
+    of a raw input still to be normalised. Returns a dict of xin, up, raw1
+    (and its statistics m1, r1), raw2, all float32."""
+    dt = x.dtype
+    xin = x.float()
+    if gn_x is not None:
+        xin = gn_act(xin, *gn_x, dt)
+    w = {k: p[k].to(dt).float() for k in ('up_weight', 'up_bias',
+                                          'conv1_weight', 'conv2_weight')}
+    up = _store(conv_transpose_2x2(xin, w['up_weight'], w['up_bias']), dt)
+    cu = up.shape[1]
+    ym = F.conv2d(up, w['conv1_weight'][:, :cu], padding=1)
+    ys = F.conv2d(skip.float(), w['conv1_weight'][:, cu:], padding=1)
+    raw1 = _store((ym.unflatten(0, (skip.shape[0], -1))
+                   + ys[:, None]).flatten(0, 1), dt)
+    if m1 is None:
+        m1, r1 = gn_stats_plain(raw1)
+    a1 = gn_act(raw1, m1, r1, p['gn1_weight'], p['gn1_bias'], dt)
+    raw2 = _store(F.conv2d(a1, w['conv2_weight'], padding=1), dt)
+    return dict(xin=xin, up=up, raw1=raw1, m1=m1, r1=r1, raw2=raw2)
+
+
+def stage_fwd_stats_plain(x, skip, p, gn_x=None, head=None):
+    """One stage as the forward kernel computes it, in plain PyTorch
+    (float32 sums, x's dtype where the kernel stores), with the GroupNorm
+    statistics it normalised with. Returns (raw conv2, or with ``head`` the
+    logits, in x's dtype; (mean1, rstd1, mean2, rstd2), each (P, Cout)
+    float32)."""
+    dt = x.dtype
+    r = stage_recompute_plain(x, skip, p, None, None, gn_x)
+    m2, r2 = gn_stats_plain(r['raw2'])
+    stats = (r['m1'], r['r1'], m2, r2)
+    if head is None:
+        return r['raw2'].to(dt), stats
+    a2 = gn_act(r['raw2'], m2, r2, p['gn2_weight'], p['gn2_bias'], dt)
+    out = F.conv2d(a2, head['weight'].to(dt).float(), head['bias'].float(),
+                   padding=1)
+    return out.to(dt), stats
+
+
 # ---------------------------------------------------------------------------
 # kernel wrapper
 
@@ -176,10 +251,12 @@ _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
              + [ctypes.c_int] + [ctypes.c_void_p] * 14)
 
 
-def _stage(x, skip, p, gn_in=None, head=None):
+def _stage(x, skip, p, gn_in=None, head=None, stats=False):
     """One kernel stage. ``gn_in``: (partials, gamma, beta) of a raw input
     still to be normalised on load. Returns (raw conv2, its partials) or,
-    with ``head``, the head logits."""
+    with ``head``, the head logits; with ``stats`` also the GroupNorm
+    statistics it normalised with, (mean1, rstd1, mean2, rstd2) each
+    (P, Cout) float32, read from the partials by ``decoder_gn_stats``."""
     global launches
     _check(x, skip, p)
     pl, cin, h, w = x.shape
@@ -222,9 +299,27 @@ def _stage(x, skip, p, gn_in=None, head=None):
              ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, 'decoder_stage_fwd')
     launches += 1
-    if head is not None:
-        return out
-    return c2, part2
+    res = (out,) if head is not None else (c2, part2)
+    if stats:
+        res += (_gn_stats(part1, c1.shape) + _gn_stats(part2, c2.shape),)
+    return res[0] if len(res) == 1 else res
+
+
+def _gn_stats(part, shape):
+    """(mean, rstd) (P, C) float32 of a conv output of ``shape`` from its
+    partials."""
+    pl, c, hh, ww = shape
+    mean = torch.empty((pl, c), dtype=torch.float32, device=part.device)
+    rstd = torch.empty_like(mean)
+    fn = _build.load('fused_decoder').decoder_gn_stats
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3)
+    fn.restype = ctypes.c_int
+    _build.check(fn(_build.ptr(part), pl, c, hh, ww, _build.ptr(mean),
+                    _build.ptr(rstd), ctypes.c_void_p(
+                        torch.cuda.current_stream(part.device).cuda_stream)),
+                 'decoder_gn_stats')
+    return mean, rstd
 
 
 # ---------------------------------------------------------------------------
@@ -252,11 +347,13 @@ def _from_k3(g, ci, co):
     return g.reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
 
 
-def _call(fn_name, slots, tensors, dims, x):
+def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
+    """Launch ``fn_name`` of ``csrc/<lib>.cu``: the tensors by slot name (a
+    missing slot passes a null pointer), the sizes as an int array."""
     ptrs = (ctypes.c_void_p * len(slots))(
         *[None if tensors.get(s) is None else tensors[s].data_ptr()
           for s in slots])
-    fn = getattr(_build.load('fused_decoder_bwd'), fn_name)
+    fn = getattr(_build.load(lib), fn_name)
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     err = fn(ptrs, (ctypes.c_int * len(dims))(*dims),
              ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream))
@@ -405,18 +502,31 @@ class _FusedDecoder(torch.autograd.Function):
                 i2['g_skip'].to(skip2.dtype), *grads)
 
 
-def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params):
+def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params,
+                      bwd='whole'):
     """Full up1 -> up2 -> head decoder tail, differentiable.
 
     x: (P, C, h, w) class planes (P = B*N); skip1: (B, Cs1, 2h, 2w); skip2:
     (B, Cs2, 4h, 4w), both already resized to their stage's output size.
-    Returns (P, 1, 4h, 4w) logits in x's dtype."""
+    Returns (P, 1, 4h, 4w) logits in x's dtype. ``bwd``: the backward's
+    route, 'whole' (kernels #6/#7, which recompute every statistic) or
+    'banded' (``ops.fused_decoder_banded``: three passes per stage from the
+    forward's saved statistics; the JAX package's route under
+    ``SEMIVL_FORCE_BANDED_BWD=1``). Without gradients both routes run the
+    same forward."""
+    if bwd not in ('whole', 'banded'):
+        raise ValueError(f'bwd {bwd!r}: whole or banded')
+    flat = ([params1[k] for k in STAGE_KEYS] + [params2[k] for k in STAGE_KEYS]
+            + [head_params['weight'], head_params['bias']])
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, skip1, skip2, *flat))
+    if grad and bwd == 'banded':
+        from semivl_tpu_torch.ops import fused_decoder_banded
+        return fused_decoder_banded.BandedDecoder.apply(x, skip1, skip2,
+                                                        *flat)
     if not x.is_cuda:
         return fused_vlg_decoder_plain(x, skip1, skip2, params1, params2,
                                        head_params)
-    flat = ([params1[k] for k in STAGE_KEYS] + [params2[k] for k in STAGE_KEYS]
-            + [head_params['weight'], head_params['bias']])
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, skip1, skip2, *flat)):
+    if grad:
         return _FusedDecoder.apply(x, skip1, skip2, *flat)
     return _forward(x, skip1, skip2, params1, params2, head_params)[0]

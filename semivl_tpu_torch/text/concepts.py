@@ -2,9 +2,35 @@
 (counterpart of ``semivl_tpu/text/concepts.py``; reference
 model/text_embeddings.py:24-153). A class may be described by several
 concepts; dense predictions over concepts are max-aggregated back to
-classes (``text.embeddings.aggregate_concept_predictions``). Only the VOC
-``concept4`` list that the flagship's guidance labels use is carried here.
+classes (``text.embeddings.aggregate_concept_predictions``). The lists
+carried here are those of the guidance labels of the two ported models:
+VOC ``concept4`` (exp 40) and Cityscapes ``concept3`` (exp 44).
 """
+
+CITYSCAPES_CLASSES_W_CONCEPTS3 = [
+    ['road', 'street', 'parking space'],
+    ['sidewalk'],
+    ['building', 'skyscaper', 'house', 'bus stop building', 'garage',
+     'car port', 'scaffolding'],
+    ['individual standing wall, which is not part of a building'],
+    ['fence', 'hole in fence'],
+    ['pole', 'sign pole', 'traffic light pole'],
+    ['traffic light'],
+    ['traffic sign', 'parking sign', 'direction sign'],
+    ['vegetation', 'tree', 'hedge'],
+    ['terrain', 'grass', 'soil', 'sand'],
+    ['sky'],
+    ['person', 'pedestrian', 'walking person', 'standing person',
+     'person sitting on the ground', 'person sitting on a bench',
+     'person sitting on a chair'],
+    ['rider', 'cyclist', 'motorcyclist'],
+    ['car', 'jeep', 'SUV', 'van'],
+    ['truck', 'box truck', 'pickup truck', 'truck trailer'],
+    ['bus'],
+    ['train', 'tram'],
+    ['motorcycle', 'moped', 'scooter'],
+    ['bicycle'],
+]
 
 VOC12_WBG_CLASSES_W_CONCEPTS4 = [
     ['background', 'bed', 'building', 'cabinet', 'ceiling', 'curtain', 'door',
@@ -53,4 +79,7 @@ def flatten_class_concepts(class_concepts):
 
 
 # Embedding asset name -> concept list, for concept (non-averaged) variants.
-CONCEPT_LISTS = {'voc12_wbg_concept4_single': VOC12_WBG_CLASSES_W_CONCEPTS4}
+CONCEPT_LISTS = {
+    'voc12_wbg_concept4_single': VOC12_WBG_CLASSES_W_CONCEPTS4,
+    'cityscapes_concept3_single': CITYSCAPES_CLASSES_W_CONCEPTS3,
+}

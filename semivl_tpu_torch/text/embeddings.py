@@ -4,10 +4,13 @@
 Embeddings are precomputed with CLIP ViT-B/16's text encoder over
 ``"a photo of a {c}"`` prompts and L2-normalised (reference
 model/text_embeddings.py:156-186); the ``.npy`` assets are float16 of shape
-(num_classes_or_concepts, 512). This package carries the assets its
-flagship needs: ``voc12_wbg_single`` (one row per VOC class, the decoder's
-text) and ``voc12_wbg_concept4_single`` (98 concepts of the 21 classes, the
-guidance labels' text, aggregated back to classes by a max).
+(num_classes_or_concepts, 512). This package carries the assets of its two
+models: for the VOC flagship ``voc12_wbg_single`` (one row per VOC class,
+the decoder's text) and ``voc12_wbg_concept4_single`` (98 concepts of the
+21 classes, the guidance labels' text, aggregated back to classes by a
+max); for Cityscapes exp 44 ``cityscapes_conceptavg3_single`` (19 rows,
+each the mean of a class's concept embeddings: the decoder's text) and
+``cityscapes_concept3_single`` (54 concepts, the guidance labels' text).
 """
 
 import os
@@ -21,7 +24,7 @@ _ASSET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), 'assets', 'text_embedding')
 
 # Dataset key -> embedding asset prefix (reference model/builder.py:119-124).
-EMB_DATASET_PREFIX = {'pascal': 'voc12_wbg'}
+EMB_DATASET_PREFIX = {'pascal': 'voc12_wbg', 'cityscapes': 'cityscapes'}
 
 
 def text_embedding_path(dataset, variant):

@@ -7,7 +7,10 @@ the frozen encoder, student pass 1 on ``[img_x | img_w]`` with feature
 perturbation of the w half, student pass 2 on ``[s1 | s2]``, the weighted
 loss mix, one backward and one AdamW update of the trainable parameters.
 Per-device loss normalisation is the JAX step's; with one device there is
-no gradient all-reduce.
+no gradient all-reduce. A model with BatchNorm (the Cityscapes conv
+encoder) runs it in eval mode in the teacher pass and in train mode in both
+student passes, whose running-statistic updates chain (pass 2 starts from
+pass 1's), as the JAX step threads ``batch_stats`` (step.py:293-323).
 """
 
 import torch
@@ -133,9 +136,10 @@ class SemiVLStep:
                 mclip_other = torch.where(ign_o == 255, 255, mclip_all[b:])
 
         preds, pred_w_fp = model(torch.cat([batch['img_x'], batch['img_w']]),
-                                 text, need_fp=True, generator=generator)
+                                 text, need_fp=True, generator=generator,
+                                 train=True)
         pred_x, pred_w = preds[:b], preds[b:]
-        pred_s = model(torch.cat([img_s1, img_s2]), text)
+        pred_s = model(torch.cat([img_s1, img_s2]), text, train=True)
         pred_s1, pred_s2 = pred_s[:b], pred_s[b:]
 
         conf_w, mask_w = _softmax_conf_label(pred_w.detach())

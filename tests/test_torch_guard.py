@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import semivl_tpu_torch
-from semivl_tpu_torch.configs import flagship_cfg, flagship_train_cfg
+from semivl_tpu_torch.configs import (cityscapes_cfg, cityscapes_train_cfg,
+                                      flagship_cfg, flagship_train_cfg)
 from semivl_tpu_torch.ops import _build
 from semivl_tpu_torch.text.embeddings import (
     load_text_embedding,
@@ -45,7 +46,10 @@ def test_import_loads_no_jax():
                          capture_output=True, text=True,
                          env={**os.environ, 'PYTHONPATH': ROOT}).stdout
     loaded = out.split()
-    assert 'semivl_tpu_torch.evaluation.predict' in loaded
+    for m in ('semivl_tpu_torch.evaluation.predict',
+              'semivl_tpu_torch.models.resnet',
+              'semivl_tpu_torch.ops.fused_decoder_banded'):
+        assert m in loaded, m
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -79,6 +83,11 @@ def test_entry_points_need_a_device_on_a_host_without_card():
         build_model(flagship_cfg())
     with pytest.raises(RuntimeError, match='no CUDA device'):
         build_model(flagship_train_cfg())
+    for cfg in (cityscapes_cfg(), cityscapes_train_cfg()):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build_model(cfg)
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            Evaluator(torch.nn.Identity(), np.zeros((19, 512)), cfg)
     with pytest.raises(RuntimeError, match='no CUDA device'):
         Evaluator(torch.nn.Identity(), np.zeros((21, 512)), flagship_cfg())
     bundle = ModelBundle(model=torch.nn.Identity(),
@@ -107,12 +116,39 @@ def test_flagship_config_and_text_asset():
     np.testing.assert_allclose(np.linalg.norm(text, axis=-1), 1.0, atol=2e-3)
 
 
+def test_cityscapes_config_and_text_assets():
+    """exp 44: 801 crops, 19 classes, the banded decoder backward, and the
+    two Cityscapes text assets carried in the package (the 54 concepts of
+    ``concept3`` cover the 19 classes)."""
+    from semivl_tpu_torch.configs import get_model_config
+    from semivl_tpu_torch.text.embeddings import get_class_to_concept_idxs
+    cfg = cityscapes_train_cfg()
+    assert (cfg['crop_size'], cfg['nclass'], cfg['eval_mode'],
+            cfg['decoder_bwd'], cfg['conf_mode'], cfg['batch_size']) == (
+                801, 19, 'sliding_window', 'banded', 'pixelavg', 1)
+    keys = cfg['optimizer']['paramwise_cfg']['custom_keys']
+    assert keys['conv_encoder'] == keys['backbone'] == {'lr_mult': 0.1}
+    assert cfg['model_args'] == {'renorm_clip_img': True}
+    model = get_model_config(cfg['model'], img_size=801)['model']
+    assert model['conv_encoder']['depth'] == 101
+    assert model['decode_head']['skip_in_channels'] == (768, 256)
+    assert model['decode_head']['decoder_bwd'] == 'whole'  # until built
+    for variant, n in ((cfg['text_embedding_variant'], 19),
+                       (cfg['mcc_text'], 54)):
+        path = text_embedding_path('cityscapes', variant)
+        assert path.startswith(PKG)
+        assert load_text_embedding(path).shape == (n, 512)
+    idxs = get_class_to_concept_idxs('cityscapes_concept3_single')
+    assert len(idxs) == 19
+    assert sorted(i for v in idxs.values() for i in v) == list(range(54))
+
+
 def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
     assert _build.sources() == ['flash_attention', 'fused_decoder',
-                                'fused_decoder_bwd']
+                                'fused_decoder_banded', 'fused_decoder_bwd']
     paths = {n: _build.library_path(n) for n in _build.sources()}
-    assert len(set(paths.values())) == 3
+    assert len(set(paths.values())) == 4
     for n, p in paths.items():
         assert os.path.dirname(p) == _build.BUILD_DIR
         assert os.path.basename(p).startswith(n + '-') and p.endswith('.so')

@@ -223,3 +223,116 @@ def test_decoder_bwd_kernels_match_plain(card, b, n, h):
         bad = decoder_grads(fused_decoder.fused_vlg_decoder, acts, params, g,
                             torch.bfloat16)
     assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+
+
+# ------------------------------------------------ banded decoder backward
+
+PASS_TOL = 5e-3   # rel-L2 of each pass output against its plain pass
+
+
+def _cityscapes_decoder(card, b, n, h, w):
+    """Cityscapes stage widths (Cin 128 / Cu 96 / Cs 32 / Cout 64, then
+    64 / 32 / 32 / 32) on an h x w base grid."""
+    p1 = _stage_params(card, 128, 32, 64)
+    p2 = _stage_params(card, 64, 32, 32)
+    head = dict(weight=0.2 * torch.randn(1, 32, 3, 3, generator=card,
+                                         device='cuda'),
+                bias=torch.randn(1, generator=card, device='cuda'))
+    acts = [torch.randn(b * n, 128, h, w, generator=card, device='cuda'),
+            torch.randn(b, 32, 2 * h, 2 * w, generator=card, device='cuda'),
+            torch.randn(b, 32, 4 * h, 4 * w, generator=card, device='cuda')]
+    g = torch.randn(b * n, 1, 4 * h, 4 * w, generator=card, device='cuda')
+    return [p1, p2, head], [t.bfloat16() for t in acts], g.bfloat16()
+
+
+def _pass_errors(got, want):
+    return {k: rel_l2(got[k], want[k].float()) for k in want}
+
+
+@pytest.mark.parametrize('b,n,h,w', [(3, 19, 51, 51), (1, 3, 13, 11)])
+def test_banded_passes_match_plain(card, b, n, h, w):
+    """Passes A, B and C of both stages, each on its own inputs (the
+    kernels' outputs of the pass before) against its plain version: every
+    output within PASS_TOL relative L2, bit for bit on a second run; the
+    forward's saved statistics against the plain forward's. (3, 19, 51):
+    the Cityscapes student shape with its odd 51-wide grid; (1, 3, 13, 11):
+    ragged, non-square tiles."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    (p1, p2, head), (x, s1, s2), g = _cityscapes_decoder(card, b, n, h, w)
+    with torch.no_grad():
+        _, c2, st1, st2 = fdb.decoder_fwd_stats(x, s1, s2, p1, p2, head)
+        _, plain_st1 = fused_decoder.stage_fwd_stats_plain(x, s1, p1)
+        for got, want in zip(st1, plain_st1):
+            assert rel_l2(got, want) < 1e-3
+        gn_x = (st1[2], st1[3], p1['gn2_weight'], p1['gn2_bias'])
+        errs = {}
+        for stage, (xin, skip, p, st, gx, hd) in enumerate((
+                (c2, s2, p2, st2, gn_x, head), (x, s1, p1, st1, None, None))):
+            a = fdb.pass_a(xin, skip, p, st, g, gx, hd)
+            errs[f'A{2 - stage}'] = _pass_errors(
+                a, fdb.pass_a_plain(xin, skip, p, st, g, gx, hd))
+            hw = a['raw2'].shape[2] * a['raw2'].shape[3]
+            mg2 = fdb.close_gn(a['sgy2'], a['sgyx2'], p['gn2_weight'], hw)[2:]
+            bb = fdb.pass_b(a['raw1'], a['raw2'], a['gy2'], p, st, mg2)
+            errs[f'B{2 - stage}'] = _pass_errors(bb, fdb.pass_b_plain(
+                a['raw1'], a['raw2'], a['gy2'], p, st, mg2))
+            mg1 = fdb.close_gn(bb['sgy1'], bb['sgyx1'], p['gn1_weight'],
+                               hw)[2:]
+            args = (a['xin'], a['up'], skip, a['raw1'], bb['gy1'], p, st,
+                    mg1)
+            c = fdb.pass_c(*args)
+            errs[f'C{2 - stage}'] = _pass_errors(c, fdb.pass_c_plain(*args))
+            again = fdb.pass_b(a['raw1'], a['raw2'], a['gy2'], p, st, mg2)
+            assert all(torch.equal(bb[k], again[k]) for k in bb)
+            g = c['g_x']
+    torch.cuda.synchronize()
+    for name, e in errs.items():
+        assert all(v < PASS_TOL for v in e.values()), (name, e)
+
+
+def test_banded_backward_matches_rounded_reference(card):
+    """The composed banded backward (``bwd='banded'``) against autograd
+    through ``fused_vlg_decoder_rounded``: every leaf within 2e-2 relative
+    L2, as the whole-plane kernels are held; a planted fault, pass B's
+    conv2 weight gradient reading its first 16-row band twice, must fail
+    that limit."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    params, acts, g = _cityscapes_decoder(card, 1, 19, 51, 51)
+
+    def banded(*a):
+        return fused_decoder.fused_vlg_decoder(*a, bwd='banded')
+
+    counts = (fdb.pass_a_launches, fdb.pass_b_launches, fdb.pass_c_launches)
+    got = decoder_grads(banded, acts, params, g, torch.bfloat16)
+    assert (fdb.pass_a_launches, fdb.pass_b_launches,
+            fdb.pass_c_launches) == tuple(v + 2 for v in counts)
+    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts, params,
+                        g, torch.bfloat16)
+    torch.cuda.synchronize()
+    errs = [rel_l2(a, r.float()) for a, r in zip(got, ref)]
+    assert max(errs) < 2e-2, errs
+    real = fdb.pass_b
+
+    def band_twice(raw1, raw2, gy2, p, stats, mg2):
+        out = real(raw1, raw2, gy2, p, stats, mg2)
+        extra = fdb.pass_b_plain(raw1[:, :, :16], raw2[:, :, :16],
+                                 gy2[:, :, :16], p, stats, mg2)
+        return dict(out, conv2_weight=out['conv2_weight']
+                    + extra['conv2_weight'])
+
+    with mock.patch.object(fdb, 'pass_b', band_twice):
+        bad = decoder_grads(banded, acts, params, g, torch.bfloat16)
+    assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+
+
+def test_banded_passes_refuse_what_they_cannot_read(card):
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    p = _stage_params(card, 64, 32, 32)
+    raw = torch.zeros(2, 32, 8, 8, device='cuda')
+    stats = tuple(torch.ones(2, 32, device='cuda') for _ in range(4))
+    mg = (torch.zeros(2, 32, device='cuda'),) * 2
+    with pytest.raises(ValueError, match='bf16'):
+        fdb.pass_b(raw, raw, raw, p, stats, mg)
+    with pytest.raises(ValueError, match='even'):
+        odd = torch.zeros(2, 32, 7, 8, device='cuda', dtype=torch.bfloat16)
+        fdb.pass_b(odd, odd, odd.float(), p, stats, mg)

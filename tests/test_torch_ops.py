@@ -330,3 +330,195 @@ def test_decoder_rounded_reference(monkeypatch):
     assert rel_err(got.detach().numpy(), want.detach().numpy()) < 1e-5
     for i, (a, w) in enumerate(zip(got_grads, want_grads)):
         assert rel_err(a.numpy(), w.numpy()) < 1e-5, i
+
+
+# ------------------------------------------------- banded decoder backward
+# The three passes of ``ops.fused_decoder_banded`` in their plain versions,
+# float32 storage on both sides, against the JAX package's row-banded
+# Pallas passes (interpret mode) at its own multi-band test geometry, with
+# the bound that test holds the banded kernels to: 2e-5 of each output's
+# scale (floored at 1e-3, as there).
+
+def _scaled_err(got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-3))
+
+
+def _port_stage(p):
+    """flax ``Up`` params -> the port's stage dict (float32 tensors)."""
+    sd = {'up.weight': p['up_kernel'].transpose(2, 3, 0, 1),
+          'up.bias': p['up_bias']}
+    convert._conv_gn(sd, 'conv1', 'gn1', p['conv1'])
+    convert._conv_gn(sd, 'conv2', 'gn2', p['conv2'])
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+         for k, v in sd.items()}
+    return dict(up_weight=t['up.weight'], up_bias=t['up.bias'],
+                conv1_weight=t['conv1.weight'], gn1_weight=t['gn1.weight'],
+                gn1_bias=t['gn1.bias'], conv2_weight=t['conv2.weight'],
+                gn2_weight=t['gn2.weight'], gn2_bias=t['gn2.bias'])
+
+
+def _banded_stage(b, n, h, w, cin, cs, cout, head, seed):
+    """One stage on both sides: the JAX stage's packed weights, saved
+    statistics and banded-backward callable, and the port's inputs."""
+    from semivl_tpu.models.vlg_head import Up
+    from semivl_tpu.ops.fused_decoder import (
+        _deinterleave, _fwd_tap_lists, _pack_stage_weights, _stage_fwd_core)
+    from semivl_tpu.ops.fused_decoder_banded import _stage_bwd_banded
+    rs = np.random.RandomState(seed)
+    x = rs.randn(b * n, cin, h, w).astype(np.float32)
+    skip = rs.randn(b, cs, 2 * h, 2 * w).astype(np.float32)
+    g = rs.randn(b * n, 1 if head else cout, 2 * h, 2 * w).astype(np.float32)
+    params = random_tree({'up': jax_eval_up(Up(cout, cs), cin)}, seed)['up']
+    hp = None
+    if head:
+        hp = {'kernel': (0.3 * rs.randn(3, 3, cout, 1)).astype(np.float32),
+              'bias': rs.randn(1).astype(np.float32)}
+    t1, t2 = _fwd_tap_lists(cin, cs, cout)
+
+    def pack(prm, hd):
+        return _pack_stage_weights(prm, hd, t1, t2, jnp.float32)
+
+    pw = pack(params, hp)
+    keys = ['w1', 'g1s', 'g1b', 'w2', 'g2s', 'g2b'] + (
+        ['wh', 'hb'] if head else [])
+    args = [pw[k] for k in keys]
+    jx, skip_ph = jnp.asarray(x), _deinterleave(jnp.asarray(skip))
+    g_ph = _deinterleave(jnp.asarray(g))
+    _, jstats = _stage_fwd_core(jx, skip_ph, *args, interpret=True,
+                                storage=jnp.float32, save_stats=True)
+
+    def jax_bwd(stop_after=None):
+        return _stage_bwd_banded(jx, skip_ph, g_ph, jstats, *args,
+                                 interpret=True, storage=jnp.float32,
+                                 band_rows=4, stop_after=stop_after)
+
+    def unpack_grads(outs):
+        """Packed-weight gradients -> flax parameter gradients."""
+        _, vjp = jax.vjp(pack, params, hp)
+        return vjp(dict(zip(keys, outs[2:])))
+
+    port = dict(x=torch.from_numpy(x), skip=torch.from_numpy(skip),
+                g=torch.from_numpy(g), p=_port_stage(params), head=None)
+    if head:
+        port['head'] = dict(
+            weight=torch.from_numpy(hp['kernel'].transpose(3, 2, 0, 1)
+                                    .copy()),
+            bias=torch.from_numpy(hp['bias']))
+    return port, jstats, jax_bwd, unpack_grads
+
+
+def _from_bands(sp, plan, p, c):
+    """JAX band-layout phase planes -> (P, c, 2h, 2w)."""
+    from semivl_tpu.ops.fused_decoder import _interleave
+    from semivl_tpu.ops.fused_decoder_banded import band_join
+    flat = band_join(sp, plan).reshape(p, 4, c, plan.h, plan.geo.ws)
+    return np.asarray(_interleave(flat[..., :plan.w]))
+
+
+@pytest.mark.parametrize('geom', [
+    # (b, n, h, w, cin, cs, cout, head, seed): the multi-band geometry of
+    # tests/test_fused_decoder_banded.py (h = 40 -> 3 bands of 16 rows)
+    # and a head stage with a ragged last band
+    (1, 2, 40, 8, 24, 16, 32, False, 0),
+    (1, 2, 11, 12, 24, 16, 32, True, 3)])
+def test_banded_passes_match_jax(geom):
+    """Each plain pass on its own inputs and the composed stage backward
+    against ``_stage_bwd_banded``: pass A's recomputed raw1/raw2, gy2 and
+    GN2 sums, pass B's gy1 and GN1 sums, pass C's (the stage's) gradients;
+    and the forward's saved statistics against ``_stage_fwd_core``."""
+    from semivl_tpu.ops.fused_decoder_banded import make_band_plan
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    b, n, h, w, cin, cs, cout, head, seed = geom
+    port, jstats, jax_bwd, unpack_grads = _banded_stage(*geom)
+    p, x, skip, g, hp = (port[k] for k in ('p', 'x', 'skip', 'g', 'head'))
+    pl = b * n
+
+    _, stats = fused_decoder.stage_fwd_stats_plain(x, skip, p, head=hp)
+    for got, want in zip(stats, jstats):
+        assert _scaled_err(got, np.asarray(want)[..., 0]) < 1e-5
+
+    a = fdb.pass_a_plain(x, skip, p, stats, g, head=hp)
+    ja = jax_bwd('A')
+    plan_a = make_band_plan(h, w, 3 if head else 2, 4)
+    assert plan_a.nb >= 2
+    for i, k in enumerate(('raw1', 'raw2', 'gy2')):
+        assert _scaled_err(a[k], _from_bands(ja[i], plan_a, pl, cout)) \
+            < 2e-5, k
+    for i, k in ((3, 'sgy2'), (4, 'sgyx2')):
+        assert _scaled_err(a[k], np.asarray(ja[i])[..., 0]) < 2e-5, k
+
+    hw = 4 * h * w
+    g2w, g2b, mga2, mgb2 = fdb.close_gn(a['sgy2'], a['sgyx2'],
+                                        p['gn2_weight'], hw)
+    bb = fdb.pass_b_plain(a['raw1'], a['raw2'], a['gy2'], p, stats,
+                          (mga2, mgb2))
+    jb = jax_bwd('B')
+    plan_b = make_band_plan(h, w, 1, 4)
+    assert _scaled_err(bb['gy1'], _from_bands(jb[0], plan_b, pl, cout)) \
+        < 2e-5
+    for i, k in ((1, 'sgy1'), (2, 'sgyx1')):
+        assert _scaled_err(bb[k], np.asarray(jb[i])[..., 0]) < 2e-5, k
+
+    g_x, g_skip, grads = fdb.stage_bwd_banded(x, skip, p, stats, g,
+                                              head=hp, plain=True)
+    jout = jax_bwd()
+    from semivl_tpu.ops.fused_decoder import _interleave
+    assert _scaled_err(g_x, jout[0]) < 2e-5
+    assert _scaled_err(g_skip, _interleave(jout[1])) < 2e-5
+    jp, jh = unpack_grads(jout)
+    want = _port_stage(jax.tree.map(np.asarray, jp))
+    for k in fused_decoder.STAGE_KEYS:
+        assert _scaled_err(grads[k], want[k]) < 2e-5, k
+    if head:
+        assert _scaled_err(grads['head_weight'], np.asarray(
+            jh['kernel']).transpose(3, 2, 0, 1)) < 2e-5
+        assert _scaled_err(grads['head_bias'], jh['bias']) < 2e-5
+    # the GN2 closure after pass A gives the stage's GN2 gradients
+    assert torch.equal(g2w, grads['gn2_weight'])
+    assert torch.equal(g2b, grads['gn2_bias'])
+
+
+def test_decoder_banded_chain_matches_jax(monkeypatch):
+    """``fused_vlg_decoder(..., bwd='banded')`` under autograd on the CPU
+    (plain forward with saved statistics, the plain passes composed)
+    against jax.vjp of the JAX chain with ``SEMIVL_FORCE_BANDED_BWD=1``
+    (interpret mode, float32 storage), every input and parameter within
+    5e-4 of its scale, the bound of the JAX package's own banded chain
+    test; the CPU launches no kernel."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    monkeypatch.setenv('SEMIVL_FORCE_BANDED_BWD', '1')
+    x, skip1, skip2, p1, p2, head = _decoder_setup()
+    g = np.random.RandomState(32).randn(4, 1, 32, 32).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, skip1, skip2)]
+
+    def kernel_chain(x, s1, s2, p1, p2, hd):
+        return jax_decoder(x, s1, s2, p1, p2, hd, interpret=True,
+                           storage=jnp.float32)
+
+    _, vjp = jax.vjp(kernel_chain, *jargs, p1, p2, head)
+    gx, gs1, gs2, gp1, gp2, gh = vjp(jnp.asarray(g))
+    tp1, tp2, th = _port_params(*(jax.tree.map(
+        lambda a: np.asarray(a, np.float32), t) for t in (gp1, gp2, gh)))
+    want = [np.asarray(a, np.float32) for a in (gx, gs1, gs2)] + [
+        t[k].numpy() for t in (tp1, tp2) for k in fused_decoder.STAGE_KEYS
+    ] + [th['weight'].numpy(), th['bias'].numpy()]
+
+    tp1, tp2, th = _port_params(p1, p2, head)
+    acts = [torch.from_numpy(a).requires_grad_(True)
+            for a in (x, skip1, skip2)]
+    prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
+            + [tp2[k] for k in fused_decoder.STAGE_KEYS]
+            + [th['weight'], th['bias']])
+    for t in prms:
+        t.requires_grad_(True)
+    before = (fdb.pass_a_launches, fdb.pass_b_launches, fdb.pass_c_launches,
+              fused_decoder.launches)
+    out = fused_decoder.fused_vlg_decoder(*acts, tp1, tp2, th, bwd='banded')
+    got = torch.autograd.grad(out, acts + prms, torch.from_numpy(g))
+    assert (fdb.pass_a_launches, fdb.pass_b_launches, fdb.pass_c_launches,
+            fused_decoder.launches) == before
+    assert len(got) == len(want) == 21
+    for i, (a, wnt) in enumerate(zip(got, want)):
+        assert _scaled_err(a.numpy(), wnt) < 5e-4, i

@@ -14,14 +14,11 @@ sides, and it asserts that no pixel whose pseudo-label or guidance label
 counts sits within a margin of a confidence threshold or of an argmax tie.
 """
 
-import dataclasses
-from typing import Any, Optional
 from unittest import mock
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-import optax
 import pytest
 import torch
 from jax.sharding import Mesh
@@ -46,7 +43,9 @@ from semivl_tpu_torch.train.step import (LOSS_KEYS, cutmix_box_from_coords,
                                          make_semivl_train_step)
 
 import torch_parity
-from torch_parity import rel_err, text_embedding, tiny_train_vlm
+from torch_parity import (InjectedDropout, PortBundle, gap_threshold,
+                          leaf_names, masked_grads, rel_err, text_embedding,
+                          tiny_train_vlm)
 
 B, IMG, TOTAL = 2, torch_parity.IMG, 100
 MARGIN = 1e-5   # cross-framework float32 differences stay far below this
@@ -141,7 +140,7 @@ def test_forward_maskclip_matches_jax(tiny):
     probs = pm.maskclip_probs(_t(img), mcc).numpy()
     top2 = np.sort(probs, axis=-1)[..., -2:]
     conf = top2[..., 1]
-    thresh, margin = _gap_threshold(conf)
+    thresh, margin = gap_threshold(conf)
     assert margin > MARGIN
     assert (top2[..., 1] - top2[..., 0]).min() > MARGIN
     want = np.asarray(jm.apply({'params': params}, jnp.asarray(img),
@@ -154,26 +153,11 @@ def test_forward_maskclip_matches_jax(tiny):
 
 # ------------------------------------------------ mask, groups, schedule
 
-def _leaf_names(params):
-    """JAX path string -> port parameter name, leaf for leaf: every leaf is
-    filled with its index and exported through convert."""
-    paths = jax.tree_util.tree_leaves(jax_optim.param_path_strings(params))
-    ids = jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(params),
-        [np.full(np.shape(x), i, np.float32) for i, x in
-         enumerate(jax.tree_util.tree_leaves(params))])
-    out = {}
-    for name, v in convert.vlm_state_dict(ids).items():
-        out[paths[int(v.flat[0])]] = name
-    assert len(out) == len(paths)
-    return out
-
-
 def test_trainable_mask_and_param_groups_match_jax(tiny):
     jm, params, pm, _ = tiny
     cfg = flagship_train_cfg()
     keys = cfg['optimizer']['paramwise_cfg']['custom_keys']
-    names = _leaf_names(params)
+    names = leaf_names(params)
     jmask = dict(zip(
         jax.tree_util.tree_leaves(jax_optim.param_path_strings(params)),
         jax.tree_util.tree_leaves(jax_optim.trainable_mask(
@@ -209,22 +193,6 @@ def test_poly_schedule_matches_jax(warmup):
 
 # ------------------------------------------------------ one whole step
 
-@dataclasses.dataclass
-class _PortBundle:
-    model: Any
-    text_feats: np.ndarray
-    mcc_text_feats: Optional[np.ndarray]
-
-
-def _gap_threshold(conf, lo_q=0.5, hi_q=0.95):
-    """A threshold in the widest gap of the sorted confidences between two
-    quantiles, and its distance to the nearest value."""
-    v = np.sort(np.asarray(conf, np.float64).ravel())
-    lo, hi = int(lo_q * len(v)), int(hi_q * len(v))
-    i = lo + int(np.argmax(np.diff(v[lo:hi])))
-    return float((v[i] + v[i + 1]) / 2), float((v[i + 1] - v[i]) / 2)
-
-
 def _batch(seed):
     rs = np.random.RandomState(seed)
 
@@ -245,29 +213,6 @@ def _batch(seed):
         cutmix_box2=np.array([[32, 32, 30, 30], [5, 40, 50, 20]], np.int32))
 
 
-class _InjectedDropout:
-    """Stands in for both frameworks' ``dropout2d``: the i-th call of a
-    pass drops the channels of the i-th given keep mask (B, 1, 1, C)."""
-
-    def __init__(self, keeps):
-        self.keeps, self.calls = keeps, 0
-
-    def _next(self):
-        keep = self.keeps[self.calls % len(self.keeps)]
-        self.calls += 1
-        return keep
-
-    def jax(self, rng, x, rate):
-        keep = self._next()
-        assert keep.shape[-1] == x.shape[-1]
-        return jnp.where(keep, x / (1.0 - rate), jnp.zeros((), x.dtype))
-
-    def torch(self, x, rate, generator=None):
-        keep = torch.from_numpy(self._next())
-        assert keep.shape[-1] == x.shape[-1]
-        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
-
-
 def _pseudo_label_thresholds(pm, text, mcc, batch):
     """Thresholds for this batch away from every confidence, after
     checking the argmax margins of the pixels whose labels count."""
@@ -277,8 +222,8 @@ def _pseudo_label_thresholds(pm, text, mcc, batch):
         p = torch.softmax(teacher, dim=1).numpy()
         mc = pm.maskclip_probs(_t(np.concatenate(
             [batch['img_w'], batch['img_w_other']])), mcc).numpy()
-    conf_thresh, m1 = _gap_threshold(p.max(axis=1))
-    mcc_thresh, m2 = _gap_threshold(mc.max(axis=-1))
+    conf_thresh, m1 = gap_threshold(p.max(axis=1))
+    mcc_thresh, m2 = gap_threshold(mc.max(axis=-1))
     assert min(m1, m2) > MARGIN, (m1, m2)
     for probs, axis, th in ((p, 1, conf_thresh), (mc, -1, mcc_thresh)):
         top2 = np.sort(probs, axis=axis)
@@ -288,19 +233,6 @@ def _pseudo_label_thresholds(pm, text, mcc, batch):
         assert 0 < kept.mean() < 1
         assert gap[kept].min() > MARGIN
     return conf_thresh, mcc_thresh
-
-
-def _masked_grads(opt_state, params):
-    """JAX gradients from the first Adam moment after one update (mu =
-    (1 - b1) g); frozen leaves (no moment) as zeros."""
-    adam = opt_state.inner_state[0]
-    mu = jax.tree_util.tree_leaves(
-        adam.mu, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
-    leaves = [np.zeros(np.shape(p), np.float32) if isinstance(
-        m, optax.MaskedNode) else np.asarray(m) / 0.1
-        for m, p in zip(mu, jax.tree_util.tree_leaves(params))]
-    return jax.tree_util.tree_unflatten(
-        jax.tree_util.tree_structure(params), leaves)
 
 
 @pytest.fixture(scope='module')
@@ -315,7 +247,7 @@ def step_pair(tiny):
                mcc_conf_thresh=mcc_thresh, log_grad_norm=True)
     rs = np.random.RandomState(8)
     keeps = [rs.rand(B, 1, 1, c) < 0.5 for c in (128, 128, 512)]
-    fake = _InjectedDropout(keeps)
+    fake = InjectedDropout(keeps)
 
     bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
                        num_classes=21, img_size=IMG, model_cfg={},
@@ -336,12 +268,12 @@ def step_pair(tiny):
     assert fake.calls == 3
     jax_new = convert.vlm_state_dict(jax.tree.map(
         np.asarray, new_state.params['params']))
-    jax_grads = convert.vlm_state_dict(_masked_grads(new_state.opt_state,
+    jax_grads = convert.vlm_state_dict(masked_grads(new_state.opt_state,
                                                      params))
 
     before = {k: v.clone() for k, v in pm.state_dict().items()}
     opt, _ = optim.build_optimizer(cfg, pm, TOTAL)
-    step = make_semivl_train_step(_PortBundle(pm, text, mcc), cfg, opt,
+    step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
                                   TOTAL, device='cpu')
     fake.calls = 0
     with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch):

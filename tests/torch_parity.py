@@ -1,13 +1,20 @@
 """Shared fixtures for the PyTorch port's parity tests (tests/test_torch_*.py):
 a small flagship-shaped VLM (with the frozen guidance encoder for
-training), random JAX parameters made with numpy, and the port model
-carrying the same weights through ``semivl_tpu_torch.convert``."""
+training), random JAX parameters made with numpy, the port model carrying
+the same weights through ``semivl_tpu_torch.convert``, and the helpers of
+the whole-step comparisons."""
+
+import dataclasses
+from typing import Any, Optional
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import optax
+import torch
 
 from semivl_tpu.models.vlm import VLM as JaxVLM
+from semivl_tpu_torch import convert
 from semivl_tpu_torch.convert import load_jax_params
 from semivl_tpu_torch.models.vlm import VLM
 
@@ -101,3 +108,71 @@ def rel_err(got, want):
     got = np.asarray(got, np.float64)
     want = np.asarray(want, np.float64)
     return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-12))
+
+
+def gap_threshold(conf, lo_q=0.5, hi_q=0.95):
+    """A threshold in the widest gap of the sorted confidences between two
+    quantiles, and its distance to the nearest value."""
+    v = np.sort(np.asarray(conf, np.float64).ravel())
+    lo, hi = int(lo_q * len(v)), int(hi_q * len(v))
+    i = lo + int(np.argmax(np.diff(v[lo:hi])))
+    return float((v[i] + v[i + 1]) / 2), float((v[i + 1] - v[i]) / 2)
+
+
+@dataclasses.dataclass
+class PortBundle:
+    model: Any
+    text_feats: np.ndarray
+    mcc_text_feats: Optional[np.ndarray]
+
+
+class InjectedDropout:
+    """Stands in for both frameworks' ``dropout2d``: the i-th call of a
+    pass drops the channels of the i-th given keep mask (B, 1, 1, C)."""
+
+    def __init__(self, keeps):
+        self.keeps, self.calls = keeps, 0
+
+    def _next(self):
+        keep = self.keeps[self.calls % len(self.keeps)]
+        self.calls += 1
+        return keep
+
+    def jax(self, rng, x, rate):
+        keep = self._next()
+        assert keep.shape[-1] == x.shape[-1]
+        return jnp.where(keep, x / (1.0 - rate), jnp.zeros((), x.dtype))
+
+    def torch(self, x, rate, generator=None):
+        keep = torch.from_numpy(self._next())
+        assert keep.shape[-1] == x.shape[-1]
+        return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
+
+
+def masked_grads(opt_state, params):
+    """JAX gradients from the first Adam moment after one update (mu =
+    (1 - b1) g); frozen leaves (no moment) as zeros."""
+    adam = opt_state.inner_state[0]
+    mu = jax.tree_util.tree_leaves(
+        adam.mu, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+    leaves = [np.zeros(np.shape(p), np.float32) if isinstance(
+        m, optax.MaskedNode) else np.asarray(m) / 0.1
+        for m, p in zip(mu, jax.tree_util.tree_leaves(params))]
+    return jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(params), leaves)
+
+
+def leaf_names(params):
+    """JAX path string -> port parameter name, leaf for leaf: every leaf is
+    filled with its index and exported through convert."""
+    from semivl_tpu.train import optim as jax_optim
+    paths = jax.tree_util.tree_leaves(jax_optim.param_path_strings(params))
+    ids = jax.tree_util.tree_unflatten(
+        jax.tree_util.tree_structure(params),
+        [np.full(np.shape(x), i, np.float32) for i, x in
+         enumerate(jax.tree_util.tree_leaves(params))])
+    out = {}
+    for name, v in convert.vlm_state_dict(ids).items():
+        out[paths[int(v.flat[0])]] = name
+    assert len(out) == len(paths)
+    return out
