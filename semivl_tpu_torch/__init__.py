@@ -8,13 +8,16 @@ through the kernel.
 
 Layout:
 
-- ``ops/``: resize, attention, the packed attention kernel wrapper
-  (``flash_attention``), the fused VLG decoder wrapper (``fused_decoder``)
-  and the kernel build helper (``_build``).
+- ``ops/``: resize, the attention dispatcher (``attention``), the packed
+  and head-split attention kernel wrappers (``flash_attention``), the fused
+  VLG decoder wrappers (``fused_decoder``, ``fused_decoder_banded``), the
+  fused Up stage (``fused_up``) and the kernel build helper (``_build``).
 - ``models/``: ``MaskClipViT``, ``VLGHead``, ``VLM`` and ``build_model``.
 - ``evaluation/``: ``Evaluator`` (``zegclip_sliding_window``), ``evaluate``
   and the IoU histograms.
-- ``configs/``, ``text/``: the flagship configuration and its text embedding.
+- ``configs/``, ``text/``: the flagship, Cityscapes and tiny VLM
+  configurations and their text embeddings.
+- ``tools/``: ``fused_up_bench``.
 - ``convert.py``: JAX parameter tree -> this package's ``state_dict``.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.

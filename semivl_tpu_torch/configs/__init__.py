@@ -1,10 +1,12 @@
 """Run configs: the values of the flagship evaluation and training step
-(reference exp 40, Pascal VOC) and of the Cityscapes model (exp 44)."""
+(reference exp 40, Pascal VOC), of the Cityscapes model (exp 44) and of the
+tiny VLM the JAX package's demo trains."""
 
 from semivl_tpu_torch.configs.models import get_model_config
 
 __all__ = ['cityscapes_cfg', 'cityscapes_train_cfg', 'flagship_cfg',
-           'flagship_train_cfg', 'get_model_config']
+           'flagship_train_cfg', 'get_model_config', 'tiny_cfg',
+           'tiny_train_cfg']
 
 
 def flagship_cfg(crop_size=512):
@@ -128,4 +130,28 @@ def cityscapes_train_cfg(crop_size=801):
         warmup_ratio=1e-6,
         decoder_bwd='banded',
     )
+    return cfg
+
+
+def tiny_cfg(crop_size=64):
+    """The tiny VLM evaluated as the JAX package's demo runs it
+    (``semivl_tpu/tools/semi_effect_demo.py:173-199``): the flagship values
+    with ``mmseg.tiny-vlm-test``, 64 crops, ``zegclip_sliding_window`` at
+    stride 48, and every attention on the kernels (``attention_impl =
+    'pallas'``: its heads of 16 and 32 take the head-split route)."""
+    cfg = flagship_cfg(crop_size)
+    cfg.update(model='mmseg.tiny-vlm-test', stride=48,
+               attention_impl='pallas')
+    return cfg
+
+
+def tiny_train_cfg(crop_size=64):
+    """The tiny VLM's SemiVL step: the flagship training values with batch
+    1 (+ 1 unlabeled), the ``tiny-mcvit-test`` guidance encoder built at the
+    crop size (``mcc_fix_resize_pos``) with the ``concept4_single`` text,
+    and ``attention_impl = 'pallas'``."""
+    cfg = flagship_train_cfg(crop_size)
+    cfg.update(model='mmseg.tiny-vlm-test', stride=48, batch_size=1,
+               clip_encoder='tiny-mcvit-test', mcc_fix_resize_pos=True,
+               mcc_text='concept4_single', attention_impl='pallas')
     return cfg

@@ -3,7 +3,10 @@
 
 Plain dicts mirroring the reference's mmseg config files; carried here are
 the flagship SemiVL model (VOC), its Cityscapes variant with the ResNet skip
-encoder, and the frozen MaskCLIP guidance encoder of both.
+encoder, the frozen MaskCLIP guidance encoder of both, and the JAX
+package's tiny VLM family (``tiny-vlm-test`` and its guidance encoder
+``tiny-mcvit-test``), whose heads of 16 and 32 take the head-split
+attention kernels.
 """
 
 import copy
@@ -101,7 +104,44 @@ def _mcvit16(img_size=512):
                 backbone=_maskclip_vitb16(img_size, out_indices=None))
 
 
+def _tiny_vit(img_size, out_indices):
+    """The tiny family's ViT: 2 layers of width 64, 4 heads of 16, in the
+    512-d CLIP space (JAX ``semivl_tpu/configs/models.py:199-236``)."""
+    return dict(
+        type='MaskClipVisionTransformer',
+        img_size=(img_size, img_size), patch_size=16, patch_bias=False,
+        embed_dims=64, num_layers=2, num_heads=4, mlp_ratio=2, clip_dim=512,
+        out_indices=out_indices, pre_norm=True, final_norm=True,
+        return_clip_embed=True, return_qkv=True)
+
+
+def _tiny_vlm_test(img_size=64):
+    """Miniature VLM of the JAX package's smoke tests and demo: the
+    flagship's structure at tiny widths (VLG with channels 32, one semantic
+    layer of 2 heads of 32, up (32, 16), skips (16, 16)). Not a reference
+    model."""
+    return dict(
+        img_size=img_size,
+        model=dict(
+            type='VLM',
+            backbone=_tiny_vit(img_size, out_indices=[0, 1, 2]),
+            decode_head=dict(
+                type='VLGHead', img_size=img_size, num_classes=21,
+                text_in_channels=512, text_channels=32, up_channels=(32, 16),
+                skip_in_channels=(64, 64), skip_channels=(16, 16),
+                skip_from_conv_feat=False, num_layers=1, num_heads=2,
+                channels=32, pool_size=(2, 2), conv1_ksize=3,
+                align_corners=False),
+            freeze_backbone=True,
+            exclude_keys=['attn', 'pos_embed'],
+        ),
+    )
+
+
 _MODEL_CONFIGS = {
+    'tiny-vlm-test': _tiny_vlm_test,
+    'tiny-mcvit-test': lambda img_size=64: dict(
+        img_size=img_size, backbone=_tiny_vit(img_size, out_indices=None)),
     'vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb': _vlm_vlg_sk04,
     'vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb': _vlm_vlg_skr04,
     'mcvit16': _mcvit16,

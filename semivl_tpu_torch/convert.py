@@ -104,6 +104,27 @@ def export_vlg_head(out, p, prefix='decode_head.'):
                  up['conv2'])
 
 
+def up_stage_params(up, head=None):
+    """A JAX ``Up`` param tree (``up_kernel``, ``up_bias``, ``conv1`` and
+    ``conv2`` with ``conv``/``gn``) -> the torch-layout stage dict of
+    ``ops.fused_up.fused_up_stage`` (float32 tensors); with ``head`` (a
+    JAX conv tree, kernel (3, 3, Cout, 1) and bias) also the head dict."""
+    sd = {'up.weight': _f(up['up_kernel']).transpose(2, 3, 0, 1),
+          'up.bias': _f(up['up_bias'])}
+    _conv_gn(sd, 'conv1', 'gn1', up['conv1'])
+    _conv_gn(sd, 'conv2', 'gn2', up['conv2'])
+    if head is not None:
+        _conv(sd, 'head', head)
+    t = {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+    stage = dict(up_weight=t['up.weight'], up_bias=t['up.bias'],
+                 conv1_weight=t['conv1.weight'], gn1_weight=t['gn1.weight'],
+                 gn1_bias=t['gn1.bias'], conv2_weight=t['conv2.weight'],
+                 gn2_weight=t['gn2.weight'], gn2_bias=t['gn2.bias'])
+    if head is None:
+        return stage
+    return stage, dict(weight=t['head.weight'], bias=t['head.bias'])
+
+
 def _conv_bn(out, conv_key, bn_key, p, s):
     _conv(out, conv_key, p['conv'])
     _norm(out, bn_key, p['bn'])

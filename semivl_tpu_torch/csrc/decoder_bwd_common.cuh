@@ -18,20 +18,6 @@ __host__ __device__ constexpr int wgrad_ciw(int cout) {
   return (NT / (cout >= 4 ? cout / 4 : cout)) < 64 ? NT / (cout >= 4 ? cout / 4 : cout) : 64;
 }
 
-// out = GN+ReLU(in), bf16, over (P, C, HW) planes.
-__global__ void __launch_bounds__(NT)
-gn_relu_kernel(const bf16* __restrict__ in, int C, int HW, GNIn gn, bf16* __restrict__ out) {
-  __shared__ float s_mean[MAXG], s_rstd[MAXG];
-  const int p = blockIdx.y;
-  gn_prologue(gn, p, C / GSIZE, s_mean, s_rstd);
-  const int pix = blockIdx.x * NT + threadIdx.x;
-  if (pix >= HW) return;
-  for (int c = 0; c < C; ++c) {
-    const size_t i = ((size_t)p * C + c) * HW + pix;
-    out[i] = __float2bfloat16(gn_apply(gn, c, __bfloat162float(in[i]), s_mean, s_rstd));
-  }
-}
-
 // GN+ReLU backward, first half: g_y = g_a * [gamma x_hat + beta > 0] from
 // the raw input c (g_y may alias g_a), and per (plane, channel, block)
 // partial sums of g_y and g_y * x_hat: gpart[p][c][blockIdx.x][2].

@@ -1,8 +1,9 @@
 // Device code shared by the fused VLG decoder kernels (fused_decoder.cu,
 // the forward; fused_decoder_bwd.cu and fused_decoder_banded.cu, the two
 // backward routes): GroupNorm statistics reduced from per-tile partial
-// sums or read as saved, the direct 3x3 convolution and the 2x2 stride-2
-// transpose convolution, all on the CUDA cores in float32.
+// sums or read as saved, the direct 3x3 convolution, the 2x2 stride-2
+// transpose convolution and GroupNorm+ReLU as its own pass, all on the CUDA
+// cores in float32. fused_up.cu (one Up stage) uses them too.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -290,6 +291,20 @@ tconv2x2_kernel(const bf16* __restrict__ in, int cin, int h, int w_in, GNIn gn,
 #pragma unroll
     for (int j = 0; j < CU_T; ++j)
       out[((size_t)p * cu + cz + j) * hw + pix] = __float2bfloat16(acc[j] + bias[cz + j]);
+  }
+}
+
+// out = GN+ReLU(in), bf16, over (P, C, HW) planes.
+__global__ void __launch_bounds__(NT)
+gn_relu_kernel(const bf16* __restrict__ in, int C, int HW, GNIn gn, bf16* __restrict__ out) {
+  __shared__ float s_mean[MAXG], s_rstd[MAXG];
+  const int p = blockIdx.y;
+  gn_prologue(gn, p, C / GSIZE, s_mean, s_rstd);
+  const int pix = blockIdx.x * NT + threadIdx.x;
+  if (pix >= HW) return;
+  for (int c = 0; c < C; ++c) {
+    const size_t i = ((size_t)p * C + c) * HW + pix;
+    out[i] = __float2bfloat16(gn_apply(gn, c, __bfloat162float(in[i]), s_mean, s_rstd));
   }
 }
 

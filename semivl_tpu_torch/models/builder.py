@@ -1,6 +1,7 @@
 """Model factory (counterpart of ``semivl_tpu/models/builder.py``), for the
-VLGHead / MaskClipViT family (the VOC flagship and the Cityscapes model with
-its ResNetV1c skip encoder) and its frozen guidance encoder."""
+VLGHead / MaskClipViT family (the VOC flagship, the Cityscapes model with
+its ResNetV1c skip encoder and the tiny test VLM) and its frozen guidance
+encoder."""
 
 import dataclasses
 import math
@@ -11,6 +12,7 @@ import torch
 
 from semivl_tpu_torch.configs.models import get_model_config
 from semivl_tpu_torch.device import resolve_device
+from semivl_tpu_torch.models.layers import set_attention_impl
 from semivl_tpu_torch.models.vlm import VLM
 from semivl_tpu_torch.text.embeddings import (
     load_text_embedding,
@@ -71,9 +73,13 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     encoder's BatchNorm running statistics are buffers (the JAX
     ``batch_stats`` collection) and its parameters stay trainable.
     ``cfg['model_args']['renorm_clip_img']`` renormalises the ViT inputs to
-    CLIP statistics and ``cfg['decoder_bwd']`` ('whole' or 'banded')
-    routes the decoder backward. ``device`` defaults to the CUDA card and
-    raises without one."""
+    CLIP statistics, ``cfg['decoder_bwd']`` ('whole' or 'banded') routes
+    the decoder backward and ``cfg['attention_impl']`` ('auto', 'xla' or
+    'pallas') every attention layer (JAX sets it globally in
+    ``train/loop.py:245-247``; here the model carries it). With
+    ``cfg['mcc_fix_resize_pos']`` the guidance encoder is built at the crop
+    size, else at 512 (its positional grid resized). ``device`` defaults to
+    the CUDA card and raises without one."""
     device = resolve_device(device)
     model_type = cfg['model']
     if not model_type.startswith('mmseg.'):
@@ -91,9 +97,10 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
         text_embedding_path(cfg['dataset'], cfg['text_embedding_variant']))
     clip_cfg, mcc_text, mcc_name = None, None, ''
     if cfg.get('clip_encoder'):
-        # the guidance encoder keeps the 512 positional grid (JAX builder
-        # without mcc_fix_resize_pos)
-        clip_cfg = get_model_config(cfg['clip_encoder'])['backbone']
+        clip_cfg = get_model_config(
+            cfg['clip_encoder'],
+            img_size=(cfg['crop_size'] if cfg.get('mcc_fix_resize_pos')
+                      else 512))['backbone']
         mcc_name = text_embedding_path(cfg['dataset'], cfg['mcc_text'])
         mcc_text = load_text_embedding(mcc_name)
 
@@ -105,6 +112,7 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
                 fp_rate=cfg.get('fp_rate', 0.5), mcc_text_name=mcc_name,
                 dtype=dtype)
     init_weights(model, torch.Generator().manual_seed(seed))
+    set_attention_impl(model, cfg.get('attention_impl', 'auto'))
     freeze = model_cfg.get('freeze_backbone', False)
     exclude = model_cfg.get('exclude_keys')
     for name, p in model.named_parameters():

@@ -12,7 +12,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from semivl_tpu_torch.ops import flash_attention
+from semivl_tpu_torch.ops import attention
 
 
 def l2_normalize(x, dim=-1, eps=1e-12):
@@ -55,28 +55,41 @@ class _PackedProj(nn.Module):
 class Attention(nn.Module):
     """Packed-QKV multi-head self-attention (torch MultiheadAttention math).
 
-    The attention reads q, k and v in place from the one in_proj output
-    (row stride 3C) and returns one (B, L, 3C) gradient for it. Every
-    self-attention of the model goes through
-    ``flash_attention.packed_attention``: the kernels on the card, the plain
-    versions on the CPU (JAX ``ops/attention.py::multi_head_attention``
-    routes the same way on a TPU)."""
+    The attention goes through the dispatcher ``ops.attention.qkv_attention``
+    with this layer's ``impl`` ('auto' unless ``set_attention_impl`` sets
+    another), which routes it as JAX ``ops/attention.py::
+    multi_head_attention`` does: to the packed kernels, the head-split
+    kernels or the plain math. The kernels
+    read q, k and v in place from the one in_proj output (row stride 3C) and
+    return one (B, L, 3C) gradient for it."""
 
     def __init__(self, dim, num_heads, qkv_bias=True):
         super().__init__()
         self.num_heads = num_heads
+        self.impl = 'auto'
         self.attn = _PackedProj(dim, qkv_bias)
 
     def forward(self, x, return_v=False):
         p = self.attn
         b = None if p.in_proj_bias is None else p.in_proj_bias.to(x.dtype)
         qkv = F.linear(x, p.in_proj_weight.to(x.dtype), b)
-        out = linear(flash_attention.packed_attention(qkv, self.num_heads),
+        out = linear(attention.qkv_attention(qkv, self.num_heads, self.impl),
                      p.out_proj)
         if return_v:
             v = qkv[..., 2 * qkv.shape[-1] // 3:]
             return out, linear(v, p.out_proj)
         return out, None
+
+
+def set_attention_impl(model, impl):
+    """Route every attention layer of ``model`` through ``impl`` ('auto',
+    'xla' or 'pallas'), as the run config key ``attention_impl`` asks (JAX
+    ``train/loop.py:245-247`` sets a process-wide default instead)."""
+    if impl not in attention.IMPLS:
+        raise ValueError(f'attention_impl {impl!r}: one of {attention.IMPLS}')
+    for m in model.modules():
+        if isinstance(m, Attention):
+            m.impl = impl
 
 
 def gelu_exact(x):

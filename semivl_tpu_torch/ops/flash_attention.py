@@ -1,21 +1,26 @@
-"""Packed multi-head self-attention: the Hopper kernels and their plain
-versions.
+"""Multi-head self-attention: the Hopper kernels and their plain versions.
 
-Counterpart of ``semivl_tpu/ops/flash_attention.py::flash_mha`` (packed
-path: ``_packed_fwd_kernel`` and ``_packed_bwd_kernel``) and of the routing
-in ``semivl_tpu/ops/attention.py::multi_head_attention``; the plain forward
-is that module's ``_mha_xla``.
+Counterpart of ``semivl_tpu/ops/flash_attention.py::flash_mha``: the packed
+path (``_packed_fwd_kernel``, ``_packed_bwd_kernel``: heads of 64 in an
+even count) and the head-split path (``_fwd_kernel``, ``_bwd_kernel``: any
+other head width). ``ops.attention`` routes between them and the plain
+``_mha_xla`` math as JAX ``ops/attention.py::multi_head_attention`` does.
 
-``packed_attention`` takes the packed (B, L, 3C) in_proj output, reads q,
-k and v in place as its column thirds, and is differentiable: its
-``torch.autograd.Function`` returns one (B, L, 3C) gradient, so autograd
-never re-concatenates three.
+``packed_attention`` and ``heads_attention`` take the packed (B, L, 3C)
+in_proj output, read q, k and v in place as its column thirds, and are
+differentiable: their ``torch.autograd.Function`` returns one (B, L, 3C)
+gradient, so autograd never re-concatenates three.
 
-CUDA tensors launch ``csrc/flash_attention.cu`` (bf16, head_dim 64) or
-raise; CPU tensors take the plain versions (``flash_mha_plain`` forward,
-``flash_mha_bwd_plain`` backward). ``packed_attention_rounded`` is the
-kernels' own arithmetic in plain PyTorch, the reference the kernels are
-held to on the card.
+CUDA tensors launch the forward kernel of their route,
+``csrc/flash_attention.cu`` (packed, bf16, head_dim 64) or
+``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim 16, 32, 64 or
+128), and the one backward kernel of both routes (the latter's
+``heads_attention_bwd``), or raise; CPU tensors take the plain versions
+(``flash_mha_plain`` and ``flash_mha_heads_plain`` forward,
+``flash_mha_bwd_plain`` backward). The references the kernels are held to
+on the card round to bf16 where the kernels do: ``packed_attention_rounded``
+for the packed route; for the head-split route the plain versions
+themselves, whose rounding points are the kernels'.
 """
 
 import ctypes
@@ -25,13 +30,14 @@ import torch.nn.functional as F
 
 from semivl_tpu_torch.ops import _build
 
-launches = 0      # forward kernel launches since the last reset
-bwd_launches = 0  # backward kernel launches (read by chip_smoke.py)
+launches = 0            # packed forward kernel launches since the last reset
+bwd_launches = 0        # packed backward launches (read by chip_smoke.py)
+heads_launches = 0      # head-split forward launches
+heads_bwd_launches = 0  # head-split backward launches
+HEAD_DIMS = (16, 32, 64, 128)   # head widths of the head-split kernels
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
-_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 4
-                 + [ctypes.c_longlong] * 6 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def _split_heads(x, num_heads):
@@ -139,32 +145,16 @@ def _fwd_kernel(q, k, v, num_heads, valid_len, with_lse):
 
 
 def flash_mha_bwd(qkv, out, lse, g, num_heads, valid_len=None):
-    """Backward kernel: the (B, L, 3C) gradient of ``packed_attention``
-    from the forward's output ``out``, its row log-sum-exp ``lse`` (float32
-    (B, H, L)) and the output gradient ``g``."""
+    """Backward of ``packed_attention``: the (B, L, 3C) gradient from the
+    forward's output ``out``, its row log-sum-exp ``lse`` (float32 (B, H,
+    L)) and the output gradient ``g``. It launches the head-split backward
+    kernel at head_dim 64, which computes the JAX ``_packed_bwd_kernel``'s
+    function (``flash_mha_bwd_plain``)."""
     global bwd_launches
-    b, l, c3 = qkv.shape
-    c = c3 // 3
-    valid_len = l if valid_len is None else int(valid_len)
-    q, k, v = qkv.split(c, dim=-1)
-    _check(q, k, v, num_heads, valid_len)
-    out, g = out.contiguous(), g.to(qkv.dtype).contiguous()
-    if out.shape != (b, l, c) or g.shape != (b, l, c) \
-            or lse.shape != (b, num_heads, l) or not lse.is_contiguous():
-        raise ValueError('flash_mha_bwd: out / g (B, L, C) and lse '
-                         '(B, H, L) do not match qkv')
-    dqkv = torch.empty((b, l, c3), dtype=qkv.dtype, device=qkv.device)
-    delta = torch.empty((b, num_heads, l), dtype=torch.float32,
-                        device=qkv.device)
-    dq, dk, dv = dqkv.split(c, dim=-1)
-    fn = _build.load('flash_attention').packed_attention_bwd
-    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
-    err = fn(*(_build.ptr(t) for t in (q, k, v, out, g, lse, delta, dq, dk,
-                                       dv)),
-             b, l, num_heads, valid_len, q.stride(0), q.stride(1),
-             g.stride(0), g.stride(1), dqkv.stride(0), dqkv.stride(1), 0.125,
-             _stream(qkv))
-    _build.check(err, 'packed_attention_bwd')
+    c = qkv.shape[-1] // 3
+    vl = qkv.shape[1] if valid_len is None else int(valid_len)
+    _check(*qkv.split(c, dim=-1), num_heads, vl)
+    dqkv = _bwd_kernel(qkv, out, lse, g, num_heads, vl)
     bwd_launches += 1
     return dqkv
 
@@ -248,6 +238,7 @@ def _fwd_rounded(q, k, v, num_heads, valid_len):
 
 
 class _RoundedAttention(torch.autograd.Function):
+    """Forward ``_fwd_rounded``, backward ``flash_mha_bwd_plain``."""
 
     @staticmethod
     def forward(ctx, qkv, num_heads, valid_len):
@@ -270,3 +261,173 @@ def packed_attention_rounded(qkv, num_heads, valid_len=None):
     of ``flash_mha_bwd_plain``. The kernels differ from it only in the
     order of float32 sums."""
     return _RoundedAttention.apply(qkv, num_heads, valid_len)
+
+
+# ---------------------------------------------------------------------------
+# head-split route (JAX ``_fused_attention``: ``_fwd_kernel``, ``_bwd_kernel``)
+
+def flash_mha_heads_plain(q, k, v, num_heads, valid_len=None):
+    """The JAX ``_fwd_kernel`` math: q scaled by 1/sqrt(d) in its own dtype,
+    float32 logits, keys at or past ``valid_len`` masked to -1e30, a
+    float32 softmax normalised before the cast to v's dtype, p v summed in
+    float32 and cast once. Unlike ``flash_mha_plain`` (``_mha_xla``) the
+    logits are never rounded to the input dtype."""
+    d = q.shape[-1] // num_heads
+    qh = _split_heads(q, num_heads) * torch.tensor(d ** -0.5, dtype=q.dtype)
+    s = torch.matmul(qh.float(),
+                     _split_heads(k, num_heads).float().transpose(-1, -2))
+    if valid_len is not None and valid_len < k.shape[1]:
+        kidx = torch.arange(k.shape[1], device=q.device)
+        s = s.masked_fill(kidx >= valid_len, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    p = (p / p.sum(dim=-1, keepdim=True)).to(v.dtype)
+    out = torch.matmul(p.float(), _split_heads(v, num_heads).float())
+    return _merge_heads(out).to(q.dtype)
+
+
+_HEADS_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_longlong] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 5
+                 + [ctypes.c_longlong] * 6 + [ctypes.c_float] * 2
+                 + [ctypes.c_void_p])
+
+
+def _q_scale(d):
+    """1/sqrt(d) as the bf16 value q is multiplied by (JAX
+    ``jnp.asarray(scale, q.dtype)``)."""
+    return float(torch.tensor(d ** -0.5, dtype=torch.bfloat16))
+
+
+def _check_heads(qkv, num_heads, valid_len):
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    if c3 % 3 or c % num_heads or c // num_heads not in HEAD_DIMS:
+        raise ValueError(f'head-split attention kernel takes head_dim in '
+                         f'{HEAD_DIMS}: C={c}, {num_heads} heads')
+    if not qkv.is_cuda or qkv.dtype != torch.bfloat16:
+        raise ValueError(f'head-split attention kernel takes bf16 CUDA '
+                         f'tensors, got {qkv.dtype} on {qkv.device}')
+    if qkv.stride(2) != 1 or qkv.stride(1) % 8 or qkv.stride(0) % 8 \
+            or qkv.data_ptr() % 16:
+        raise ValueError('head-split attention kernel needs unit column '
+                         'stride and 16-byte aligned rows')
+    if not 1 <= valid_len <= l:
+        raise ValueError(f'valid_len {valid_len} outside [1, {l}]')
+
+
+def flash_mha_heads(qkv, num_heads, valid_len=None, with_lse=False):
+    """Forward kernel of the head-split route over the packed (B, L, 3C)
+    qkv; returns (out (B, L, C), row log-sum-exp float32 (B, H, L) or
+    None)."""
+    global heads_launches
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    vl = l if valid_len is None else int(valid_len)
+    _check_heads(qkv, num_heads, vl)
+    q, k, v = qkv.split(c, dim=-1)
+    d = c // num_heads
+    out = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
+    lse = (torch.empty((b, num_heads, l), dtype=torch.float32,
+                       device=qkv.device) if with_lse else None)
+    fn = _build.load('flash_attention_heads').heads_attention_fwd
+    fn.argtypes, fn.restype = _HEADS_ARGTYPES, ctypes.c_int
+    err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
+             _build.ptr(lse) if with_lse else ctypes.c_void_p(None),
+             b, l, num_heads, d, vl, qkv.stride(0), qkv.stride(1),
+             out.stride(0), out.stride(1), _q_scale(d), _stream(qkv))
+    _build.check(err, 'heads_attention_fwd')
+    heads_launches += 1
+    return out, lse
+
+
+def _bwd_kernel(qkv, out, lse, g, num_heads, valid_len):
+    """Launch ``heads_attention_bwd``, the backward kernel of both routes;
+    returns the (B, L, 3C) gradient."""
+    b, l, c3 = qkv.shape
+    c = c3 // 3
+    out, g = out.contiguous(), g.to(qkv.dtype).contiguous()
+    if out.shape != (b, l, c) or g.shape != (b, l, c) \
+            or lse.shape != (b, num_heads, l) or not lse.is_contiguous():
+        raise ValueError('attention backward: out / g (B, L, C) and lse '
+                         '(B, H, L) do not match qkv')
+    d = c // num_heads
+    q, k, v = qkv.split(c, dim=-1)
+    dqkv = torch.empty((b, l, c3), dtype=qkv.dtype, device=qkv.device)
+    delta = torch.empty((b, num_heads, l), dtype=torch.float32,
+                        device=qkv.device)
+    dq, dk, dv = dqkv.split(c, dim=-1)
+    fn = _build.load('flash_attention_heads').heads_attention_bwd
+    fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
+    err = fn(*(_build.ptr(t) for t in (q, k, v, out, g, lse, delta, dq, dk,
+                                       dv)),
+             b, l, num_heads, d, valid_len, qkv.stride(0), qkv.stride(1),
+             g.stride(0), g.stride(1), dqkv.stride(0), dqkv.stride(1),
+             _q_scale(d), d ** -0.5, _stream(qkv))
+    _build.check(err, 'heads_attention_bwd')
+    return dqkv
+
+
+def flash_mha_heads_bwd(qkv, out, lse, g, num_heads, valid_len=None):
+    """Backward kernel of the head-split route: the (B, L, 3C) gradient
+    from the forward's output ``out``, its row log-sum-exp ``lse`` and the
+    output gradient ``g``. The JAX ``_bwd_kernel`` computes what
+    ``_packed_bwd_kernel`` does, so its plain version is
+    ``flash_mha_bwd_plain``."""
+    global heads_bwd_launches
+    vl = qkv.shape[1] if valid_len is None else int(valid_len)
+    _check_heads(qkv, num_heads, vl)
+    dqkv = _bwd_kernel(qkv, out, lse, g, num_heads, vl)
+    heads_bwd_launches += 1
+    return dqkv
+
+
+class _HeadsAttention(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, qkv, num_heads, valid_len):
+        if qkv.is_cuda:
+            out, lse = flash_mha_heads(qkv, num_heads, valid_len, True)
+        else:
+            c = qkv.shape[-1] // 3
+            out, lse = flash_mha_heads_plain(*qkv.split(c, dim=-1), num_heads,
+                                             valid_len), None
+        ctx.save_for_backward(qkv, out, lse)
+        ctx.num_heads, ctx.valid_len = num_heads, valid_len
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        qkv, out, lse = ctx.saved_tensors
+        if qkv.is_cuda:
+            dqkv = flash_mha_heads_bwd(qkv, out, lse, g, ctx.num_heads,
+                                       ctx.valid_len)
+        else:
+            dqkv = flash_mha_bwd_plain(qkv, out, g, ctx.num_heads,
+                                       ctx.valid_len)
+        return dqkv, None, None
+
+
+def heads_attention_plain(qkv, num_heads, valid_len=None):
+    """``heads_attention`` as plain PyTorch, differentiated by autograd.
+    On bf16 inputs it is also the kernels' rounded reference: the kernels
+    round where JAX's ``_fwd_kernel`` and ``_bwd_kernel`` do (q times the
+    bf16 scale, the normalised p and the output; p and ds before their
+    products, as ``flash_mha_bwd_plain``), and differ from it only in the
+    order of float32 sums and in taking p as exp(s - lse) from the
+    forward's row statistics."""
+    c = qkv.shape[-1] // 3
+    return flash_mha_heads_plain(*qkv.split(c, dim=-1), num_heads, valid_len)
+
+
+def heads_attention(qkv, num_heads, valid_len=None):
+    """Head-split self-attention over the packed (B, L, 3C) in_proj output
+    -> (B, L, C), for any head width the kernels take (``HEAD_DIMS``).
+
+    Differentiable w.r.t. ``qkv`` (one (B, L, 3C) gradient); without
+    autograd the forward kernel alone (no log-sum-exp is written)."""
+    if torch.is_grad_enabled() and qkv.requires_grad:
+        return _HeadsAttention.apply(qkv, num_heads, valid_len)
+    if not qkv.is_cuda:
+        return heads_attention_plain(qkv, num_heads, valid_len)
+    return flash_mha_heads(qkv, num_heads, valid_len)[0]

@@ -53,10 +53,17 @@ def conv_transpose_2x2(x, weight, bias):
     return out.reshape(b, weight.shape[1], 2 * h, 2 * w) + bias[:, None, None]
 
 
+def gn_groups(c):
+    """GroupNorm groups of a C-channel map: C // 16, at least one (JAX
+    ``fused_up.py:262-267``: C = 24 is one group of 24)."""
+    return max(c // 16, 1)
+
+
 def gn_relu(x, weight, bias):
-    """GroupNorm(C // 16 groups, eps 1e-5) with float32 statistics, then
+    """GroupNorm(``gn_groups(C)``, eps 1e-5) with float32 statistics, then
     ReLU, output in the input dtype."""
-    y = F.group_norm(x.float(), x.shape[1] // 16, weight, bias, eps=1e-5)
+    y = F.group_norm(x.float(), gn_groups(x.shape[1]), weight, bias,
+                     eps=1e-5)
     return F.relu(y).to(x.dtype)
 
 
@@ -90,6 +97,38 @@ def _round_bf16(t):
     return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
 
 
+def up_stage_rounded(y, skip, p, dtype=torch.float32):
+    """One Up stage as the stage kernels compute it (see
+    ``fused_vlg_decoder_rounded``): ``y`` in ``dtype``, the normalised
+    output in ``dtype`` holding bf16 values."""
+    w = {k: _round_bf16(p[k].to(dtype)) for k in ('up_weight', 'up_bias',
+                                                  'conv1_weight',
+                                                  'conv2_weight')}
+    up = _round_bf16(conv_transpose_2x2(y, w['up_weight'], w['up_bias']))
+    cu = up.shape[1]
+    ym = F.conv2d(up, w['conv1_weight'][:, :cu], padding=1)
+    ys = F.conv2d(skip.to(dtype), w['conv1_weight'][:, cu:], padding=1)
+    c1 = _round_bf16((ym.unflatten(0, (skip.shape[0], -1))
+                      + ys[:, None]).flatten(0, 1))
+    a1 = _gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias'])
+    c2 = _round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1))
+    return _gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias'])
+
+
+def _gn_relu_rounded(c, weight, bias):
+    y = F.group_norm(c, gn_groups(c.shape[1]), weight.to(c.dtype),
+                     bias.to(c.dtype), eps=1e-5)
+    return _round_bf16(F.relu(y))
+
+
+def head_rounded(y, head_params):
+    """The 3x3 head conv as the kernels compute it: weights rounded to bf16,
+    sums in y's dtype, the logits rounded to bf16."""
+    dtype = y.dtype
+    return _round_bf16(F.conv2d(y, _round_bf16(head_params['weight'].to(dtype)),
+                                head_params['bias'].to(dtype), padding=1))
+
+
 def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
                               head_params, dtype=torch.float32):
     """The decoder kernels' arithmetic in plain PyTorch: products and
@@ -102,28 +141,10 @@ def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
     from it only in the order of float32 sums (``dtype=torch.float64``
     measures how much that order matters). Returns (P, 1, 4h, 4w) logits
     in x's dtype."""
-    def gn_relu_rounded(c, weight, bias):
-        y = F.group_norm(c, c.shape[1] // 16, weight.to(dtype),
-                         bias.to(dtype), eps=1e-5)
-        return _round_bf16(F.relu(y))
-
     y = x.to(dtype)
     for p, skip in ((params1, skip1), (params2, skip2)):
-        w = {k: _round_bf16(p[k].to(dtype)) for k in ('up_weight', 'up_bias',
-                                                      'conv1_weight',
-                                                      'conv2_weight')}
-        up = _round_bf16(conv_transpose_2x2(y, w['up_weight'], w['up_bias']))
-        cu = up.shape[1]
-        ym = F.conv2d(up, w['conv1_weight'][:, :cu], padding=1)
-        ys = F.conv2d(skip.to(dtype), w['conv1_weight'][:, cu:], padding=1)
-        c1 = _round_bf16((ym.unflatten(0, (skip.shape[0], -1))
-                          + ys[:, None]).flatten(0, 1))
-        a1 = gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias'])
-        c2 = _round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1))
-        y = gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias'])
-    out = F.conv2d(y, _round_bf16(head_params['weight'].to(dtype)),
-                   head_params['bias'].to(dtype), padding=1)
-    return _round_bf16(out).to(x.dtype)
+        y = up_stage_rounded(y, skip, p, dtype)
+    return head_rounded(y, head_params).to(x.dtype)
 
 
 def _store(t, dt):
@@ -220,14 +241,14 @@ def _kernel_weights(p, dt):
         g2b=p['gn2_bias'].float().contiguous())
 
 
-def _check(x, skip, p):
+def _check(x, skip, p, what='fused_vlg_decoder kernel'):
     if not (x.is_cuda and skip.is_cuda) or x.dtype != torch.bfloat16 \
             or skip.dtype != torch.bfloat16:
-        raise ValueError('fused_vlg_decoder kernel takes bf16 CUDA tensors, '
+        raise ValueError(f'{what} takes bf16 CUDA tensors, '
                          f'got {x.dtype} on {x.device}, {skip.dtype} on '
                          f'{skip.device}')
     if not (x.is_contiguous() and skip.is_contiguous()):
-        raise ValueError('fused_vlg_decoder kernel needs contiguous NCHW')
+        raise ValueError(f'{what} needs contiguous NCHW')
     pl, cin, h, w = x.shape
     b, cs, hs, ws = skip.shape
     cu = p['up_weight'].shape[1]
@@ -239,9 +260,9 @@ def _check(x, skip, p):
             p['conv1_weight'].shape[1] != cu + cs:
         raise ValueError('stage weights do not match the input channels')
     if cout not in (16, 32, 64) or cin % 32 or cu % 16 or cs % 8:
-        raise ValueError(f'fused_vlg_decoder kernel takes Cout in (16, 32, '
-                         f'64), Cin % 32 == 0, Cu % 16 == 0, Cs % 8 == 0; '
-                         f'got {cout}, {cin}, {cu}, {cs}')
+        raise ValueError(f'{what} takes Cout in (16, 32, 64), Cin % 32 == '
+                         f'0, Cu % 16 == 0, Cs % 8 == 0; got {cout}, {cin}, '
+                         f'{cu}, {cs}')
 
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,

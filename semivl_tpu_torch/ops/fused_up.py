@@ -1,0 +1,126 @@
+"""One VLG Up stage, forward only: the Hopper kernel and its plain version.
+
+Counterpart of ``semivl_tpu/ops/fused_up.py::fused_up_stage`` (the Pallas
+``_up_fused_kernel``, reached by ``tools/fused_up_bench.py``; no model
+routes to it): the 2x2 transpose conv, conv3x3 over [up, skip] (the skip
+per image, shared by the image's N planes), GroupNorm (``max(C // 16, 1)``
+groups) -> ReLU -> conv3x3 -> GroupNorm -> ReLU, and optionally the
+1-channel 3x3 head conv with bias as an epilogue.
+
+Planes are NCHW; ``stage_params`` carries the torch-layout names of
+``models.vlg_head.Up.stage_params`` (``up_weight`` (Cin, Cu, 2, 2),
+``up_bias``, ``conv1_weight`` (Cout, Cu + Cs, 3, 3), ``gn1_weight``,
+``gn1_bias``, ``conv2_weight``, ``gn2_weight``, ``gn2_bias``; from a JAX
+``Up`` tree: ``convert.up_stage_params``), the head ``{'weight': (1, Cout,
+3, 3), 'bias': (1,)}``. CUDA tensors launch ``csrc/fused_up.cu`` (bf16,
+Cout 16, 32 or 64) or raise; CPU tensors take ``fused_up_stage_plain``.
+``fused_up_stage_rounded`` is the kernel's own arithmetic in plain PyTorch,
+the reference it is held to on the card.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from semivl_tpu_torch.ops import _build, fused_decoder
+
+launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
+
+_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
+             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 14)
+
+
+def fused_up_stage_plain(x, skip, stage_params, head_params=None):
+    """The JAX ``Up`` chain in x's dtype (the transpose conv and both convs
+    stored in that dtype, GroupNorm statistics in float32), plus the head:
+    (P, Cout, 2h, 2w), or (P, 1, 2h, 2w) with ``head_params``."""
+    y = fused_decoder.up_stage_plain(x, skip, stage_params)
+    if head_params is None:
+        return y
+    dt = y.dtype
+    return F.conv2d(y, head_params['weight'].to(dt),
+                    head_params['bias'].to(dt), padding=1)
+
+
+def fused_up_stage_rounded(x, skip, stage_params, head_params=None,
+                           dtype=torch.float32):
+    """The kernel's arithmetic in plain PyTorch: sums and GroupNorm in
+    ``dtype`` over weights rounded to bf16, a bf16 rounding wherever the
+    kernel stores bf16 (the transpose conv output, the raw conv1 after its
+    up and skip halves are summed, the raw conv2, both activations, the
+    logits). Output in x's dtype."""
+    y = fused_decoder.up_stage_rounded(x.to(dtype), skip, stage_params, dtype)
+    if head_params is not None:
+        y = fused_decoder.head_rounded(y, head_params)
+    return y.to(x.dtype)
+
+
+def _check(x, skip, p, head_params):
+    fused_decoder._check(x, skip, p, 'fused_up_stage kernel')
+    if head_params is not None and tuple(head_params['weight'].shape) != (
+            1, p['conv2_weight'].shape[0], 3, 3):
+        raise ValueError('head weight must be (1, Cout, 3, 3)')
+
+
+def _kernel(x, skip, p, head_params):
+    global launches
+    _check(x, skip, p, head_params)
+    pl, cin, h, w = x.shape
+    b, cs = skip.shape[:2]
+    cu = p['up_weight'].shape[1]
+    cout = p['conv2_weight'].shape[0]
+    dev, hh, ww = x.device, 2 * h, 2 * w
+    kw = fused_decoder._kernel_weights(p, x.dtype)
+    tiles = -(-hh // 16) * -(-ww // 16)
+
+    def e(shape, dtype=x.dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    up, ys = e((pl, cu, hh, ww)), e((b, cout, hh, ww), torch.float32)
+    c1, c2 = e((pl, cout, hh, ww)), e((pl, cout, hh, ww))
+    part1 = e((pl, cout // 16, tiles, 2), torch.float32)
+    part2 = torch.empty_like(part1)
+    null = ctypes.c_void_p(None)
+    hw_ = hb = null
+    if head_params is None:
+        out = e((pl, cout, hh, ww))
+    else:
+        out = e((pl, 1, hh, ww))
+        head_w = head_params['weight'].to(x.dtype).float().permute(1, 2, 3, 0)
+        head_w = head_w.contiguous()
+        head_b = head_params['bias'].float().contiguous()
+        hw_, hb = _build.ptr(head_w), _build.ptr(head_b)
+    fn = _build.load('fused_up').up_stage_fwd
+    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
+    k = {n: _build.ptr(t) for n, t in kw.items()}
+    err = fn(_build.ptr(x), pl, cin, h, w, _build.ptr(skip), b, cs,
+             k['up_w'], k['up_b'], cu, k['w1u'], k['w1s'], k['w2'], cout,
+             k['g1w'], k['g1b'], k['g2w'], k['g2b'], hw_, hb,
+             _build.ptr(up), _build.ptr(ys), _build.ptr(c1), _build.ptr(part1),
+             _build.ptr(c2), _build.ptr(part2), _build.ptr(out),
+             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, 'up_stage_fwd')
+    launches += 1
+    return out
+
+
+def fused_up_stage(x, skip, stage_params, head_params=None):
+    """One Up stage on channel-first planes, forward only.
+
+    x: (P, Cin, h, w) with P = B * N; skip: (B, Cs, 2h, 2w), already at the
+    output size. Returns (P, Cout, 2h, 2w) in x's dtype, or with
+    ``head_params`` the (P, 1, 2h, 2w) head logits. On the card the
+    kernel takes bf16 planes, Cout in (16, 32, 64), Cin % 32 == 0 and
+    Cu % 16 == 0; like the TPU kernel it has no gradient."""
+    if not x.is_cuda:
+        return fused_up_stage_plain(x, skip, stage_params, head_params)
+    tensors = [x, skip, *stage_params.values(),
+               *(head_params or {}).values()]
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise ValueError('fused_up_stage is forward only: call it under '
+                         'torch.no_grad() or with inputs that need no '
+                         'gradient')
+    return _kernel(x.contiguous(), skip.contiguous(), stage_params,
+                   head_params)

@@ -14,7 +14,8 @@ import torch
 
 import semivl_tpu_torch
 from semivl_tpu_torch.configs import (cityscapes_cfg, cityscapes_train_cfg,
-                                      flagship_cfg, flagship_train_cfg)
+                                      flagship_cfg, flagship_train_cfg,
+                                      tiny_cfg, tiny_train_cfg)
 from semivl_tpu_torch.ops import _build
 from semivl_tpu_torch.text.embeddings import (
     load_text_embedding,
@@ -48,7 +49,10 @@ def test_import_loads_no_jax():
     loaded = out.split()
     for m in ('semivl_tpu_torch.evaluation.predict',
               'semivl_tpu_torch.models.resnet',
-              'semivl_tpu_torch.ops.fused_decoder_banded'):
+              'semivl_tpu_torch.ops.attention',
+              'semivl_tpu_torch.ops.fused_decoder_banded',
+              'semivl_tpu_torch.ops.fused_up',
+              'semivl_tpu_torch.tools.fused_up_bench'):
         assert m in loaded, m
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -83,6 +87,9 @@ def test_entry_points_need_a_device_on_a_host_without_card():
         build_model(flagship_cfg())
     with pytest.raises(RuntimeError, match='no CUDA device'):
         build_model(flagship_train_cfg())
+    for cfg in (tiny_cfg(), tiny_train_cfg()):
+        with pytest.raises(RuntimeError, match='no CUDA device'):
+            build_model(cfg)
     for cfg in (cityscapes_cfg(), cityscapes_train_cfg()):
         with pytest.raises(RuntimeError, match='no CUDA device'):
             build_model(cfg)
@@ -145,10 +152,11 @@ def test_cityscapes_config_and_text_assets():
 
 def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
-    assert _build.sources() == ['flash_attention', 'fused_decoder',
-                                'fused_decoder_banded', 'fused_decoder_bwd']
+    assert _build.sources() == ['flash_attention', 'flash_attention_heads',
+                                'fused_decoder', 'fused_decoder_banded',
+                                'fused_decoder_bwd', 'fused_up']
     paths = {n: _build.library_path(n) for n in _build.sources()}
-    assert len(set(paths.values())) == 4
+    assert len(set(paths.values())) == 6
     for n, p in paths.items():
         assert os.path.dirname(p) == _build.BUILD_DIR
         assert os.path.basename(p).startswith(n + '-') and p.endswith('.so')

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card:
+packed and head-split attention, the decoder stages and their backward
+routes, and the fused Up stage.
 
 Every test here is marked ``cuda`` and skips on a host without an NVIDIA
 GPU (a CUDA kernel has no CPU mode). The file imports neither JAX nor the
@@ -15,6 +17,10 @@ the kernel the unnormalised ones) and within 2e-3 relative L2 of
 ``packed_attention_rounded`` (the kernel's rounding points: only the order
 of float32 sums differs); decoder logits within 5e-2 of the logit scale
 (bf16 storage between the convolutions, GroupNorm amplifying it).
+The head-split attention rounds where its plain version does: 2e-3 (forward)
+and 5e-3 (backward) relative L2, and 5e-3 against the packed kernels on the
+same input. The fused Up stage within 1e-2 relative L2 of
+``fused_up_stage_rounded``.
 Backward: the attention gradient within 2e-2 of its scale (dq, dk, dv are
 rounded to bf16 once, p and ds before their products, as in the plain
 version); each decoder gradient within 2e-2 relative L2 of autograd
@@ -108,8 +114,8 @@ def test_decoder_kernel_matches_plain(card, b, n, h):
     assert err < 5e-2 * max(scale, 1.0), (err, scale)
 
 
-def _attention_case(card, b, length, heads, valid_len):
-    c = 64 * heads
+def _attention_case(card, b, length, heads, d=64):
+    c = d * heads
     qkv = torch.randn(b, length, 3 * c, generator=card, device='cuda',
                       dtype=torch.bfloat16)
     g = torch.randn(b, length, c, generator=card, device='cuda',
@@ -121,7 +127,7 @@ def _attention_case(card, b, length, heads, valid_len):
     (4, 1025, 12, None), (384, 21, 4, None), (2, 130, 2, 100)])
 def test_attention_bwd_kernel_matches_plain(card, b, length, heads,
                                             valid_len):
-    qkv, g = _attention_case(card, b, length, heads, valid_len)
+    qkv, g = _attention_case(card, b, length, heads)
     c = 64 * heads
     q, k, v = qkv.split(c, dim=-1)
     vl = length if valid_len is None else valid_len
@@ -140,7 +146,7 @@ def test_attention_bwd_kernel_matches_plain(card, b, length, heads,
 
 
 def test_packed_attention_autograd_runs_the_kernels(card):
-    qkv, g = _attention_case(card, 2, 130, 2, None)
+    qkv, g = _attention_case(card, 2, 130, 2)
     qkv.requires_grad_(True)
     f0, b0 = flash_attention.launches, flash_attention.bwd_launches
     out = flash_attention.packed_attention(qkv, 2)
@@ -336,3 +342,143 @@ def test_banded_passes_refuse_what_they_cannot_read(card):
     with pytest.raises(ValueError, match='even'):
         odd = torch.zeros(2, 32, 7, 8, device='cuda', dtype=torch.bfloat16)
         fdb.pass_b(odd, odd, odd.float(), p, stats, mg)
+
+
+# ------------------------------------------------ head-split attention
+
+# (B, L, heads, D, valid_len): the tiny VLM's ViT (4 x 16) and semantic
+# transformer (2 x 32), odd counts of 64-wide heads, encoder-length heads of
+# 32 (with valid_len) and of 128
+HEADS_CASES = [(2, 17, 4, 16, None), (8, 21, 2, 32, None),
+               (2, 130, 3, 64, 100), (2, 1025, 24, 32, 1000),
+               (1, 300, 8, 128, None)]
+
+
+@pytest.mark.parametrize('b,length,heads,d,valid_len', HEADS_CASES)
+def test_heads_kernel_matches_plain(card, b, length, heads, d, valid_len):
+    """The head-split forward rounds where its plain version does, so it
+    is held to it at 2e-3 relative L2 (float32 sum order only); the
+    backward at 5e-3; reruns are bit-identical."""
+    qkv, g = _attention_case(card, b, length, heads, d)
+    before = (flash_attention.heads_launches,
+              flash_attention.heads_bwd_launches)
+    out, lse = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    got = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads,
+                                              valid_len)
+    assert (flash_attention.heads_launches,
+            flash_attention.heads_bwd_launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    want = flash_attention.heads_attention_plain(qkv, heads, valid_len)
+    want_g = flash_attention.flash_mha_bwd_plain(qkv, out, g, heads,
+                                                 valid_len)
+    again = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(
+        got.float()).all()
+    assert rel_l2(out, want.float()) < 2e-3
+    assert (out.float() - want.float()).abs().max().item() < 2e-2
+    assert rel_l2(got, want_g.float()) < 5e-3
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(got, flash_attention.flash_mha_heads_bwd(
+        qkv, out, lse, g, heads, valid_len))
+
+
+def test_heads_kernel_agrees_with_packed(card):
+    """12 heads of 64 through both kernel routes: the same function,
+    rounded at other points (p before or after normalisation)."""
+    qkv, g = _attention_case(card, 2, 1025, 12, 64)
+    x = qkv.clone().requires_grad_(True)
+    y = qkv.clone().requires_grad_(True)
+    heads_out = flash_attention.heads_attention(x, 12)
+    packed_out = flash_attention.packed_attention(y, 12)
+    (gh,) = torch.autograd.grad(heads_out, x, g)
+    (gp,) = torch.autograd.grad(packed_out, y, g)
+    torch.cuda.synchronize()
+    assert rel_l2(heads_out, packed_out.float()) < 5e-3
+    assert rel_l2(gh, gp.float()) < 5e-3
+
+
+def test_heads_kernel_refuses_other_head_dims(card):
+    qkv = torch.zeros(1, 8, 3 * 96, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='head_dim'):
+        flash_attention.heads_attention(qkv, 2)
+    f = torch.zeros(1, 8, 3 * 64, device='cuda')
+    with pytest.raises(ValueError, match='bf16'):
+        flash_attention.heads_attention(f, 4)
+
+
+def test_dispatcher_routes_on_the_card(card):
+    """'pallas' sends heads of 32 to the head-split kernel at any length;
+    'auto' only from 1536 tokens on (plain below), and heads of 64 in an
+    even count to the packed kernel."""
+    from semivl_tpu_torch.ops import attention
+
+    def launches():
+        return flash_attention.heads_launches, flash_attention.launches
+
+    for length, impl, moved in ((64, 'pallas', (1, 0)), (64, 'auto', (0, 0)),
+                                (1536, 'auto', (1, 0))):
+        qkv, _ = _attention_case(card, 1, length, 4, 32)
+        before = launches()
+        attention.qkv_attention(qkv, 4, impl)
+        assert tuple(a - b for a, b in zip(launches(), before)) == moved
+    qkv, _ = _attention_case(card, 1, 64, 2, 64)
+    before = launches()
+    attention.qkv_attention(qkv, 2, 'auto')
+    assert tuple(a - b for a, b in zip(launches(), before)) == (0, 1)
+
+
+# ------------------------------------------------------ fused Up stage
+
+@pytest.mark.parametrize('b,n,h,w,cin,cs,cout,with_head', [
+    (2, 3, 16, 16, 128, 32, 64, False), (2, 3, 16, 16, 64, 16, 32, True),
+    (1, 2, 13, 9, 32, 16, 16, False), (1, 2, 13, 9, 32, 16, 16, True)])
+def test_fused_up_kernel_matches_plain(card, b, n, h, w, cin, cs, cout,
+                                       with_head):
+    """The Up stage (flagship widths, and the tiny decoder's with ragged
+    tiles) against ``fused_up_stage_rounded`` (its own bf16 points) within
+    1e-2 relative L2 and against the plain bf16 chain within 5e-2 of the
+    output scale; bit-identical reruns; a planted fault (conv1 without its
+    top-left tap) fails the first limit."""
+    from semivl_tpu_torch.ops import fused_up
+    p = _stage_params(card, cin, cs, cout)
+    x = torch.randn(b * n, cin, h, w, generator=card,
+                    device='cuda').bfloat16()
+    skip = torch.randn(b, cs, 2 * h, 2 * w, generator=card,
+                       device='cuda').bfloat16()
+    hd = None
+    if with_head:
+        hd = dict(weight=0.2 * torch.randn(1, cout, 3, 3, generator=card,
+                                           device='cuda'),
+                  bias=torch.randn(1, generator=card, device='cuda'))
+    before = fused_up.launches
+    got = fused_up.fused_up_stage(x, skip, p, hd)
+    assert fused_up.launches == before + 1
+    again = fused_up.fused_up_stage(x, skip, p, hd)
+    ref = fused_up.fused_up_stage_rounded(x, skip, p, hd)
+    plain = fused_up.fused_up_stage_plain(x, skip, p, hd)
+    w0 = p['conv1_weight'].clone()
+    w0[:, :, 0, 0] = 0
+    bad = fused_up.fused_up_stage(x, skip, dict(p, conv1_weight=w0), hd)
+    torch.cuda.synchronize()
+    assert got.shape == plain.shape == (b * n, 1 if with_head else cout,
+                                        2 * h, 2 * w)
+    assert torch.equal(got, again)
+    assert rel_l2(got, ref.float()) < 1e-2
+    scale = plain.float().abs().max().item()
+    assert (got.float() - plain.float()).abs().max().item() < 5e-2 * max(
+        scale, 1.0)
+    assert rel_l2(bad, ref.float()) > 1e-2
+
+
+def test_fused_up_kernel_refuses(card):
+    from semivl_tpu_torch.ops import fused_up
+    p = _stage_params(card, 64, 16, 24)
+    x = torch.zeros(2, 64, 4, 4, device='cuda', dtype=torch.bfloat16)
+    skip = torch.zeros(1, 16, 8, 8, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='Cout'):
+        fused_up.fused_up_stage(x, skip, p)
+    p = _stage_params(card, 64, 16, 32)
+    p['conv1_weight'].requires_grad_(True)
+    with pytest.raises(ValueError, match='forward only'):
+        fused_up.fused_up_stage(x, skip, p)

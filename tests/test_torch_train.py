@@ -14,41 +14,33 @@ sides, and it asserts that no pixel whose pseudo-label or guidance label
 counts sits within a margin of a confidence threshold or of an argmax tie.
 """
 
-from unittest import mock
-
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.sharding import Mesh
 
 from semivl_tpu.losses.ce import cross_entropy as jax_ce
 from semivl_tpu.losses.conf_weight import confidence_weighted_loss as jax_cwl
-from semivl_tpu.models.builder import ModelBundle as JaxBundle
 from semivl_tpu.ops.dropout import dropout2d as jax_dropout2d
 from semivl_tpu.train import optim as jax_optim
-from semivl_tpu.train.step import TrainState, make_semivl_train_step as jax_step
 from semivl_tpu.train.step import (cutmix_box_from_coords as jax_boxes,
-                                   cutmix_image as jax_cutmix_image,
-                                   replicate, shard_batch)
-from semivl_tpu_torch import convert
+                                   cutmix_image as jax_cutmix_image)
 from semivl_tpu_torch.configs import flagship_train_cfg
 from semivl_tpu_torch.losses.ce import cross_entropy
 from semivl_tpu_torch.losses.conf_weight import confidence_weighted_loss
 from semivl_tpu_torch.ops.dropout import dropout2d
 from semivl_tpu_torch.train import optim
 from semivl_tpu_torch.train.step import (LOSS_KEYS, cutmix_box_from_coords,
-                                         cutmix_image,
-                                         make_semivl_train_step)
+                                         cutmix_image)
 
 import torch_parity
-from torch_parity import (InjectedDropout, PortBundle, gap_threshold,
-                          leaf_names, masked_grads, rel_err, text_embedding,
+from torch_parity import (MARGIN, gap_threshold, leaf_names,
+                          pseudo_label_thresholds, rel_err, semivl_batch,
+                          semivl_step_pair, step_mismatches, text_embedding,
                           tiny_train_vlm)
 
 B, IMG, TOTAL = 2, torch_parity.IMG, 100
-MARGIN = 1e-5   # cross-framework float32 differences stay far below this
 
 
 def _t(a):
@@ -193,100 +185,20 @@ def test_poly_schedule_matches_jax(warmup):
 
 # ------------------------------------------------------ one whole step
 
-def _batch(seed):
-    rs = np.random.RandomState(seed)
-
-    def img():
-        return rs.randn(B, IMG, IMG, 3).astype(np.float32)
-
-    ign = np.zeros((B, IMG, IMG), np.int32)
-    ign[:, :, :3] = 255
-    ign_o = ign.copy()
-    ign_o[:, -4:] = 255
-    mask = rs.randint(0, 21, (B, IMG, IMG)).astype(np.int32)
-    mask[:, :2] = 255
-    return dict(
-        img_x=img(), mask_x=mask, img_w=img(), img_s1=img(), img_s2=img(),
-        ignore_mask=ign, img_w_other=img(), img_s1_other=img(),
-        img_s2_other=img(), ignore_mask_other=ign_o,
-        cutmix_box1=np.array([[10, 5, 20, 35], [0, 0, 64, 16]], np.int32),
-        cutmix_box2=np.array([[32, 32, 30, 30], [5, 40, 50, 20]], np.int32))
-
-
-def _pseudo_label_thresholds(pm, text, mcc, batch):
-    """Thresholds for this batch away from every confidence, after
-    checking the argmax margins of the pixels whose labels count."""
-    with torch.no_grad():
-        teacher = torch.cat([pm(_t(batch['img_w_other']), _t(text)),
-                             pm(_t(batch['img_w']), _t(text))])
-        p = torch.softmax(teacher, dim=1).numpy()
-        mc = pm.maskclip_probs(_t(np.concatenate(
-            [batch['img_w'], batch['img_w_other']])), mcc).numpy()
-    conf_thresh, m1 = gap_threshold(p.max(axis=1))
-    mcc_thresh, m2 = gap_threshold(mc.max(axis=-1))
-    assert min(m1, m2) > MARGIN, (m1, m2)
-    for probs, axis, th in ((p, 1, conf_thresh), (mc, -1, mcc_thresh)):
-        top2 = np.sort(probs, axis=axis)
-        top2 = np.take(top2, [-2, -1], axis=axis)
-        gap = np.take(top2, 1, axis=axis) - np.take(top2, 0, axis=axis)
-        kept = np.take(top2, 1, axis=axis) >= th
-        assert 0 < kept.mean() < 1
-        assert gap[kept].min() > MARGIN
-    return conf_thresh, mcc_thresh
-
-
 @pytest.fixture(scope='module')
 def step_pair(tiny):
     """One SemiVL step in JAX (1-device mesh) and in the port, from the same
     weights, batch, boxes and feature-perturbation masks."""
     jm, params, pm, mcc = tiny
     text = text_embedding()
-    batch = _batch(7)
-    conf_thresh, mcc_thresh = _pseudo_label_thresholds(pm, text, mcc, batch)
+    batch = semivl_batch(7, B, IMG)
+    conf_thresh, mcc_thresh = pseudo_label_thresholds(pm, text, mcc, batch)
     cfg = dict(flagship_train_cfg(IMG), conf_thresh=conf_thresh,
                mcc_conf_thresh=mcc_thresh, log_grad_norm=True)
     rs = np.random.RandomState(8)
     keeps = [rs.rand(B, 1, 1, c) < 0.5 for c in (128, 128, 512)]
-    fake = InjectedDropout(keeps)
-
-    bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
-                       num_classes=21, img_size=IMG, model_cfg={},
-                       freeze_backbone=True,
-                       exclude_keys=['attn', 'pos_embed'])
-    tx, _, mask = jax_optim.build_optimizer(
-        cfg, params, TOTAL, freeze_backbone=True,
-        exclude_keys=['attn', 'pos_embed'])
-    state = TrainState(params={'params': params},
-                       opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
-    mesh = Mesh(np.array(jax.devices()[:1]), ('data',))
-    with mock.patch('semivl_tpu.models.vlm.dropout2d', fake.jax):
-        fn = jax_step(bundle, cfg, tx, mesh, TOTAL, mask)
-        new_state, jmetrics = fn(replicate(state, mesh),
-                                 shard_batch(batch, mesh),
-                                 replicate(jax.random.PRNGKey(0), mesh))
-        jmetrics = {k: float(v) for k, v in jmetrics.items()}
-    assert fake.calls == 3
-    jax_new = convert.vlm_state_dict(jax.tree.map(
-        np.asarray, new_state.params['params']))
-    jax_grads = convert.vlm_state_dict(masked_grads(new_state.opt_state,
-                                                     params))
-
-    before = {k: v.clone() for k, v in pm.state_dict().items()}
-    opt, _ = optim.build_optimizer(cfg, pm, TOTAL)
-    step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
-                                  TOTAL, device='cpu')
-    fake.calls = 0
-    with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch):
-        pmetrics = {k: float(v) for k, v in step(batch).items()}
-    assert fake.calls == 3 and step.iteration == 1
-    port_grads = {n: (p.grad.numpy() if p.grad is not None
-                      else np.zeros(p.shape, np.float32))
-                  for n, p in pm.named_parameters()}
-    return dict(jmetrics=jmetrics, pmetrics=pmetrics, jax_new=jax_new,
-                jax_grads=jax_grads, port_grads=port_grads, before=before,
-                after={k: v.numpy() for k, v in pm.state_dict().items()},
-                trainable={n: p.requires_grad
-                           for n, p in pm.named_parameters()})
+    return semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
+                            TOTAL)
 
 
 def test_semivl_step_losses_match_jax(step_pair):
@@ -305,28 +217,6 @@ def test_semivl_step_grads_and_update_match_jax(step_pair):
     head's bias: it is shared by the class planes, over which each pixel's
     softmax-CE gradient sums to zero) is held to |g| <= 1e-6 of the largest
     gradient on both sides instead: what is left there is rounding."""
-    s = step_pair
-    assert set(s['jax_new']) == set(s['after'])
-    top = max(np.abs(g).max() for g in s['jax_grads'].values())
-    bad, n_checked = [], 0
-    for name, trainable in s['trainable'].items():
-        if not trainable:
-            np.testing.assert_array_equal(s['after'][name],
-                                          s['before'][name].numpy())
-            np.testing.assert_array_equal(s['jax_new'][name],
-                                          s['before'][name].numpy())
-            continue
-        n_checked += 1
-        want, got = s['jax_grads'][name], s['port_grads'][name]
-        if np.abs(want).max() <= 1e-6 * top:
-            if np.abs(got).max() > 1e-6 * top:
-                bad.append((name, 'vanishing', np.abs(got).max()))
-        elif rel_err(got, want) > 1e-3:
-            bad.append((name, 'grad', rel_err(got, want)))
-        if rel_err(s['after'][name], s['jax_new'][name]) > 1e-3:
-            bad.append((name, 'update', rel_err(s['after'][name],
-                                                s['jax_new'][name])))
-        if np.array_equal(s['after'][name], s['before'][name].numpy()):
-            bad.append((name, 'unchanged', 0.0))
+    bad, n_checked = step_mismatches(step_pair)
     assert bad == []
     assert n_checked > 20

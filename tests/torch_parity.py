@@ -2,7 +2,8 @@
 a small flagship-shaped VLM (with the frozen guidance encoder for
 training), random JAX parameters made with numpy, the port model carrying
 the same weights through ``semivl_tpu_torch.convert``, and the helpers of
-the whole-step comparisons."""
+the whole-step comparisons (``semivl_batch``, ``pseudo_label_thresholds``,
+``semivl_step_pair``)."""
 
 import dataclasses
 from typing import Any, Optional
@@ -77,26 +78,28 @@ def tiny_vlm(seed=0, img=IMG):
     return jm, params, pm
 
 
-def tiny_train_vlm(seed=0, img=IMG, logit_scale=1.0):
+def tiny_train_vlm(seed=0, img=IMG, logit_scale=1.0, backbone=BACKBONE,
+                   head=HEAD, clip=CLIP):
     """(jax module, numpy params, port model, guidance text) of the small
-    VLM with the guidance encoder and the real ``concept4`` text; the
-    port's frozen leaves have ``requires_grad=False`` (flagship freeze
-    rule). ``logit_scale`` multiplies the decoder head's weights, to give
-    the random model confident pseudo-labels."""
+    VLM (or of the given backbone / head / guidance-encoder configs) with
+    the guidance encoder and the real ``concept4`` text; the port's frozen
+    leaves have ``requires_grad=False`` (flagship freeze rule).
+    ``logit_scale`` multiplies the decoder head's weights, to give the
+    random model confident pseudo-labels."""
     from semivl_tpu_torch.models.builder import is_trainable
     from semivl_tpu_torch.text.embeddings import (
         load_text_embedding, text_embedding_path)
     mcc = load_text_embedding(text_embedding_path('pascal',
                                                   'concept4_single'))
-    jm = JaxVLM(backbone_cfg=BACKBONE, decode_head_cfg=HEAD,
-                clip_encoder_cfg=CLIP, mcc_text_embedding_name=MCC_TEXT)
+    jm = JaxVLM(backbone_cfg=backbone, decode_head_cfg=head,
+                clip_encoder_cfg=clip, mcc_text_embedding_name=MCC_TEXT)
     params = init_params(jm, seed, jnp.zeros((1, img, img, 3)),
                          jnp.zeros((21, 512)), jnp.asarray(mcc),
                          method='init_variables')
-    head = params['decode_head']['head']
-    head['kernel'] = head['kernel'] * np.float32(logit_scale)
-    head['bias'] = head['bias'] * np.float32(logit_scale)
-    pm = load_jax_params(VLM(BACKBONE, HEAD, clip_encoder_cfg=CLIP,
+    hp = params['decode_head']['head']
+    hp['kernel'] = hp['kernel'] * np.float32(logit_scale)
+    hp['bias'] = hp['bias'] * np.float32(logit_scale)
+    pm = load_jax_params(VLM(backbone, head, clip_encoder_cfg=clip,
                              mcc_text_name=MCC_TEXT), params).eval()
     for name, p in pm.named_parameters():
         p.requires_grad_(is_trainable(name, True, ['attn', 'pos_embed']))
@@ -176,3 +179,147 @@ def leaf_names(params):
         out[paths[int(v.flat[0])]] = name
     assert len(out) == len(paths)
     return out
+
+
+# ------------------------------------------------------- one whole step
+
+MARGIN = 1e-5   # cross-framework float32 differences stay far below this
+
+
+def semivl_batch(seed, b=2, img=IMG):
+    """A SemiVL batch of ``b`` labeled + ``b`` unlabeled ``img``-px crops
+    (numpy, normalised scale), ignore borders and CutMix boxes."""
+    rs = np.random.RandomState(seed)
+
+    def im():
+        return rs.randn(b, img, img, 3).astype(np.float32)
+
+    ign = np.zeros((b, img, img), np.int32)
+    ign[:, :, :3] = 255
+    ign_o = ign.copy()
+    ign_o[:, -4:] = 255
+    mask = rs.randint(0, 21, (b, img, img)).astype(np.int32)
+    mask[:, :2] = 255
+    return dict(
+        img_x=im(), mask_x=mask, img_w=im(), img_s1=im(), img_s2=im(),
+        ignore_mask=ign, img_w_other=im(), img_s1_other=im(),
+        img_s2_other=im(), ignore_mask_other=ign_o,
+        cutmix_box1=np.array([[10, 5, 20, 35], [0, 0, 64, 16]],
+                             np.int32)[:b],
+        cutmix_box2=np.array([[32, 32, 30, 30], [5, 40, 50, 20]],
+                             np.int32)[:b])
+
+
+def pseudo_label_thresholds(pm, text, mcc, batch):
+    """Thresholds for this batch away from every confidence, after
+    checking the argmax margins of the pixels whose labels count."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a))
+
+    with torch.no_grad():
+        teacher = torch.cat([pm(t(batch['img_w_other']), t(text)),
+                             pm(t(batch['img_w']), t(text))])
+        p = torch.softmax(teacher, dim=1).numpy()
+        mc = pm.maskclip_probs(t(np.concatenate(
+            [batch['img_w'], batch['img_w_other']])), mcc).numpy()
+    conf_thresh, m1 = gap_threshold(p.max(axis=1))
+    mcc_thresh, m2 = gap_threshold(mc.max(axis=-1))
+    assert min(m1, m2) > MARGIN, (m1, m2)
+    for probs, axis, th in ((p, 1, conf_thresh), (mc, -1, mcc_thresh)):
+        top2 = np.sort(probs, axis=axis)
+        top2 = np.take(top2, [-2, -1], axis=axis)
+        gap = np.take(top2, 1, axis=axis) - np.take(top2, 0, axis=axis)
+        kept = np.take(top2, 1, axis=axis) >= th
+        assert 0 < kept.mean() < 1
+        assert gap[kept].min() > MARGIN
+    return conf_thresh, mcc_thresh
+
+
+def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
+                     total=100):
+    """One SemiVL step in JAX (1-device mesh) and in the port (CPU), from
+    the same weights, batch, boxes and injected feature-perturbation masks
+    ``keeps``: the metrics, the JAX gradients and updated parameters under
+    the port's names, the port's gradients and its state before and
+    after."""
+    from unittest import mock
+
+    from jax.sharding import Mesh
+
+    from semivl_tpu.models.builder import ModelBundle as JaxBundle
+    from semivl_tpu.train import optim as jax_optim
+    from semivl_tpu.train.step import (TrainState, replicate, shard_batch)
+    from semivl_tpu.train.step import make_semivl_train_step as jax_step
+    from semivl_tpu_torch.train import optim
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    fake = InjectedDropout(keeps)
+    b, img = batch['mask_x'].shape[:2]
+    bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
+                       num_classes=21, img_size=img, model_cfg={},
+                       freeze_backbone=True,
+                       exclude_keys=['attn', 'pos_embed'])
+    tx, _, mask = jax_optim.build_optimizer(
+        cfg, params, total, freeze_backbone=True,
+        exclude_keys=['attn', 'pos_embed'])
+    state = TrainState(params={'params': params},
+                       opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
+    mesh = Mesh(np.array(jax.devices()[:1]), ('data',))
+    with mock.patch('semivl_tpu.models.vlm.dropout2d', fake.jax):
+        fn = jax_step(bundle, cfg, tx, mesh, total, mask)
+        new_state, jmetrics = fn(replicate(state, mesh),
+                                 shard_batch(batch, mesh),
+                                 replicate(jax.random.PRNGKey(0), mesh))
+        jmetrics = {k: float(v) for k, v in jmetrics.items()}
+    assert fake.calls == len(keeps)
+    jax_new = convert.vlm_state_dict(jax.tree.map(
+        np.asarray, new_state.params['params']))
+    jax_grads = convert.vlm_state_dict(masked_grads(new_state.opt_state,
+                                                     params))
+
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    opt, _ = optim.build_optimizer(cfg, pm, total)
+    step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
+                                  total, device='cpu')
+    fake.calls = 0
+    with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch):
+        pmetrics = {k: float(v) for k, v in step(batch).items()}
+    assert fake.calls == len(keeps) and step.iteration == 1
+    port_grads = {n: (p.grad.numpy() if p.grad is not None
+                      else np.zeros(p.shape, np.float32))
+                  for n, p in pm.named_parameters()}
+    return dict(jmetrics=jmetrics, pmetrics=pmetrics, jax_new=jax_new,
+                jax_grads=jax_grads, port_grads=port_grads, before=before,
+                after={k: v.numpy() for k, v in pm.state_dict().items()},
+                trainable={n: p.requires_grad
+                           for n, p in pm.named_parameters()})
+
+
+def step_mismatches(s, tol=1e-3):
+    """Every trainable leaf's gradient and updated value against JAX's
+    within ``tol`` of its own scale (a leaf whose gradient vanishes in
+    exact arithmetic held to |g| <= 1e-6 of the largest gradient on both
+    sides), frozen leaves unchanged on both sides. Returns the mismatches
+    and the number of trainable leaves checked."""
+    assert set(s['jax_new']) == set(s['after'])
+    top = max(np.abs(g).max() for g in s['jax_grads'].values())
+    bad, n_checked = [], 0
+    for name, trainable in s['trainable'].items():
+        if not trainable:
+            np.testing.assert_array_equal(s['after'][name],
+                                          s['before'][name].numpy())
+            np.testing.assert_array_equal(s['jax_new'][name],
+                                          s['before'][name].numpy())
+            continue
+        n_checked += 1
+        want, got = s['jax_grads'][name], s['port_grads'][name]
+        if np.abs(want).max() <= 1e-6 * top:
+            if np.abs(got).max() > 1e-6 * top:
+                bad.append((name, 'vanishing', np.abs(got).max()))
+        elif rel_err(got, want) > tol:
+            bad.append((name, 'grad', rel_err(got, want)))
+        if rel_err(s['after'][name], s['jax_new'][name]) > tol:
+            bad.append((name, 'update', rel_err(s['after'][name],
+                                                s['jax_new'][name])))
+        if np.array_equal(s['after'][name], s['before'][name].numpy()):
+            bad.append((name, 'unchanged', 0.0))
+    return bad, n_checked
