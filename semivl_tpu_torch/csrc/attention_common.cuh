@@ -1,8 +1,8 @@
-// Device code shared by the attention kernels (flash_attention.cu, the
-// packed forward; flash_attention_heads.cu, the head-split forward and the
-// one backward of both routes): tile sizes, warp reductions, the pitched
-// 64-row tile load and the WMMA bf16 16x16x16 products with float32
-// accumulation, templated on the head width D.
+// Device code of the one attention backward of both routes
+// (flash_attention_heads.cu): tile sizes, the warp sum, the pitched 64-row
+// tile load and the WMMA bf16 16x16x16 products with float32
+// accumulation, templated on the head width D. The forwards are
+// attention_fwd.cuh's.
 
 #pragma once
 
@@ -38,11 +38,6 @@ struct Sizes {
   static constexpr int SCORES = NWARP * 16 * LDS * 4;
   static constexpr int STATS = 2 * BQ * 4;
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);

@@ -14,38 +14,40 @@
 // What bounds it on this card: 4 B H L^2 D flops on 8 B L C bytes of q, k,
 // v and out, so L / 2 flops per byte: the tiny VLM's L = 17 and 21 are
 // bound by bytes (and by launch latency), the encoder widths (L >= 1025)
-// by the tensor cores. Products run on them through WMMA bf16 16x16x16
-// fragments with float32 accumulation; wgmma, TMA and warp specialisation
-// are later work.
+// by the tensor cores, the forward's exponentials close behind (it takes
+// two per score, one in each pass).
 //
 // Design against the TPU kernels. They split the heads out of the (B, L,
 // C) arrays into (B*H, L, D) copies and kept a head's whole K/V in VMEM;
 // here q, k and v are read in place as views of the one (B, L, 3C) in_proj
 // output (row stride 3C, head h at column h*D), and K/V stream through
-// shared memory in 64-key tiles (a head's K and V at L = 2602, D = 128 are
-// 1.3 MB, more than a block's 227 KB). Rows and keys past L are zero-filled
-// on load; keys past valid_len are masked in the softmax.
+// shared memory in tiles (a head's K and V at L = 2602, D = 128 are 1.3
+// MB, more than a block's 227 KB). Rows and keys past L are zero-filled on
+// load; keys past valid_len are masked in the softmax.
 //
-// Numerics: the TPU forward normalises p before casting it to bf16 for
-// p v. The forward here does the same, in two passes over the keys: the
-// first finds each row's max and sum of exp (online, float32), the second
-// forms p = exp(s - max) / sum, rounds it to bf16 and accumulates p v in
-// WMMA accumulators, which need no rescaling since p is already final. So
-// it rounds exactly where JAX does (q times the bf16 scale, p, the output)
-// at the cost of computing q k^T twice; the packed kernel
-// (flash_attention.cu) rounds the unnormalised p instead. The forward also
-// writes each row's log-sum-exp when autograd needs it; the backward takes
-// p = exp(s - lse) from it (the TPU backward recomputed the full-row
-// softmax), delta = rowsum(dO o), ds = p (dO v^T - delta), p and ds
-// rounded to bf16 before their products as the TPU kernel does:
+// Forward: the two-pass instance of attention_fwd.cuh (TMA ring of
+// 128-key tiles, wgmma, the softmax in registers). The TPU forward
+// normalises p before casting it to bf16 for p v; so does this one: pass 1
+// finds each row's max and sum of exp (online, float32) from q k^T alone,
+// pass 2 forms p = exp(s - max) / sum, rounds it to bf16 and accumulates
+// p v with no rescale. It rounds exactly where JAX does (q times the bf16
+// scale, p, the output) at the cost of computing q k^T twice; the packed
+// kernel (flash_attention.cu) rounds the unnormalised p instead. The
+// forward also writes each row's log-sum-exp when autograd needs it.
+//
+// Backward: it takes p = exp(s - lse) from the forward's log-sum-exp (the
+// TPU backward recomputed the full-row softmax), delta = rowsum(dO o),
+// ds = p (dO v^T - delta), p and ds rounded to bf16 before their products
+// as the TPU kernel does:
 //   dv = p^T dO, dk = ds^T q / sqrt(D), dq = ds k / sqrt(D).
 // Blocks run in no order, so two kernels split the backward without float
 // atomics (repeated runs agree bit for bit): one block per (key tile, head,
 // batch) loops over the q tiles and keeps dk/dv in WMMA accumulators, one
-// block per (q tile, head, batch) loops over the key tiles for dq. The
-// tiles, loads and WMMA products are attention_common.cuh's.
+// block per (q tile, head, batch) loops over the key tiles for dq. Its
+// 64-row tiles, loads and WMMA products are attention_common.cuh's.
 
 #include "attention_common.cuh"
+#include "attention_fwd.cuh"
 
 using namespace attention;
 
@@ -55,97 +57,9 @@ namespace {
 template <int D>
 struct Smem {
   typedef Sizes<D> S;
-  static constexpr int FWD = 3 * S::TILE + S::P + S::SCORES + S::STATS;
   static constexpr int DKDV = 5 * S::TILE + 2 * S::P + 2 * S::SCORES + S::STATS;
   static constexpr int DQ = 4 * S::TILE + S::P + 2 * S::SCORES + S::STATS;
 };
-
-template <int D>
-__global__ void __launch_bounds__(NTHREAD)
-heads_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ out, float* __restrict__ lse,
-                 int L, int valid_len, long long in_bstride, long long in_rstride,
-                 long long out_bstride, long long out_rstride, float qscale) {
-  typedef Sizes<D> S;
-  constexpr int LD = S::LD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem);
-  bf16* sK = reinterpret_cast<bf16*>(smem + S::TILE);
-  bf16* sV = reinterpret_cast<bf16*>(smem + 2 * S::TILE);
-  bf16* sP = reinterpret_cast<bf16*>(smem + 3 * S::TILE);
-  float* sS = reinterpret_cast<float*>(smem + 3 * S::TILE + S::P);
-  float* sM = reinterpret_cast<float*>(smem + 3 * S::TILE + S::P + S::SCORES);
-  float* sL = sM + BQ;
-
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const long long head_off = (long long)b * in_bstride + (long long)h * D;
-  bf16* sPw = sP + warp * 16 * LDP;
-  float* sSw = sS + warp * 16 * LDS;
-  float* sMw = sM + warp * 16;
-  float* sLw = sL + warp * 16;
-
-  load_rows<D>(sQ, q + head_off, q0, L, in_rstride, qscale);
-  if (threadIdx.x < BQ) {
-    sM[threadIdx.x] = __int_as_float(0xff800000);  // -inf
-    sL[threadIdx.x] = 0.f;
-  }
-  // Tiles wholly past valid_len add exactly 0 (their p underflows to 0).
-  const int n_tiles = (valid_len + BK - 1) / BK;
-
-  // Pass 1: each row's max and sum of exp(s - max), online in float32.
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's scores are done with sK
-    load_rows<D>(sK, k + head_off, k0, L, in_rstride, 1.0f);
-    __syncthreads();
-    mm_abt<D>(sQ + warp * 16 * LD, sK, sSw);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      float s0 = sSw[r * LDS + lane], s1 = sSw[r * LDS + lane + 32];
-      if (k0 + lane >= valid_len) s0 = -1e30f;
-      if (k0 + lane + 32 >= valid_len) s1 = -1e30f;
-      const float m_old = sMw[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s0, s1)));
-      const float psum = warp_sum(expf(s0 - m_new) + expf(s1 - m_new));
-      if (lane == 0) {
-        sLw[r] = sLw[r] * expf(m_old - m_new) + psum;   // expf(-inf) = 0 at first
-        sMw[r] = m_new;
-      }
-    }
-    __syncwarp();
-  }
-
-  // Pass 2: p = exp(s - max) / sum rounded to bf16, O += p v.
-  FragC acc[D / 16];
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) wmma::fill_fragment(acc[n], 0.f);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's p v is done with sK / sV
-    load_rows<D>(sK, k + head_off, k0, L, in_rstride, 1.0f);
-    load_rows<D>(sV, v + head_off, k0, L, in_rstride, 1.0f);
-    __syncthreads();
-    mm_abt<D>(sQ + warp * 16 * LD, sK, sSw);
-    __syncwarp();
-    for (int r = 0; r < 16; ++r) {
-      const float m = sMw[r], l = sLw[r];
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int c = lane + 32 * half;
-        const float s = k0 + c < valid_len ? sSw[r * LDS + c] : -1e30f;
-        sPw[r * LDP + c] = __float2bfloat16(expf(s - m) / l);
-      }
-    }
-    __syncwarp();
-    mm_ab_acc<D>(sPw, sV, acc);
-  }
-  const int row0 = q0 + warp * 16;
-  store_rows<D>(acc, sSw, out + (long long)b * out_bstride + (long long)h * D, row0, L,
-                out_rstride, 1.0f, lane);
-  if (lse != nullptr && lane < 16 && row0 + lane < L)
-    lse[((long long)b * gridDim.y + h) * L + row0 + lane] = sMw[lane] + logf(sLw[lane]);
-}
 
 // delta[b][h][i] = sum_d dO[b][i][h*D+d] * o[b][i][h*D+d]; one warp a row.
 template <int D>
@@ -326,19 +240,6 @@ heads_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 template <int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int B, int L,
-               int H, int valid_len, long long in_bstride, long long in_rstride,
-               long long out_bstride, long long out_rstride, float qscale, cudaStream_t st) {
-  cudaFuncSetAttribute(heads_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       Smem<D>::FWD);
-  dim3 grid((L + BQ - 1) / BQ, H, B);
-  heads_fwd_kernel<D><<<grid, NTHREAD, Smem<D>::FWD, st>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (bf16*)out, (float*)lse, L, valid_len,
-      in_bstride, in_rstride, out_bstride, out_rstride, qscale);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* o, const void* g,
                const void* lse, void* delta, void* dq, void* dk, void* dv, int B, int L, int H,
                int valid_len, long long in_bstride, long long in_rstride, long long g_bstride,
@@ -379,8 +280,8 @@ extern "C" int heads_attention_fwd(const void* q, const void* k, const void* v, 
   cudaStream_t st = (cudaStream_t)stream;
 #define SEMIVL_HEADS_FWD(N)                                                                  \
   case N:                                                                                    \
-    return launch_fwd<N>(q, k, v, out, lse, B, L, H, valid_len, in_bstride, in_rstride,      \
-                         out_bstride, out_rstride, qscale, st);
+    return attention_fwd::launch<N, true>(q, k, v, out, lse, B, L, H, valid_len, in_bstride, \
+                                          in_rstride, out_bstride, out_rstride, qscale, st);
   switch (D) {
     SEMIVL_HEADS_FWD(16)
     SEMIVL_HEADS_FWD(32)

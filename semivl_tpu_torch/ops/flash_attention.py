@@ -211,12 +211,12 @@ def packed_attention(qkv, num_heads, valid_len=None):
 # ---------------------------------------------------------------------------
 # the kernels' arithmetic in plain PyTorch
 
-_BK = 64   # keys per tile of the forward kernel
+_BK = 128   # keys per tile of the forward kernel (BK, csrc/attention_fwd.cuh)
 
 
 def _fwd_rounded(q, k, v, num_heads, valid_len):
     """The forward kernel's arithmetic: s = (q / 8) k^T in float32, an
-    online softmax over 64-key tiles whose unnormalised p = exp(s - the
+    online softmax over ``_BK``-key tiles whose unnormalised p = exp(s - the
     running row max) is rounded to bf16 before p v, the float32 row sum
     divided out at the end, the output rounded to bf16."""
     d = q.shape[-1] // num_heads

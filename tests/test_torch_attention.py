@@ -159,8 +159,8 @@ def _rel_l2(a, ref):
 def _two_pass_loop(qkv, heads, valid_len):
     """The head-split forward kernel's loop written out: q times the bf16
     scale rounded to bf16, pass 1 the running max and rescaled sum over
-    64-key tiles, pass 2 p = exp(s - max) / sum rounded to bf16 before p v,
-    the output rounded to bf16."""
+    the kernel's key tiles (``_BK``), pass 2 p = exp(s - max) / sum rounded
+    to bf16 before p v, the output rounded to bf16."""
     b, length, c3 = qkv.shape
     c = c3 // 3
     d = c // heads
@@ -173,9 +173,10 @@ def _two_pass_loop(qkv, heads, valid_len):
             q = (q * scale).bfloat16().float()
             m = torch.full((length,), float('-inf'))
             row_sum = torch.zeros(length)
-            tiles = range(0, valid_len, 64)
+            bk = flash_attention._BK
+            tiles = range(0, valid_len, bk)
             for k0 in tiles:
-                s = q @ k[k0:k0 + 64].T
+                s = q @ k[k0:k0 + bk].T
                 s[:, torch.arange(k0, k0 + s.shape[1]) >= valid_len] = -1e30
                 m_new = torch.maximum(m, s.amax(1))
                 row_sum = (row_sum * torch.exp(m - m_new)
@@ -183,10 +184,10 @@ def _two_pass_loop(qkv, heads, valid_len):
                 m = m_new
             acc = torch.zeros(length, d)
             for k0 in tiles:
-                s = q @ k[k0:k0 + 64].T
+                s = q @ k[k0:k0 + bk].T
                 s[:, torch.arange(k0, k0 + s.shape[1]) >= valid_len] = -1e30
                 p = torch.exp(s - m[:, None]) / row_sum[:, None]
-                acc = acc + p.bfloat16().float() @ v[k0:k0 + 64]
+                acc = acc + p.bfloat16().float() @ v[k0:k0 + bk]
             out[bi, :, d * h:d * (h + 1)] = acc
     return out.bfloat16()
 

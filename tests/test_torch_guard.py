@@ -104,6 +104,16 @@ def test_entry_points_need_a_device_on_a_host_without_card():
         make_semivl_train_step(bundle, flagship_train_cfg(), None, 10)
 
 
+def test_attention_bench_needs_a_card():
+    """The attention bench times CUDA kernels only: without a card it
+    raises before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: the default device exists')
+    from semivl_tpu_torch.tools import attention_bench
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        attention_bench.run('semivl_tpu_torch/csrc')
+
+
 def test_flagship_config_and_text_asset():
     train = flagship_train_cfg()
     assert (train['clip_encoder'], train['mcc_text']) == ('mcvit16',

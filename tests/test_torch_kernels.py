@@ -49,7 +49,7 @@ def card():
 
 @pytest.mark.parametrize('b,length,heads,valid_len', [
     (2, 1025, 12, None), (128, 21, 4, None), (2, 130, 2, 100),
-    (3, 64, 1, None)])
+    (3, 64, 1, None), (2, 2602, 12, None), (1, 869, 12, None)])
 def test_attention_kernel_matches_plain(card, b, length, heads, valid_len):
     c = 64 * heads
     qkv = torch.randn(b, length, 3 * c, generator=card, device='cuda',
@@ -381,6 +381,34 @@ def test_heads_kernel_matches_plain(card, b, length, heads, d, valid_len):
     assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     assert torch.equal(got, flash_attention.flash_mha_heads_bwd(
         qkv, out, lse, g, heads, valid_len))
+
+
+@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('b,length,heads,valid_len', [
+    (3, 40, 3, None), (2, 65, 2, None), (1, 2602, 2, None),
+    (2, 300, 3, 250)])
+def test_heads_forward_layouts(card, d, b, length, heads, valid_len):
+    """The head-split forward at every head width (each its own swizzle
+    and wgmma descriptors: 32, 64 and 128-byte rows, two boxes at D = 128)
+    on one ragged tile (L < 64), one key past a tile of 64 (L = 65), the
+    Cityscapes length and a valid_len inside a 128-key tile: within 2e-3
+    relative L2 of its plain version, which rounds where it does, and bit
+    for bit on a rerun."""
+    qkv, _ = _attention_case(card, b, length, heads, d)
+    out, lse = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    want = flash_attention.heads_attention_plain(qkv, heads, valid_len)
+    again = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(lse).all()
+    assert rel_l2(out, want.float()) < 2e-3
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    c = heads * d
+    qh, kh = (t.unflatten(-1, (heads, d)).transpose(1, 2)
+              for t in qkv.split(c, dim=-1)[:2])
+    s = torch.matmul((qh * flash_attention._q_scale(d)).float(),
+                     kh.float().transpose(-1, -2))
+    s[..., (valid_len or length):] = -1e30
+    assert (lse - torch.logsumexp(s, -1)).abs().max().item() < 1e-3
 
 
 def test_heads_kernel_agrees_with_packed(card):

@@ -236,8 +236,8 @@ def _rel_l2(a, b):
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
-def _online_softmax_loop(qkv, heads, valid_len):
-    """The forward kernel's loop written out: per row, 64-key tiles, the
+def _online_softmax_loop(qkv, heads, valid_len, tile):
+    """The forward kernel's loop written out: per row, ``tile``-key tiles, the
     running max, p = exp(s - max) rounded to bf16 before p v, the earlier
     sums rescaled by exp(old max - new max), the row sum of the unrounded p
     divided out at the end, the output rounded to bf16."""
@@ -250,14 +250,14 @@ def _online_softmax_loop(qkv, heads, valid_len):
                        range(3))
             m = torch.full((length,), float('-inf'))
             row_sum, acc = torch.zeros(length), torch.zeros(length, 64)
-            for k0 in range(0, valid_len, 64):
-                s = (q / 8) @ k[k0:k0 + 64].T
+            for k0 in range(0, valid_len, tile):
+                s = (q / 8) @ k[k0:k0 + tile].T
                 s[:, torch.arange(k0, k0 + s.shape[1]) >= valid_len] = -1e30
                 m_new = torch.maximum(m, s.amax(1))
                 p = torch.exp(s - m_new[:, None])
                 corr = torch.exp(m - m_new)
                 acc = acc * corr[:, None] + (p.bfloat16().float()
-                                             @ v[k0:k0 + 64])
+                                             @ v[k0:k0 + tile])
                 row_sum = row_sum * corr + p.sum(1)
                 m = m_new
             out[bi, :, 64 * h:64 * (h + 1)] = acc / row_sum[:, None]
@@ -265,13 +265,15 @@ def _online_softmax_loop(qkv, heads, valid_len):
 
 
 @pytest.mark.parametrize('length,valid_len', [(21, None), (130, 125),
-                                              (200, None)])
+                                              (200, None), (300, None),
+                                              (300, 290)])
 def test_attention_rounded_reference(length, valid_len):
-    """Its forward is the kernel's tiled online softmax (to the order of
-    float32 sums: 1e-3 relative L2, under one bf16 rounding step); its
-    gradient is ``flash_mha_bwd_plain``; both stay within bf16 rounding of
-    p, ds and the outputs (5e-3 relative L2) of the float32 plain
-    version."""
+    """Its forward is the kernel's tiled online softmax over the kernel's
+    key tiles (``_BK``; 300 keys end in a ragged tile, and valid_len 290
+    falls inside it) to the order of float32 sums: 1e-3 relative L2, under
+    one bf16 rounding step; its gradient is ``flash_mha_bwd_plain``; both
+    stay within bf16 rounding of p, ds and the outputs (5e-3 relative L2)
+    of the float32 plain version."""
     rs = np.random.RandomState(length + 2)
     qkv = torch.from_numpy(rs.randn(2, length, 3 * 128).astype(
         np.float32)).bfloat16()
@@ -283,7 +285,7 @@ def test_attention_rounded_reference(length, valid_len):
     assert out.dtype == got.dtype == torch.bfloat16
     out = out.detach()
     assert _rel_l2(out.float(), _online_softmax_loop(
-        qkv, 2, valid_len or length).float()) < 1e-3
+        qkv, 2, valid_len or length, flash_attention._BK).float()) < 1e-3
     assert torch.equal(got, flash_attention.flash_mha_bwd_plain(
         qkv, out, g, 2, valid_len))
     x32 = qkv.float().requires_grad_(True)
