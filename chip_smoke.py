@@ -8,15 +8,17 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. identify the card (torch/CUDA versions, name and power limit);
 2. build the CUDA kernels from ``semivl_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into the ignored ``semivl_tpu_torch/_build``, and
-   read the attention forwards' SASS (``cuobjdump``): wgmma and TMA loads
-   in every instance, no mma.sync;
+   read the attention kernels' SASS (``cuobjdump``): wgmma and TMA loads in
+   every instance of the forwards and of the backward's dK/dV and dQ
+   kernels, no mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
    and semantic transformer, and a ``valid_len`` case) and the Cityscapes
    ones (the 801^2 encoder at L = 2602 and an edge crop at L = 869), with
-   SDPA's times beside (the forwards' also device-only, from the
-   profiler), and a planted fault (the last key tile skipped) that must
-   fail;
+   SDPA's times beside (device-only too, from the profiler: windows whose
+   records are whole), and
+   planted faults (the last key tile skipped, forward and backward) that
+   must fail;
 4. fused VLG decoder kernels, forward and backward (tail and input), against
    their plain versions and their rounded references at the flagship
    decoder shapes (the forward also at the Cityscapes 51^2 and edge-crop
@@ -53,9 +55,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their plain versions (which round where they do) at encoder widths
    (12 heads of 64 forced through them at L = 2602 and held against the
    packed kernels on the same input, 11 heads of 64, 24 heads of 32 with
-   and without ``valid_len``, 12 heads of 128) and the tiny VLM's shapes,
-   planted faults that must fail, the dispatcher's 'auto' route on the
-   card, with SDPA's times beside (the forward's also device-only);
+   and without ``valid_len``, 12 heads of 128), the tiny VLM's shapes and
+   the widths whose products are split (48, 80, 96, 112), planted faults
+   that must fail, the dispatcher's routes on the card (JAX's table; a
+   width no kernel takes raises), with SDPA's times beside (also
+   device-only);
 10. the fused Up stage (#11): its bench entry point
    (``tools.fused_up_bench``, the flagship's two stages at 14 x 21
    planes) with launches counted around it, then each stage with and
@@ -69,6 +73,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and Cityscapes paths launch no head-split kernel;
 12. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
    "device": ...}``.
+
+Phase 9 runs right after phase 3: once the step and image profiles of
+phases 5-8 have run, the profiler on the card's machine keeps no whole
+window of the short kernel calls that phase 9 times device-only.
 
 Comparisons run with TF32 off. Times are CUDA-event means after warm-up
 over a stream of calls; "device-only" times are the profiler's kernel
@@ -153,14 +161,20 @@ ATTN_CASES = (('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
               ('cityscapes encoder', 2, 2602, 12, None),
               ('cityscapes edge crop', 1, 869, 12, None))
 # the head-split kernels (#1/#2): (name, B, L, heads, head_dim, valid_len);
-# the tiny VLM's shapes are those of its 1 + 1 step and its 2-crop batches
+# the tiny VLM's shapes are those of its 1 + 1 step and its 2-crop batches;
+# the last four the widths whose products over D are split (48, 80, 96,
+# 112), which no model of the repo has
 HEADS_CASES = (('encoder 12x64 (forced head-split)', 2, 2602, 12, 64, None),
                ('odd heads 11x64', 2, 2602, 11, 64, None),
                ('24x32', 2, 1025, 24, 32, None),
                ('24x32 valid_len', 2, 1025, 24, 32, 1000),
                ('12x128', 1, 1025, 12, 128, None),
                ('tiny ViT 4x16', 2, 17, 4, 16, None),
-               ('tiny semantic 2x32', 8, 21, 2, 32, None))
+               ('tiny semantic 2x32', 8, 21, 2, 32, None),
+               ('16x48', 2, 1536, 16, 48, None),
+               ('12x80 valid_len', 1, 1025, 12, 80, 1000),
+               ('8x96 edge crop', 1, 869, 8, 96, None),
+               ('4x112', 2, 300, 4, 112, 250))
 HEADS_VS_PACKED_TOL = 5e-3  # head-split against packed kernels, relative L2:
                             # p rounded after vs before normalising
 ATTN_BWD_CASES = (('encoder', 4, 1025, 12, None),
@@ -195,22 +209,48 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, windows=6):
     """Mean device time of the kernels that one call of ``fn`` launches,
     from the profiler: no host time, where events over a stream of short
-    calls read the host's launch overhead."""
+    calls read the host's launch overhead. The profiler on the card's
+    machine at times keeps the records of only some calls of a window, or
+    of none. So a window counts only if every kernel's records are a whole
+    multiple of the calls and another such window shows the same kernels
+    as many times; else it is taken again. None ("not measured") if no two
+    of ``windows`` windows agree."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA
-               and not e.key.startswith(('Memcpy', 'Memset'))) / iters / 1e3
+    seen = []
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        kernels = {e.key: (e.count, e.self_device_time_total)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA and e.count
+                   and not e.key.startswith(('Memcpy', 'Memset'))}
+        counts = {k: c for k, (c, _) in kernels.items()}
+        if not counts or any(c % iters for c in counts.values()):
+            continue
+        if counts in seen:
+            return sum(t for _, t in kernels.values()) / iters / 1e3
+        seen.append(counts)
+    log(f'device_ms: no two of {windows} profiler windows agree '
+        f'({len(seen)} whole): not measured')
+    return None
+
+
+def fmt_ms(ms):
+    """A time for the log: 4 decimals, or "not measured" (None)."""
+    return 'not measured' if ms is None else f'{ms:.4f}'
+
+
+def tflops(flops, ms):
+    return 'not measured' if ms is None else f'{flops / ms / 1e9:.1f}'
 
 
 def _rel_l2(a, ref):
@@ -228,8 +268,10 @@ def bound(flops, nbytes):
 
 def check_sass(build):
     """Every instance of the attention forward core (the packed one and the
-    head-split one per head width) compiled to Hopper's own instructions:
-    wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA)."""
+    head-split one per head width) and of the backward's dK/dV and dQ
+    kernels (per head width) compiled to Hopper's own instructions: wgmma
+    (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA)."""
+    from semivl_tpu_torch.ops import flash_attention as fa
     tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
     counts = {}
     for name in ('flash_attention', 'flash_attention_heads'):
@@ -240,7 +282,8 @@ def check_sass(build):
         for line in sass.splitlines():
             if 'Function : ' in line:
                 func = line.split('Function : ')[1].strip()
-                if 'attention_fwd' in func:
+                if 'attention_fwd' in func or re.search(
+                        'attention_bwd.*(dkdv|dq)_kernel', func):
                     counts[func] = dict.fromkeys(('HGMMA', 'UTMALDG', 'HMMA'),
                                                  0)
                 else:
@@ -248,8 +291,12 @@ def check_sass(build):
             elif func:
                 for op in counts[func]:
                     counts[func][op] += bool(re.search(rf'\b{op}\b', line))
-    log(f'sass: attention forward kernels {json.dumps(counts)}')
-    assert len(counts) == 5, list(counts)   # packed + D = 16, 32, 64, 128
+    log(f'sass: attention kernels {json.dumps(counts)}')
+    n_bwd = sum('attention_bwd' in f for f in counts)
+    # forward: packed + each head width; backward: dK/dV and dQ at each
+    n_dims = len(fa.HEAD_DIMS)
+    assert (len(counts) - n_bwd, n_bwd) == (1 + n_dims, 2 * n_dims), \
+        list(counts)
     for func, c in counts.items():
         assert c['HGMMA'] and c['UTMALDG'] and not c['HMMA'], (func, c)
 
@@ -274,8 +321,8 @@ def _sdpa_ms(qkv, heads, valid, g=None, timer=cuda_ms):
             qh, kh, vh, attn_mask=mask))
     o = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
     gh = g.unflatten(-1, (heads, d)).transpose(1, 2)
-    return cuda_ms(lambda: torch.autograd.grad(o, (qh, kh, vh), gh,
-                                               retain_graph=True))
+    return timer(lambda: torch.autograd.grad(o, (qh, kh, vh), gh,
+                                             retain_graph=True))
 
 
 def check_attention(gen):
@@ -307,7 +354,7 @@ def check_attention(gen):
             f'{rel:.3e} (tol {ATTN_REL_TOL}) kernel_ms {ms:.4f} plain_ms '
             f'{plain_ms:.4f} sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} '
             f'({by}) TFLOP/s {flops / ms / 1e9:.1f}; device-only kernel_ms '
-            f'{dev_ms:.4f} sdpa_ms {lib_dev_ms:.4f}')
+            f'{fmt_ms(dev_ms)} sdpa_ms {fmt_ms(lib_dev_ms)}')
         assert err <= ATTN_TOL, (name, err)
         assert rel <= ATTN_REL_TOL, (name, rel)
         rows.append(dict(case=name, max_abs_err=err, rel_err=rel,
@@ -347,9 +394,12 @@ def check_attention_bwd(gen):
         err = (got.float() - want.float()).abs().max().item()
         rel = _rel_l2(got, want)
         ms = cuda_ms(lambda: fa.flash_mha_bwd(qkv, out, lse, g, heads, valid))
+        dev_ms = device_ms(
+            lambda: fa.flash_mha_bwd(qkv, out, lse, g, heads, valid))
         plain_ms = cuda_ms(
             lambda: fa.flash_mha_bwd_plain(qkv, out, g, heads, valid), 5)
         lib_ms = _sdpa_ms(qkv, heads, valid, g)
+        lib_dev_ms = _sdpa_ms(qkv, heads, valid, g, timer=device_ms)
         flops = 8 * b * heads * length * keys * 64   # dp, dv, dk, dq
         nbytes = 2 * 8 * b * length * c + 4 * b * heads * length
         bound_ms, by = bound(flops, nbytes)
@@ -358,12 +408,23 @@ def check_attention_bwd(gen):
             f'{ATTN_BWD_TOL} x scale), rel-L2 {rel:.3e} (tol '
             f'{ATTN_BWD_REL_TOL}) kernel_ms {ms:.4f} plain_ms '
             f'{plain_ms:.4f} sdpa_bwd_ms {lib_ms:.4f} bound_ms '
-            f'{bound_ms:.4f} ({by}) TFLOP/s {flops / ms / 1e9:.1f}')
+            f'{bound_ms:.4f} ({by}); device-only kernel_ms '
+            f'{fmt_ms(dev_ms)} sdpa_bwd_ms {fmt_ms(lib_dev_ms)} TFLOP/s '
+            f'{tflops(flops, dev_ms)}')
         assert err <= ATTN_BWD_TOL * scale, (name, err, scale)
         assert rel <= ATTN_BWD_REL_TOL, (name, rel)
         rows.append(dict(case=name, max_abs_err=err, rel_err=rel,
                          tol=ATTN_BWD_REL_TOL, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by))
+                         library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
+                         device_ms=dev_ms, library_device_ms=lib_dev_ms))
+        if name == 'cityscapes encoder':
+            # planted fault: the last key tile skipped through valid_len
+            bad = _rel_l2(fa._bwd_kernel(qkv, out, lse, g, heads,
+                                         length - fa._BK), want)
+            log(f'attention bwd planted fault: last key tile skipped rel-L2 '
+                f'{bad:.3e} (must exceed {ATTN_BWD_REL_TOL})')
+            assert bad > ATTN_BWD_REL_TOL, bad
+            rows[-1]['planted_faults'] = dict(skipped_key_tile=bad)
     return rows
 
 
@@ -1559,32 +1620,70 @@ def profile_step(step, batch, top=15):
     return _profile(run, wall_ms, 'one training step', top)
 
 
-def _profile(run, wall_ms, what, top):
+# the port's kernels in a profile, by a part of their profiler key, and the
+# launch counters whose sum each must show as records
+PROFILED_KERNELS = (
+    ('attention_fwd::fwd_kernel', ('attention_fwd', 'heads_fwd')),
+    ('attention_bwd::prep_kernel', ('attention_bwd', 'heads_bwd')),
+    ('attention_bwd::dkdv_kernel', ('attention_bwd', 'heads_bwd')),
+    ('attention_bwd::dq_kernel', ('attention_bwd', 'heads_bwd')))
+
+
+def _profile(run, wall_ms, what, top, windows=4):
+    """One call of ``run`` under the profiler, by kernel. The profiler on
+    the card's machine at times drops records, so a window is whole only
+    if the port's kernels show as many records as their launch counters
+    moved and another whole window shows the same kernels as many times;
+    else it is taken again, up to ``windows`` windows. The records against
+    the launches, and whether the window was whole, are logged."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    # device-side events only (an op's own entry repeats its kernels' time);
-    # busy time counts kernels: a copy to pageable host memory lasts as long
-    # as the host's staging does, so copies are listed apart
-    rows = [(e.self_device_time_total / 1e3, e.count, e.key)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total]
-    copies = [r for r in rows if r[2].startswith(('Memcpy', 'Memset'))]
-    rows = [r for r in rows if r not in copies]
+    seen = []
+    for n in range(1, windows + 1):
+        before = _counters()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        moved = {k: v - before[k] for k, v in _counters().items()}
+        # device-side events only (an op's own entry repeats its kernels'
+        # time); busy time counts kernels: a copy to pageable host memory
+        # lasts as long as the host's staging does, so copies are apart
+        rows = [(e.self_device_time_total / 1e3, e.count, e.key)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total]
+        copies = [r for r in rows if r[2].startswith(('Memcpy', 'Memset'))]
+        rows = [r for r in rows if r not in copies]
+        counts = {key: count for _, count, key in rows}
+        port = {name: (sum(c for k, c in counts.items() if name in k),
+                       sum(moved[x] for x in keys))
+                for name, keys in PROFILED_KERNELS}
+        whole = all(got == want for got, want in port.values())
+        if whole and counts in seen:
+            break
+        if whole:
+            seen.append(counts)
+    else:
+        whole = False
     dev_ms = sum(r[0] for r in rows)
     log(f'profile: {what}: wall {wall_ms:.2f} ms (unprofiled), device busy '
         f'(kernels) {dev_ms:.2f} ms, idle share {1 - dev_ms / wall_ms:.3f}; '
         f'copies {[(round(ms, 3), key) for ms, _, key in copies]}')
+    log(f'profile:   window {n} of {windows}, whole: {whole}; the port\'s '
+        f'kernels, records / launches: '
+        f'{ {k.split("::")[1]: v for k, v in port.items()} }')
     # the top rows, and the attention kernels wherever they rank
     ranked = sorted(rows, reverse=True)
     for i, (ms, count, key) in enumerate(ranked):
-        if i < top or 'attention_fwd' in key or 'heads_' in key:
+        if i < top or 'attention_' in key:
             log(f'profile:   {ms:8.3f} ms {100 * ms / dev_ms:5.1f}% '
                 f'x{count:<5d} {key[:90]}')
+    # the backward's three kernels (prep, dK/dV, dQ) run once a call
+    bwd_ms = sum(ms for ms, _, key in rows if 'attention_bwd' in key)
+    log(f'profile:   attention backward, all three kernels: {bwd_ms:.3f} ms')
     return dict(wall_ms=wall_ms, busy_ms=dev_ms,
-                idle_share=1 - dev_ms / wall_ms)
+                idle_share=1 - dev_ms / wall_ms, attention_bwd_ms=bwd_ms,
+                whole_window=whole, windows=n)
 
 
 def profile_image(evaluator, sample, cfg, top=12):
@@ -1643,11 +1742,14 @@ def check_heads_attention(gen):
                                                             valid), 5)
         bwd_ms = cuda_ms(lambda: fa.flash_mha_heads_bwd(qkv, out, lse, g,
                                                         heads, valid))
+        bwd_dev_ms = device_ms(lambda: fa.flash_mha_heads_bwd(
+            qkv, out, lse, g, heads, valid))
         bwd_plain_ms = cuda_ms(lambda: fa.flash_mha_bwd_plain(
             qkv, out, g, heads, valid), 5)
         lib_ms, lib_bwd_ms = _sdpa_ms(qkv, heads, valid), _sdpa_ms(
             qkv, heads, valid, g)
         lib_dev_ms = _sdpa_ms(qkv, heads, valid, timer=device_ms)
+        lib_bwd_dev_ms = _sdpa_ms(qkv, heads, valid, g, timer=device_ms)
         keys = valid or length
         flops = 4 * b * heads * length * keys * d
         bound_ms, by = bound(flops, 4 * b * length * c * 2)
@@ -1666,12 +1768,14 @@ def check_heads_attention(gen):
             f'max_abs_err {err:.3e} (tol {ATTN_TOL}) rel-L2 {rel:.3e} (tol '
             f'{ATTN_REL_TOL}) kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} '
             f'sdpa_ms {lib_ms:.4f} bound_ms {bound_ms:.4f} ({by}) TFLOP/s '
-            f'{flops / ms / 1e9:.1f}, device-only kernel_ms {dev_ms:.4f} '
-            f'sdpa_ms {lib_dev_ms:.4f}; bwd '
+            f'{flops / ms / 1e9:.1f}, device-only kernel_ms {fmt_ms(dev_ms)} '
+            f'sdpa_ms {fmt_ms(lib_dev_ms)}; bwd '
             f'max_abs_err {err_g:.3e} of scale {scale_g:.3f} rel-L2 '
             f'{rel_g:.3e} (tol {ATTN_BWD_REL_TOL}) kernel_ms {bwd_ms:.4f} '
             f'plain_ms {bwd_plain_ms:.4f} sdpa_bwd_ms {lib_bwd_ms:.4f} '
-            f'bound_ms {bwd_bound_ms:.4f} ({bwd_by}){extra}')
+            f'bound_ms {bwd_bound_ms:.4f} ({bwd_by}), device-only kernel_ms '
+            f'{fmt_ms(bwd_dev_ms)} sdpa_bwd_ms '
+            f'{fmt_ms(lib_bwd_dev_ms)}{extra}')
         assert err <= ATTN_TOL and rel <= ATTN_REL_TOL, (name, err, rel)
         if length < 64:
             # the tiny shapes: the kernel rounds p and the output where its
@@ -1696,7 +1800,8 @@ def check_heads_attention(gen):
                  bound_by=by, device_ms=dev_ms, library_device_ms=lib_dev_ms),
             dict(max_abs_err=err_g, rel_err=rel_g, tol=ATTN_BWD_REL_TOL,
                  ms=bwd_ms, plain_ms=bwd_plain_ms, library_ms=lib_bwd_ms,
-                 bound_ms=bwd_bound_ms, bound_by=bwd_by))
+                 bound_ms=bwd_bound_ms, bound_by=bwd_by, device_ms=bwd_dev_ms,
+                 library_device_ms=lib_bwd_dev_ms))
         if name.startswith('encoder'):
             # planted faults: the last key tile skipped; the row statistics
             # off by 1 % (a wrong normalisation of p in the backward)
@@ -1711,18 +1816,36 @@ def check_heads_attention(gen):
             faults = dict(skipped_key_tile=bad, lse_off=bad_g)
     for r in rows.values():
         r[0]['planted_faults'] = faults
-    # the dispatcher on the card: 'auto' sends other head widths to the
-    # head-split kernel from 1536 tokens on and keeps shorter ones plain
-    for length, heads, d, moved in ((2602, 11, 64, 1), (1025, 24, 32, 0)):
+    # the dispatcher on the card, JAX's table: 'auto' sends heads other
+    # than an even count of 64 to the head-split kernel from 1536 tokens on
+    # and keeps shorter ones plain; a width no kernel takes (24) raises on
+    # both kernel routes, never runs the plain math in the kernel's place
+    for length, heads, d, moved in ((2602, 11, 64, 1), (1025, 24, 32, 0),
+                                    (1536, 16, 48, 1)):
         qkv = torch.randn(1, length, 3 * heads * d, generator=gen,
                           device='cuda', dtype=torch.bfloat16)
         before = fa.heads_launches
         with torch.no_grad():
-            attention.qkv_attention(qkv, heads, 'auto')
+            out = attention.qkv_attention(qkv, heads, 'auto')
         assert fa.heads_launches - before == moved, (length, heads, d)
+        assert attention.route(length, length, heads * d, heads, 'auto',
+                               True) == ('heads' if moved else 'plain')
+        assert torch.isfinite(out.float()).all()
+    qkv = torch.randn(1, 1536, 3 * 32 * 24, generator=gen, device='cuda',
+                      dtype=torch.bfloat16)
+    refused = []
+    for impl in ('auto', 'pallas'):
+        try:
+            with torch.no_grad():
+                attention.qkv_attention(qkv, 32, impl)
+        except ValueError as e:
+            refused.append(str(e))
+    assert len(refused) == 2 and all('head_dim 24' in e for e in refused), \
+        refused
     log('heads attention: the dispatcher\'s \'auto\' route sends 11 heads '
-        'of 64 at L = 2602 to the head-split kernel and 24 heads of 32 at L '
-        '= 1025 to the plain math')
+        'of 64 at L = 2602 and 16 heads of 48 at L = 1536 to the head-split '
+        'kernel, 24 heads of 32 at L = 1025 to the plain math; heads of 24 '
+        f'raise under \'auto\' and \'pallas\': {refused[0]}')
     return rows
 
 
@@ -1955,6 +2078,8 @@ def main():
     gen = torch.Generator(device='cuda').manual_seed(0)
     attn = {r['case']: r for r in check_attention(gen)}
     attn_bwd = {r['case']: r for r in check_attention_bwd(gen)}
+    heads = check_heads_attention(gen)   # phase 9, before any profile
+    torch.cuda.empty_cache()
     dec = check_decoder(torch.Generator().manual_seed(1))
     dec_cs = check_decoder(torch.Generator().manual_seed(3), b=3, n=19, h=51,
                            w=51, skips=(32, 32))
@@ -1987,8 +2112,6 @@ def main():
         f'{json.dumps(cs_train)}')
     torch.cuda.empty_cache()
 
-    heads = check_heads_attention(gen)
-    torch.cuda.empty_cache()
     up_rows, up_launches, bench_rows = check_fused_up()
     torch.cuda.empty_cache()
     tiny_err, tiny_launches, tiny_eval_launches, tiny_perf = run_tiny()

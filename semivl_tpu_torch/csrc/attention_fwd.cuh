@@ -1,8 +1,8 @@
 // The one attention forward core of both routes, for Hopper (sm_90a):
 // flash_attention.cu instantiates it for the packed route (D = 64, one
 // pass with an online softmax), flash_attention_heads.cu for the head-split
-// route (D = 16, 32, 64, 128; two passes). The TMA, mbarrier and wgmma
-// pieces are hopper_common.cuh's.
+// route (D a multiple of 16 up to 128; two passes). The TMA, mbarrier and
+// wgmma pieces are hopper_common.cuh's.
 //
 // What bounds it. 4 B H L^2 D flops on 8 B L C bytes of q, k, v and out:
 // L / 2 flops a byte, so about 690 at L = 1025 and 1650 at L = 2602 (12
@@ -26,9 +26,10 @@
 //    tile's products. The tensor maps are 3D over each view (columns, L
 //    rows, batch) with its own row and batch strides, the head's column
 //    offset in the box coordinates; rows past L arrive as zeros.
-//  - Swizzle follows the row: a box row of min(D, 64) bf16 is 32, 64 or
-//    128 bytes and swizzled by as much; D = 128 is two 64-column boxes per
-//    tile. The wgmma descriptors describe the same boxes.
+//  - Swizzle follows the row: a tile row is D / BOXW boxes of BOXW =
+//    box_cols(D) bf16 (64, 32 or 16: two boxes of 64 at D = 128, three of
+//    16 at D = 48), 128, 64 or 32 bytes a box row and swizzled by as much.
+//    The wgmma descriptors describe the same boxes.
 //  - S = Q K^T: wgmma m64n128k16 from shared memory, both K-major, D / 16
 //    steps, the 64 x 128 float32 scores in registers (64 a thread).
 //  - Softmax in registers: a thread holds parts of two rows, so a row's
@@ -73,7 +74,7 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D>
 struct Geometry {
-  static constexpr int BOXW = D < 64 ? D : 64;   // columns of a TMA box
+  static constexpr int BOXW = box_cols(D);       // columns of a TMA box
   static constexpr int RB = BOXW * 2;            // bytes of a box row = swizzle span
   static constexpr int NSUB = D / BOXW;          // boxes across a row (2 at D = 128)
   static constexpr int KPS = BOXW / 16;          // 16-column k steps in a box row
@@ -270,7 +271,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUten
         wgmma_fence();
 #pragma unroll
         for (int j = 0; j < BK / 16; ++j)
-          wgmma_rs<D>(o, pa[j], mnmajor_desc<RB>(vt + j * 16 * RB, BK * RB));
+          wgmma_rs_mn<D, RB>(o, pa[j], vt + j * 16 * RB, BK * RB);
         wgmma_commit();
         wgmma_wait<0>();
         fence_regs(o);
@@ -306,14 +307,19 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
            int H, int valid_len, long long in_bstride, long long in_rstride,
            long long out_bstride, long long out_rstride, float qscale, cudaStream_t stream) {
   typedef Geometry<D> G;
+  // a runtime call first: it makes the device's context current in this
+  // thread (a fresh one, such as autograd's, has none), which the
+  // tensor-map encode needs
+  auto kernel = fwd_kernel<D, TWO_PASS>;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
+  if (err != cudaSuccess) return (int)err;
   CUtensorMap mq, mk, mv;
   const int C = H * D;
   if (!tensor_map_3d(&mq, q, C, L, B, in_rstride, in_bstride, G::BOXW, BM) ||
       !tensor_map_3d(&mk, k, C, L, B, in_rstride, in_bstride, G::BOXW, BK) ||
       !tensor_map_3d(&mv, v, C, L, B, in_rstride, in_bstride, G::BOXW, BK))
     return (int)cudaErrorInvalidValue;
-  auto kernel = fwd_kernel<D, TWO_PASS>;
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   dim3 grid((L + BM - 1) / BM, H, B);
   kernel<<<grid, NTHREAD, G::SMEM, stream>>>(mq, mk, mv, (bf16*)out, (float*)lse, L,
                                              valid_len, out_bstride, out_rstride, qscale);

@@ -13,8 +13,8 @@ gradient, so autograd never re-concatenates three.
 
 CUDA tensors launch the forward kernel of their route,
 ``csrc/flash_attention.cu`` (packed, bf16, head_dim 64) or
-``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim 16, 32, 64 or
-128), and the one backward kernel of both routes (the latter's
+``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim a multiple of
+16 up to 128), and the one backward kernel of both routes (the latter's
 ``heads_attention_bwd``), or raise; CPU tensors take the plain versions
 (``flash_mha_plain`` and ``flash_mha_heads_plain`` forward,
 ``flash_mha_bwd_plain`` backward). The references the kernels are held to
@@ -34,7 +34,7 @@ launches = 0            # packed forward kernel launches since the last reset
 bwd_launches = 0        # packed backward launches (read by chip_smoke.py)
 heads_launches = 0      # head-split forward launches
 heads_bwd_launches = 0  # head-split backward launches
-HEAD_DIMS = (16, 32, 64, 128)   # head widths of the head-split kernels
+HEAD_DIMS = tuple(range(16, 129, 16))   # head widths of the head-split kernels
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
@@ -304,7 +304,8 @@ def _check_heads(qkv, num_heads, valid_len):
     c = c3 // 3
     if c3 % 3 or c % num_heads or c // num_heads not in HEAD_DIMS:
         raise ValueError(f'head-split attention kernel takes head_dim in '
-                         f'{HEAD_DIMS}: C={c}, {num_heads} heads')
+                         f'{HEAD_DIMS}: C={c}, {num_heads} heads, head_dim '
+                         f'{c / num_heads:g}')
     if not qkv.is_cuda or qkv.dtype != torch.bfloat16:
         raise ValueError(f'head-split attention kernel takes bf16 CUDA '
                          f'tensors, got {qkv.dtype} on {qkv.device}')

@@ -22,6 +22,11 @@ from semivl_tpu_torch.train.optim import lr_schedule
 
 LOSS_KEYS = ('loss_x', 'loss_s1', 'loss_s2', 'loss_fp', 'loss_mc_s1',
              'loss_mc_s2', 'loss_mc_fp', 'loss_all')
+# switches of the JAX step that the port does not implement yet: the
+# parameter EMA (JAX train/loop.py:139, step.py:382) and the on-device
+# augmentation (step.py:219, :257)
+UNPORTED_KEYS = ('ema_decay', 'strong_aug_on_device',
+                 'labeled_photometric_distortion')
 
 
 def cutmix_image(img, img_other, box):
@@ -86,6 +91,10 @@ class SemiVLStep:
             raise NotImplementedError('only the CELoss criteria are ported')
         if not cfg.get('use_fp', True):
             raise ValueError('the reference asserts use_fp (semivl.py:114)')
+        for key in UNPORTED_KEYS:
+            if cfg.get(key):
+                raise NotImplementedError(f'{key} is not ported to the '
+                                          'PyTorch step')
         self.device = resolve_device(device)
         self.model = bundle.model
         self.cfg = cfg

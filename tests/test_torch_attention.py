@@ -16,6 +16,8 @@ package on the CPU.
   within float32 sum order (1e-3 relative L2).
 """
 
+import os
+import re
 from unittest import mock
 
 import jax
@@ -91,6 +93,32 @@ def test_route_refuses_unknown_impl():
     with pytest.raises(ValueError, match='attention_impl'):
         set_attention_impl(layer, 'flash')
     assert layer.impl == 'auto'
+
+
+def test_head_dims_are_the_kernel_instances():
+    """``HEAD_DIMS`` names the widths ``csrc/flash_attention_heads.cu``
+    instantiates, forward and backward: every multiple of 16 up to 128."""
+    path = os.path.join(os.path.dirname(flash_attention.__file__), os.pardir,
+                        'csrc', 'flash_attention_heads.cu')
+    with open(path) as f:
+        src = f.read()
+    for macro in ('SEMIVL_HEADS_FWD', 'SEMIVL_HEADS_BWD'):
+        got = tuple(int(n) for n in re.findall(rf'^ +{macro}\((\d+)\)$', src,
+                                               re.M))
+        assert got == flash_attention.HEAD_DIMS, macro
+    assert flash_attention.HEAD_DIMS == tuple(range(16, 129, 16))
+
+
+@pytest.mark.parametrize('d', [8, 24, 48, 112, 136])
+def test_heads_kernel_names_a_width_it_does_not_take(d):
+    """The kernels' checks refuse a width outside ``HEAD_DIMS`` by name
+    before any other check, so a kernel route on the card raises where
+    JAX's any-width kernel would run (never the plain math in its place);
+    a width they take passes on to the next check, the tensor's device."""
+    qkv = torch.zeros(1, 8, 3 * 2 * d, dtype=torch.bfloat16)
+    match = 'bf16 CUDA' if d in flash_attention.HEAD_DIMS else f'head_dim {d}'
+    with pytest.raises(ValueError, match=match):
+        flash_attention.flash_mha_heads(qkv, 2)
 
 
 def _qkv(seed, b, length, c, dtype=np.float32):

@@ -104,6 +104,26 @@ def test_entry_points_need_a_device_on_a_host_without_card():
         make_semivl_train_step(bundle, flagship_train_cfg(), None, 10)
 
 
+@pytest.mark.parametrize('key', ['ema_decay', 'strong_aug_on_device',
+                                 'labeled_photometric_distortion'])
+def test_train_step_refuses_unported_switches(key):
+    """A truthy switch of the JAX step that the port does not implement
+    raises, naming it, before any device is touched; a falsy one is
+    accepted (the CPU step runs)."""
+    from semivl_tpu_torch.models.builder import ModelBundle
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    bundle = ModelBundle(model=torch.nn.Identity(),
+                         text_feats=np.zeros((21, 512)),
+                         mcc_text_feats=np.zeros((98, 512)))
+    cfg = flagship_train_cfg()
+    value = 0.999 if key == 'ema_decay' else True
+    with pytest.raises(NotImplementedError, match=key):
+        make_semivl_train_step(bundle, dict(cfg, **{key: value}), None, 10)
+    step = make_semivl_train_step(bundle, dict(cfg, **{key: False}), None,
+                                  10, device='cpu')
+    assert step.iteration == 0
+
+
 def test_attention_bench_needs_a_card():
     """The attention bench times CUDA kernels only: without a card it
     raises before it builds anything."""

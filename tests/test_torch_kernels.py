@@ -348,10 +348,13 @@ def test_banded_passes_refuse_what_they_cannot_read(card):
 
 # (B, L, heads, D, valid_len): the tiny VLM's ViT (4 x 16) and semantic
 # transformer (2 x 32), odd counts of 64-wide heads, encoder-length heads of
-# 32 (with valid_len) and of 128
+# 32 (with valid_len) and of 128, and the widths whose products are split
+# (48, 80, 96, 112)
 HEADS_CASES = [(2, 17, 4, 16, None), (8, 21, 2, 32, None),
                (2, 130, 3, 64, 100), (2, 1025, 24, 32, 1000),
-               (1, 300, 8, 128, None)]
+               (1, 300, 8, 128, None), (2, 1536, 4, 48, None),
+               (1, 1025, 12, 80, 1000), (2, 869, 8, 96, None),
+               (2, 300, 3, 112, 250)]
 
 
 @pytest.mark.parametrize('b,length,heads,d,valid_len', HEADS_CASES)
@@ -383,13 +386,14 @@ def test_heads_kernel_matches_plain(card, b, length, heads, d, valid_len):
         qkv, out, lse, g, heads, valid_len))
 
 
-@pytest.mark.parametrize('d', [16, 32, 64, 128])
+@pytest.mark.parametrize('d', flash_attention.HEAD_DIMS)
 @pytest.mark.parametrize('b,length,heads,valid_len', [
     (3, 40, 3, None), (2, 65, 2, None), (1, 2602, 2, None),
     (2, 300, 3, 250)])
 def test_heads_forward_layouts(card, d, b, length, heads, valid_len):
     """The head-split forward at every head width (each its own swizzle
-    and wgmma descriptors: 32, 64 and 128-byte rows, two boxes at D = 128)
+    and wgmma descriptors: 32, 64 and 128-byte rows, two boxes at D = 128,
+    three to seven at the widths whose p v product is split)
     on one ragged tile (L < 64), one key past a tile of 64 (L = 65), the
     Cityscapes length and a valid_len inside a 128-key tile: within 2e-3
     relative L2 of its plain version, which rounds where it does, and bit
@@ -411,6 +415,38 @@ def test_heads_forward_layouts(card, d, b, length, heads, valid_len):
     assert (lse - torch.logsumexp(s, -1)).abs().max().item() < 1e-3
 
 
+@pytest.mark.parametrize('d', flash_attention.HEAD_DIMS)
+@pytest.mark.parametrize('b,length,heads,valid_len', [
+    (3, 40, 3, None), (2, 65, 2, None), (1, 2602, 2, None),
+    (2, 300, 3, 250), (2, 200, 2, 60)])
+def test_heads_backward_layouts(card, d, b, length, heads, valid_len):
+    """The backward at every head width (its own swizzle and descriptors,
+    several boxes a row above D = 64 and at 48) on one ragged tile (L <
+    64), one row past a tile of 64 (L = 65), the Cityscapes length,
+    a valid_len inside a tile and one that leaves whole key blocks masked
+    (their dk and dv must be written as zeros): within 5e-3 relative L2
+    and 2e-2 of the scale of ``flash_mha_bwd_plain`` (the same rounding
+    points), bit for bit on a rerun, into a buffer full of NaN."""
+    qkv, g = _attention_case(card, b, length, heads, d)
+    out, lse = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    want = flash_attention.flash_mha_bwd_plain(qkv, out, g, heads, valid_len)
+    with mock.patch.object(torch, 'empty', lambda *a, **k: torch.full(
+            *a, float('nan'), **k)):
+        got = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads,
+                                                  valid_len)
+    again = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads,
+                                                valid_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() < 2e-2 * scale
+    assert rel_l2(got, want.float()) < 5e-3
+    assert torch.equal(got, again)
+    if valid_len is not None:
+        c = heads * d
+        assert (got[:, valid_len:, c:] == 0).all()   # masked keys: dk = dv = 0
+
+
 def test_heads_kernel_agrees_with_packed(card):
     """12 heads of 64 through both kernel routes: the same function,
     rounded at other points (p before or after normalisation)."""
@@ -428,8 +464,8 @@ def test_heads_kernel_agrees_with_packed(card):
 
 def test_heads_kernel_refuses_other_head_dims(card):
     qkv = torch.zeros(1, 8, 3 * 96, device='cuda', dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='head_dim'):
-        flash_attention.heads_attention(qkv, 2)
+    with pytest.raises(ValueError, match='head_dim 24'):
+        flash_attention.heads_attention(qkv, 4)
     f = torch.zeros(1, 8, 3 * 64, device='cuda')
     with pytest.raises(ValueError, match='bf16'):
         flash_attention.heads_attention(f, 4)
@@ -438,7 +474,8 @@ def test_heads_kernel_refuses_other_head_dims(card):
 def test_dispatcher_routes_on_the_card(card):
     """'pallas' sends heads of 32 to the head-split kernel at any length;
     'auto' only from 1536 tokens on (plain below), and heads of 64 in an
-    even count to the packed kernel."""
+    even count to the packed kernel. A width the kernels do not take
+    raises on a kernel route, never falls back to the plain math."""
     from semivl_tpu_torch.ops import attention
 
     def launches():
@@ -454,6 +491,18 @@ def test_dispatcher_routes_on_the_card(card):
     before = launches()
     attention.qkv_attention(qkv, 2, 'auto')
     assert tuple(a - b for a, b in zip(launches(), before)) == (0, 1)
+    # heads of 48 (a split p v product) as JAX routes them; heads of 24,
+    # which no kernel takes, raise under 'auto' from 1536 tokens and
+    # under 'pallas', naming the width
+    qkv, _ = _attention_case(card, 1, 1536, 4, 48)
+    before = launches()
+    out = attention.qkv_attention(qkv, 4, 'auto')
+    assert tuple(a - b for a, b in zip(launches(), before)) == (1, 0)
+    assert torch.isfinite(out.float()).all()
+    qkv, _ = _attention_case(card, 1, 1536, 4, 24)
+    for impl in ('auto', 'pallas'):
+        with pytest.raises(ValueError, match='head_dim 24'):
+            attention.qkv_attention(qkv, 4, impl)
 
 
 # ------------------------------------------------------ fused Up stage
