@@ -8,9 +8,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. identify the card (torch/CUDA versions, name and power limit);
 2. build the CUDA kernels from ``semivl_tpu_torch/csrc`` (one ``nvcc`` per
    source, all at once) into the ignored ``semivl_tpu_torch/_build``, and
-   read the attention kernels' SASS (``cuobjdump``): wgmma and TMA loads in
-   every instance of the forwards and of the backward's dK/dV and dQ
-   kernels, no mma.sync;
+   read the SASS (``cuobjdump``): wgmma and TMA loads in every instance of
+   the attention forwards, of the attention backward's dK/dV and dQ
+   kernels and of the decoder backward's igemm conv and wgrad kernels, no
+   mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
    and semantic transformer, and a ``valid_len`` case) and the Cityscapes
@@ -22,7 +23,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 4. fused VLG decoder kernels, forward and backward (tail and input), against
    their plain versions and their rounded references at the flagship
    decoder shapes (the forward also at the Cityscapes 51^2 and edge-crop
-   grids), with planted faults that the backward's limit must catch; the
+   grids; the whole-plane backward against the reference with its bf16
+   gradient roundings), with planted faults that the backward's limit must
+   catch (one inside the igemm wgrad reduction), the tail, input and whole
+   backward timed by events and device-only beside cuDNN's backward; the
    banded backward (passes A, B and C) at the Cityscapes stage shapes: each
    pass against its plain pass on its own inputs, the composed backward
    against the rounded reference (its float64 distance logged first) and
@@ -57,8 +61,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    packed kernels on the same input, 11 heads of 64, 24 heads of 32 with
    and without ``valid_len``, 12 heads of 128), the tiny VLM's shapes and
    the widths whose products are split (48, 80, 96, 112), planted faults
-   that must fail, the dispatcher's routes on the card (JAX's table; a
-   width no kernel takes raises), with SDPA's times beside (also
+   that must fail, the dispatcher's routes on the card (JAX's table; heads
+   of 24 and 72 zero-padded to 32 and 80 under 'auto', forward and
+   backward; a width above 128 raises), with SDPA's times beside (also
    device-only);
 10. the fused Up stage (#11): its bench entry point
    (``tools.fused_up_bench``, the flagship's two stages at 14 x 21
@@ -175,6 +180,9 @@ HEADS_CASES = (('encoder 12x64 (forced head-split)', 2, 2602, 12, 64, None),
                ('12x80 valid_len', 1, 1025, 12, 80, 1000),
                ('8x96 edge crop', 1, 869, 8, 96, None),
                ('4x112', 2, 300, 4, 112, 250))
+# widths that are not a multiple of 16, zero-padded to the next one by the
+# head-split wrappers: (L, heads, head_dim), under 'auto' (L >= 1536)
+PADDED_HEADS_CASES = ((1536, 8, 24), (1600, 6, 72))
 HEADS_VS_PACKED_TOL = 5e-3  # head-split against packed kernels, relative L2:
                             # p rounded after vs before normalising
 ATTN_BWD_CASES = (('encoder', 4, 1025, 12, None),
@@ -266,38 +274,58 @@ def bound(flops, nbytes):
 
 # ------------------------------------------------------------ phase 2
 
+def _sass_counts(build, lib, keep):
+    """{function: {op: lines}} of HGMMA, UTMALDG and HMMA in the SASS of
+    ``csrc/<lib>.cu``'s library, for the functions ``keep`` selects."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
+    sass = subprocess.run([tool, '-sass', build.library_path(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, func = {}, None
+    for line in sass.splitlines():
+        if 'Function : ' in line:
+            func = line.split('Function : ')[1].strip()
+            if keep(func):
+                counts[func] = dict.fromkeys(('HGMMA', 'UTMALDG', 'HMMA'), 0)
+            else:
+                func = None
+        elif func:
+            for op in counts[func]:
+                counts[func][op] += bool(re.search(rf'\b{op}\b', line))
+    return counts
+
+
+# instances of the whole-plane decoder backward's tensor-core products:
+# conv_kernel<N, 9> at 5 widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3
+# and <N, 1> at 4 (csrc/fused_decoder_bwd.cu's conv_n and wgrad_n)
+DECODER_IGEMM_INSTANCES = (11, 7)
+
+
 def check_sass(build):
     """Every instance of the attention forward core (the packed one and the
-    head-split one per head width) and of the backward's dK/dV and dQ
-    kernels (per head width) compiled to Hopper's own instructions: wgmma
-    (HGMMA) and TMA loads (UTMALDG), and no mma.sync (HMMA)."""
+    head-split one per head width), of the backward's dK/dV and dQ kernels
+    (per head width) and of the decoder backward's igemm conv and wgrad
+    kernels compiled to Hopper's own instructions: wgmma (HGMMA) and TMA
+    loads (UTMALDG), and no mma.sync (HMMA)."""
     from semivl_tpu_torch.ops import flash_attention as fa
-    tool = os.path.join(os.path.dirname(build._nvcc()), 'cuobjdump')
     counts = {}
     for name in ('flash_attention', 'flash_attention_heads'):
-        sass = subprocess.run([tool, '-sass', build.library_path(name)],
-                              capture_output=True, text=True, check=True,
-                              timeout=120).stdout
-        func = None
-        for line in sass.splitlines():
-            if 'Function : ' in line:
-                func = line.split('Function : ')[1].strip()
-                if 'attention_fwd' in func or re.search(
-                        'attention_bwd.*(dkdv|dq)_kernel', func):
-                    counts[func] = dict.fromkeys(('HGMMA', 'UTMALDG', 'HMMA'),
-                                                 0)
-                else:
-                    func = None
-            elif func:
-                for op in counts[func]:
-                    counts[func][op] += bool(re.search(rf'\b{op}\b', line))
+        counts.update(_sass_counts(build, name, lambda f: 'attention_fwd' in f
+                                   or re.search('attention_bwd.*(dkdv|dq)'
+                                                '_kernel', f)))
     log(f'sass: attention kernels {json.dumps(counts)}')
     n_bwd = sum('attention_bwd' in f for f in counts)
     # forward: packed + each head width; backward: dK/dV and dQ at each
     n_dims = len(fa.HEAD_DIMS)
     assert (len(counts) - n_bwd, n_bwd) == (1 + n_dims, 2 * n_dims), \
         list(counts)
-    for func, c in counts.items():
+    dec = _sass_counts(build, 'fused_decoder_bwd', lambda f: 'igemm' in f and (
+        'conv_kernel' in f or 'wgrad_kernel' in f))
+    log(f'sass: decoder backward igemm kernels {json.dumps(dec)}')
+    assert (sum('conv_kernel' in f for f in dec),
+            sum('wgrad_kernel' in f for f in dec)) == \
+        DECODER_IGEMM_INSTANCES, list(dec)
+    for func, c in {**counts, **dec}.items():
         assert c['HGMMA'] and c['UTMALDG'] and not c['HMMA'], (func, c)
 
 
@@ -554,6 +582,20 @@ def conv2_wgrad_off_by(factor):
         yield
 
 
+@contextlib.contextmanager
+def conv2_wgrad_without_last_plane():
+    """Planted fault inside the igemm wgrad reduction: conv2's weight
+    gradient (both stages' tails) reduces over every plane but the last."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    real = fd._stage_bwd_tail
+
+    def faulty(x, *args, **kwargs):
+        return real(x, *args, wgrad_planes=x.shape[0] - 1, **kwargs)
+
+    with mock.patch.object(fd, '_stage_bwd_tail', faulty):
+        yield
+
+
 def _route_blind(fn):
     """A decoder reference in the place of ``fused_vlg_decoder``: it takes
     and ignores the backward route argument."""
@@ -562,9 +604,17 @@ def _route_blind(fn):
     return call
 
 
-def _rounded_float64(*args):
+def _rounded_for(bwd, float64=False):
+    """The rounded reference a decoder backward route is held to: with the
+    whole-plane kernels' bf16 gradient roundings ('whole') or with float32
+    gradients ('banded'); float64 sums with ``float64``."""
     from semivl_tpu_torch.ops import fused_decoder as fd
-    return fd.fused_vlg_decoder_rounded(*args, dtype=torch.float64)
+    dtype = torch.float64 if float64 else torch.float32
+
+    def ref(*args):
+        return fd.fused_vlg_decoder_rounded(*args, dtype=dtype,
+                                            bf16_grads=bwd == 'whole')
+    return ref
 
 
 def decoder_leaves():
@@ -592,6 +642,10 @@ DECODER_FAULTS = {'conv1 dgrad without its top-left tap':
                   conv1_dgrad_without_a_tap,
                   'conv2 weight gradients 3% off':
                   lambda: conv2_wgrad_off_by(1.03)}
+# phase 4 also plants a fault inside the igemm wgrad reduction
+WHOLE_BWD_FAULTS = dict(DECODER_FAULTS, **{
+    'conv2 wgrad reduction without the last plane':
+    conv2_wgrad_without_last_plane})
 
 
 def check_decoder_bwd(gen):
@@ -619,7 +673,7 @@ def check_decoder_bwd(gen):
 
     got = grads(fd.fused_vlg_decoder)
     ref = grads(fd.fused_vlg_decoder_rounded)
-    ref64 = grads(_rounded_float64)
+    ref64 = grads(_rounded_for('whole', float64=True))
     again = grads(fd.fused_vlg_decoder)
     torch.cuda.synchronize()
     noise = max(_rel_l2(a, r) for a, r in zip(ref64, ref))
@@ -636,7 +690,7 @@ def check_decoder_bwd(gen):
         f'against its float32 sums: worst leaf {noise:.3e}); '
         f'{json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})}')
     faults = {}
-    for what, planted in DECODER_FAULTS.items():
+    for what, planted in WHOLE_BWD_FAULTS.items():
         with planted():
             bad = grads(fd.fused_vlg_decoder)
         errs = {nm: _rel_l2(a, r) for nm, a, r in zip(names, bad, ref)}
@@ -648,57 +702,54 @@ def check_decoder_bwd(gen):
     assert rel[worst] <= DEC_BWD_TOL, (worst, rel[worst])
     assert all(e > DEC_BWD_TOL for e in faults.values()), faults
 
-    # per-kernel times: both stages' tail calls, then both input calls
-    with torch.no_grad():
-        x, s1, s2 = acts
-        _, c2, part2 = fd._forward(x, s1, s2, *params)
-        gn_in = (part2, params[0]['gn2_weight'].float().contiguous(),
-                 params[0]['gn2_bias'].float().contiguous())
-        t2 = fd._stage_bwd_tail(c2, s2, params[1], gn_in, params[2], g)
-        i2 = fd._stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], s2,
-                                 params[1])
-        t1 = fd._stage_bwd_tail(x, s1, params[0], g=i2['g_x'])
-        tail_ms = cuda_ms(lambda: (
-            fd._stage_bwd_tail(c2, s2, params[1], gn_in, params[2], g),
-            fd._stage_bwd_tail(x, s1, params[0], g=i2['g_x'])), 5)
-        input_ms = cuda_ms(lambda: (
-            fd._stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], s2,
-                                params[1]),
-            fd._stage_bwd_input(t1['g_c1'], t1['up'], t1['xin'], s1,
-                                params[0])), 5)
+    # times: both stages' tail calls, both input calls, the whole backward
+    # through autograd; events and device-only
+    from semivl_tpu_torch.tools import decoder_bench
+    fns, _ = decoder_bench.calls(fd, acts, params, g)
+    tail_ms, input_ms, ms = (cuda_ms(fns[k], 5)
+                             for k in ('tail', 'input', 'whole'))
+    tail_dev, input_dev, whole_dev = (device_ms(fns[k], 5)
+                                      for k in ('tail', 'input', 'whole'))
+    del fns
 
     prms = ([params[0][k] for k in fd.STAGE_KEYS]
             + [params[1][k] for k in fd.STAGE_KEYS] + [head.weight, head.bias])
 
-    def bwd_ms(fn):
+    def bwd_call(fn):
         xs = [t.detach().requires_grad_(True) for t in acts]
         out = fn(*xs, *params)
-        return cuda_ms(lambda: torch.autograd.grad(out, xs + prms, g,
-                                                   retain_graph=True), 5)
+        return lambda: torch.autograd.grad(out, xs + prms, g,
+                                           retain_graph=True)
 
-    ms = bwd_ms(fd.fused_vlg_decoder)
-    plain_ms = bwd_ms(fd.fused_vlg_decoder_plain)
-    lib_ms = bwd_ms(lambda *a: _cudnn_chain(up1, up2, head, *a[:3]))
+    plain_ms = cuda_ms(bwd_call(fd.fused_vlg_decoder_plain), 5)
+    cudnn = bwd_call(lambda *a: _cudnn_chain(up1, up2, head, *a[:3]))
+    lib_ms, lib_dev = cuda_ms(cudnn, 5), device_ms(cudnn, 5)
+    del cudnn
     f1 = _stage_bwd_flops(p, b, c, 32, 64, h, h, False)
     f2 = _stage_bwd_flops(p, b, 64, 16, 32, 2 * h, 2 * h, True)
     nbytes = 2 * 2 * sum(t.numel() for t in acts + [g])
     tail_bound, tail_by = bound(f1[0] + f2[0], nbytes)
     input_bound, input_by = bound(f1[1] + f2[1], nbytes)
     log(f'decoder bwd P={p} x {tuple(acts[0].shape)}: whole backward '
-        f'kernel_ms {ms:.3f} plain_ms {plain_ms:.3f} cudnn_ms {lib_ms:.3f}; '
-        f'tail_ms {tail_ms:.3f} bound {tail_bound:.4f} ({tail_by}) GFLOP '
-        f'{(f1[0] + f2[0]) / 1e9:.1f}; input_ms {input_ms:.3f} bound '
-        f'{input_bound:.4f} ({input_by}) GFLOP {(f1[1] + f2[1]) / 1e9:.1f}')
+        f'kernel_ms {ms:.3f} device_ms {fmt_ms(whole_dev)} plain_ms '
+        f'{plain_ms:.3f} cudnn_ms {lib_ms:.3f} cudnn device_ms '
+        f'{fmt_ms(lib_dev)}; tail_ms {tail_ms:.3f} device_ms '
+        f'{fmt_ms(tail_dev)} bound {tail_bound:.4f} ({tail_by}) GFLOP '
+        f'{(f1[0] + f2[0]) / 1e9:.1f}; input_ms {input_ms:.3f} device_ms '
+        f'{fmt_ms(input_dev)} bound {input_bound:.4f} ({input_by}) GFLOP '
+        f'{(f1[1] + f2[1]) / 1e9:.1f}')
     common = dict(tol=DEC_BWD_TOL, plain_ms=plain_ms, library_ms=lib_ms,
-                  whole_bwd_ms=ms, planted_faults=faults)
+                  library_device_ms=lib_dev, whole_bwd_ms=ms,
+                  whole_bwd_device_ms=whole_dev, planted_faults=faults)
     rows = []
-    for names_, t_ms, t_bound, t_by in (
-            (tail, tail_ms, tail_bound, tail_by),
-            ([nm for nm in names if nm not in tail], input_ms, input_bound,
-             input_by)):
+    for names_, t_ms, t_dev, t_bound, t_by in (
+            (tail, tail_ms, tail_dev, tail_bound, tail_by),
+            ([nm for nm in names if nm not in tail], input_ms, input_dev,
+             input_bound, input_by)):
         rows.append(dict(max_abs_err=max(abs_err[nm] for nm in names_),
                          rel_err=max(rel[nm] for nm in names_), ms=t_ms,
-                         bound_ms=t_bound, bound_by=t_by, **common))
+                         device_ms=t_dev, bound_ms=t_bound, bound_by=t_by,
+                         **common))
     return rows
 
 
@@ -863,8 +914,8 @@ def check_banded_bwd(gen):
     def grads(fn):
         return decoder_grads(fn, acts, params, g)
 
-    ref64 = grads(_rounded_float64)
-    ref = grads(fd.fused_vlg_decoder_rounded)
+    ref64 = grads(_rounded_for('banded', float64=True))
+    ref = grads(_rounded_for('banded'))
     noise = {nm: _rel_l2(a, r) for nm, a, r in zip(names, ref64, ref)}
     log(f'banded bwd P={p}: the rounded reference\'s float64 against its '
         f'float32 sums: worst leaf {max(noise.values()):.3e} '
@@ -1433,7 +1484,8 @@ class PerCallCheck:
 
             got, ref32, ref64 = (
                 decoder_grads(fn, inputs, params, g) for fn in (
-                    kernels, fd.fused_vlg_decoder_rounded, _rounded_float64))
+                    kernels, _rounded_for(bwd),
+                    _rounded_for(bwd, float64=True)))
             ref = ref64 if self.exact_ref else ref32
             top = max(r.abs().max().item() for r in ref)
             kept = [i for i, r in enumerate(ref)
@@ -1629,6 +1681,16 @@ PROFILED_KERNELS = (
     ('attention_bwd::dq_kernel', ('attention_bwd', 'heads_bwd')))
 
 
+# the decoder's kernels in a profile, by a part of their profiler key: the
+# stage forward (#5, decoder_common.cuh), the whole-plane backward (#6/#7:
+# decoder_igemm.cuh's products and fused_decoder_bwd.cu's passes) and the
+# banded passes (#8-#10)
+DECODER_KERNEL_KEYS = ('conv3x3_kernel', 'tconv2x2_kernel', 'gn_relu_kernel',
+                       'gn_stats_kernel', 'igemm::', 'gn_bwd_', 'wgrad3x3',
+                       'sum_partials', 'plane_sum', 'channel_total',
+                       'gn_solve', 'tconv_dgrad', 'tconv_wgrad')
+
+
 def _profile(run, wall_ms, what, top, windows=4):
     """One call of ``run`` under the profiler, by kernel. The profiler on
     the card's machine at times drops records, so a window is whole only
@@ -1652,8 +1714,16 @@ def _profile(run, wall_ms, what, top, windows=4):
                 for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA
                 and e.self_device_time_total]
+        # user annotations (``record_function`` ranges such as the
+        # optimizer's ``Optimizer.step#AdamW.step``) span kernels that
+        # have rows of their own: not kernel time. A kernel's name has
+        # spaces or brackets (``{lambda()#3}``), an annotation's none.
+        notes = {e.key for e in prof.key_averages()
+                 if getattr(e, 'is_user_annotation', False)}
+        annotations = [r for r in rows if r[2] in notes
+                       or re.fullmatch(r'[\w.]+#[\w.]+', r[2])]
         copies = [r for r in rows if r[2].startswith(('Memcpy', 'Memset'))]
-        rows = [r for r in rows if r not in copies]
+        rows = [r for r in rows if r not in copies and r not in annotations]
         counts = {key: count for _, count, key in rows}
         port = {name: (sum(c for k, c in counts.items() if name in k),
                        sum(moved[x] for x in keys))
@@ -1668,7 +1738,9 @@ def _profile(run, wall_ms, what, top, windows=4):
     dev_ms = sum(r[0] for r in rows)
     log(f'profile: {what}: wall {wall_ms:.2f} ms (unprofiled), device busy '
         f'(kernels) {dev_ms:.2f} ms, idle share {1 - dev_ms / wall_ms:.3f}; '
-        f'copies {[(round(ms, 3), key) for ms, _, key in copies]}')
+        f'copies {[(round(ms, 3), key) for ms, _, key in copies]}; '
+        f'annotations left out of busy '
+        f'{[(round(ms, 3), key) for ms, _, key in annotations]}')
     log(f'profile:   window {n} of {windows}, whole: {whole}; the port\'s '
         f'kernels, records / launches: '
         f'{ {k.split("::")[1]: v for k, v in port.items()} }')
@@ -1681,8 +1753,13 @@ def _profile(run, wall_ms, what, top, windows=4):
     # the backward's three kernels (prep, dK/dV, dQ) run once a call
     bwd_ms = sum(ms for ms, _, key in rows if 'attention_bwd' in key)
     log(f'profile:   attention backward, all three kernels: {bwd_ms:.3f} ms')
+    dec_ms = sum(ms for ms, _, key in rows if any(
+        k in key for k in DECODER_KERNEL_KEYS))
+    log(f'profile:   decoder kernels (forward and backward): {dec_ms:.3f} ms, '
+        f'{dec_ms / dev_ms:.3f} of busy')
     return dict(wall_ms=wall_ms, busy_ms=dev_ms,
                 idle_share=1 - dev_ms / wall_ms, attention_bwd_ms=bwd_ms,
+                decoder_ms=dec_ms, decoder_share=dec_ms / dev_ms,
                 whole_window=whole, windows=n)
 
 
@@ -1818,8 +1895,9 @@ def check_heads_attention(gen):
         r[0]['planted_faults'] = faults
     # the dispatcher on the card, JAX's table: 'auto' sends heads other
     # than an even count of 64 to the head-split kernel from 1536 tokens on
-    # and keeps shorter ones plain; a width no kernel takes (24) raises on
-    # both kernel routes, never runs the plain math in the kernel's place
+    # and keeps shorter ones plain; a width no kernel takes (above 128)
+    # raises on both kernel routes, never runs the plain math in the
+    # kernel's place
     for length, heads, d, moved in ((2602, 11, 64, 1), (1025, 24, 32, 0),
                                     (1536, 16, 48, 1)):
         qkv = torch.randn(1, length, 3 * heads * d, generator=gen,
@@ -1831,20 +1909,53 @@ def check_heads_attention(gen):
         assert attention.route(length, length, heads * d, heads, 'auto',
                                True) == ('heads' if moved else 'plain')
         assert torch.isfinite(out.float()).all()
-    qkv = torch.randn(1, 1536, 3 * 32 * 24, generator=gen, device='cuda',
+    # widths that are not a multiple of 16 under 'auto': zero-padded to the
+    # next one, forward and backward through the kernels, within the
+    # limits of the kernels' own widths
+    for length, heads, d in PADDED_HEADS_CASES:
+        c = heads * d
+        qkv = torch.randn(1, length, 3 * c, generator=gen, device='cuda',
+                          dtype=torch.bfloat16)
+        g = torch.randn(1, length, c, generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        x = qkv.clone().requires_grad_(True)
+        before = (fa.heads_launches, fa.heads_bwd_launches)
+        out = attention.qkv_attention(x, heads, 'auto')
+        (got_g,) = torch.autograd.grad(out, x, g)
+        moved = (fa.heads_launches - before[0],
+                 fa.heads_bwd_launches - before[1])
+        want = fa.heads_attention_plain(qkv, heads)
+        want_g = fa.flash_mha_bwd_plain(qkv, out.detach(), g, heads)
+        torch.cuda.synchronize()
+        err = (out.float() - want.float()).abs().max().item()
+        rel, rel_g = _rel_l2(out, want), _rel_l2(got_g, want_g)
+        scale_g = want_g.float().abs().max().item()
+        err_g = (got_g.float() - want_g.float()).abs().max().item()
+        log(f'heads attention, {heads} heads of {d} (padded to '
+            f'{fa.padded_head_dim(d)}) at L = {length} under \'auto\': '
+            f'launches {moved}; fwd max_abs_err {err:.3e} (tol {ATTN_TOL}) '
+            f'rel-L2 {rel:.3e} (tol {ATTN_REL_TOL}); bwd max_abs_err '
+            f'{err_g:.3e} of scale {scale_g:.3f} rel-L2 {rel_g:.3e} (tol '
+            f'{ATTN_BWD_REL_TOL})')
+        assert moved == (1, 1), moved
+        assert torch.isfinite(out.float()).all() and torch.isfinite(
+            got_g.float()).all()
+        assert err <= ATTN_TOL and rel <= ATTN_REL_TOL, (d, err, rel)
+        assert err_g <= ATTN_BWD_TOL * scale_g and rel_g <= ATTN_BWD_REL_TOL
+    qkv = torch.randn(1, 1536, 3 * 4 * 136, generator=gen, device='cuda',
                       dtype=torch.bfloat16)
     refused = []
     for impl in ('auto', 'pallas'):
         try:
             with torch.no_grad():
-                attention.qkv_attention(qkv, 32, impl)
+                attention.qkv_attention(qkv, 4, impl)
         except ValueError as e:
             refused.append(str(e))
-    assert len(refused) == 2 and all('head_dim 24' in e for e in refused), \
+    assert len(refused) == 2 and all('head_dim 136' in e for e in refused), \
         refused
     log('heads attention: the dispatcher\'s \'auto\' route sends 11 heads '
         'of 64 at L = 2602 and 16 heads of 48 at L = 1536 to the head-split '
-        'kernel, 24 heads of 32 at L = 1025 to the plain math; heads of 24 '
+        'kernel, 24 heads of 32 at L = 1025 to the plain math; heads of 136 '
         f'raise under \'auto\' and \'pallas\': {refused[0]}')
     return rows
 
@@ -2170,6 +2281,9 @@ def main():
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
             'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
+            whole_bwd_ms=dec_tail['whole_bwd_ms'],
+            whole_bwd_device_ms=dec_tail['whole_bwd_device_ms'],
             **paths('decoder_bwd_tail')),
         row('decoder_stage_bwd_input', 'fused_decoder_bwd.cu',
             'semivl_tpu/ops/fused_decoder.py:728',
@@ -2177,6 +2291,9 @@ def main():
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
             'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
+            whole_bwd_ms=dec_input['whole_bwd_ms'],
+            whole_bwd_device_ms=dec_input['whole_bwd_device_ms'],
             **paths('decoder_bwd_input')),
     ]
     for k, line in (('A', 168), ('B', 318), ('C', 414)):

@@ -1,9 +1,9 @@
-// Device code shared by the decoder backward kernels (fused_decoder_bwd.cu,
-// the whole-plane backward, and fused_decoder_banded.cu, the three-pass
-// backward from saved GroupNorm statistics): the GroupNorm+ReLU backward
-// halves, the 3x3 conv and 2x2 transpose-conv weight gradients (per-block
-// partials added in a fixed order, no float atomics) and the transpose
-// conv input gradient, all in float32 on the CUDA cores.
+// Device code of the banded decoder backward (fused_decoder_banded.cu, the
+// three-pass backward from saved GroupNorm statistics), some of it shared
+// with the whole-plane backward (fused_decoder_bwd.cu): the GroupNorm+ReLU
+// backward's first half, the 3x3 conv and 2x2 transpose-conv weight
+// gradients (per-block partials added in a fixed order, no float atomics)
+// and the transpose conv input gradient, all in float32 on the CUDA cores.
 #pragma once
 
 #include "decoder_common.cuh"
@@ -46,61 +46,6 @@ gn_bwd_relu_kernel(const float* g_a, const bf16* __restrict__ c, int C, int HW, 
       o[0] = r.x;
       o[1] = r.y;
     }
-  }
-}
-
-// GN backward, second half: g_c = rstd * (gamma g_y - (A + x_hat B) / n)
-// with A, B the plane's group sums of gamma g_y and gamma g_y x_hat.
-__global__ void __launch_bounds__(NT)
-gn_bwd_input_kernel(const float* __restrict__ g_y, const bf16* __restrict__ c, int C, int HW,
-                    GNIn gn, const float* __restrict__ gpart, int nslots,
-                    float* __restrict__ g_c) {
-  __shared__ float s_mean[MAXG], s_rstd[MAXG], s_a[MAXG], s_b[MAXG];
-  const int p = blockIdx.y, groups = C / GSIZE;
-  if (threadIdx.x < groups) {
-    double a = 0.0, b = 0.0;
-    for (int ch = threadIdx.x * GSIZE; ch < (threadIdx.x + 1) * GSIZE; ++ch) {
-      const float* q = gpart + ((size_t)p * C + ch) * nslots * 2;
-      double sa = 0.0, sb = 0.0;
-      for (int s = 0; s < nslots; ++s) {
-        sa += q[2 * s];
-        sb += q[2 * s + 1];
-      }
-      a += gn.gamma[ch] * sa;
-      b += gn.gamma[ch] * sb;
-    }
-    s_a[threadIdx.x] = (float)(a * gn.inv_count);
-    s_b[threadIdx.x] = (float)(b * gn.inv_count);
-  }
-  gn_prologue(gn, p, groups, s_mean, s_rstd);  // ends in __syncthreads
-  const int pix = blockIdx.x * NT + threadIdx.x;
-  if (pix >= HW) return;
-  for (int ch = 0; ch < C; ++ch) {
-    const size_t i = ((size_t)p * C + ch) * HW + pix;
-    const int g = ch / GSIZE;
-    const float xh = (__bfloat162float(c[i]) - s_mean[g]) * s_rstd[g];
-    g_c[i] = s_rstd[g] * (gn.gamma[ch] * g_y[i] - s_a[g] - xh * s_b[g]);
-  }
-}
-
-// GroupNorm parameter gradients: per channel, the sum over planes and
-// blocks of the partials (g_beta from g_y, g_gamma from g_y * x_hat).
-__global__ void __launch_bounds__(NT)
-gn_param_grad_kernel(const float* __restrict__ gpart, int P, int C, int nslots,
-                     float* __restrict__ g_gamma, float* __restrict__ g_beta) {
-  __shared__ float2 s_red[NT / 32];
-  const int ch = blockIdx.x;
-  double sb = 0.0, sg = 0.0;
-  for (int i = threadIdx.x; i < P * nslots; i += NT) {
-    const int p = i / nslots, s = i % nslots;
-    const float* q = gpart + (((size_t)p * C + ch) * nslots + s) * 2;
-    sb += q[0];
-    sg += q[1];
-  }
-  const float2 r = block_sum2((float)sb, (float)sg, s_red);
-  if (threadIdx.x == 0) {
-    g_beta[ch] = r.x;
-    g_gamma[ch] = r.y;
   }
 }
 
@@ -397,18 +342,6 @@ void tconv_wgrad(int cu, const bf16* xin, const float* g_up, int P, int cin, int
     case 64: launch_tconv_wgrad<64>(xin, g_up, P, cin, h, w, R, part, bpart, out, bout, st); break;
     case 96: launch_tconv_wgrad<96>(xin, g_up, P, cin, h, w, R, part, bpart, out, bout, st); break;
   }
-}
-
-// GN+ReLU backward from g_a (gradient of the activation) to g_c (gradient
-// of the raw input c), with the scale and shift gradients. g_y may alias
-// g_a.
-void gn_backward(const float* g_a, const bf16* c, int P, int C, int HW, const GNIn& gn,
-                 float* g_y, float* gpart, float* g_c, float* g_gamma, float* g_beta,
-                 cudaStream_t st) {
-  const int eb = (HW + NT - 1) / NT;
-  gn_bwd_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(g_a, c, C, HW, gn, g_y, gpart);
-  gn_param_grad_kernel<<<C, NT, 0, st>>>(gpart, P, C, eb, g_gamma, g_beta);
-  gn_bwd_input_kernel<<<dim3(eb, P), NT, 0, st>>>(g_y, c, C, HW, gn, gpart, eb, g_c);
 }
 
 }  // namespace

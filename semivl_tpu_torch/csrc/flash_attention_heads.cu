@@ -5,8 +5,10 @@
 // (the Pallas TPU kernels behind flash_mha's head-split route, taken for
 // heads whose width is not 64 or whose count is odd): softmax(q k^T /
 // sqrt(D)) v per head of D a multiple of 16 up to 128 (the TPU kernels
-// take any width; the repo's models have heads of 16, 32 and 64), keys at
-// or past valid_len masked to -1e30, and its gradient. The backward at D =
+// take any width; ops/flash_attention.py zero-pads a narrower width that
+// is not a multiple of 16 to the next one and passes the true width's
+// scales; the repo's models have heads of 16, 32 and 64), keys at or past
+// valid_len masked to -1e30, and its gradient. The backward at D =
 // 64 also replaces ::_packed_bwd_kernel: the packed forward
 // (flash_attention.cu) writes the same row log-sum-exp, and at D = 64 the
 // two TPU backwards compute one function (1/8 is exact in bf16, so dk from

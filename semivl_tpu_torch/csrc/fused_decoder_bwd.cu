@@ -1,4 +1,5 @@
-// Fused VLG decoder Up stage backward for Hopper (sm_90a).
+// Fused VLG decoder Up stage backward for Hopper (sm_90a), the whole-plane
+// route.
 //
 // Replaces the two Pallas TPU kernels behind the backward of
 // semivl_tpu/ops/fused_decoder.py::fused_vlg_decoder (_stage_bwd):
@@ -15,67 +16,325 @@
 // on load in the forward) returns the gradient of that normalised input;
 // its GN2+ReLU backward is the previous stage's tail.
 //
-// What bounds it on this card: about twice the forward's convolution work
-// (dgrad and wgrad of every conv), ~440 GFLOP at the flagship training
-// shape (P = 126 planes), so it is bound by operations. Like the forward
-// it runs on the CUDA cores in float32: dgrads are the forward's direct
-// 3x3 convolution with flipped, transposed weights; wgrads are register-
-// tiled reductions over (plane, 8x8 tile) items, each block summing its
-// share of the items and a second pass adding the blocks' partials in a
-// fixed order (no float atomics: two runs agree bit for bit). Tensor-core
-// implicit GEMM is later work.
+// What bounds it on this card: the convolutions' dgrads and wgrads (and
+// the recompute of the forward), ~440 GFLOP at the flagship training shape
+// (P = 126 planes), so the tensor cores. Every product of more than one
+// input channel runs on decoder_igemm.cuh's wgmma implicit GEMM (bf16
+// operands, float32 sums, TMA rings): the recompute (transpose conv per
+// output phase, conv1's skip half per image, conv1's up half with the skip
+// addend and GroupNorm partials in its epilogue, conv2 with its partials),
+// every 3x3 dgrad (the same product with flipped, transposed weights) and
+// wgrad (K = pixels, per-slot partials added in a fixed order: no float
+// atomics, two runs agree bit for bit), and the transpose conv's dgrad (K
+// = 4 cu) and wgrad (K = input pixels). The head (32 -> 1 channel: K = 9
+// for its dgrad, N = 1 for its wgrad) stays on decoder_common.cuh's CUDA
+// cores, as do the elementwise passes.
+//
+// GroupNorm+ReLU backward: a separate elementwise pass (gn_backward below:
+// per-slab sums of g_y and g_y x_hat, a per-plane reduction in double, the
+// apply pass g_raw = rstd (gamma g_y - A - x_hat B)) rather than fused into
+// the dgrad epilogue and the consumers' loads. The consumers read their
+// operands straight from TMA into the swizzled tiles, so a transform on
+// load would cost a shared-memory pass in every K step; the separate pass
+// reads and writes each plane once.
+//
+// Storage, as JAX's kernels store (_CDT = bf16): the gradients of the
+// normalised conv2 output (g_a2), of the raw conv2 output (g_raw2), of the
+// normalised conv1 output (g_a1), of the raw conv1 output (g_raw1, the
+// tail -> input hand-off) and of the stage input (g_x) are bf16. Two more
+// bf16 operands that JAX's polyphase kernels never form are the transpose
+// conv's output gradient (g_up, a wgmma operand, kept phase-separated
+// [P][4][cu][h][pitch] for the transpose conv's GEMMs) and the per-image
+// sum of g_raw1 (g_img, the skip half's operand); the rounded reference
+// (ops/fused_decoder.py::fused_vlg_decoder_rounded) rounds there too.
+// g_skip and every weight, bias and GroupNorm gradient are float32.
 //
 // Design against the TPU kernels. They kept a plane in VMEM, recomputed the
 // forward there and accumulated weight gradients across a sequential grid.
 // Here blocks run in parallel, so the stage is a sequence of kernels on the
-// stream: the forward's tile kernels recompute up, conv1, conv2 and their
-// GroupNorm partial sums into device memory (nothing is saved from the
-// forward but the stage inputs), elementwise kernels apply the GroupNorm
-// backward, whose whole-plane sums of g and g * x_hat come from per-block
-// partials reduced in the consumer's prologue, and gradients between the
-// steps are kept in float32.
+// stream: nothing is saved from the forward but the stage inputs; the
+// recompute and the gradients between the steps live in device memory.
 
 #include "decoder_bwd_common.cuh"
+#include "decoder_igemm.cuh"
 
 namespace {
 
+using igemm::Epi;
+using igemm::Planes;
+
 // Tensor slots of decoder_stage_bwd_tail (t[]) and its sizes (d[]).
 enum TailSlot {
-  T_X, T_GN_PART, T_GN_GAMMA, T_GN_BETA, T_SKIP, T_UP_W, T_UP_B, T_W1U, T_W1S, T_W2,
+  T_X, T_GN_PART, T_GN_GAMMA, T_GN_BETA, T_SKIP, T_UP_WF, T_UP_B, T_W1U, T_W1S, T_W2,
   T_G1W, T_G1B, T_G2W, T_G2B, T_W2_D, T_HEAD_WD, T_G_OUT, T_G_A2,
-  T_XIN, T_UP, T_YS, T_C1, T_PART1, T_C2, T_PART2, T_A1, T_A2, T_GY, T_GC, T_GPART,
-  T_WPART, T_BPART,
+  T_XIN, T_UP, T_YS, T_C1, T_PART1, T_C2, T_PART2, T_A1, T_A2, T_G_RAW2, T_G_A1,
+  T_GPART, T_GSUM, T_GAB, T_BPART, T_IGPART, T_SCR_A, T_SCR_B, T_SCR_G,
   T_G_C1, T_G_W2, T_G_G1W, T_G_G1B, T_G_G2W, T_G_G2B, T_G_HW, T_G_HB, T_COUNT
 };
 enum InputSlot {
-  I_G_C1, I_UP, I_XIN, I_SKIP, I_UP_W, I_W1U_D, I_W1S_D, I_G_UP, I_G_IMG, I_WPART, I_BPART,
-  I_G_XIN, I_G_SKIP, I_G_W1U, I_G_W1S, I_G_UP_W, I_G_UP_B, I_COUNT
+  I_G_C1, I_UP, I_XIN, I_SKIP, I_UP_WD, I_W1U_D, I_W1S_D, I_GPH, I_G_IMG, I_IGPART, I_BPART,
+  I_SCR_A, I_SCR_B, I_G_XIN, I_G_SKIP, I_G_W1U, I_G_W1S, I_G_UP_W, I_G_UP_B, I_COUNT
 };
-enum Dim { D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_R, D_COUNT };
+// D_PITCH: the row pitch of the phase-separated g_up (input half);
+// D_WG_PLANES: the planes the tail's conv2 wgrad reduces over (P; fewer
+// only for a planted fault); D_SLOTS*: slots of each wgrad reduction.
+enum Dim {
+  D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_PITCH, D_WG_PLANES, D_SLOTS,
+  D_SLOTS2, D_SLOTS3, D_COUNT
+};
+
+#define SEMIVL_CK(call)        \
+  do {                         \
+    const int e_ = (call);     \
+    if (e_ != 0) return e_;    \
+  } while (0)
+
+template <int TAPS>
+int conv_n(int n, const Planes& in, const bf16* w, int nsplit, const Epi& e, cudaStream_t st) {
+  switch (n) {
+    case 16: return igemm::conv<16, TAPS>(in, w, nsplit, e, st);
+    case 32: return igemm::conv<32, TAPS>(in, w, nsplit, e, st);
+    case 48: return igemm::conv<48, TAPS>(in, w, nsplit, e, st);
+    case 64: return igemm::conv<64, TAPS>(in, w, nsplit, e, st);
+    case 96: return igemm::conv<96, TAPS>(in, w, nsplit, e, st);
+  }
+  if constexpr (TAPS == 1) {
+    if (n == 128) return igemm::conv<128, 1>(in, w, nsplit, e, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Weight gradient of a 3x3 conv (g with n = 16, 32 or 64 channels) or of the
+// transpose conv (B = its input, n = 32, 64, 96 or 128 channels).
+template <int TAPS>
+int wgrad_n(int n, const Planes& in, const Planes& g, int planes, int mrows, int slots,
+            float* part, cudaStream_t st) {
+  if constexpr (TAPS == 9) {
+    switch (n) {
+      case 16: return igemm::wgrad<16, 9>(in, g, planes, mrows, slots, part, st);
+      case 32: return igemm::wgrad<32, 9>(in, g, planes, mrows, slots, part, st);
+      case 64: return igemm::wgrad<64, 9>(in, g, planes, mrows, slots, part, st);
+    }
+  } else {
+    switch (n) {
+      case 32: return igemm::wgrad<32, 1>(in, g, planes, mrows, slots, part, st);
+      case 64: return igemm::wgrad<64, 1>(in, g, planes, mrows, slots, part, st);
+      case 96: return igemm::wgrad<96, 1>(in, g, planes, mrows, slots, part, st);
+      case 128: return igemm::wgrad<128, 1>(in, g, planes, mrows, slots, part, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+Epi epi(int mode, void* out) {
+  Epi e{};
+  e.mode = mode;
+  e.out = out;
+  e.add_rep = 1;
+  return e;
+}
+
+// ------------------------------------------------ GroupNorm+ReLU backward
+
+constexpr int GN_SLAB = 1024;   // pixels of one block of gn_bwd_sums_kernel
+constexpr int GN_MAXC = 64;
+
+// g_y = g_a [gamma x_hat + beta > 0] from the raw input c; per (plane,
+// channel, slab) sums of g_y and g_y x_hat: gpart[p][c][slab][2].
+__global__ void __launch_bounds__(NT)
+gn_bwd_sums_kernel(const bf16* __restrict__ g_a, const bf16* __restrict__ c, int C, int HW,
+                   GNIn gn, float* __restrict__ gpart) {
+  __shared__ float s_mean[MAXG], s_rstd[MAXG];
+  __shared__ float s_part[NT / 32][GN_MAXC][2];
+  const int p = blockIdx.y, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  gn_prologue(gn, p, C / GSIZE, s_mean, s_rstd);
+  for (int ch = 0; ch < C; ++ch) {
+    const int g = ch / GSIZE;
+    float s = 0.f, q = 0.f;
+#pragma unroll
+    for (int j = 0; j < GN_SLAB / NT; ++j) {
+      const int pix = blockIdx.x * GN_SLAB + j * NT + threadIdx.x;
+      if (pix < HW) {
+        const size_t i = ((size_t)p * C + ch) * HW + pix;
+        const float v = __bfloat162float(c[i]);
+        if (gn_affine(gn, ch, v, s_mean, s_rstd) > 0.f) {
+          const float gy = __bfloat162float(g_a[i]);
+          s += gy;
+          q += gy * ((v - s_mean[g]) * s_rstd[g]);
+        }
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      s += __shfl_xor_sync(0xffffffffu, s, o);
+      q += __shfl_xor_sync(0xffffffffu, q, o);
+    }
+    if (lane == 0) {
+      s_part[warp][ch][0] = s;
+      s_part[warp][ch][1] = q;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < C) {
+    float s = 0.f, q = 0.f;
+    for (int w = 0; w < NT / 32; ++w) {
+      s += s_part[w][threadIdx.x][0];
+      q += s_part[w][threadIdx.x][1];
+    }
+    float* o = gpart + (((size_t)p * C + threadIdx.x) * gridDim.x + blockIdx.x) * 2;
+    o[0] = s;
+    o[1] = q;
+  }
+}
+
+// Per plane (block): the channel totals gsum[p][c][2] (g_y, g_y x_hat),
+// summed over the slabs in order in double, and per group A = sum gamma g_y
+// / n and B = sum gamma g_y x_hat / n: gab[p][g][2].
+__global__ void gn_bwd_reduce_kernel(const float* __restrict__ gpart, int C, int nslabs, GNIn gn,
+                                     float* __restrict__ gsum, float* __restrict__ gab) {
+  __shared__ double s_a[GN_MAXC], s_b[GN_MAXC];
+  const int p = blockIdx.x, ch = threadIdx.x;
+  if (ch < C) {
+    const float* q = gpart + ((size_t)p * C + ch) * nslabs * 2;
+    double a = 0.0, b = 0.0;
+    for (int s = 0; s < nslabs; ++s) {
+      a += q[2 * s];
+      b += q[2 * s + 1];
+    }
+    gsum[((size_t)p * C + ch) * 2] = (float)a;
+    gsum[((size_t)p * C + ch) * 2 + 1] = (float)b;
+    s_a[ch] = gn.gamma[ch] * a;
+    s_b[ch] = gn.gamma[ch] * b;
+  }
+  __syncthreads();
+  const int groups = C / GSIZE;
+  if (ch < groups) {
+    double a = 0.0, b = 0.0;
+    for (int k = ch * GSIZE; k < (ch + 1) * GSIZE; ++k) {
+      a += s_a[k];
+      b += s_b[k];
+    }
+    gab[((size_t)p * groups + ch) * 2] = (float)(a * gn.inv_count);
+    gab[((size_t)p * groups + ch) * 2 + 1] = (float)(b * gn.inv_count);
+  }
+}
+
+// GroupNorm parameter gradients: per channel, the planes' totals in order.
+__global__ void gn_bwd_params_kernel(const float* __restrict__ gsum, int P, int C,
+                                     float* __restrict__ g_gamma, float* __restrict__ g_beta) {
+  const int ch = threadIdx.x;
+  if (ch >= C) return;
+  double b = 0.0, g = 0.0;
+  for (int p = 0; p < P; ++p) {
+    b += gsum[((size_t)p * C + ch) * 2];
+    g += gsum[((size_t)p * C + ch) * 2 + 1];
+  }
+  g_beta[ch] = (float)b;
+  g_gamma[ch] = (float)g;
+}
+
+// g_raw = rstd (gamma g_y - A - x_hat B), stored in bf16.
+__global__ void __launch_bounds__(NT)
+gn_bwd_apply_kernel(const bf16* __restrict__ g_a, const bf16* __restrict__ c, int C, int HW,
+                    GNIn gn, const float* __restrict__ gab, bf16* __restrict__ g_raw) {
+  __shared__ float s_mean[MAXG], s_rstd[MAXG], s_a[MAXG], s_b[MAXG];
+  const int p = blockIdx.y, groups = C / GSIZE;
+  if (threadIdx.x < groups) {
+    s_a[threadIdx.x] = gab[((size_t)p * groups + threadIdx.x) * 2];
+    s_b[threadIdx.x] = gab[((size_t)p * groups + threadIdx.x) * 2 + 1];
+  }
+  gn_prologue(gn, p, groups, s_mean, s_rstd);   // ends in __syncthreads
+  const int pix = blockIdx.x * NT + threadIdx.x;
+  if (pix >= HW) return;
+  for (int ch = 0; ch < C; ++ch) {
+    const size_t i = ((size_t)p * C + ch) * HW + pix;
+    const int g = ch / GSIZE;
+    const float v = __bfloat162float(c[i]);
+    const float xh = (v - s_mean[g]) * s_rstd[g];
+    const float gy = gn_affine(gn, ch, v, s_mean, s_rstd) > 0.f ? __bfloat162float(g_a[i]) : 0.f;
+    g_raw[i] = __float2bfloat16(s_rstd[g] * (gn.gamma[ch] * gy - s_a[g] - xh * s_b[g]));
+  }
+}
+
+// GN+ReLU backward from g_a (the normalised output's gradient) to g_raw,
+// with the scale and shift gradients. gpart: P * C * ceil(HW / GN_SLAB) * 2
+// floats; gsum: P * C * 2; gab: P * C / 16 * 2.
+int gn_backward(const bf16* g_a, const bf16* c, int P, int C, int HW, const GNIn& gn,
+                float* gpart, float* gsum, float* gab, bf16* g_raw, float* g_gamma,
+                float* g_beta, cudaStream_t st) {
+  if (C > GN_MAXC) return (int)cudaErrorInvalidValue;
+  const int slabs = (HW + GN_SLAB - 1) / GN_SLAB;
+  gn_bwd_sums_kernel<<<dim3(slabs, P), NT, 0, st>>>(g_a, c, C, HW, gn, gpart);
+  gn_bwd_reduce_kernel<<<P, GN_MAXC, 0, st>>>(gpart, C, slabs, gn, gsum, gab);
+  gn_bwd_params_kernel<<<1, GN_MAXC, 0, st>>>(gsum, P, C, g_gamma, g_beta);
+  gn_bwd_apply_kernel<<<dim3((HW + NT - 1) / NT, P), NT, 0, st>>>(g_a, c, C, HW, gn, gab, g_raw);
+  return (int)cudaGetLastError();
+}
+
+// ------------------------------------------------------------ small passes
+
+// out[b][j] = bf16(sum_n g[b * N + n][j]) for j < per: the gradient of the
+// per-image skip term, summed in float32 over the image's N class planes.
+__global__ void plane_sum_bf16_kernel(const bf16* __restrict__ g, int N, size_t per, int B,
+                                      bf16* __restrict__ out) {
+  const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * per) return;
+  const size_t b = i / per, j = i % per;
+  float s = 0.f;
+  for (int n = 0; n < N; ++n) s += __bfloat162float(g[(b * N + n) * per + j]);
+  out[i] = __float2bfloat16(s);
+}
+
+// part[p][c] = the sum of plane p's channel c, over `phases` phase planes
+// [p][phase][C][h][pitch] (h x w pixels each): the transpose conv's bias
+// gradient from g_up's 4 phases, the head's from g_out (1 phase, C = 1).
+__global__ void __launch_bounds__(NT)
+channel_total_kernel(const bf16* __restrict__ x, int C, int phases, int h, int w, int pitch,
+                     float* __restrict__ part) {
+  __shared__ float2 s_red[NT / 32];
+  const int c = blockIdx.x, p = blockIdx.y;
+  float s = 0.f;
+  for (int k = 0; k < phases; ++k) {
+    const bf16* q = x + (((size_t)p * phases + k) * C + c) * h * (size_t)pitch;
+    for (int i = threadIdx.x; i < h * w; i += NT) s += __bfloat162float(q[(i / w) * pitch + i % w]);
+  }
+  const float2 r = block_sum2(s, 0.f, s_red);
+  if (threadIdx.x == 0) part[(size_t)p * C + c] = r.x;
+}
 
 }  // namespace
 
 // The tail of one stage's backward. The stage is the forward's
-// decoder_stage_fwd with the same inputs (x, optional GN on load, skip and
-// weights in the same layouts); the gradient comes in as g_out (the head
-// logits' gradient, bf16 (P, 1, H, W), when T_HEAD_WD holds the head's
-// dgrad weights [1][9][cout]) or as T_G_A2 (float32 (P, cout, H, W), the
-// gradient of GN2+ReLU(conv2)). T_W2_D holds conv2's dgrad weights
-// [cout][9][cout] (w2 flipped and transposed). Outputs: T_G_C1 (float32
-// gradient of the raw conv1 output), the weight gradients g_w2 [cout][9]
-// [cout] and g_hw [cout][9][1], g_hb [1], and the GroupNorm scale/shift
-// gradients [cout]. T_XIN (GN+ReLU of x when T_GN_PART is set, else x
-// itself) and T_UP (the recomputed transpose conv output) are left for
-// decoder_stage_bwd_input. Scratch sizes: T_A1, T_A2 (P, cout, H, W) bf16,
-// T_GY, T_GC (P, cout, H, W) float32, T_GPART (P, cout, ceil(H W / 256),
-// 2), T_WPART (R, cout * 9 * cout), T_BPART (R, 1); the forward's scratch
-// as decoder_stage_fwd. Returns cudaGetLastError() after the launches.
+// decoder_stage_fwd with the same inputs (x, optional GN on load from the
+// previous stage's partials T_GN_PART / T_GN_GAMMA / T_GN_BETA, skip) and
+// its weights in the igemm layouts (bf16): T_UP_WF [4][cu][cin] (phase ky
+// * 2 + kx), T_W1U [9][cout][cu], T_W1S [9][cout][cs], T_W2 [9][cout]
+// [cout], T_W2_D the same for conv2's dgrad (flipped, transposed); T_UP_B
+// float32 [cu]. The gradient comes in as g_out (the head logits' gradient,
+// bf16 (P, 1, H, W), when T_HEAD_WD holds the head's float32 dgrad weights
+// [1][9][cout]) or as T_G_A2 (bf16 (P, cout, H, W), the gradient of
+// GN2+ReLU(conv2)). Outputs: T_G_C1 (bf16 g_raw1), g_w2 [9][cout][cout],
+// g_hw [9][cout][16] (column 0 the head's), g_hb [1], and the GroupNorm
+// scale/shift gradients
+// [cout]. T_XIN (GN+ReLU of x when T_GN_PART is set, else x itself) and
+// T_UP (the recomputed transpose conv output) are left for
+// decoder_stage_bwd_input. Scratch: T_YS float32 (B, cout, H, W); T_C1,
+// T_C2, T_A1, T_A2, T_G_RAW2, T_G_A1 bf16 (P, cout, H, W) (T_G_A2 too with
+// the head); T_PART1, T_PART2 (P, cout / 16, tiles, 2) with tiles =
+// ceil(H / 4) ceil(W / 64); the GroupNorm backward's T_GPART, T_GSUM,
+// T_GAB (see gn_backward); T_IGPART (D_SLOTS, 9 cout max(cout, 16)) for
+// conv2's and the head's wgrad, T_BPART (P) for the head's bias; T_SCR_G
+// (bf16 P H tma_pitch(W)) for g_out at a TMA pitch; T_SCR_A and
+// T_SCR_B, bf16, each room for the three column-shifted copies of the
+// largest source (3 P C H tma_pitch(W), C the largest width).
+// Returns the first CUDA error of the launches.
 extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], B = d[D_B], cs = d[D_CS];
-  const int cu = d[D_CU], cout = d[D_COUT], R = d[D_R];
+  const int cu = d[D_CU], cout = d[D_COUT];
   const int H = 2 * h, W = 2 * w, HW = H * W;
-  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const int tiles = ((H + igemm::CONV_ROWS - 1) / igemm::CONV_ROWS) *
+                    ((W + igemm::TW - 1) / igemm::TW);
   const float inv_in = 1.f / (GSIZE * (float)h * (float)w);
   const float inv_out = 1.f / (GSIZE * (float)H * (float)W);
   auto f = [&](int i) { return (float*)t[i]; };
@@ -87,73 +346,102 @@ extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream
                                                                    b16(T_XIN));
   }
   // 1. recompute the stage forward from its inputs
-  tconv2x2_kernel<<<dim3(tiles, P, cu / CU_T), NT, 0, st>>>(b16(T_XIN), cin, h, w, NO_GN,
-                                                            f(T_UP_W), f(T_UP_B), cu, b16(T_UP));
-  conv(cout, (const bf16*)b16(T_SKIP), B, cs, H, W, NO_GN, f(T_W1S), nullptr, nullptr, 1,
-       nullptr, f(T_YS), nullptr, st);
-  conv(cout, (const bf16*)b16(T_UP), P, cu, H, W, NO_GN, f(T_W1U), nullptr, f(T_YS), P / B,
-       b16(T_C1), nullptr, f(T_PART1), st);
+  Epi e = epi(igemm::EPI_TCONV, b16(T_UP));
+  e.bias = f(T_UP_B);
+  SEMIVL_CK(conv_n<1>(cu, igemm::tma_source(b16(T_XIN), P, cin, h, w, b16(T_SCR_A), st),
+                      b16(T_UP_WF), 4, e, st));
+  SEMIVL_CK(conv_n<9>(cout, igemm::shifted_source(b16(T_SKIP), B, cs, H, W, b16(T_SCR_A), st),
+                      b16(T_W1S), 1, epi(igemm::EPI_F32, f(T_YS)), st));
+  e = epi(igemm::EPI_BF16, b16(T_C1));
+  e.add = f(T_YS);
+  e.add_rep = P / B;
+  e.gn_part = f(T_PART1);
+  SEMIVL_CK(conv_n<9>(cout, igemm::shifted_source(b16(T_UP), P, cu, H, W, b16(T_SCR_A), st),
+                      b16(T_W1U), 1, e, st));
   const GNIn gn1{f(T_PART1), f(T_G1W), f(T_G1B), tiles, inv_out};
-  conv(cout, (const bf16*)b16(T_C1), P, cout, H, W, gn1, f(T_W2), nullptr, nullptr, 1,
-       b16(T_C2), nullptr, f(T_PART2), st);
-  const GNIn gn2{f(T_PART2), f(T_G2W), f(T_G2B), tiles, inv_out};
   const int eb = (HW + NT - 1) / NT;
+  gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(T_C1), cout, HW, gn1, b16(T_A1));
+  const Planes a1 = igemm::shifted_source(b16(T_A1), P, cout, H, W, b16(T_SCR_A), st);
+  e = epi(igemm::EPI_BF16, b16(T_C2));
+  e.gn_part = f(T_PART2);
+  SEMIVL_CK(conv_n<9>(cout, a1, b16(T_W2), 1, e, st));
+  const GNIn gn2{f(T_PART2), f(T_G2W), f(T_G2B), tiles, inv_out};
 
-  // 2. the head: g_a2 = dgrad(g_out), head weight and bias gradients
+  // 2. the head: g_a2 = dgrad(g_out) on the CUDA cores (K = 9); its weight
+  // gradient on the wgrad kernel at N = 16 (column 0 is g_out's), its bias
+  // gradient the sum of g_out
   if (t[T_HEAD_WD] != nullptr) {
     gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(T_C2), cout, HW, gn2, b16(T_A2));
     conv(cout, (const bf16*)b16(T_G_OUT), P, 1, H, W, NO_GN, f(T_HEAD_WD), nullptr, nullptr, 1,
-         nullptr, f(T_G_A2), nullptr, st);
-    wgrad(1, (const bf16*)b16(T_G_OUT), b16(T_A2), P, cout, H, W, R, f(T_WPART), f(T_BPART),
-          f(T_G_HW), f(T_G_HB), st);
+         b16(T_G_A2), nullptr, nullptr, st);
+    SEMIVL_CK(wgrad_n<9>(16, igemm::shifted_source(b16(T_A2), P, cout, H, W, b16(T_SCR_B), st),
+                         igemm::tma_source(b16(T_G_OUT), P, 1, H, W, b16(T_SCR_G), st), P, cout,
+                         d[D_SLOTS], f(T_IGPART), st));
+    sum_partials(f(T_IGPART), d[D_SLOTS], 9 * cout * 16, f(T_G_HW), st);
+    channel_total_kernel<<<dim3(1, P), NT, 0, st>>>(b16(T_G_OUT), 1, 1, H, W, W, f(T_BPART));
+    sum_partials(f(T_BPART), P, 1, f(T_G_HB), st);
   }
-  // 3. GN2+ReLU backward -> g_c2 (T_GC)
-  gn_backward(f(T_G_A2), b16(T_C2), P, cout, HW, gn2, f(T_GY), f(T_GPART), f(T_GC),
-              f(T_G_G2W), f(T_G_G2B), st);
-  // 4. conv2: g_a1 = dgrad(g_c2) (into T_GY), g_w2 = wgrad(g_c2, a1)
-  gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(T_C1), cout, HW, gn1, b16(T_A1));
-  conv(cout, (const float*)f(T_GC), P, cout, H, W, NO_GN, f(T_W2_D), nullptr, nullptr, 1,
-       nullptr, f(T_GY), nullptr, st);
-  wgrad(cout, (const float*)f(T_GC), b16(T_A1), P, cout, H, W, R, f(T_WPART), f(T_BPART),
-        f(T_G_W2), nullptr, st);
+  // 3. GN2+ReLU backward -> g_raw2
+  SEMIVL_CK(gn_backward(b16(T_G_A2), b16(T_C2), P, cout, HW, gn2, f(T_GPART), f(T_GSUM),
+                        f(T_GAB), b16(T_G_RAW2), f(T_G_G2W), f(T_G_G2B), st));
+  // 4. conv2: g_a1 = dgrad(g_raw2), g_w2 = wgrad(a1, g_raw2)
+  const Planes gr2 = igemm::shifted_source(b16(T_G_RAW2), P, cout, H, W, b16(T_SCR_B), st);
+  SEMIVL_CK(conv_n<9>(cout, gr2, b16(T_W2_D), 1, epi(igemm::EPI_BF16, b16(T_G_A1)), st));
+  SEMIVL_CK(wgrad_n<9>(cout, a1, igemm::center(gr2), d[D_WG_PLANES], cout, d[D_SLOTS],
+                       f(T_IGPART), st));
+  sum_partials(f(T_IGPART), d[D_SLOTS], 9 * cout * cout, f(T_G_W2), st);
   // 5. GN1+ReLU backward -> g_raw1
-  gn_backward(f(T_GY), b16(T_C1), P, cout, HW, gn1, f(T_GY), f(T_GPART), f(T_G_C1),
-              f(T_G_G1W), f(T_G_G1B), st);
+  SEMIVL_CK(gn_backward(b16(T_G_A1), b16(T_C1), P, cout, HW, gn1, f(T_GPART), f(T_GSUM),
+                        f(T_GAB), b16(T_G_C1), f(T_G_G1W), f(T_G_G1B), st));
   return (int)cudaGetLastError();
 }
 
-// The input half of one stage's backward, from g_raw1 (I_G_C1, float32
-// (P, cout, H, W)): conv1's up half (dgrad -> I_G_UP, wgrad over all
-// planes -> I_G_W1U [cu][9][cout]), its skip half on the per-image sum of
-// g_raw1 (I_G_IMG; dgrad -> I_G_SKIP (B, cs, H, W), wgrad -> I_G_W1S
-// [cs][9][cout]) and the transpose conv (I_G_XIN (P, cin, h, w) float32,
-// I_G_UP_W [cin][4][cu], I_G_UP_B [cu]). I_UP and I_XIN are the tail's
-// recomputed tensors; I_W1U_D [cout][9][cu] and I_W1S_D [cout][9][cs] are
-// conv1's dgrad weights. Scratch: I_WPART (R, max weight size), I_BPART
-// (R, cu). Returns cudaGetLastError() after the launches.
+// The input half of one stage's backward, from g_raw1 (I_G_C1, bf16 (P,
+// cout, H, W)): conv1's up half (dgrad -> the phase-separated g_up I_GPH,
+// bf16 [P][4][cu][h][pitch]; wgrad over all planes -> I_G_W1U [9][cu]
+// [cout]), its skip half on the per-image sum of g_raw1 (I_G_IMG, bf16;
+// dgrad -> I_G_SKIP float32 (B, cs, H, W), wgrad -> I_G_W1S [9][cs][cout])
+// and the transpose conv (I_G_XIN (P, cin, h, w) bf16, I_G_UP_W [4 cu]
+// [cin], I_G_UP_B [cu]). I_UP and I_XIN are the tail's recomputed tensors;
+// I_W1U_D [9][cu][cout] and I_W1S_D [9][cs][cout] are conv1's dgrad
+// weights, I_UP_WD [cin][4 cu] the transpose conv's (bf16). Scratch:
+// I_IGPART (the largest of the three wgrads' slots x weights), I_BPART (P,
+// cu), I_SCR_A / I_SCR_B as the tail's. Returns the first CUDA error of
+// the launches.
 extern "C" int decoder_stage_bwd_input(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], B = d[D_B], cs = d[D_CS];
-  const int cu = d[D_CU], cout = d[D_COUT], R = d[D_R];
+  const int cu = d[D_CU], cout = d[D_COUT], pitch = d[D_PITCH];
   const int H = 2 * h, W = 2 * w;
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
 
-  conv(cu, (const float*)f(I_G_C1), P, cout, H, W, NO_GN, f(I_W1U_D), nullptr, nullptr, 1,
-       nullptr, f(I_G_UP), nullptr, st);
-  wgrad(cout, (const float*)f(I_G_C1), b16(I_UP), P, cu, H, W, R, f(I_WPART), f(I_BPART),
-        f(I_G_W1U), nullptr, st);
+  // conv1, up half: g_up (into its phases) and the weight gradient
+  const Planes g1 = igemm::shifted_source(b16(I_G_C1), P, cout, H, W, b16(I_SCR_A), st);
+  Epi e = epi(igemm::EPI_PHASE, b16(I_GPH));
+  e.pitch = pitch;
+  SEMIVL_CK(conv_n<9>(cu, g1, b16(I_W1U_D), 1, e, st));
+  SEMIVL_CK(wgrad_n<9>(cout, igemm::shifted_source(b16(I_UP), P, cu, H, W, b16(I_SCR_B), st),
+                       igemm::center(g1), P, cu, d[D_SLOTS], f(I_IGPART), st));
+  sum_partials(f(I_IGPART), d[D_SLOTS], 9 * cu * cout, f(I_G_W1U), st);
+  // conv1, skip half: once per image on the image's summed g_raw1
   const size_t per = (size_t)cout * H * W;
-  plane_sum_kernel<<<(unsigned)((B * per + NT - 1) / NT), NT, 0, st>>>(f(I_G_C1), P / B, per, B,
-                                                                        f(I_G_IMG));
-  conv(cs, (const float*)f(I_G_IMG), B, cout, H, W, NO_GN, f(I_W1S_D), nullptr, nullptr, 1,
-       nullptr, f(I_G_SKIP), nullptr, st);
-  wgrad(cout, (const float*)f(I_G_IMG), b16(I_SKIP), B, cs, H, W, R, f(I_WPART), f(I_BPART),
-        f(I_G_W1S), nullptr, st);
-  const int tiles_in = ((h + TILE - 1) / TILE) * ((w + TILE - 1) / TILE);
-  tconv_dgrad_kernel<<<dim3(tiles_in, P, cin / CIT), NT, 0, st>>>(f(I_G_UP), cu, h, w,
-                                                                  f(I_UP_W), cin, f(I_G_XIN));
-  tconv_wgrad(cu, b16(I_XIN), f(I_G_UP), P, cin, h, w, R, f(I_WPART), f(I_BPART), f(I_G_UP_W),
-              f(I_G_UP_B), st);
+  plane_sum_bf16_kernel<<<(unsigned)((B * per + NT - 1) / NT), NT, 0, st>>>(
+      b16(I_G_C1), P / B, per, B, b16(I_G_IMG));
+  const Planes gi = igemm::shifted_source(b16(I_G_IMG), B, cout, H, W, b16(I_SCR_A), st);
+  SEMIVL_CK(conv_n<9>(cs, gi, b16(I_W1S_D), 1, epi(igemm::EPI_F32, f(I_G_SKIP)), st));
+  SEMIVL_CK(wgrad_n<9>(cout, igemm::shifted_source(b16(I_SKIP), B, cs, H, W, b16(I_SCR_B), st),
+                       igemm::center(gi), B, cs, d[D_SLOTS2], f(I_IGPART), st));
+  sum_partials(f(I_IGPART), d[D_SLOTS2], 9 * cs * cout, f(I_G_W1S), st);
+  // the transpose conv: g_x (K = 4 cu), the weight gradient (K = input
+  // pixels) and the bias gradient
+  const Planes gph{b16(I_GPH), P, 4 * cu, h, w, pitch, false};
+  SEMIVL_CK(conv_n<1>(cin, gph, b16(I_UP_WD), 1, epi(igemm::EPI_BF16, b16(I_G_XIN)), st));
+  SEMIVL_CK(wgrad_n<1>(cin, gph, igemm::tma_source(b16(I_XIN), P, cin, h, w, b16(I_SCR_B), st),
+                       P, 4 * cu, d[D_SLOTS3], f(I_IGPART), st));
+  sum_partials(f(I_IGPART), d[D_SLOTS3], 4 * cu * cin, f(I_G_UP_W), st);
+  channel_total_kernel<<<dim3(cu, P), NT, 0, st>>>(b16(I_GPH), cu, 4, h, w, pitch, f(I_BPART));
+  sum_partials(f(I_BPART), P, cu, f(I_G_UP_B), st);
   return (int)cudaGetLastError();
 }
+

@@ -13,8 +13,9 @@ gradient, so autograd never re-concatenates three.
 
 CUDA tensors launch the forward kernel of their route,
 ``csrc/flash_attention.cu`` (packed, bf16, head_dim 64) or
-``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim a multiple of
-16 up to 128), and the one backward kernel of both routes (the latter's
+``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim up to 128;
+a width that is not a multiple of 16 runs zero-padded to the next one,
+``pad_heads``), and the one backward kernel of both routes (the latter's
 ``heads_attention_bwd``), or raise; CPU tensors take the plain versions
 (``flash_mha_plain`` and ``flash_mha_heads_plain`` forward,
 ``flash_mha_bwd_plain`` backward). The references the kernels are held to
@@ -302,10 +303,10 @@ def _q_scale(d):
 def _check_heads(qkv, num_heads, valid_len):
     b, l, c3 = qkv.shape
     c = c3 // 3
-    if c3 % 3 or c % num_heads or c // num_heads not in HEAD_DIMS:
-        raise ValueError(f'head-split attention kernel takes head_dim in '
-                         f'{HEAD_DIMS}: C={c}, {num_heads} heads, head_dim '
-                         f'{c / num_heads:g}')
+    if c3 % 3 or c % num_heads or c // num_heads > HEAD_DIMS[-1]:
+        raise ValueError(f'head-split attention kernel takes head_dim up to '
+                         f'{HEAD_DIMS[-1]}: C={c}, {num_heads} heads, '
+                         f'head_dim {c / num_heads:g}')
     if not qkv.is_cuda or qkv.dtype != torch.bfloat16:
         raise ValueError(f'head-split attention kernel takes bf16 CUDA '
                          f'tensors, got {qkv.dtype} on {qkv.device}')
@@ -317,34 +318,71 @@ def _check_heads(qkv, num_heads, valid_len):
         raise ValueError(f'valid_len {valid_len} outside [1, {l}]')
 
 
+def padded_head_dim(d):
+    """The kernel width a head of ``d`` runs at: the next multiple of 16
+    (``HEAD_DIMS``)."""
+    return -(-d // 16) * 16
+
+
+def pad_heads(t, num_heads, parts=1):
+    """(B, L, parts H d) -> (B, L, parts H Dp): each head zero-padded to
+    Dp = ``padded_head_dim(d)`` columns (``t`` itself when d = Dp). Zero
+    columns of q and k add nothing to q k^T and zero columns of v give zero
+    outputs, so attention at Dp with the true d's scale, sliced back to d,
+    is attention at d."""
+    b, l, c = t.shape
+    d = c // parts // num_heads
+    dp = padded_head_dim(d)
+    if dp == d:
+        return t
+    return F.pad(t.reshape(b, l, parts, num_heads, d), (0, dp - d)).view(
+        b, l, parts * num_heads * dp)
+
+
+def unpad_heads(t, num_heads, d, parts=1):
+    """The inverse of ``pad_heads``: (B, L, parts H Dp) -> (B, L, parts H
+    d)."""
+    b, l, c = t.shape
+    dp = c // parts // num_heads
+    if dp == d:
+        return t
+    return t.view(b, l, parts, num_heads, dp)[..., :d].reshape(
+        b, l, parts * num_heads * d)
+
+
 def flash_mha_heads(qkv, num_heads, valid_len=None, with_lse=False):
     """Forward kernel of the head-split route over the packed (B, L, 3C)
     qkv; returns (out (B, L, C), row log-sum-exp float32 (B, H, L) or
-    None)."""
+    None). A head width that is not a multiple of 16 runs zero-padded to
+    the next one (``pad_heads``) at its own scale."""
     global heads_launches
     b, l, c3 = qkv.shape
     c = c3 // 3
     vl = l if valid_len is None else int(valid_len)
     _check_heads(qkv, num_heads, vl)
-    q, k, v = qkv.split(c, dim=-1)
     d = c // num_heads
-    out = torch.empty((b, l, c), dtype=qkv.dtype, device=qkv.device)
+    qkv_k = pad_heads(qkv, num_heads, 3)
+    cp = qkv_k.shape[-1] // 3
+    q, k, v = qkv_k.split(cp, dim=-1)
+    out = torch.empty((b, l, cp), dtype=qkv.dtype, device=qkv.device)
     lse = (torch.empty((b, num_heads, l), dtype=torch.float32,
                        device=qkv.device) if with_lse else None)
     fn = _build.load('flash_attention_heads').heads_attention_fwd
     fn.argtypes, fn.restype = _HEADS_ARGTYPES, ctypes.c_int
     err = fn(_build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(out),
              _build.ptr(lse) if with_lse else ctypes.c_void_p(None),
-             b, l, num_heads, d, vl, qkv.stride(0), qkv.stride(1),
-             out.stride(0), out.stride(1), _q_scale(d), _stream(qkv))
+             b, l, num_heads, cp // num_heads, vl, qkv_k.stride(0),
+             qkv_k.stride(1), out.stride(0), out.stride(1), _q_scale(d),
+             _stream(qkv))
     _build.check(err, 'heads_attention_fwd')
     heads_launches += 1
-    return out, lse
+    return unpad_heads(out, num_heads, d), lse
 
 
-def _bwd_kernel(qkv, out, lse, g, num_heads, valid_len):
+def _bwd_kernel(qkv, out, lse, g, num_heads, valid_len, d=None):
     """Launch ``heads_attention_bwd``, the backward kernel of both routes;
-    returns the (B, L, 3C) gradient."""
+    returns the (B, L, 3C) gradient. ``d``: the head width whose scale the
+    kernel takes (qkv's own unless its heads are zero-padded)."""
     b, l, c3 = qkv.shape
     c = c3 // 3
     out, g = out.contiguous(), g.to(qkv.dtype).contiguous()
@@ -352,7 +390,8 @@ def _bwd_kernel(qkv, out, lse, g, num_heads, valid_len):
             or lse.shape != (b, num_heads, l) or not lse.is_contiguous():
         raise ValueError('attention backward: out / g (B, L, C) and lse '
                          '(B, H, L) do not match qkv')
-    d = c // num_heads
+    dp = c // num_heads
+    d = dp if d is None else d
     q, k, v = qkv.split(c, dim=-1)
     dqkv = torch.empty((b, l, c3), dtype=qkv.dtype, device=qkv.device)
     delta = torch.empty((b, num_heads, l), dtype=torch.float32,
@@ -362,7 +401,7 @@ def _bwd_kernel(qkv, out, lse, g, num_heads, valid_len):
     fn.argtypes, fn.restype = _BWD_ARGTYPES, ctypes.c_int
     err = fn(*(_build.ptr(t) for t in (q, k, v, out, g, lse, delta, dq, dk,
                                        dv)),
-             b, l, num_heads, d, valid_len, qkv.stride(0), qkv.stride(1),
+             b, l, num_heads, dp, valid_len, qkv.stride(0), qkv.stride(1),
              g.stride(0), g.stride(1), dqkv.stride(0), dqkv.stride(1),
              _q_scale(d), d ** -0.5, _stream(qkv))
     _build.check(err, 'heads_attention_bwd')
@@ -378,9 +417,13 @@ def flash_mha_heads_bwd(qkv, out, lse, g, num_heads, valid_len=None):
     global heads_bwd_launches
     vl = qkv.shape[1] if valid_len is None else int(valid_len)
     _check_heads(qkv, num_heads, vl)
-    dqkv = _bwd_kernel(qkv, out, lse, g, num_heads, vl)
+    d = qkv.shape[-1] // 3 // num_heads
+    dqkv = _bwd_kernel(pad_heads(qkv, num_heads, 3),
+                       pad_heads(out.contiguous(), num_heads),
+                       lse, pad_heads(g.to(qkv.dtype).contiguous(),
+                                      num_heads), num_heads, vl, d)
     heads_bwd_launches += 1
-    return dqkv
+    return unpad_heads(dqkv, num_heads, d, 3)
 
 
 class _HeadsAttention(torch.autograd.Function):
@@ -423,7 +466,8 @@ def heads_attention_plain(qkv, num_heads, valid_len=None):
 
 def heads_attention(qkv, num_heads, valid_len=None):
     """Head-split self-attention over the packed (B, L, 3C) in_proj output
-    -> (B, L, C), for any head width the kernels take (``HEAD_DIMS``).
+    -> (B, L, C), for any head width up to 128 (the kernels' ``HEAD_DIMS``,
+    other widths zero-padded to the next of them).
 
     Differentiable w.r.t. ``qkv`` (one (B, L, 3C) gradient); without
     autograd the forward kernel alone (no log-sum-exp is written)."""

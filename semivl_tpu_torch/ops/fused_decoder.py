@@ -19,7 +19,8 @@ plain backward. The forward rounds the float32 weights to the activation
 dtype; the gradient passes that rounding straight through, as autograd of
 ``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the kernels' own
 arithmetic in plain PyTorch, the reference the kernels are held to on the
-card.
+card (with the whole-plane backward's bf16 gradient roundings, or without
+them for the banded route).
 
 ``bwd='banded'`` routes the backward through ``ops.fused_decoder_banded``
 instead: the forward then also saves each stage's GroupNorm statistics
@@ -97,22 +98,44 @@ def _round_bf16(t):
     return t + (t.to(torch.bfloat16).to(t.dtype) - t).detach()
 
 
-def up_stage_rounded(y, skip, p, dtype=torch.float32):
+class _RoundGrad(torch.autograd.Function):
+    """The identity; its backward rounds the gradient to bf16 values."""
+
+    @staticmethod
+    def forward(ctx, t):
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _round_grad_bf16(t):
+    """``t`` itself, with its gradient rounded to bf16 values in its own
+    dtype: a point where the backward kernels store a gradient in bf16."""
+    return _RoundGrad.apply(t)
+
+
+def up_stage_rounded(y, skip, p, dtype=torch.float32, bf16_grads=True):
     """One Up stage as the stage kernels compute it (see
     ``fused_vlg_decoder_rounded``): ``y`` in ``dtype``, the normalised
     output in ``dtype`` holding bf16 values."""
+    gr = _round_grad_bf16 if bf16_grads else (lambda t: t)
     w = {k: _round_bf16(p[k].to(dtype)) for k in ('up_weight', 'up_bias',
                                                   'conv1_weight',
                                                   'conv2_weight')}
-    up = _round_bf16(conv_transpose_2x2(y, w['up_weight'], w['up_bias']))
+    y = gr(y)                                           # g_x
+    up = gr(_round_bf16(conv_transpose_2x2(y, w['up_weight'],
+                                           w['up_bias'])))   # g_up
     cu = up.shape[1]
     ym = F.conv2d(up, w['conv1_weight'][:, :cu], padding=1)
-    ys = F.conv2d(skip.to(dtype), w['conv1_weight'][:, cu:], padding=1)
-    c1 = _round_bf16((ym.unflatten(0, (skip.shape[0], -1))
-                      + ys[:, None]).flatten(0, 1))
-    a1 = _gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias'])
-    c2 = _round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1))
-    return _gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias'])
+    ys = gr(F.conv2d(skip.to(dtype), w['conv1_weight'][:, cu:],
+                     padding=1))                        # g_img
+    c1 = gr(_round_bf16((ym.unflatten(0, (skip.shape[0], -1))
+                         + ys[:, None]).flatten(0, 1)))   # g_raw1
+    a1 = gr(_gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias']))   # g_a1
+    c2 = gr(_round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1)))  # g_raw2
+    return gr(_gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias']))  # g_a2
 
 
 def _gn_relu_rounded(c, weight, bias):
@@ -130,20 +153,26 @@ def head_rounded(y, head_params):
 
 
 def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
-                              head_params, dtype=torch.float32):
+                              head_params, dtype=torch.float32,
+                              bf16_grads=True):
     """The decoder kernels' arithmetic in plain PyTorch: products and
     GroupNorm in ``dtype`` (float32, as the kernels sum) over weights
     rounded to bf16, and a bf16 rounding wherever the kernels store bf16
     (the transpose conv output, the raw conv1 output after its up and skip
     halves are summed, the raw conv2 output, both activations, the logits).
-    Every rounding passes the gradient straight through, so autograd
-    computes the backward kernels' float32 gradients; the kernels differ
-    from it only in the order of float32 sums (``dtype=torch.float64``
-    measures how much that order matters). Returns (P, 1, 4h, 4w) logits
-    in x's dtype."""
+    Every value rounding passes the gradient straight through. With
+    ``bf16_grads`` (the whole-plane backward, kernels #6/#7) the gradient is
+    rounded to bf16 where those kernels store it, JAX's points (the
+    gradients of each stage's input, both raw conv outputs and both
+    activations) and two of the port's own (the transpose conv output's
+    gradient and the per-image sum of conv1's, operands of its bf16
+    products); without, autograd computes float32 gradients, the banded
+    backward's. The kernels differ from it only in the order of float32
+    sums (``dtype=torch.float64`` measures how much that order matters).
+    Returns (P, 1, 4h, 4w) logits in x's dtype."""
     y = x.to(dtype)
     for p, skip in ((params1, skip1), (params2, skip2)):
-        y = up_stage_rounded(y, skip, p, dtype)
+        y = up_stage_rounded(y, skip, p, dtype, bf16_grads)
     return head_rounded(y, head_params).to(x.dtype)
 
 
@@ -346,26 +375,86 @@ def _gn_stats(part, shape):
 # ---------------------------------------------------------------------------
 # backward kernel wrappers
 
-_R = 256   # blocks that share a weight-gradient reduction (partials per block)
+_R = 256   # blocks that share a banded pass's weight-gradient reduction
 _TAIL_SLOTS = (
-    'x gn_part gn_gamma gn_beta skip up_w up_b w1u w1s w2 g1w g1b g2w g2b '
-    'w2_d head_wd g_out g_a2 xin up ys c1 part1 c2 part2 a1 a2 gy gc gpart '
-    'wpart bpart g_c1 g_w2 g_g1w g_g1b g_g2w g_g2b g_hw g_hb').split()
+    'x gn_part gn_gamma gn_beta skip up_wf up_b w1u w1s w2 g1w g1b g2w g2b '
+    'w2_d head_wd g_out g_a2 xin up ys c1 part1 c2 part2 a1 a2 g_raw2 g_a1 '
+    'gpart gsum gab bpart igpart scr_a scr_b scr_g g_c1 g_w2 g_g1w g_g1b '
+    'g_g2w g_g2b g_hw g_hb').split()
 _INPUT_SLOTS = (
-    'g_c1 up xin skip up_w w1u_d w1s_d g_up g_img wpart bpart g_xin g_skip '
-    'g_w1u g_w1s g_up_w g_up_b').split()
+    'g_c1 up xin skip up_wd w1u_d w1s_d gph g_img igpart bpart scr_a scr_b '
+    'g_xin g_skip g_w1u g_w1s g_up_w g_up_b').split()
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+_TILE_ROWS, _TILE_COLS = 4, 64   # the igemm conv's tile (GroupNorm partials)
 
 
 def _dgrad_weight(w):
     """(co, ci, 3, 3) conv weight -> the dgrad conv's [co][9][ci] layout:
-    flipped taps, input and output channels swapped."""
+    flipped taps, input and output channels swapped (the head's CUDA-core
+    dgrad)."""
     return w.flip(2, 3).permute(0, 2, 3, 1).contiguous()
+
+
+def _igemm_weight(w):
+    """(out, in, 3, 3) conv weight -> bf16 [9][out][in] (tap ky * 3 + kx),
+    the B operand of the igemm conv."""
+    o, i = w.shape[:2]
+    return w.to(torch.bfloat16).permute(2, 3, 0, 1).reshape(9, o, i) \
+        .contiguous()
+
+
+def _igemm_dgrad_weight(w):
+    """The igemm weight of the dgrad of a (co, ci, 3, 3) conv: the conv from
+    co to ci channels with flipped taps."""
+    return _igemm_weight(w.flip(2, 3).transpose(0, 1))
+
+
+def _tconv_fwd_weight(w):
+    """Transpose conv weight (cin, cu, 2, 2) -> bf16 [4][cu][cin] (output
+    phase ky * 2 + kx), the B operand of its forward product."""
+    cin, cu = w.shape[:2]
+    return w.to(torch.bfloat16).permute(2, 3, 1, 0).reshape(4, cu, cin) \
+        .contiguous()
+
+
+def _tconv_dgrad_weight(w):
+    """Transpose conv weight (cin, cu, 2, 2) -> bf16 [cin][4 cu] (K index
+    (ky * 2 + kx) cu + c), the B operand of its input gradient."""
+    cin, cu = w.shape[:2]
+    return w.to(torch.bfloat16).permute(0, 2, 3, 1).reshape(cin, 4 * cu) \
+        .contiguous()
+
+
+def _tconv_wgrad_to_torch(g, cin, cu):
+    """[4 cu][cin] transpose conv weight gradient -> torch (cin, cu, 2, 2)."""
+    return g.reshape(2, 2, cu, cin).permute(3, 2, 0, 1)
+
+
+def _from_taps(g, ci, co):
+    """[9][ci][co] weight gradient -> torch (co, ci, 3, 3)."""
+    return g.reshape(3, 3, ci, co).permute(3, 2, 0, 1)
 
 
 def _from_k3(g, ci, co):
     """[ci][9][co] weight gradient -> torch (co, ci, 3, 3)."""
     return g.reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
+
+
+def _wgrad_slots(dev, taps, mrows):
+    """Slots of an igemm weight-gradient reduction: about one block per SM
+    over the (column shift, 64-row tile) blocks of each slot (as
+    ``decoder_igemm.cuh::wgrad_slots``)."""
+    blocks = (3 if taps == 9 else 1) * -(-mrows // 64)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return -(-sms // blocks)
+
+
+def _tma_scratch(pl, channels, hh, ww, dev):
+    """Two bf16 buffers, each with room for the three column-shifted copies
+    (at a pitch TMA takes) of the largest source a 3x3 product reads."""
+    size = 3 * pl * max(channels) * hh * (-(-ww // 8) * 8)
+    return (torch.empty(size, dtype=torch.bfloat16, device=dev),
+            torch.empty(size, dtype=torch.bfloat16, device=dev))
 
 
 def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
@@ -390,92 +479,131 @@ def _check_bwd(x, skip, p):
                          f'32, 48, 64, 96); got {cu}, {skip.shape[1]}')
 
 
-def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None):
+def _check_igemm(x, skip, p):
+    """What the whole-plane backward's igemm products take besides
+    ``_check_bwd``: Cin (the transpose conv's dgrad width) in (32, 64, 96,
+    128) and 16-byte aligned planes (TMA)."""
+    _check_bwd(x, skip, p)
+    if x.shape[1] not in (32, 64, 96, 128):
+        raise ValueError(f'decoder backward kernel takes Cin in (32, 64, 96, '
+                         f'128); got {x.shape[1]}')
+    if x.data_ptr() % 16 or skip.data_ptr() % 16:
+        raise ValueError('decoder backward kernel needs 16-byte aligned '
+                         'planes')
+
+
+def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
+                    wgrad_planes=None):
     """Stage backward, tail half (kernel #6): recompute the stage, then the
     head (with ``head``; ``g`` the logits' gradient) or GN2+ReLU (``g`` the
-    float32 gradient of the stage's normalised output) down to g_raw1.
-    Returns a dict with g_c1, the recomputed up / xin, and the gradients of
-    conv2, the GroupNorms and the head in torch layouts."""
+    gradient of the stage's normalised output, taken in bf16) down to
+    g_raw1. Returns a dict with g_c1 (bf16), the recomputed up / xin, and
+    the gradients of conv2, the GroupNorms and the head in torch layouts.
+    ``wgrad_planes``: the planes conv2's weight gradient reduces over (all
+    of them unless a planted fault asks for fewer)."""
     global bwd_tail_launches
-    _check_bwd(x, skip, p)
+    _check_igemm(x, skip, p)
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
     dt, dev = x.dtype, x.device
     hh, ww = 2 * h, 2 * w
-    tiles = -(-hh // 16) * -(-ww // 16)
-    eb = -(-hh * ww // 256)
+    tiles = -(-hh // _TILE_ROWS) * -(-ww // _TILE_COLS)
+    slots = _wgrad_slots(dev, 9, cout)
 
     def e(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    t = dict(_kernel_weights(p, dt), x=x, skip=skip,
-             w2_d=_dgrad_weight(p['conv2_weight'].to(dt).float()))
-    t['xin'] = x
+    kw = _kernel_weights(p, dt)
+    w1 = p['conv1_weight']
+    t = dict(x=x, skip=skip, xin=x, up_wf=_tconv_fwd_weight(p['up_weight']),
+             up_b=kw['up_b'], w1u=_igemm_weight(w1[:, :cu]),
+             w1s=_igemm_weight(w1[:, cu:]),
+             w2=_igemm_weight(p['conv2_weight']),
+             w2_d=_igemm_dgrad_weight(p['conv2_weight']),
+             g1w=kw['g1w'], g1b=kw['g1b'], g2w=kw['g2w'], g2b=kw['g2b'])
     if gn_in is not None:
         t.update(gn_part=gn_in[0], gn_gamma=gn_in[1], gn_beta=gn_in[2],
                  xin=e((pl, cin, h, w), dt))
     plane = (pl, cout, hh, ww)
+    t['scr_a'], t['scr_b'] = _tma_scratch(pl, (cin, cu, cout, cs), hh, ww,
+                                          dev)
     t.update(up=e((pl, cu, hh, ww), dt), ys=e((b, cout, hh, ww)),
              c1=e(plane, dt), c2=e(plane, dt), a1=e(plane, dt),
+             g_raw2=e(plane, dt), g_a1=e(plane, dt), g_c1=e(plane, dt),
              part1=e((pl, cout // 16, tiles, 2)),
-             part2=e((pl, cout // 16, tiles, 2)), gy=e(plane), gc=e(plane),
-             gpart=e((pl, cout, eb, 2)), wpart=e((_R, cout * 9 * cout)),
-             bpart=e((_R, 1)), g_c1=e(plane), g_w2=e((cout, 9, cout)),
+             part2=e((pl, cout // 16, tiles, 2)),
+             gpart=e((pl, cout, -(-hh * ww // 1024), 2)),
+             gsum=e((pl, cout, 2)), gab=e((pl, cout // 16, 2)),
+             igpart=e((slots, 9, cout, max(cout, 16))),
+             g_w2=e((9, cout, cout)),
              g_g1w=e((cout,)), g_g1b=e((cout,)), g_g2w=e((cout,)),
              g_g2b=e((cout,)))
     if head is not None:
         t.update(head_wd=_dgrad_weight(head['weight'].to(dt).float()),
-                 g_out=g.to(dt).contiguous(), g_a2=e(plane), a2=e(plane, dt),
-                 g_hw=e((cout, 9, 1)), g_hb=e((1,)))
+                 g_out=g.to(dt).contiguous(), g_a2=e(plane, dt),
+                 a2=e(plane, dt), bpart=e((pl,)),
+                 scr_g=e((pl * hh * (-(-ww // 8) * 8),), dt),
+                 g_hw=e((9, cout, 16)), g_hb=e((1,)))
     else:
-        t['g_a2'] = g.float().contiguous()
+        t['g_a2'] = g.to(dt).contiguous()
     gn_nparts = 0 if gn_in is None else gn_in[0].shape[2]
     _call('decoder_stage_bwd_tail', _TAIL_SLOTS, t,
-          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, _R), x)
+          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, 0,
+           pl if wgrad_planes is None else wgrad_planes, slots, 0, 0), x)
     bwd_tail_launches += 1
     out = dict(g_c1=t['g_c1'], up=t['up'], xin=t['xin'],
-               conv2_weight=_from_k3(t['g_w2'], cout, cout),
+               conv2_weight=_from_taps(t['g_w2'], cout, cout),
                gn1_weight=t['g_g1w'], gn1_bias=t['g_g1b'],
                gn2_weight=t['g_g2w'], gn2_bias=t['g_g2b'])
     if head is not None:
-        out.update(head_weight=_from_k3(t['g_hw'], cout, 1),
+        out.update(head_weight=_from_taps(t['g_hw'][..., :1], cout, 1),
                    head_bias=t['g_hb'])
     return out
 
 
 def _stage_bwd_input(g_c1, up, xin, skip, p):
-    """Stage backward, input half (kernel #7): from g_raw1, the gradients of
-    the stage input (float32), the skip (float32, summed over each image's
-    planes), conv1 and the transpose conv, in torch layouts."""
+    """Stage backward, input half (kernel #7): from g_raw1 (bf16), the
+    gradients of the stage input (bf16), the skip (float32, from each
+    image's summed planes), conv1 and the transpose conv, in torch
+    layouts."""
     global bwd_input_launches
     pl, cin, h, w = xin.shape
     b, cs, hh, ww = skip.shape
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
     dt, dev = xin.dtype, xin.device
+    pitch = -(-w // 8) * 8
+    s1 = _wgrad_slots(dev, 9, cu)
+    s2 = _wgrad_slots(dev, 9, cs)
+    s3 = _wgrad_slots(dev, 1, 4 * cu)
 
-    def e(shape):
-        return torch.empty(shape, dtype=torch.float32, device=dev)
+    def e(shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=dev)
 
-    w1 = p['conv1_weight'].to(dt).float()
-    m = max(cu * 9 * cout, cs * 9 * cout, cin * 4 * cu)
+    w1 = p['conv1_weight']
     t = dict(g_c1=g_c1, up=up, xin=xin, skip=skip,
-             up_w=_kernel_weights(p, dt)['up_w'],
-             w1u_d=_dgrad_weight(w1[:, :cu]), w1s_d=_dgrad_weight(w1[:, cu:]),
-             g_up=e((pl, cu, hh, ww)), g_img=e((b, cout, hh, ww)),
-             wpart=e((_R, m)), bpart=e((_R, cu)), g_xin=e((pl, cin, h, w)),
-             g_skip=e((b, cs, hh, ww)), g_w1u=e((cu, 9, cout)),
-             g_w1s=e((cs, 9, cout)), g_up_w=e((cin, 4, cu)), g_up_b=e((cu,)))
+             up_wd=_tconv_dgrad_weight(p['up_weight']),
+             w1u_d=_igemm_dgrad_weight(w1[:, :cu]),
+             w1s_d=_igemm_dgrad_weight(w1[:, cu:]),
+             gph=e((pl, 4, cu, h, pitch), dt), g_img=e((b, cout, hh, ww), dt),
+             igpart=e(max(s1 * 9 * cu * cout, s2 * 9 * cs * cout,
+                          s3 * 4 * cu * cin)),
+             bpart=e((pl, cu)), g_xin=e((pl, cin, h, w), dt),
+             g_skip=e((b, cs, hh, ww)), g_w1u=e((9, cu, cout)),
+             g_w1s=e((9, cs, cout)), g_up_w=e((4 * cu, cin)),
+             g_up_b=e((cu,)))
+    t['scr_a'], t['scr_b'] = _tma_scratch(pl, (cin, cu, cout, cs), hh, ww,
+                                          dev)
     _call('decoder_stage_bwd_input', _INPUT_SLOTS, t,
-          (pl, cin, h, w, 0, b, cs, cu, cout, _R), xin)
+          (pl, cin, h, w, 0, b, cs, cu, cout, pitch, pl, s1, s2, s3), xin)
     bwd_input_launches += 1
     return dict(
         g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
-        up_weight=t['g_up_w'].reshape(cin, 2, 2, cu).permute(0, 3, 1, 2),
-        conv1_weight=torch.cat([_from_k3(t['g_w1u'], cu, cout),
-                                _from_k3(t['g_w1s'], cs, cout)], dim=1))
+        up_weight=_tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
+        conv1_weight=torch.cat([_from_taps(t['g_w1u'], cu, cout),
+                                _from_taps(t['g_w1s'], cs, cout)], dim=1))
 
 
 def _unflatten(flat):

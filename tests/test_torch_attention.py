@@ -109,16 +109,49 @@ def test_head_dims_are_the_kernel_instances():
     assert flash_attention.HEAD_DIMS == tuple(range(16, 129, 16))
 
 
-@pytest.mark.parametrize('d', [8, 24, 48, 112, 136])
+@pytest.mark.parametrize('d', [8, 24, 48, 112, 136, 144])
 def test_heads_kernel_names_a_width_it_does_not_take(d):
-    """The kernels' checks refuse a width outside ``HEAD_DIMS`` by name
-    before any other check, so a kernel route on the card raises where
-    JAX's any-width kernel would run (never the plain math in its place);
-    a width they take passes on to the next check, the tensor's device."""
+    """The kernels' checks refuse a width above 128 by name before any
+    other check, so a kernel route on the card raises where JAX's
+    any-width kernel would run (never the plain math in its place); every
+    width up to 128 (those not a multiple of 16 zero-padded to the next
+    one) passes on to the next check, the tensor's device."""
     qkv = torch.zeros(1, 8, 3 * 2 * d, dtype=torch.bfloat16)
-    match = 'bf16 CUDA' if d in flash_attention.HEAD_DIMS else f'head_dim {d}'
+    match = 'bf16 CUDA' if d <= 128 else f'head_dim {d}'
     with pytest.raises(ValueError, match=match):
         flash_attention.flash_mha_heads(qkv, 2)
+
+
+def _attention_at(qkv, heads, scale):
+    """Softmax attention of each head in float64 with the given scale."""
+    q, k, v = (flash_attention._split_heads(t, heads)
+               for t in qkv.chunk(3, dim=-1))
+    p = torch.softmax(torch.matmul(q, k.transpose(-1, -2)) * scale, dim=-1)
+    return flash_attention._merge_heads(torch.matmul(p, v))
+
+
+@pytest.mark.parametrize('d', [8, 24, 40])
+def test_padded_heads_are_attention_at_the_true_width(d):
+    """What the kernels get for a width that is not a multiple of 16: each
+    head zero-padded to the next (``pad_heads``), attention there with the
+    true width's scale, sliced back (``unpad_heads``), equals attention at
+    the true width, forward and backward (float64, 1e-12)."""
+    heads, dp = 3, flash_attention.padded_head_dim(d)
+    assert dp % 16 == 0 and dp - d < 16
+    rs = np.random.RandomState(d)
+    qkv = torch.from_numpy(rs.randn(2, 7, 3 * heads * d)).requires_grad_(
+        True)
+    g = torch.from_numpy(rs.randn(2, 7, heads * d))
+    want = _attention_at(qkv, heads, d ** -0.5)
+    padded = flash_attention.pad_heads(qkv, heads, 3)
+    assert padded.shape == (2, 7, 3 * heads * dp)
+    got = flash_attention.unpad_heads(
+        _attention_at(padded, heads, d ** -0.5), heads, d)
+    assert got.shape == want.shape
+    assert (got - want).abs().max().item() < 1e-12
+    (gw,) = torch.autograd.grad(want, qkv, g)
+    (gg,) = torch.autograd.grad(got, qkv, g)
+    assert (gg - gw).abs().max().item() < 1e-12
 
 
 def _qkv(seed, b, length, c, dtype=np.float32):

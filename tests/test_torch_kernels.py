@@ -28,6 +28,7 @@ through ``fused_vlg_decoder_rounded`` (a flipped bf16 rounding of a raw
 conv output, which GroupNorm amplifies, is the whole difference).
 """
 
+import functools
 from unittest import mock
 
 import pytest
@@ -181,10 +182,12 @@ def rel_l2(a, ref):
 @pytest.mark.parametrize('b,n,h', [(2, 21, 32), (1, 3, 13)])
 def test_decoder_bwd_kernels_match_plain(card, b, n, h):
     """Gradients of every input and parameter against autograd through
-    ``fused_vlg_decoder_rounded`` (bf16 where the kernels store bf16,
-    float32 sums): each within 2e-2 relative L2; (1, 3, 13) leaves ragged
-    tiles in every kernel. A planted fault, conv1's dgrad without its
-    top-left tap, must fail that limit."""
+    ``fused_vlg_decoder_rounded`` (bf16 where the kernels store bf16, the
+    gradients too, float32 sums): each within 2e-2 relative L2; (1, 3,
+    13) leaves ragged tiles in every kernel and widths (26, 52) that TMA
+    reads through a padded copy. Two planted faults must fail that limit:
+    conv1's dgrad without its top-left tap, and conv2's weight-gradient
+    reduction without the last plane."""
     p1 = _stage_params(card, 128, 32, 64)
     p2 = _stage_params(card, 64, 16, 32)
     head = dict(weight=0.2 * torch.randn(1, 32, 3, 3, generator=card,
@@ -226,6 +229,16 @@ def test_decoder_bwd_kernels_match_plain(card, b, n, h):
         return real(g_c1, up, xin, skip, dict(p, conv1_weight=w))
 
     with mock.patch.object(fused_decoder, '_stage_bwd_input', without_a_tap):
+        bad = decoder_grads(fused_decoder.fused_vlg_decoder, acts, params, g,
+                            torch.bfloat16)
+    assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+    real_tail = fused_decoder._stage_bwd_tail
+
+    def without_last_plane(x, *a, **k):
+        return real_tail(x, *a, wgrad_planes=x.shape[0] - 1, **k)
+
+    with mock.patch.object(fused_decoder, '_stage_bwd_tail',
+                           without_last_plane):
         bad = decoder_grads(fused_decoder.fused_vlg_decoder, acts, params, g,
                             torch.bfloat16)
     assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
@@ -298,7 +311,8 @@ def test_banded_passes_match_plain(card, b, n, h, w):
 
 def test_banded_backward_matches_rounded_reference(card):
     """The composed banded backward (``bwd='banded'``) against autograd
-    through ``fused_vlg_decoder_rounded``: every leaf within 2e-2 relative
+    through ``fused_vlg_decoder_rounded`` with float32 gradients (the
+    banded passes keep them in float32): every leaf within 2e-2 relative
     L2, as the whole-plane kernels are held; a planted fault, pass B's
     conv2 weight gradient reading its first 16-row band twice, must fail
     that limit."""
@@ -312,8 +326,9 @@ def test_banded_backward_matches_rounded_reference(card):
     got = decoder_grads(banded, acts, params, g, torch.bfloat16)
     assert (fdb.pass_a_launches, fdb.pass_b_launches,
             fdb.pass_c_launches) == tuple(v + 2 for v in counts)
-    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts, params,
-                        g, torch.bfloat16)
+    ref = decoder_grads(functools.partial(
+        fused_decoder.fused_vlg_decoder_rounded, bf16_grads=False), acts,
+        params, g, torch.bfloat16)
     torch.cuda.synchronize()
     errs = [rel_l2(a, r.float()) for a, r in zip(got, ref)]
     assert max(errs) < 2e-2, errs
@@ -462,9 +477,37 @@ def test_heads_kernel_agrees_with_packed(card):
     assert rel_l2(gh, gp.float()) < 5e-3
 
 
+@pytest.mark.parametrize('d', [8, 24, 40, 72])
+def test_heads_kernels_take_padded_head_dims(card, d):
+    """Head widths that are not a multiple of 16 run zero-padded to the
+    next one with their own scale: forward within 2e-3 relative L2 of the
+    plain version, backward within 5e-3 and 2e-2 of the scale of
+    ``flash_mha_bwd_plain``, as at the kernels' own widths; bit for bit on
+    a rerun; the launches counted."""
+    heads = 3
+    qkv, g = _attention_case(card, 2, 300, heads, d)
+    f0, b0 = flash_attention.heads_launches, flash_attention.heads_bwd_launches
+    out, lse = flash_attention.flash_mha_heads(qkv, heads, None, True)
+    got = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads)
+    assert (flash_attention.heads_launches,
+            flash_attention.heads_bwd_launches) == (f0 + 1, b0 + 1)
+    want = flash_attention.heads_attention_plain(qkv, heads)
+    want_g = flash_attention.flash_mha_bwd_plain(qkv, out, g, heads)
+    again = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads)
+    torch.cuda.synchronize()
+    assert out.shape == (2, 300, heads * d) and got.shape == qkv.shape
+    assert torch.isfinite(out.float()).all() and torch.isfinite(
+        got.float()).all()
+    assert rel_l2(out, want.float()) < 2e-3
+    scale = want_g.float().abs().max().item()
+    assert (got.float() - want_g.float()).abs().max().item() < 2e-2 * scale
+    assert rel_l2(got, want_g.float()) < 5e-3
+    assert torch.equal(got, again)
+
+
 def test_heads_kernel_refuses_other_head_dims(card):
-    qkv = torch.zeros(1, 8, 3 * 96, device='cuda', dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='head_dim 24'):
+    qkv = torch.zeros(1, 8, 3 * 4 * 136, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='head_dim 136'):
         flash_attention.heads_attention(qkv, 4)
     f = torch.zeros(1, 8, 3 * 64, device='cuda')
     with pytest.raises(ValueError, match='bf16'):
@@ -474,8 +517,8 @@ def test_heads_kernel_refuses_other_head_dims(card):
 def test_dispatcher_routes_on_the_card(card):
     """'pallas' sends heads of 32 to the head-split kernel at any length;
     'auto' only from 1536 tokens on (plain below), and heads of 64 in an
-    even count to the packed kernel. A width the kernels do not take
-    raises on a kernel route, never falls back to the plain math."""
+    even count to the packed kernel. A width above 128 raises on a kernel
+    route, never falls back to the plain math."""
     from semivl_tpu_torch.ops import attention
 
     def launches():
@@ -491,18 +534,19 @@ def test_dispatcher_routes_on_the_card(card):
     before = launches()
     attention.qkv_attention(qkv, 2, 'auto')
     assert tuple(a - b for a, b in zip(launches(), before)) == (0, 1)
-    # heads of 48 (a split p v product) as JAX routes them; heads of 24,
-    # which no kernel takes, raise under 'auto' from 1536 tokens and
-    # under 'pallas', naming the width
-    qkv, _ = _attention_case(card, 1, 1536, 4, 48)
-    before = launches()
-    out = attention.qkv_attention(qkv, 4, 'auto')
-    assert tuple(a - b for a, b in zip(launches(), before)) == (1, 0)
-    assert torch.isfinite(out.float()).all()
-    qkv, _ = _attention_case(card, 1, 1536, 4, 24)
+    # heads of 48 (a split p v product) and of 24 (zero-padded to 32) as
+    # JAX routes them; heads of 136, which no kernel takes, raise under
+    # 'auto' from 1536 tokens and under 'pallas', naming the width
+    for d in (48, 24):
+        qkv, _ = _attention_case(card, 1, 1536, 4, d)
+        before = launches()
+        out = attention.qkv_attention(qkv, 4, 'auto')
+        assert tuple(a - b for a, b in zip(launches(), before)) == (1, 0)
+        assert torch.isfinite(out.float()).all()
+    qkv, _ = _attention_case(card, 1, 1536, 2, 136)
     for impl in ('auto', 'pallas'):
-        with pytest.raises(ValueError, match='head_dim 24'):
-            attention.qkv_attention(qkv, 4, impl)
+        with pytest.raises(ValueError, match='head_dim 136'):
+            attention.qkv_attention(qkv, 2, impl)
 
 
 # ------------------------------------------------------ fused Up stage

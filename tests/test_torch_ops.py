@@ -305,9 +305,9 @@ def test_round_bf16_passes_the_gradient_straight_through():
 
 
 def test_decoder_rounded_reference(monkeypatch):
-    """Without its roundings it is the plain chain in float32 (values and
-    every gradient to 1e-5); with them its logits stay within bf16 storage
-    (1e-2 relative L2) of that chain."""
+    """Without its roundings (of values and of gradients) it is the plain
+    chain in float32 (values and every gradient to 1e-5); with them its
+    logits stay within bf16 storage (1e-2 relative L2) of that chain."""
     x, skip1, skip2, p1, p2, head = _decoder_setup()
     tp1, tp2, th = _port_params(p1, p2, head)
     prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
@@ -328,10 +328,116 @@ def test_decoder_rounded_reference(monkeypatch):
     rounded, _ = run(fused_decoder.fused_vlg_decoder_rounded)
     assert _rel_l2(rounded.detach(), want.detach()) < 1e-2
     monkeypatch.setattr(fused_decoder, '_round_bf16', lambda t: t)
+    monkeypatch.setattr(fused_decoder, '_round_grad_bf16', lambda t: t)
     got, got_grads = run(fused_decoder.fused_vlg_decoder_rounded)
     assert rel_err(got.detach().numpy(), want.detach().numpy()) < 1e-5
     for i, (a, w) in enumerate(zip(got_grads, want_grads)):
         assert rel_err(a.numpy(), w.numpy()) < 1e-5, i
+
+
+def test_round_grad_bf16_rounds_only_the_gradient():
+    t = torch.randn(64, dtype=torch.float64, requires_grad=True)
+    r = fused_decoder._round_grad_bf16(t)
+    assert torch.equal(r, t.detach())
+    g = torch.randn(64, dtype=torch.float64)
+    (got,) = torch.autograd.grad(r, t, g)
+    assert got.dtype == torch.float64
+    assert torch.equal(got, g.bfloat16().double())
+
+
+def _conv_pass_stats_of_stored(taps_lists, read, w_at, geo, cdt, store,
+                               tiles):
+    """JAX ``_conv_pass`` with the GroupNorm sums taken over the stored
+    (``cdt``) values, as the port's kernels take them, instead of over the
+    float32 accumulators."""
+    from semivl_tpu.ops.fused_decoder import _mask_cols, _phase_conv
+    ssum = ssq = None
+    for v in range(4):
+        for f0, F in tiles:
+            acc = _mask_cols(_phase_conv(taps_lists[v], read, geo, w_at(v),
+                                         cdt, f0, F), geo, f0, F)
+            store(v, f0, acc)
+            acc = acc.astype(cdt).astype(jnp.float32)
+            s = jnp.sum(acc, axis=1, keepdims=True)
+            q = jnp.sum(acc * acc, axis=1, keepdims=True)
+            ssum = s if ssum is None else ssum + s
+            ssq = q if ssq is None else ssq + q
+    return ssum, ssq
+
+
+def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch):
+    """The whole-plane backward's bf16 gradient rounding points against the
+    JAX fused chain at its own bf16 storage (interpret mode): each gradient
+    leaf of ``fused_vlg_decoder_rounded`` within 1e-2 relative L2, and the
+    leaves' summed squared distances under 0.9 of those of the float32-
+    gradient reference (``bf16_grads=False``) to the same JAX run, which
+    shows that the rounding points agree. (Measured: 2.3e-4 against
+    3.0e-4; the tail leaves of the last stage, which see only the head's
+    rounded gradient, 3.9e-4 and 5e-9 against 3.1e-3 and 8.7e-4.)
+
+    The two forwards are made to agree first, so that the gradient
+    roundings are not buried under forward differences that GroupNorm
+    amplifies (with the seeded weights as they are, both references lie
+    ~1e-1 from JAX): inputs and the logits' gradient hold bf16 values; the
+    transpose convs copy channels (0/1 weights, zero bias) and conv1's
+    weights are multiples of 1/64 up to 1/4, so that JAX's composite
+    weights (the transpose conv folded into conv1, rounded to bf16) are
+    exact and the port's bf16 rounding of the transpose conv output is
+    too; and JAX's GroupNorm statistics are taken over the stored bf16 raw
+    outputs, as the port's are (patched here: JAX sums the float32
+    accumulators). What is left is float32 sum order, which flips rare
+    bf16 roundings."""
+    from semivl_tpu.ops import fused_decoder as jfd
+    monkeypatch.setattr(jfd, '_conv_pass', _conv_pass_stats_of_stored)
+
+    def bf16(a):
+        return torch.from_numpy(a).bfloat16().float().numpy()
+
+    x, skip1, skip2, p1, p2, head = _decoder_setup()
+    x, skip1, skip2 = bf16(x), bf16(skip1), bf16(skip2)
+    rs = np.random.RandomState(5)
+    for p in (p1, p2):
+        k = np.asarray(p['up_kernel'])
+        sel = np.zeros(k.shape, np.float32)
+        for c in range(k.shape[3]):
+            sel[:, :, c, c] = 1
+        p['up_kernel'] = sel
+        p['up_bias'] = np.zeros(k.shape[3], np.float32)
+        w1 = p['conv1']['conv']['kernel']
+        p['conv1']['conv']['kernel'] = (
+            rs.randint(-16, 17, w1.shape) / 64).astype(np.float32)
+    g = bf16(np.random.RandomState(30).randn(4, 1, 32, 32).astype(np.float32))
+
+    jargs = [jnp.asarray(a) for a in (x, skip1, skip2)]
+    out, vjp = jax.vjp(lambda *a: jax_decoder(*a, interpret=True), *jargs,
+                       p1, p2, head)
+    gx, gs1, gs2, gp1, gp2, gh = vjp(jnp.asarray(g, out.dtype))
+    tp1, tp2, th = _port_params(*(jax.tree.map(
+        lambda a: np.asarray(a, np.float32), t) for t in (gp1, gp2, gh)))
+    want = [np.asarray(a, np.float32) for a in (gx, gs1, gs2)] + [
+        t[k].numpy() for t in (tp1, tp2) for k in
+        fused_decoder.STAGE_KEYS] + [th['weight'].numpy(), th['bias'].numpy()]
+
+    tp1, tp2, th = _port_params(p1, p2, head)
+    prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
+            + [tp2[k] for k in fused_decoder.STAGE_KEYS]
+            + [th['weight'], th['bias']])
+    for t in prms:
+        t.requires_grad_(True)
+    dist = {}
+    for bf16_grads in (True, False):
+        acts = [torch.from_numpy(a).requires_grad_(True)
+                for a in (x, skip1, skip2)]
+        o = fused_decoder.fused_vlg_decoder_rounded(
+            *acts, tp1, tp2, th, bf16_grads=bf16_grads)
+        assert _rel_l2(o.detach(), torch.from_numpy(
+            np.asarray(out, np.float32))) < 5e-3
+        got = torch.autograd.grad(o, acts + prms, torch.from_numpy(g))
+        dist[bf16_grads] = [_rel_l2(a, torch.from_numpy(w))
+                            for a, w in zip(got, want)]
+    assert max(dist[True]) < 1e-2, dist[True]
+    assert sum(e * e for e in dist[True]) < 0.9 * sum(
+        e * e for e in dist[False]), dist
 
 
 # ------------------------------------------------- banded decoder backward
