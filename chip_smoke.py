@@ -10,7 +10,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    source, all at once) into the ignored ``semivl_tpu_torch/_build``, and
    read the SASS (``cuobjdump``): wgmma and TMA loads in every instance of
    the attention forwards, of the attention backward's dK/dV and dQ
-   kernels and of the decoder backward's igemm conv and wgrad kernels, no
+   kernels and of both decoder backward routes' igemm conv and wgrad
+   kernels (the whole-plane kernels and banded passes A and C), no
    mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
@@ -30,8 +31,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    banded backward (passes A, B and C) at the Cityscapes stage shapes: each
    pass against its plain pass on its own inputs, the composed backward
    against the rounded reference (its float64 distance logged first) and
-   against the whole-plane kernels, planted faults that must fail, and the
-   times of each pass, the whole-plane pair and cuDNN's chain;
+   against the whole-plane kernels, planted faults that must fail (one
+   inside pass A's tensor-core product), and the times of each pass (with
+   the library's convolutions for the same work beside), the whole-plane
+   pair and cuDNN's chain;
 5. evaluation: the full-width flagship model (ViT-B/16 + VLG, VOC-21, bf16
    compute, seeded random weights) evaluated with ``zegclip_sliding_window``
    over synthetic uint8 images at VOC val geometry, with the launch counts
@@ -59,12 +62,13 @@ Phases, each of which fails the run (non-zero exit, no result line):
    their plain versions (which round where they do) at encoder widths
    (12 heads of 64 forced through them at L = 2602 and held against the
    packed kernels on the same input, 11 heads of 64, 24 heads of 32 with
-   and without ``valid_len``, 12 heads of 128), the tiny VLM's shapes and
-   the widths whose products are split (48, 80, 96, 112), planted faults
-   that must fail, the dispatcher's routes on the card (JAX's table; heads
-   of 24 and 72 zero-padded to 32 and 80 under 'auto', forward and
-   backward; a width above 128 raises), with SDPA's times beside (also
-   device-only);
+   and without ``valid_len``, 12 heads of 128), the tiny VLM's shapes,
+   the widths whose products are split (48, 80, 96, 112) and two above 128
+   (136 and 256, on the CUDA-core kernels), planted faults that must fail,
+   the dispatcher's routes on the card (JAX's table; heads of 24 and 72
+   zero-padded to 32 and 80 under 'auto', heads of 136 and 256 under
+   'auto' and 'pallas', forward and backward), with SDPA's times beside
+   (also device-only);
 10. the fused Up stage (#11): its bench entry point
    (``tools.fused_up_bench``, the flagship's two stages at 14 x 21
    planes) with launches counted around it, then each stage with and
@@ -167,8 +171,8 @@ ATTN_CASES = (('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
               ('cityscapes edge crop', 1, 869, 12, None))
 # the head-split kernels (#1/#2): (name, B, L, heads, head_dim, valid_len);
 # the tiny VLM's shapes are those of its 1 + 1 step and its 2-crop batches;
-# the last four the widths whose products over D are split (48, 80, 96,
-# 112), which no model of the repo has
+# then the widths whose products over D are split (48, 80, 96, 112) and
+# two above 128 (the CUDA-core kernels), which no model of the repo has
 HEADS_CASES = (('encoder 12x64 (forced head-split)', 2, 2602, 12, 64, None),
                ('odd heads 11x64', 2, 2602, 11, 64, None),
                ('24x32', 2, 1025, 24, 32, None),
@@ -179,7 +183,9 @@ HEADS_CASES = (('encoder 12x64 (forced head-split)', 2, 2602, 12, 64, None),
                ('16x48', 2, 1536, 16, 48, None),
                ('12x80 valid_len', 1, 1025, 12, 80, 1000),
                ('8x96 edge crop', 1, 869, 8, 96, None),
-               ('4x112', 2, 300, 4, 112, 250))
+               ('4x112', 2, 300, 4, 112, 250),
+               ('2x136 (padded to 144, CUDA cores)', 1, 1536, 2, 136, None),
+               ('2x256 valid_len (CUDA cores)', 1, 1536, 2, 256, 1400))
 # widths that are not a multiple of 16, zero-padded to the next one by the
 # head-split wrappers: (L, heads, head_dim), under 'auto' (L >= 1536)
 PADDED_HEADS_CASES = ((1536, 8, 24), (1600, 6, 72))
@@ -295,17 +301,19 @@ def _sass_counts(build, lib, keep):
     return counts
 
 
-# instances of the whole-plane decoder backward's tensor-core products:
-# conv_kernel<N, 9> at 5 widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3
-# and <N, 1> at 4 (csrc/fused_decoder_bwd.cu's conv_n and wgrad_n)
+# instances of each decoder backward's tensor-core products (the
+# whole-plane kernels #6/#7 and the banded passes #8-#10, both on
+# csrc/decoder_stage_bwd.cuh's conv_n and wgrad_n): conv_kernel<N, 9> at 5
+# widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3 and <N, 1> at 4
 DECODER_IGEMM_INSTANCES = (11, 7)
 
 
 def check_sass(build):
     """Every instance of the attention forward core (the packed one and the
     head-split one per head width), of the backward's dK/dV and dQ kernels
-    (per head width) and of the decoder backward's igemm conv and wgrad
-    kernels compiled to Hopper's own instructions: wgmma (HGMMA) and TMA
+    (per head width) and of the igemm conv and wgrad kernels of both
+    decoder backward routes (the whole-plane kernels and the banded passes
+    A and C) compiled to Hopper's own instructions: wgmma (HGMMA) and TMA
     loads (UTMALDG), and no mma.sync (HMMA)."""
     from semivl_tpu_torch.ops import flash_attention as fa
     counts = {}
@@ -319,12 +327,15 @@ def check_sass(build):
     n_dims = len(fa.HEAD_DIMS)
     assert (len(counts) - n_bwd, n_bwd) == (1 + n_dims, 2 * n_dims), \
         list(counts)
-    dec = _sass_counts(build, 'fused_decoder_bwd', lambda f: 'igemm' in f and (
-        'conv_kernel' in f or 'wgrad_kernel' in f))
-    log(f'sass: decoder backward igemm kernels {json.dumps(dec)}')
-    assert (sum('conv_kernel' in f for f in dec),
-            sum('wgrad_kernel' in f for f in dec)) == \
-        DECODER_IGEMM_INSTANCES, list(dec)
+    dec = {}
+    for lib in ('fused_decoder_bwd', 'fused_decoder_banded'):
+        got = _sass_counts(build, lib, lambda f: 'igemm' in f and (
+            'conv_kernel' in f or 'wgrad_kernel' in f))
+        log(f'sass: {lib} igemm kernels {json.dumps(got)}')
+        assert (sum('conv_kernel' in f for f in got),
+                sum('wgrad_kernel' in f for f in got)) == \
+            DECODER_IGEMM_INSTANCES, (lib, list(got))
+        dec.update({f'{lib}:{f}': c for f, c in got.items()})
     for func, c in {**counts, **dec}.items():
         assert c['HGMMA'] and c['UTMALDG'] and not c['HMMA'], (func, c)
 
@@ -604,16 +615,15 @@ def _route_blind(fn):
     return call
 
 
-def _rounded_for(bwd, float64=False):
-    """The rounded reference a decoder backward route is held to: with the
-    whole-plane kernels' bf16 gradient roundings ('whole') or with float32
-    gradients ('banded'); float64 sums with ``float64``."""
+def _rounded(float64=False):
+    """The rounded reference both decoder backward routes are held to (its
+    bf16 gradient roundings are where both store gradients in bf16), with
+    float64 sums with ``float64``."""
     from semivl_tpu_torch.ops import fused_decoder as fd
     dtype = torch.float64 if float64 else torch.float32
 
     def ref(*args):
-        return fd.fused_vlg_decoder_rounded(*args, dtype=dtype,
-                                            bf16_grads=bwd == 'whole')
+        return fd.fused_vlg_decoder_rounded(*args, dtype=dtype)
     return ref
 
 
@@ -673,7 +683,7 @@ def check_decoder_bwd(gen):
 
     got = grads(fd.fused_vlg_decoder)
     ref = grads(fd.fused_vlg_decoder_rounded)
-    ref64 = grads(_rounded_for('whole', float64=True))
+    ref64 = grads(_rounded(float64=True))
     again = grads(fd.fused_vlg_decoder)
     torch.cuda.synchronize()
     noise = max(_rel_l2(a, r) for a, r in zip(ref64, ref))
@@ -757,20 +767,71 @@ def _banded_pass_work(p, b, cin, cs, cout, h, w, head, gn):
     """(flops, bytes) of passes A, B and C of one stage: A recomputes the
     stage's convolutions (and the head's two gradients), B is conv2's two
     gradients, C conv1's and the transpose conv's; bytes are each pass's
-    tensor inputs read once and outputs written once."""
+    tensor inputs read once and outputs written once, at the dtypes the
+    passes store: bf16 but for g_skip (float32)."""
     hw, cu = 4 * h * w, cin - cs
     macs = (p * hw * cin * cu + p * hw * 9 * cu * cout + b * hw * 9 * cs * cout
             + p * hw * 9 * cout * cout + (2 * p * hw * 9 * cout if head else 0),
             2 * p * hw * 9 * cout * cout,
             2 * p * hw * 9 * cu * cout + 2 * b * hw * 9 * cs * cout
             + 2 * p * hw * cin * cu)
-    x2, raw2, f4 = p * cin * h * w * 2, p * cout * hw * 2, p * cout * hw * 4
-    nbytes = (x2 + b * cs * hw * 2 + (p * hw * 2 if head else f4)
-              + (x2 if gn else 0) + p * cu * hw * 2 + 2 * raw2 + f4,
-              2 * raw2 + 2 * f4,
-              x2 + p * cu * hw * 2 + b * cs * hw * 2 + raw2 + f4 + 2 * x2
+    x2, raw2 = p * cin * h * w * 2, p * cout * hw * 2
+    nbytes = (x2 + b * cs * hw * 2 + (p * hw * 2 if head else raw2)
+              + (x2 if gn else 0) + p * cu * hw * 2 + 3 * raw2,
+              4 * raw2,
+              x2 + p * cu * hw * 2 + b * cs * hw * 2 + 2 * raw2 + x2
               + b * cs * hw * 4)
     return [(2 * m, n) for m, n in zip(macs, nbytes)]
+
+
+def _cudnn_pass_calls(up1, up2, head, acts):
+    """One call per banded pass of the library's convolutions for the same
+    work at both stages, on bf16 operands of the pass's shapes (a library
+    time does not depend on the values): A the decoder chain's forward
+    (what pass A recomputes), B conv2's dgrad and wgrad, C conv1's dgrad
+    and wgrad (the up half per plane, the skip half per image) and the
+    transpose conv's (input, weight and bias)."""
+    conv_bwd = torch.ops.aten.convolution_backward
+    x, s1, s2 = acts
+    gen = torch.Generator(device='cuda').manual_seed(6)
+    b, p = s1.shape[0], x.shape[0]
+    stages = []
+    xin = x
+    for up, skip in ((up1, s1), (up2, s2)):
+        prm = {k: v.detach().bfloat16() for k, v in up.stage_params().items()}
+        cu = prm['up_weight'].shape[1]
+        cout = prm['conv2_weight'].shape[0]
+        hh, ww = skip.shape[2:]
+
+        def rand(*shape):
+            return torch.randn(shape, generator=gen, device='cuda',
+                               dtype=torch.bfloat16)
+
+        stages.append(dict(
+            prm=prm, cu=cu, xin=xin, skip=skip, up=rand(p, cu, hh, ww),
+            act=rand(p, cout, hh, ww), g=rand(p, cout, hh, ww),
+            g_img=rand(b, cout, hh, ww)))
+        xin = rand(p, cout, hh, ww)
+
+    def conv3(g, inp, w):
+        return conv_bwd(g, inp, w, None, [1, 1], [1, 1], [1, 1], False,
+                        [0, 0], 1, [True, True, False])
+
+    def pass_b():
+        for st in stages:
+            conv3(st['g'], st['act'], st['prm']['conv2_weight'])
+
+    def pass_c():
+        for st in stages:
+            w1, cu = st['prm']['conv1_weight'], st['cu']
+            conv3(st['g'], st['up'], w1[:, :cu])
+            conv3(st['g_img'], st['skip'], w1[:, cu:])
+            conv_bwd(st['up'], st['xin'], st['prm']['up_weight'], [cu],
+                     [2, 2], [0, 0], [1, 1], True, [0, 0], 1,
+                     [True, True, True])
+
+    return dict(A=lambda: _cudnn_chain(up1, up2, head, x, s1, s2), B=pass_b,
+                C=pass_c)
 
 
 @contextlib.contextmanager
@@ -826,8 +887,32 @@ def pass_c_dgrad_without_a_tap():
         yield
 
 
+@contextlib.contextmanager
+def pass_a_without_skip_half():
+    """Planted fault inside pass A's tensor-core product: the recompute of
+    raw1 leaves conv1's skip half out (its addend in the up half's
+    epilogue)."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    real = fdb.pass_a
+
+    def faulty(*args):
+        return real(*args, skip_half=False)
+
+    with mock.patch.object(fdb, 'pass_a', faulty):
+        yield
+
+
+# what each banded pass's library time (``_cudnn_pass_calls``) computes
+CUDNN_PASS_WORK = dict(
+    A='cuDNN forward of the decoder chain (the recompute)',
+    B='cuDNN dgrad + wgrad of conv2, both stages',
+    C='cuDNN dgrad + wgrad of conv1 (both halves) and of the transpose '
+      'conv, both stages')
+
 BANDED_FAULTS = {
     'pass B conv2 wgrad reads its first 16-row band twice': pass_b_band_twice,
+    'pass A recompute without conv1\'s skip half (igemm epilogue)':
+        pass_a_without_skip_half,
     'pass A GN2 sums miss the last 16-row band':
         pass_a_sums_without_last_band,
     'pass C conv1 dgrad without its top-left tap': pass_c_dgrad_without_a_tap}
@@ -855,7 +940,9 @@ def check_banded_bwd(gen):
     g = torch.randn(p, 1, 4 * h, 4 * h, generator=gen).cuda().bfloat16()
     p1, p2, hp = params
 
-    # each pass on its own inputs, against its plain pass
+    # each pass on its own inputs, against its plain pass; the library's
+    # convolutions for each pass's work beside
+    cudnn = _cudnn_pass_calls(up1, up2, head, acts)
     calls = {k: [] for k in 'ABC'}
     with torch.no_grad():
         _, c2, st1, st2 = fdb.decoder_fwd_stats(*acts, p1, p2, hp)
@@ -892,16 +979,23 @@ def check_banded_bwd(gen):
                     rel[f'{name}{stage}'] = _rel_l2(got[name], t)
                     err = max(err, (got[name].float() - t.float()).abs()
                               .max().item())
-            ms = cuda_ms(lambda: [fn(*ins) for fn, _, ins, _ in lst], 5)
+            run = [(fn, ins) for fn, _, ins, _ in lst]
+            ms = cuda_ms(lambda: [fn(*ins) for fn, ins in run], 5)
+            dev_ms = device_ms(lambda: [fn(*ins) for fn, ins in run], 5)
             plain_ms = cuda_ms(lambda: [pl(*ins) for _, pl, ins, _ in lst],
                                3, 1)
+            lib = cudnn[k]
+            lib_ms, lib_dev = cuda_ms(lib, 5), device_ms(lib, 5)
             passes[k] = dict(rel=rel, max_abs_err=err, ms=ms,
-                             plain_ms=plain_ms)
+                             device_ms=dev_ms, plain_ms=plain_ms,
+                             library_ms=lib_ms, library_device_ms=lib_dev)
             worst = max(rel, key=rel.get)
             log(f'banded pass {k} (both stages, P={p}, 51^2 base): '
                 f'vs plain worst rel-L2 {rel[worst]:.3e} ({worst}, tol '
                 f'{PASS_TOL}), max_abs_err {err:.3e}, kernel_ms {ms:.3f} '
-                f'plain_ms {plain_ms:.3f}; ' + json.dumps(
+                f'device_ms {fmt_ms(dev_ms)} plain_ms {plain_ms:.3f} '
+                f'cudnn_ms {lib_ms:.3f} cudnn device_ms {fmt_ms(lib_dev)} '
+                f'({CUDNN_PASS_WORK[k]}); ' + json.dumps(
                     {n_: float(f'{v:.2e}') for n_, v in rel.items()}))
             assert rel[worst] <= PASS_TOL, (k, worst, rel[worst])
 
@@ -914,8 +1008,8 @@ def check_banded_bwd(gen):
     def grads(fn):
         return decoder_grads(fn, acts, params, g)
 
-    ref64 = grads(_rounded_for('banded', float64=True))
-    ref = grads(_rounded_for('banded'))
+    ref64 = grads(_rounded(float64=True))
+    ref = grads(_rounded())
     noise = {nm: _rel_l2(a, r) for nm, a, r in zip(names, ref64, ref)}
     log(f'banded bwd P={p}: the rounded reference\'s float64 against its '
         f'float32 sums: worst leaf {max(noise.values()):.3e} '
@@ -975,8 +1069,12 @@ def check_banded_bwd(gen):
             f'{flops / 1e9:.1f}, MB {nbytes / 1e6:.1f}')
         rows[k] = dict(max_abs_err=q['max_abs_err'],
                        rel_err=max(q['rel'].values()), tol=PASS_TOL,
-                       ms=q['ms'], plain_ms=q['plain_ms'],
-                       bound_ms=bound_ms, bound_by=by, library_ms=lib_ms,
+                       ms=q['ms'], device_ms=q['device_ms'],
+                       plain_ms=q['plain_ms'], bound_ms=bound_ms, bound_by=by,
+                       library_ms=q['library_ms'],
+                       library_device_ms=q['library_device_ms'],
+                       library_is=CUDNN_PASS_WORK[k],
+                       chain_library_bwd_ms=lib_ms,
                        composed_rel_err_vs_rounded=rel[worst],
                        banded_bwd_ms=banded_ms, whole_plane_bwd_ms=whole_ms,
                        plain_bwd_ms=plain_ms, planted_faults=faults)
@@ -1484,8 +1582,7 @@ class PerCallCheck:
 
             got, ref32, ref64 = (
                 decoder_grads(fn, inputs, params, g) for fn in (
-                    kernels, _rounded_for(bwd),
-                    _rounded_for(bwd, float64=True)))
+                    kernels, _rounded(), _rounded(float64=True)))
             ref = ref64 if self.exact_ref else ref32
             top = max(r.abs().max().item() for r in ref)
             kept = [i for i, r in enumerate(ref)
@@ -1688,7 +1785,7 @@ PROFILED_KERNELS = (
 DECODER_KERNEL_KEYS = ('conv3x3_kernel', 'tconv2x2_kernel', 'gn_relu_kernel',
                        'gn_stats_kernel', 'igemm::', 'gn_bwd_', 'wgrad3x3',
                        'sum_partials', 'plane_sum', 'channel_total',
-                       'gn_solve', 'tconv_dgrad', 'tconv_wgrad')
+                       'gn_solve')
 
 
 def _profile(run, wall_ms, what, top, windows=4):
@@ -1895,9 +1992,7 @@ def check_heads_attention(gen):
         r[0]['planted_faults'] = faults
     # the dispatcher on the card, JAX's table: 'auto' sends heads other
     # than an even count of 64 to the head-split kernel from 1536 tokens on
-    # and keeps shorter ones plain; a width no kernel takes (above 128)
-    # raises on both kernel routes, never runs the plain math in the
-    # kernel's place
+    # and keeps shorter ones plain
     for length, heads, d, moved in ((2602, 11, 64, 1), (1025, 24, 32, 0),
                                     (1536, 16, 48, 1)):
         qkv = torch.randn(1, length, 3 * heads * d, generator=gen,
@@ -1942,21 +2037,41 @@ def check_heads_attention(gen):
             got_g.float()).all()
         assert err <= ATTN_TOL and rel <= ATTN_REL_TOL, (d, err, rel)
         assert err_g <= ATTN_BWD_TOL * scale_g and rel_g <= ATTN_BWD_REL_TOL
-    qkv = torch.randn(1, 1536, 3 * 4 * 136, generator=gen, device='cuda',
-                      dtype=torch.bfloat16)
-    refused = []
-    for impl in ('auto', 'pallas'):
-        try:
-            with torch.no_grad():
-                attention.qkv_attention(qkv, 4, impl)
-        except ValueError as e:
-            refused.append(str(e))
-    assert len(refused) == 2 and all('head_dim 136' in e for e in refused), \
-        refused
+    # widths above 128 (the CUDA-core kernels) under 'auto' and 'pallas':
+    # the head-split kernels, forward and backward, within the limits of
+    # the kernels' own widths
+    for d in (136, 256):
+        c = 2 * d
+        qkv = torch.randn(1, 1536, 3 * c, generator=gen, device='cuda',
+                          dtype=torch.bfloat16)
+        g = torch.randn(1, 1536, c, generator=gen, device='cuda',
+                        dtype=torch.bfloat16)
+        want = fa.heads_attention_plain(qkv, 2)
+        for impl in ('auto', 'pallas'):
+            x = qkv.clone().requires_grad_(True)
+            before = (fa.heads_launches, fa.heads_bwd_launches)
+            out = attention.qkv_attention(x, 2, impl)
+            (got_g,) = torch.autograd.grad(out, x, g)
+            moved = (fa.heads_launches - before[0],
+                     fa.heads_bwd_launches - before[1])
+            want_g = fa.flash_mha_bwd_plain(qkv, out.detach(), g, 2)
+            torch.cuda.synchronize()
+            err = (out.float() - want.float()).abs().max().item()
+            rel, rel_g = _rel_l2(out, want), _rel_l2(got_g, want_g)
+            scale_g = want_g.float().abs().max().item()
+            err_g = (got_g.float() - want_g.float()).abs().max().item()
+            log(f'heads attention, 2 heads of {d} at L = 1536 under '
+                f'\'{impl}\': launches {moved}; fwd max_abs_err {err:.3e} '
+                f'rel-L2 {rel:.3e}; bwd max_abs_err {err_g:.3e} of scale '
+                f'{scale_g:.3f} rel-L2 {rel_g:.3e}')
+            assert moved == (1, 1), (d, impl, moved)
+            assert err <= ATTN_TOL and rel <= ATTN_REL_TOL, (d, err, rel)
+            assert err_g <= ATTN_BWD_TOL * scale_g and \
+                rel_g <= ATTN_BWD_REL_TOL, (d, err_g, rel_g)
     log('heads attention: the dispatcher\'s \'auto\' route sends 11 heads '
-        'of 64 at L = 2602 and 16 heads of 48 at L = 1536 to the head-split '
-        'kernel, 24 heads of 32 at L = 1025 to the plain math; heads of 136 '
-        f'raise under \'auto\' and \'pallas\': {refused[0]}')
+        'of 64 at L = 2602, 16 heads of 48 and heads of 136 and 256 at '
+        'L = 1536 to the head-split kernels, 24 heads of 32 at L = 1025 to '
+        'the plain math')
     return rows
 
 
@@ -2303,11 +2418,15 @@ def main():
             f'semivl_tpu/ops/fused_decoder_banded.py:{line}',
             cs_launches[key], banded[k],
             'both stages at P=57, 51x51 base (ms, plain_ms: this pass); '
-            'library_ms is cuDNN\'s whole decoder chain backward; launches '
-            'per Cityscapes training step', cs_err['decoder_banded'][0],
+            'library_ms: the library\'s convolutions for this pass\'s work '
+            '(library_is); launches per Cityscapes training step',
+            cs_err['decoder_banded'][0],
+            products='semivl_tpu_torch/csrc/decoder_igemm.cuh'
+            if k != 'B' else None,
             **{x: banded[k][x] for x in (
-                'composed_rel_err_vs_rounded', 'banded_bwd_ms',
-                'whole_plane_bwd_ms', 'plain_bwd_ms')},
+                'library_is', 'composed_rel_err_vs_rounded', 'banded_bwd_ms',
+                'whole_plane_bwd_ms', 'plain_bwd_ms',
+                'chain_library_bwd_ms')},
             **paths(key)))
     for i, (key, line) in enumerate((('heads_fwd', 61), ('heads_bwd', 133))):
         kernels.insert(i, row(

@@ -1,0 +1,227 @@
+// The tensor-core sequences of one decoder stage's backward, shared by the
+// whole-plane route (fused_decoder_bwd.cu, kernels #6 and #7) and the
+// banded route (fused_decoder_banded.cu, passes A and C of #8-#10): every
+// product of more than one channel on decoder_igemm.cuh's wgmma implicit
+// GEMM, the elementwise passes and the head's dgrad (K = 9) on the CUDA
+// cores of decoder_common.cuh.
+//
+//  - stage_recompute: the stage forward from its inputs (the transpose
+//    conv per output phase, conv1's skip half per image as a float32
+//    addend of its up half, GroupNorm+ReLU of raw conv1, conv2), storing
+//    up, raw1 and raw2 in bf16;
+//  - head_bwd: the head's input gradient g_a2 (bf16), weight gradient (the
+//    wgrad kernel at N = 16, column 0 the logits' gradient) and bias
+//    gradient;
+//  - stage_input_bwd: from g_raw1 (bf16), conv1's dgrad and wgrad (the up
+//    half per plane into the phase-separated g_up; the skip half once per
+//    image on the image's summed g_raw1, g_img) and the transpose conv's
+//    input, weight and bias gradients.
+//
+// The routes differ in where GroupNorm's statistics come from (the
+// whole-plane route reduces them from the partial sums its recompute
+// writes; the banded route reads those the forward saved) and in the
+// GroupNorm backward between these sequences.
+#pragma once
+
+#include "decoder_bwd_common.cuh"
+#include "decoder_igemm.cuh"
+
+namespace {
+
+using igemm::Epi;
+using igemm::Planes;
+
+#define SEMIVL_CK(call)        \
+  do {                         \
+    const int e_ = (call);     \
+    if (e_ != 0) return e_;    \
+  } while (0)
+
+template <int TAPS>
+int conv_n(int n, const Planes& in, const bf16* w, int nsplit, const Epi& e, cudaStream_t st) {
+  switch (n) {
+    case 16: return igemm::conv<16, TAPS>(in, w, nsplit, e, st);
+    case 32: return igemm::conv<32, TAPS>(in, w, nsplit, e, st);
+    case 48: return igemm::conv<48, TAPS>(in, w, nsplit, e, st);
+    case 64: return igemm::conv<64, TAPS>(in, w, nsplit, e, st);
+    case 96: return igemm::conv<96, TAPS>(in, w, nsplit, e, st);
+  }
+  if constexpr (TAPS == 1) {
+    if (n == 128) return igemm::conv<128, 1>(in, w, nsplit, e, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// Weight gradient of a 3x3 conv (g with n = 16, 32 or 64 channels) or of the
+// transpose conv (B = its input, n = 32, 64, 96 or 128 channels).
+template <int TAPS>
+int wgrad_n(int n, const Planes& in, const Planes& g, int planes, int mrows, int slots,
+            float* part, cudaStream_t st) {
+  if constexpr (TAPS == 9) {
+    switch (n) {
+      case 16: return igemm::wgrad<16, 9>(in, g, planes, mrows, slots, part, st);
+      case 32: return igemm::wgrad<32, 9>(in, g, planes, mrows, slots, part, st);
+      case 64: return igemm::wgrad<64, 9>(in, g, planes, mrows, slots, part, st);
+    }
+  } else {
+    switch (n) {
+      case 32: return igemm::wgrad<32, 1>(in, g, planes, mrows, slots, part, st);
+      case 64: return igemm::wgrad<64, 1>(in, g, planes, mrows, slots, part, st);
+      case 96: return igemm::wgrad<96, 1>(in, g, planes, mrows, slots, part, st);
+      case 128: return igemm::wgrad<128, 1>(in, g, planes, mrows, slots, part, st);
+    }
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+Epi epi(int mode, void* out) {
+  Epi e{};
+  e.mode = mode;
+  e.out = out;
+  e.add_rep = 1;
+  return e;
+}
+
+// out[b][j] = bf16(sum_n g[b * N + n][j]) for j < per: the gradient of the
+// per-image skip term, summed in float32 over the image's N class planes.
+__global__ void plane_sum_bf16_kernel(const bf16* __restrict__ g, int N, size_t per, int B,
+                                      bf16* __restrict__ out) {
+  const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
+  if (i >= (size_t)B * per) return;
+  const size_t b = i / per, j = i % per;
+  float s = 0.f;
+  for (int n = 0; n < N; ++n) s += __bfloat162float(g[(b * N + n) * per + j]);
+  out[i] = __float2bfloat16(s);
+}
+
+// part[p][c] = the sum of plane p's channel c, over `phases` phase planes
+// [p][phase][C][h][pitch] (h x w pixels each): the transpose conv's bias
+// gradient from g_up's 4 phases, the head's from g_out (1 phase, C = 1).
+__global__ void __launch_bounds__(NT)
+channel_total_kernel(const bf16* __restrict__ x, int C, int phases, int h, int w, int pitch,
+                     float* __restrict__ part) {
+  __shared__ float2 s_red[NT / 32];
+  const int c = blockIdx.x, p = blockIdx.y;
+  float s = 0.f;
+  for (int k = 0; k < phases; ++k) {
+    const bf16* q = x + (((size_t)p * phases + k) * C + c) * h * (size_t)pitch;
+    for (int i = threadIdx.x; i < h * w; i += NT) s += __bfloat162float(q[(i / w) * pitch + i % w]);
+  }
+  const float2 r = block_sum2(s, 0.f, s_red);
+  if (threadIdx.x == 0) part[(size_t)p * C + c] = r.x;
+}
+
+// A stage: P planes of cin channels on an h x w grid, its output 2h x 2w;
+// B images (skips of cs channels); cu up channels, cout output channels.
+struct Stage {
+  int P, cin, h, w, B, cs, cu, cout;
+};
+
+// The stage forward from its inputs (xin, the stage input after any
+// GroupNorm+ReLU; skip). Weights in the igemm layouts (bf16): up_wf [4][cu]
+// [cin] (phase ky * 2 + kx), w1u [9][cout][cu], w1s [9][cout][cs], w2 [9]
+// [cout][cout]; up_b float32 [cu]. Writes up (P, cu, H, W), raw1 and raw2
+// (P, cout, H, W) in bf16, with GroupNorm partials of each into part1 /
+// part2 when they are set ([P][cout / 16][tiles][2]); a1 = GN1+ReLU(raw1)
+// by gn1; ys (B, cout, H, W) float32 is conv1's skip half, left out when
+// `skip_half` is false (a planted fault). The column-shifted copies of a1
+// stay in `scr` (3 P max(C) H tma_pitch(W) elements) as *a1_src.
+int stage_recompute(const Stage& s, const bf16* xin, const bf16* skip, const bf16* up_wf,
+                    const float* up_b, const bf16* w1u, const bf16* w1s, const bf16* w2,
+                    bool skip_half, const GNIn& gn1, bf16* up, float* ys, bf16* c1,
+                    float* part1, bf16* a1, bf16* c2, float* part2, bf16* scr, Planes* a1_src,
+                    cudaStream_t st) {
+  const int H = 2 * s.h, W = 2 * s.w, HW = H * W;
+  Epi e = epi(igemm::EPI_TCONV, up);
+  e.bias = up_b;
+  SEMIVL_CK(conv_n<1>(s.cu, igemm::tma_source(xin, s.P, s.cin, s.h, s.w, scr, st), up_wf, 4, e,
+                      st));
+  if (skip_half)
+    SEMIVL_CK(conv_n<9>(s.cout, igemm::shifted_source(skip, s.B, s.cs, H, W, scr, st), w1s, 1,
+                        epi(igemm::EPI_F32, ys), st));
+  e = epi(igemm::EPI_BF16, c1);
+  e.add = skip_half ? ys : nullptr;
+  e.add_rep = s.P / s.B;
+  e.gn_part = part1;
+  SEMIVL_CK(conv_n<9>(s.cout, igemm::shifted_source(up, s.P, s.cu, H, W, scr, st), w1u, 1, e,
+                      st));
+  gn_relu_kernel<<<dim3((HW + NT - 1) / NT, s.P), NT, 0, st>>>(c1, s.cout, HW, gn1, a1);
+  *a1_src = igemm::shifted_source(a1, s.P, s.cout, H, W, scr, st);
+  e = epi(igemm::EPI_BF16, c2);
+  e.gn_part = part2;
+  SEMIVL_CK(conv_n<9>(s.cout, *a1_src, w2, 1, e, st));
+  return (int)cudaGetLastError();
+}
+
+// The head (cout -> 1 channel, 3x3) backward from the logits' gradient
+// g_out (bf16 (P, 1, H, W)) and the stage's raw conv2 c2 with gn2: g_a2 =
+// dgrad(g_out) (bf16, on the CUDA cores: K = 9; head_wd float32 [1][9]
+// [cout], flipped), its weight gradient g_hw [9][cout][16] (column 0; the
+// wgrad kernel at N = 16 over a2 = GN2+ReLU(c2), `slots` partials in
+// igpart) and its bias gradient g_hb [1] (per-plane totals in bpart [P]).
+// Scratch: a2 bf16 (P, cout, H, W); scr_b as stage_recompute's scr;
+// scr_g bf16 P H tma_pitch(W).
+int head_bwd(const Stage& s, const bf16* c2, const GNIn& gn2, const bf16* g_out,
+             const float* head_wd, bf16* a2, bf16* g_a2, float* igpart, int slots, float* g_hw,
+             float* bpart, float* g_hb, bf16* scr_b, bf16* scr_g, cudaStream_t st) {
+  const int H = 2 * s.h, W = 2 * s.w, HW = H * W;
+  gn_relu_kernel<<<dim3((HW + NT - 1) / NT, s.P), NT, 0, st>>>(c2, s.cout, HW, gn2, a2);
+  conv(s.cout, g_out, s.P, 1, H, W, NO_GN, head_wd, nullptr, nullptr, 1, g_a2, nullptr, nullptr,
+       st);
+  SEMIVL_CK(wgrad_n<9>(16, igemm::shifted_source(a2, s.P, s.cout, H, W, scr_b, st),
+                       igemm::tma_source(g_out, s.P, 1, H, W, scr_g, st), s.P, s.cout, slots,
+                       igpart, st));
+  sum_partials(igpart, slots, 9 * s.cout * 16, g_hw, st);
+  channel_total_kernel<<<dim3(1, s.P), NT, 0, st>>>(g_out, 1, 1, H, W, W, bpart);
+  sum_partials(bpart, s.P, 1, g_hb, st);
+  return (int)cudaGetLastError();
+}
+
+// The input half of a stage's backward from g_c1 = g_raw1 (bf16 (P, cout,
+// H, W)): conv1's up half (dgrad into the phase-separated g_up gph, bf16
+// [P][4][cu][h][pitch]; wgrad over all planes -> g_w1u [9][cu][cout]), its
+// skip half on the per-image sum of g_raw1 (g_img, bf16 (B, cout, H, W);
+// dgrad -> g_skip float32 (B, cs, H, W), wgrad over the first `skip_planes`
+// images (B; fewer only for a planted fault) -> g_w1s [9][cs][cout]) and
+// the transpose conv (g_xin (P, cin, h, w) bf16, g_up_w [4 cu][cin], g_up_b
+// [cu]). up and xin are the recompute's; w1u_d [9][cu][cout], w1s_d [9][cs]
+// [cout] and up_wd [cin][4 cu] the dgrad weights (bf16). slots[3]: each
+// wgrad's partials in igpart. Scratch: bpart (P, cu); scr_a, scr_b as
+// stage_recompute's scr.
+int stage_input_bwd(const Stage& s, const bf16* g_c1, const bf16* up, const bf16* xin,
+                    const bf16* skip, const bf16* up_wd, const bf16* w1u_d, const bf16* w1s_d,
+                    int pitch, const int* slots, int skip_planes, bf16* gph, bf16* g_img,
+                    float* igpart, float* bpart, bf16* scr_a, bf16* scr_b, bf16* g_xin,
+                    float* g_skip, float* g_w1u, float* g_w1s, float* g_up_w, float* g_up_b,
+                    cudaStream_t st) {
+  const int H = 2 * s.h, W = 2 * s.w;
+  // conv1, up half: g_up (into its phases) and the weight gradient
+  const Planes g1 = igemm::shifted_source(g_c1, s.P, s.cout, H, W, scr_a, st);
+  Epi e = epi(igemm::EPI_PHASE, gph);
+  e.pitch = pitch;
+  SEMIVL_CK(conv_n<9>(s.cu, g1, w1u_d, 1, e, st));
+  SEMIVL_CK(wgrad_n<9>(s.cout, igemm::shifted_source(up, s.P, s.cu, H, W, scr_b, st),
+                       igemm::center(g1), s.P, s.cu, slots[0], igpart, st));
+  sum_partials(igpart, slots[0], 9 * s.cu * s.cout, g_w1u, st);
+  // conv1, skip half: once per image on the image's summed g_raw1
+  const size_t per = (size_t)s.cout * H * W;
+  plane_sum_bf16_kernel<<<(unsigned)((s.B * per + NT - 1) / NT), NT, 0, st>>>(
+      g_c1, s.P / s.B, per, s.B, g_img);
+  const Planes gi = igemm::shifted_source(g_img, s.B, s.cout, H, W, scr_a, st);
+  SEMIVL_CK(conv_n<9>(s.cs, gi, w1s_d, 1, epi(igemm::EPI_F32, g_skip), st));
+  SEMIVL_CK(wgrad_n<9>(s.cout, igemm::shifted_source(skip, s.B, s.cs, H, W, scr_b, st),
+                       igemm::center(gi), skip_planes, s.cs, slots[1], igpart, st));
+  sum_partials(igpart, slots[1], 9 * s.cs * s.cout, g_w1s, st);
+  // the transpose conv: g_x (K = 4 cu), the weight gradient (K = input
+  // pixels) and the bias gradient
+  const Planes gp{gph, s.P, 4 * s.cu, s.h, s.w, pitch, false};
+  SEMIVL_CK(conv_n<1>(s.cin, gp, up_wd, 1, epi(igemm::EPI_BF16, g_xin), st));
+  SEMIVL_CK(wgrad_n<1>(s.cin, gp, igemm::tma_source(xin, s.P, s.cin, s.h, s.w, scr_b, st), s.P,
+                       4 * s.cu, slots[2], igpart, st));
+  sum_partials(igpart, slots[2], 4 * s.cu * s.cin, g_up_w, st);
+  channel_total_kernel<<<dim3(s.cu, s.P), NT, 0, st>>>(gph, s.cu, 4, s.h, s.w, pitch, bpart);
+  sum_partials(bpart, s.P, s.cu, g_up_b, st);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

@@ -8,7 +8,9 @@
 // take any width; ops/flash_attention.py zero-pads a narrower width that
 // is not a multiple of 16 to the next one and passes the true width's
 // scales; the repo's models have heads of 16, 32 and 64), keys at or past
-// valid_len masked to -1e30, and its gradient. The backward at D =
+// valid_len masked to -1e30, and its gradient. A width above 128 (still
+// a multiple of 16 after the same padding) runs attention_wide.cuh's
+// CUDA-core kernels, which take any such width. The backward at D =
 // 64 also replaces ::_packed_bwd_kernel: the packed forward
 // (flash_attention.cu) writes the same row log-sum-exp, and at D = 64 the
 // two TPU backwards compute one function (1/8 is exact in bf16, so dk from
@@ -48,9 +50,11 @@
 
 #include "attention_bwd.cuh"
 #include "attention_fwd.cuh"
+#include "attention_wide.cuh"
 
 // q, k, v: bf16 (B, L, H*D) views sharing strides (batch, row) with unit
-// column stride and 16-byte aligned rows, D in {16, 32, ..., 128}; out: bf16
+// column stride and 16-byte aligned rows, D a multiple of 16 (16, 32, ...,
+// 128 on the tensor cores, wider on attention_wide.cuh's); out: bf16
 // with its own strides; lse: null, or float32 (B, H, L) for each row's
 // log-sum-exp of the scaled scores. qscale: 1/sqrt(D) as a bf16 value (q is
 // multiplied by it and rounded to bf16 before q k^T). Returns
@@ -76,7 +80,8 @@ extern "C" int heads_attention_fwd(const void* q, const void* k, const void* v, 
     SEMIVL_HEADS_FWD(128)
   }
 #undef SEMIVL_HEADS_FWD
-  return (int)cudaErrorInvalidValue;
+  return wide_attention::launch_fwd(q, k, v, out, lse, B, L, H, D, valid_len, in_bstride,
+                                    in_rstride, out_bstride, out_rstride, qscale, st);
 }
 
 // Backward of heads_attention_fwd, and at D = 64 of packed_attention_fwd
@@ -113,5 +118,7 @@ extern "C" int heads_attention_bwd(const void* q, const void* k, const void* v, 
     SEMIVL_HEADS_BWD(128)
   }
 #undef SEMIVL_HEADS_BWD
-  return (int)cudaErrorInvalidValue;
+  return wide_attention::launch_bwd(q, k, v, o, g, lse, delta, dq, dk, dv, B, L, H, D,
+                                    valid_len, in_bstride, in_rstride, g_bstride, g_rstride,
+                                    d_bstride, d_rstride, qscale, gscale, st);
 }

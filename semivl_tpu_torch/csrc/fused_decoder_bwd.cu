@@ -26,9 +26,12 @@
 // every 3x3 dgrad (the same product with flipped, transposed weights) and
 // wgrad (K = pixels, per-slot partials added in a fixed order: no float
 // atomics, two runs agree bit for bit), and the transpose conv's dgrad (K
-// = 4 cu) and wgrad (K = input pixels). The head (32 -> 1 channel: K = 9
-// for its dgrad, N = 1 for its wgrad) stays on decoder_common.cuh's CUDA
-// cores, as do the elementwise passes.
+// = 4 cu) and wgrad (K = input pixels). The head's dgrad (32 -> 1
+// channel, K = 9) stays on decoder_common.cuh's CUDA cores, as do the
+// elementwise passes; its wgrad runs on the wgrad kernel at N = 16. The
+// recompute, the head and the input half are decoder_stage_bwd.cuh's
+// sequences, which the banded passes A and C (fused_decoder_banded.cu)
+// share.
 //
 // GroupNorm+ReLU backward: a separate elementwise pass (gn_backward below:
 // per-slab sums of g_y and g_y x_hat, a per-plane reduction in double, the
@@ -55,13 +58,9 @@
 // stream: nothing is saved from the forward but the stage inputs; the
 // recompute and the gradients between the steps live in device memory.
 
-#include "decoder_bwd_common.cuh"
-#include "decoder_igemm.cuh"
+#include "decoder_stage_bwd.cuh"
 
 namespace {
-
-using igemm::Epi;
-using igemm::Planes;
 
 // Tensor slots of decoder_stage_bwd_tail (t[]) and its sizes (d[]).
 enum TailSlot {
@@ -82,57 +81,6 @@ enum Dim {
   D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_PITCH, D_WG_PLANES, D_SLOTS,
   D_SLOTS2, D_SLOTS3, D_COUNT
 };
-
-#define SEMIVL_CK(call)        \
-  do {                         \
-    const int e_ = (call);     \
-    if (e_ != 0) return e_;    \
-  } while (0)
-
-template <int TAPS>
-int conv_n(int n, const Planes& in, const bf16* w, int nsplit, const Epi& e, cudaStream_t st) {
-  switch (n) {
-    case 16: return igemm::conv<16, TAPS>(in, w, nsplit, e, st);
-    case 32: return igemm::conv<32, TAPS>(in, w, nsplit, e, st);
-    case 48: return igemm::conv<48, TAPS>(in, w, nsplit, e, st);
-    case 64: return igemm::conv<64, TAPS>(in, w, nsplit, e, st);
-    case 96: return igemm::conv<96, TAPS>(in, w, nsplit, e, st);
-  }
-  if constexpr (TAPS == 1) {
-    if (n == 128) return igemm::conv<128, 1>(in, w, nsplit, e, st);
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-// Weight gradient of a 3x3 conv (g with n = 16, 32 or 64 channels) or of the
-// transpose conv (B = its input, n = 32, 64, 96 or 128 channels).
-template <int TAPS>
-int wgrad_n(int n, const Planes& in, const Planes& g, int planes, int mrows, int slots,
-            float* part, cudaStream_t st) {
-  if constexpr (TAPS == 9) {
-    switch (n) {
-      case 16: return igemm::wgrad<16, 9>(in, g, planes, mrows, slots, part, st);
-      case 32: return igemm::wgrad<32, 9>(in, g, planes, mrows, slots, part, st);
-      case 64: return igemm::wgrad<64, 9>(in, g, planes, mrows, slots, part, st);
-    }
-  } else {
-    switch (n) {
-      case 32: return igemm::wgrad<32, 1>(in, g, planes, mrows, slots, part, st);
-      case 64: return igemm::wgrad<64, 1>(in, g, planes, mrows, slots, part, st);
-      case 96: return igemm::wgrad<96, 1>(in, g, planes, mrows, slots, part, st);
-      case 128: return igemm::wgrad<128, 1>(in, g, planes, mrows, slots, part, st);
-    }
-  }
-  return (int)cudaErrorInvalidValue;
-}
-
-Epi epi(int mode, void* out) {
-  Epi e{};
-  e.mode = mode;
-  e.out = out;
-  e.add_rep = 1;
-  return e;
-}
 
 // ------------------------------------------------ GroupNorm+ReLU backward
 
@@ -271,37 +219,6 @@ int gn_backward(const bf16* g_a, const bf16* c, int P, int C, int HW, const GNIn
   return (int)cudaGetLastError();
 }
 
-// ------------------------------------------------------------ small passes
-
-// out[b][j] = bf16(sum_n g[b * N + n][j]) for j < per: the gradient of the
-// per-image skip term, summed in float32 over the image's N class planes.
-__global__ void plane_sum_bf16_kernel(const bf16* __restrict__ g, int N, size_t per, int B,
-                                      bf16* __restrict__ out) {
-  const size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
-  if (i >= (size_t)B * per) return;
-  const size_t b = i / per, j = i % per;
-  float s = 0.f;
-  for (int n = 0; n < N; ++n) s += __bfloat162float(g[(b * N + n) * per + j]);
-  out[i] = __float2bfloat16(s);
-}
-
-// part[p][c] = the sum of plane p's channel c, over `phases` phase planes
-// [p][phase][C][h][pitch] (h x w pixels each): the transpose conv's bias
-// gradient from g_up's 4 phases, the head's from g_out (1 phase, C = 1).
-__global__ void __launch_bounds__(NT)
-channel_total_kernel(const bf16* __restrict__ x, int C, int phases, int h, int w, int pitch,
-                     float* __restrict__ part) {
-  __shared__ float2 s_red[NT / 32];
-  const int c = blockIdx.x, p = blockIdx.y;
-  float s = 0.f;
-  for (int k = 0; k < phases; ++k) {
-    const bf16* q = x + (((size_t)p * phases + k) * C + c) * h * (size_t)pitch;
-    for (int i = threadIdx.x; i < h * w; i += NT) s += __bfloat162float(q[(i / w) * pitch + i % w]);
-  }
-  const float2 r = block_sum2(s, 0.f, s_red);
-  if (threadIdx.x == 0) part[(size_t)p * C + c] = r.x;
-}
-
 }  // namespace
 
 // The tail of one stage's backward. The stage is the forward's
@@ -346,41 +263,21 @@ extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream
                                                                    b16(T_XIN));
   }
   // 1. recompute the stage forward from its inputs
-  Epi e = epi(igemm::EPI_TCONV, b16(T_UP));
-  e.bias = f(T_UP_B);
-  SEMIVL_CK(conv_n<1>(cu, igemm::tma_source(b16(T_XIN), P, cin, h, w, b16(T_SCR_A), st),
-                      b16(T_UP_WF), 4, e, st));
-  SEMIVL_CK(conv_n<9>(cout, igemm::shifted_source(b16(T_SKIP), B, cs, H, W, b16(T_SCR_A), st),
-                      b16(T_W1S), 1, epi(igemm::EPI_F32, f(T_YS)), st));
-  e = epi(igemm::EPI_BF16, b16(T_C1));
-  e.add = f(T_YS);
-  e.add_rep = P / B;
-  e.gn_part = f(T_PART1);
-  SEMIVL_CK(conv_n<9>(cout, igemm::shifted_source(b16(T_UP), P, cu, H, W, b16(T_SCR_A), st),
-                      b16(T_W1U), 1, e, st));
+  const Stage s{P, cin, h, w, B, cs, cu, cout};
   const GNIn gn1{f(T_PART1), f(T_G1W), f(T_G1B), tiles, inv_out};
-  const int eb = (HW + NT - 1) / NT;
-  gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(T_C1), cout, HW, gn1, b16(T_A1));
-  const Planes a1 = igemm::shifted_source(b16(T_A1), P, cout, H, W, b16(T_SCR_A), st);
-  e = epi(igemm::EPI_BF16, b16(T_C2));
-  e.gn_part = f(T_PART2);
-  SEMIVL_CK(conv_n<9>(cout, a1, b16(T_W2), 1, e, st));
   const GNIn gn2{f(T_PART2), f(T_G2W), f(T_G2B), tiles, inv_out};
-
+  Planes a1;
+  SEMIVL_CK(stage_recompute(s, b16(T_XIN), b16(T_SKIP), b16(T_UP_WF), f(T_UP_B), b16(T_W1U),
+                            b16(T_W1S), b16(T_W2), true, gn1, b16(T_UP), f(T_YS), b16(T_C1),
+                            f(T_PART1), b16(T_A1), b16(T_C2), f(T_PART2), b16(T_SCR_A), &a1,
+                            st));
   // 2. the head: g_a2 = dgrad(g_out) on the CUDA cores (K = 9); its weight
   // gradient on the wgrad kernel at N = 16 (column 0 is g_out's), its bias
   // gradient the sum of g_out
-  if (t[T_HEAD_WD] != nullptr) {
-    gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(T_C2), cout, HW, gn2, b16(T_A2));
-    conv(cout, (const bf16*)b16(T_G_OUT), P, 1, H, W, NO_GN, f(T_HEAD_WD), nullptr, nullptr, 1,
-         b16(T_G_A2), nullptr, nullptr, st);
-    SEMIVL_CK(wgrad_n<9>(16, igemm::shifted_source(b16(T_A2), P, cout, H, W, b16(T_SCR_B), st),
-                         igemm::tma_source(b16(T_G_OUT), P, 1, H, W, b16(T_SCR_G), st), P, cout,
-                         d[D_SLOTS], f(T_IGPART), st));
-    sum_partials(f(T_IGPART), d[D_SLOTS], 9 * cout * 16, f(T_G_HW), st);
-    channel_total_kernel<<<dim3(1, P), NT, 0, st>>>(b16(T_G_OUT), 1, 1, H, W, W, f(T_BPART));
-    sum_partials(f(T_BPART), P, 1, f(T_G_HB), st);
-  }
+  if (t[T_HEAD_WD] != nullptr)
+    SEMIVL_CK(head_bwd(s, b16(T_C2), gn2, b16(T_G_OUT), f(T_HEAD_WD), b16(T_A2), b16(T_G_A2),
+                       f(T_IGPART), d[D_SLOTS], f(T_G_HW), f(T_BPART), f(T_G_HB), b16(T_SCR_B),
+                       b16(T_SCR_G), st));
   // 3. GN2+ReLU backward -> g_raw2
   SEMIVL_CK(gn_backward(b16(T_G_A2), b16(T_C2), P, cout, HW, gn2, f(T_GPART), f(T_GSUM),
                         f(T_GAB), b16(T_G_RAW2), f(T_G_G2W), f(T_G_G2B), st));
@@ -411,37 +308,14 @@ extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream
 extern "C" int decoder_stage_bwd_input(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], B = d[D_B], cs = d[D_CS];
-  const int cu = d[D_CU], cout = d[D_COUT], pitch = d[D_PITCH];
-  const int H = 2 * h, W = 2 * w;
+  const int cu = d[D_CU], cout = d[D_COUT];
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
-
-  // conv1, up half: g_up (into its phases) and the weight gradient
-  const Planes g1 = igemm::shifted_source(b16(I_G_C1), P, cout, H, W, b16(I_SCR_A), st);
-  Epi e = epi(igemm::EPI_PHASE, b16(I_GPH));
-  e.pitch = pitch;
-  SEMIVL_CK(conv_n<9>(cu, g1, b16(I_W1U_D), 1, e, st));
-  SEMIVL_CK(wgrad_n<9>(cout, igemm::shifted_source(b16(I_UP), P, cu, H, W, b16(I_SCR_B), st),
-                       igemm::center(g1), P, cu, d[D_SLOTS], f(I_IGPART), st));
-  sum_partials(f(I_IGPART), d[D_SLOTS], 9 * cu * cout, f(I_G_W1U), st);
-  // conv1, skip half: once per image on the image's summed g_raw1
-  const size_t per = (size_t)cout * H * W;
-  plane_sum_bf16_kernel<<<(unsigned)((B * per + NT - 1) / NT), NT, 0, st>>>(
-      b16(I_G_C1), P / B, per, B, b16(I_G_IMG));
-  const Planes gi = igemm::shifted_source(b16(I_G_IMG), B, cout, H, W, b16(I_SCR_A), st);
-  SEMIVL_CK(conv_n<9>(cs, gi, b16(I_W1S_D), 1, epi(igemm::EPI_F32, f(I_G_SKIP)), st));
-  SEMIVL_CK(wgrad_n<9>(cout, igemm::shifted_source(b16(I_SKIP), B, cs, H, W, b16(I_SCR_B), st),
-                       igemm::center(gi), B, cs, d[D_SLOTS2], f(I_IGPART), st));
-  sum_partials(f(I_IGPART), d[D_SLOTS2], 9 * cs * cout, f(I_G_W1S), st);
-  // the transpose conv: g_x (K = 4 cu), the weight gradient (K = input
-  // pixels) and the bias gradient
-  const Planes gph{b16(I_GPH), P, 4 * cu, h, w, pitch, false};
-  SEMIVL_CK(conv_n<1>(cin, gph, b16(I_UP_WD), 1, epi(igemm::EPI_BF16, b16(I_G_XIN)), st));
-  SEMIVL_CK(wgrad_n<1>(cin, gph, igemm::tma_source(b16(I_XIN), P, cin, h, w, b16(I_SCR_B), st),
-                       P, 4 * cu, d[D_SLOTS3], f(I_IGPART), st));
-  sum_partials(f(I_IGPART), d[D_SLOTS3], 4 * cu * cin, f(I_G_UP_W), st);
-  channel_total_kernel<<<dim3(cu, P), NT, 0, st>>>(b16(I_GPH), cu, 4, h, w, pitch, f(I_BPART));
-  sum_partials(f(I_BPART), P, cu, f(I_G_UP_B), st);
-  return (int)cudaGetLastError();
+  const int slots[3] = {d[D_SLOTS], d[D_SLOTS2], d[D_SLOTS3]};
+  return stage_input_bwd(Stage{P, cin, h, w, B, cs, cu, cout}, b16(I_G_C1), b16(I_UP),
+                         b16(I_XIN), b16(I_SKIP), b16(I_UP_WD), b16(I_W1U_D), b16(I_W1S_D),
+                         d[D_PITCH], slots, B, b16(I_GPH), b16(I_G_IMG), f(I_IGPART),
+                         f(I_BPART), b16(I_SCR_A), b16(I_SCR_B), b16(I_G_XIN), f(I_G_SKIP),
+                         f(I_G_W1U), f(I_G_W1S), f(I_G_UP_W), f(I_G_UP_B), st);
 }
 

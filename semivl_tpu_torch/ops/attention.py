@@ -9,10 +9,10 @@ implementation asked for and whether the tensors are on the card:
 - ``'packed'``: the packed kernels (heads of 64 in an even count;
   ``flash_attention.packed_attention``);
 - ``'heads'``: the head-split kernels (any other head width;
-  ``flash_attention.heads_attention``). They take every width up to 128
-  (a width that is not a multiple of 16 zero-padded to the next one) and
-  raise on the card, naming the width, for a wider one: a kernel route
-  never falls back to the plain math.
+  ``flash_attention.heads_attention``). They take every width, as JAX's
+  ``_fwd_kernel`` and ``_bwd_kernel`` do (a width that is not a multiple
+  of 16 zero-padded to the next one; above 128 on CUDA-core kernels): a
+  kernel route never falls back to the plain math.
 
 ``impl`` is ``'auto'`` (the default), ``'xla'`` (always plain) or
 ``'pallas'`` (always a kernel where the shape allows one), as in the JAX

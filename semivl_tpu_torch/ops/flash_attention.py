@@ -13,10 +13,11 @@ gradient, so autograd never re-concatenates three.
 
 CUDA tensors launch the forward kernel of their route,
 ``csrc/flash_attention.cu`` (packed, bf16, head_dim 64) or
-``csrc/flash_attention_heads.cu`` (head-split, bf16, head_dim up to 128;
-a width that is not a multiple of 16 runs zero-padded to the next one,
-``pad_heads``), and the one backward kernel of both routes (the latter's
-``heads_attention_bwd``), or raise; CPU tensors take the plain versions
+``csrc/flash_attention_heads.cu`` (head-split, bf16, any head_dim: the
+tensor cores up to 128, the CUDA cores of ``csrc/attention_wide.cuh``
+above; a width that is not a multiple of 16 runs zero-padded to the next
+one, ``pad_heads``), and the one backward kernel of both routes (the
+latter's ``heads_attention_bwd``), or raise; CPU tensors take the plain versions
 (``flash_mha_plain`` and ``flash_mha_heads_plain`` forward,
 ``flash_mha_bwd_plain`` backward). The references the kernels are held to
 on the card round to bf16 where the kernels do: ``packed_attention_rounded``
@@ -35,7 +36,7 @@ launches = 0            # packed forward kernel launches since the last reset
 bwd_launches = 0        # packed backward launches (read by chip_smoke.py)
 heads_launches = 0      # head-split forward launches
 heads_bwd_launches = 0  # head-split backward launches
-HEAD_DIMS = tuple(range(16, 129, 16))   # head widths of the head-split kernels
+HEAD_DIMS = tuple(range(16, 129, 16))   # the head-split kernels' wgmma widths
 
 _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
              + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_void_p])
@@ -303,10 +304,9 @@ def _q_scale(d):
 def _check_heads(qkv, num_heads, valid_len):
     b, l, c3 = qkv.shape
     c = c3 // 3
-    if c3 % 3 or c % num_heads or c // num_heads > HEAD_DIMS[-1]:
-        raise ValueError(f'head-split attention kernel takes head_dim up to '
-                         f'{HEAD_DIMS[-1]}: C={c}, {num_heads} heads, '
-                         f'head_dim {c / num_heads:g}')
+    if c3 % 3 or c % num_heads:
+        raise ValueError(f'head-split attention kernel: C={c} does not split '
+                         f'into {num_heads} heads')
     if not qkv.is_cuda or qkv.dtype != torch.bfloat16:
         raise ValueError(f'head-split attention kernel takes bf16 CUDA '
                          f'tensors, got {qkv.dtype} on {qkv.device}')
@@ -320,7 +320,7 @@ def _check_heads(qkv, num_heads, valid_len):
 
 def padded_head_dim(d):
     """The kernel width a head of ``d`` runs at: the next multiple of 16
-    (``HEAD_DIMS``)."""
+    (``HEAD_DIMS`` up to 128)."""
     return -(-d // 16) * 16
 
 
@@ -466,8 +466,8 @@ def heads_attention_plain(qkv, num_heads, valid_len=None):
 
 def heads_attention(qkv, num_heads, valid_len=None):
     """Head-split self-attention over the packed (B, L, 3C) in_proj output
-    -> (B, L, C), for any head width up to 128 (the kernels' ``HEAD_DIMS``,
-    other widths zero-padded to the next of them).
+    -> (B, L, C), for any head width (a width that is not a multiple of 16
+    zero-padded to the next one; above 128 on the CUDA-core kernels).
 
     Differentiable w.r.t. ``qkv`` (one (B, L, 3C) gradient); without
     autograd the forward kernel alone (no log-sum-exp is written)."""

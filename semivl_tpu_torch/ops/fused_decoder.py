@@ -19,8 +19,7 @@ plain backward. The forward rounds the float32 weights to the activation
 dtype; the gradient passes that rounding straight through, as autograd of
 ``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the kernels' own
 arithmetic in plain PyTorch, the reference the kernels are held to on the
-card (with the whole-plane backward's bf16 gradient roundings, or without
-them for the banded route).
+card (with the bf16 gradient roundings that both backward routes store).
 
 ``bwd='banded'`` routes the backward through ``ops.fused_decoder_banded``
 instead: the forward then also saves each stage's GroupNorm statistics
@@ -161,14 +160,16 @@ def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
     (the transpose conv output, the raw conv1 output after its up and skip
     halves are summed, the raw conv2 output, both activations, the logits).
     Every value rounding passes the gradient straight through. With
-    ``bf16_grads`` (the whole-plane backward, kernels #6/#7) the gradient is
-    rounded to bf16 where those kernels store it, JAX's points (the
-    gradients of each stage's input, both raw conv outputs and both
-    activations) and two of the port's own (the transpose conv output's
-    gradient and the per-image sum of conv1's, operands of its bf16
-    products); without, autograd computes float32 gradients, the banded
-    backward's. The kernels differ from it only in the order of float32
-    sums (``dtype=torch.float64`` measures how much that order matters).
+    ``bf16_grads`` (both backward routes: the whole-plane kernels #6/#7 and
+    the banded passes #8-#10) the gradient is rounded to bf16 where those
+    kernels store it, JAX's points (the gradients of each stage's input,
+    both raw conv outputs and both activations, which JAX's banded kernels
+    store as gy2, graw2, gy1, graw1 and g_x) and two of the port's own (the
+    transpose conv output's gradient and the per-image sum of conv1's,
+    operands of its bf16 tensor-core products); without, autograd computes
+    float32 gradients. The kernels differ from it only in the order of
+    float32 sums (``dtype=torch.float64`` measures how much that order
+    matters).
     Returns (P, 1, 4h, 4w) logits in x's dtype."""
     y = x.to(dtype)
     for p, skip in ((params1, skip1), (params2, skip2)):
@@ -449,12 +450,34 @@ def _wgrad_slots(dev, taps, mrows):
     return -(-sms // blocks)
 
 
-def _tma_scratch(pl, channels, hh, ww, dev):
-    """Two bf16 buffers, each with room for the three column-shifted copies
-    (at a pitch TMA takes) of the largest source a 3x3 product reads."""
+def _tma_scratch(pl, channels, hh, ww, dev, n=2):
+    """``n`` bf16 buffers, each with room for the three column-shifted
+    copies (at a pitch TMA takes) of the largest source a 3x3 product
+    reads."""
     size = 3 * pl * max(channels) * hh * (-(-ww // 8) * 8)
-    return (torch.empty(size, dtype=torch.bfloat16, device=dev),
-            torch.empty(size, dtype=torch.bfloat16, device=dev))
+    return tuple(torch.empty(size, dtype=torch.bfloat16, device=dev)
+                 for _ in range(n))
+
+
+def _igemm_stage_weights(p, dt):
+    """A stage's recompute weights in the igemm layouts (bf16), the
+    transpose conv's bias and the GroupNorm affines (float32)."""
+    kw = _kernel_weights(p, dt)
+    cu = p['up_weight'].shape[1]
+    w1 = p['conv1_weight']
+    return dict(up_wf=_tconv_fwd_weight(p['up_weight']), up_b=kw['up_b'],
+                w1u=_igemm_weight(w1[:, :cu]), w1s=_igemm_weight(w1[:, cu:]),
+                w2=_igemm_weight(p['conv2_weight']),
+                **{k: kw[k] for k in ('g1w', 'g1b', 'g2w', 'g2b')})
+
+
+def _igemm_input_weights(p):
+    """The dgrad weights of a stage's input half in the igemm layouts."""
+    cu = p['up_weight'].shape[1]
+    w1 = p['conv1_weight']
+    return dict(up_wd=_tconv_dgrad_weight(p['up_weight']),
+                w1u_d=_igemm_dgrad_weight(w1[:, :cu]),
+                w1s_d=_igemm_dgrad_weight(w1[:, cu:]))
 
 
 def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
@@ -470,20 +493,17 @@ def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
     _build.check(err, fn_name)
 
 
-def _check_bwd(x, skip, p):
+def _check_igemm(x, skip, p):
+    """What both decoder backward routes' igemm products take besides
+    ``_check``: Cu and Cs in (16, 32, 48, 64, 96), Cin (the transpose
+    conv's dgrad width) in (32, 64, 96, 128) and 16-byte aligned planes
+    (TMA)."""
     _check(x, skip, p)
     cu = p['up_weight'].shape[1]
     if cu not in (16, 32, 48, 64, 96) or skip.shape[1] not in (16, 32, 48,
                                                                64, 96):
         raise ValueError(f'decoder backward kernel takes Cu and Cs in (16, '
                          f'32, 48, 64, 96); got {cu}, {skip.shape[1]}')
-
-
-def _check_igemm(x, skip, p):
-    """What the whole-plane backward's igemm products take besides
-    ``_check_bwd``: Cin (the transpose conv's dgrad width) in (32, 64, 96,
-    128) and 16-byte aligned planes (TMA)."""
-    _check_bwd(x, skip, p)
     if x.shape[1] not in (32, 64, 96, 128):
         raise ValueError(f'decoder backward kernel takes Cin in (32, 64, 96, '
                          f'128); got {x.shape[1]}')
@@ -515,14 +535,8 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
     def e(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    kw = _kernel_weights(p, dt)
-    w1 = p['conv1_weight']
-    t = dict(x=x, skip=skip, xin=x, up_wf=_tconv_fwd_weight(p['up_weight']),
-             up_b=kw['up_b'], w1u=_igemm_weight(w1[:, :cu]),
-             w1s=_igemm_weight(w1[:, cu:]),
-             w2=_igemm_weight(p['conv2_weight']),
-             w2_d=_igemm_dgrad_weight(p['conv2_weight']),
-             g1w=kw['g1w'], g1b=kw['g1b'], g2w=kw['g2w'], g2b=kw['g2b'])
+    t = dict(_igemm_stage_weights(p, dt), x=x, skip=skip, xin=x,
+             w2_d=_igemm_dgrad_weight(p['conv2_weight']))
     if gn_in is not None:
         t.update(gn_part=gn_in[0], gn_gamma=gn_in[1], gn_beta=gn_in[2],
                  xin=e((pl, cin, h, w), dt))
@@ -582,11 +596,7 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
     def e(shape, dtype=torch.float32):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    w1 = p['conv1_weight']
-    t = dict(g_c1=g_c1, up=up, xin=xin, skip=skip,
-             up_wd=_tconv_dgrad_weight(p['up_weight']),
-             w1u_d=_igemm_dgrad_weight(w1[:, :cu]),
-             w1s_d=_igemm_dgrad_weight(w1[:, cu:]),
+    t = dict(_igemm_input_weights(p), g_c1=g_c1, up=up, xin=xin, skip=skip,
              gph=e((pl, 4, cu, h, pitch), dt), g_img=e((b, cout, hh, ww), dt),
              igpart=e(max(s1 * 9 * cu * cout, s2 * 9 * cs * cout,
                           s3 * 4 * cu * cin)),

@@ -24,9 +24,14 @@ raise; CPU tensors take ``pass_a_plain``, ``pass_b_plain``,
 ``pass_c_plain``: the same arithmetic in plain PyTorch, float32 sums,
 rounded to the storage dtype (that of the stage input) where the kernels
 store it. ``decoder_bwd_banded(..., plain=True)`` composes the plain passes
-into the whole decoder backward. Intermediate gradients are float32; the
-stage input's gradient is that of its normalised value, which the previous
-stage's pass A takes as the gradient of its GN2+ReLU output.
+into the whole decoder backward. The gradients between the steps are
+stored in that dtype where JAX's banded kernels store them in theirs
+(gy2, graw2, gy1, graw1 and the stage input's gradient), and so are two
+operands of pass C's tensor-core products that JAX never forms (the
+transpose conv output's gradient g_up and the per-image sum of graw1,
+g_img), as the whole-plane backward stores them; the stage input's
+gradient is that of its normalised value, which the previous stage's pass
+A takes as the gradient of its GN2+ReLU output.
 """
 
 import torch
@@ -40,14 +45,15 @@ pass_c_launches = 0
 
 _A_SLOTS = (
     'x gx_mean gx_rstd gx_gamma gx_beta skip up_w up_b w1u w1s w2 g1w g1b '
-    'g2w g2b m1 r1 m2 r2 head_wd g_out g_a2 xin up ys raw1 raw2 a2 gy2 '
-    'gpart sums wpart bpart g_hw g_hb').split()
+    'g2w g2b m1 r1 m2 r2 head_wd g_out g_a2 xin up ys raw1 raw2 a1 a2 gy2 '
+    'gpart sums wpart bpart scr_a scr_b scr_g g_hw g_hb').split()
 _B_SLOTS = (
     'raw1 raw2 gy2 m1 r1 m2 r2 g1w g1b g2w g2b mga mgb w2_d graw2 a1 gy1 '
-    'gpart sums wpart bpart g_w2').split()
+    'gpart sums wpart g_w2').split()
 _C_SLOTS = (
     'xin up skip raw1 gy1 m1 r1 g1w g1b mga mgb up_w w1u_d w1s_d graw1 g_up '
-    'g_img wpart bpart g_xin g_skip g_w1u g_w1s g_up_w g_up_b').split()
+    'g_img wpart bpart scr_a scr_b g_xin g_skip g_w1u g_w1s g_up_w '
+    'g_up_b').split()
 
 
 def _f32(t):
@@ -80,10 +86,11 @@ def pass_a_plain(x, skip, p, stats, g, gn_x=None, head=None):
     """Pass A in plain PyTorch. x (P, Cin, h, w) in the storage dtype (raw,
     with ``gn_x`` = (mean, rstd, gamma, beta) of its GroupNorm+ReLU);
     ``stats`` = (m1, r1, m2, r2) saved by the forward; ``g``: with ``head``
-    the logits' gradient (P, 1, H, W), else the float32 gradient of the
-    stage's GN2+ReLU output. Returns xin, up, raw1, raw2 (storage dtype),
-    gy2 (float32), the per-plane sums sgy2, sgyx2 (P, Cout) and, with the
-    head, its weight and bias gradients."""
+    the logits' gradient (P, 1, H, W), else the gradient of the stage's
+    GN2+ReLU output, both taken in the storage dtype. Returns xin, up,
+    raw1, raw2, gy2 (storage dtype), the per-plane sums sgy2, sgyx2 (P,
+    Cout) of the stored gy2 and, with the head, its weight and bias
+    gradients."""
     dt = x.dtype
     m1, r1, m2, r2 = stats
     r = fd.stage_recompute_plain(x, skip, p, m1, r1, gn_x)
@@ -93,63 +100,68 @@ def pass_a_plain(x, skip, p, stats, g, gn_x=None, head=None):
         a2 = fd.gn_act(raw2, m2, r2, p['gn2_weight'], p['gn2_bias'], dt)
         g_out = g.to(dt).float()
         hw = head['weight'].to(dt).float()
-        g_a2 = _dgrad(g_out, hw)
+        g_a2 = fd._store(_dgrad(g_out, hw), dt)
         out['head_weight'] = _wgrad(a2, hw.shape, g_out)
         out['head_bias'] = g_out.double().sum((0, 2, 3)).float()
     else:
-        g_a2 = g.float()
+        g_a2 = g.to(dt).float()
     xhat = (raw2 - _bc(m2)) * _bc(r2)
     on = (xhat * p['gn2_weight'].float()[:, None, None]
           + p['gn2_bias'].float()[:, None, None]) > 0
     gy2 = torch.where(on, g_a2, torch.zeros((), device=g_a2.device))
-    out['gy2'] = gy2
+    out['gy2'] = gy2.to(dt)
     out['sgy2'], out['sgyx2'] = _sums(gy2, xhat)
     return out
 
 
 def pass_b_plain(raw1, raw2, gy2, p, stats, mg2):
     """Pass B in plain PyTorch: from pass A's raw1, raw2, gy2 and the closed
-    GN2 vectors ``mg2`` = (mga, mgb) (P, Cout), gy1 (float32), the GN1
-    sums sgy1, sgyx1 and conv2's weight gradient (torch layout)."""
+    GN2 vectors ``mg2`` = (mga, mgb) (P, Cout), gy1 (storage dtype), the
+    GN1 sums sgy1, sgyx1 of the stored gy1 and conv2's weight gradient
+    (torch layout). graw2 and g_a1 are rounded to the storage dtype, where
+    the kernel stores them."""
     dt = raw1.dtype
     m1, r1, m2, r2 = stats
     c1, c2 = raw1.float(), raw2.float()
     xhat2 = (c2 - _bc(m2)) * _bc(r2)
-    graw2 = _bc(r2) * (p['gn2_weight'].float()[:, None, None] * gy2
-                       - _bc(mg2[0]) - xhat2 * _bc(mg2[1]))
+    graw2 = fd._store(_bc(r2) * (p['gn2_weight'].float()[:, None, None]
+                                 * gy2.to(dt).float() - _bc(mg2[0])
+                                 - xhat2 * _bc(mg2[1])), dt)
     a1 = fd.gn_act(c1, m1, r1, p['gn1_weight'], p['gn1_bias'], dt)
     w2 = p['conv2_weight'].to(dt).float()
-    g_a1 = _dgrad(graw2, w2)
+    g_a1 = fd._store(_dgrad(graw2, w2), dt)
     xhat1 = (c1 - _bc(m1)) * _bc(r1)
     on = (xhat1 * p['gn1_weight'].float()[:, None, None]
           + p['gn1_bias'].float()[:, None, None]) > 0
     gy1 = torch.where(on, g_a1, torch.zeros((), device=g_a1.device))
     sgy1, sgyx1 = _sums(gy1, xhat1)
-    return dict(gy1=gy1, sgy1=sgy1, sgyx1=sgyx1,
+    return dict(gy1=gy1.to(dt), sgy1=sgy1, sgyx1=sgyx1,
                 conv2_weight=_wgrad(a1, w2.shape, graw2))
 
 
 def pass_c_plain(xin, up, skip, raw1, gy1, p, stats, mg1):
     """Pass C in plain PyTorch: from pass A's xin, up, raw1, pass B's gy1
-    and the closed GN1 vectors ``mg1``, the float32 gradients of the stage
-    input g_x (of its normalised value), of the skip g_skip (summed over
-    each image's planes), and of conv1 and the transpose conv (torch
-    layouts)."""
+    and the closed GN1 vectors ``mg1``, the gradients of the stage input
+    g_x (of its normalised value; storage dtype), of the skip g_skip
+    (summed over each image's planes) and of conv1 and the transpose conv
+    (float32, torch layouts). graw1, g_up and g_img are rounded to the
+    storage dtype, where the kernel stores them."""
     dt = xin.dtype
     m1, r1 = stats[:2]
     c1 = raw1.float()
     xhat1 = (c1 - _bc(m1)) * _bc(r1)
-    graw1 = _bc(r1) * (p['gn1_weight'].float()[:, None, None] * gy1
-                       - _bc(mg1[0]) - xhat1 * _bc(mg1[1]))
+    graw1 = fd._store(_bc(r1) * (p['gn1_weight'].float()[:, None, None]
+                                 * gy1.to(dt).float() - _bc(mg1[0])
+                                 - xhat1 * _bc(mg1[1])), dt)
     w1 = p['conv1_weight'].to(dt).float()
     cu = up.shape[1]
-    g_up = _dgrad(graw1, w1[:, :cu])
-    g_img = graw1.unflatten(0, (skip.shape[0], -1)).sum(1)
+    g_up = fd._store(_dgrad(graw1, w1[:, :cu]), dt)
+    g_img = fd._store(graw1.unflatten(0, (skip.shape[0], -1)).sum(1), dt)
     pl, cin, h, w = xin.shape
     g6 = g_up.reshape(pl, cu, h, 2, w, 2)
     up_w = p['up_weight'].to(dt).float()
     return dict(
-        g_x=torch.einsum('pchiwj,dcij->pdhw', g6, up_w),
+        g_x=torch.einsum('pchiwj,dcij->pdhw', g6, up_w).to(dt),
         g_skip=_dgrad(g_img, w1[:, cu:]),
         conv1_weight=torch.cat([
             _wgrad(up.float(), w1[:, :cu].shape, graw1),
@@ -180,8 +192,11 @@ def close_gn(sgy, sgyx, gamma, hw):
 _R = fd._R
 
 
-def _dims(pl, cin, h, w, b, cs, cu, cout):
-    return (pl, cin, h, w, b, cs, cu, cout, _R)
+def _dims(pl, cin, h, w, b, cs, cu, cout, pitch=0, skip_half=True,
+          slots=(0, 0, 0)):
+    """The C entry points' sizes (``enum Dim``)."""
+    return (pl, cin, h, w, b, cs, cu, cout, _R, pitch, int(skip_half),
+            *slots)
 
 
 def _check_stored(**tensors):
@@ -199,42 +214,52 @@ def _empty(dev):
     return e
 
 
-def pass_a(x, skip, p, stats, g, gn_x=None, head=None):
-    """Pass A (kernel #8); arguments and results as ``pass_a_plain``."""
+def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
+    """Pass A (kernel #8); arguments and results as ``pass_a_plain``.
+    ``skip_half=False`` leaves conv1's skip half out of the recompute (a
+    planted fault inside the kernel's tensor-core product)."""
     global pass_a_launches
     if not x.is_cuda:
         return pass_a_plain(x, skip, p, stats, g, gn_x, head)
-    fd._check_bwd(x, skip, p)
+    fd._check_igemm(x, skip, p)
     pl, cin, h, w = x.shape
     b, cs, hh, ww = skip.shape
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
-    dt, e = x.dtype, _empty(x.device)
+    dt, dev = x.dtype, x.device
+    e = _empty(dev)
     plane = (pl, cout, hh, ww)
-    t = dict(fd._kernel_weights(p, dt), x=x, skip=skip, xin=x,
+    kw = fd._igemm_stage_weights(p, dt)
+    t = dict(kw, up_w=kw['up_wf'], x=x, skip=skip, xin=x,
              up=e((pl, cu, hh, ww), dt), ys=e((b, cout, hh, ww)),
-             raw1=e(plane, dt), raw2=e(plane, dt), gy2=e(plane),
-             gpart=e((pl, cout, -(-hh * ww // 256), 2)),
-             sums=e((pl, cout, 2)), wpart=e((_R, cout * 9)),
-             bpart=e((_R, 1)))
+             raw1=e(plane, dt), raw2=e(plane, dt), a1=e(plane, dt),
+             gy2=e(plane, dt), gpart=e((pl, cout, -(-hh * ww // 256), 2)),
+             sums=e((pl, cout, 2)))
+    channels = (cin, cu, cout, cs)
+    t['scr_a'], = fd._tma_scratch(pl, channels, hh, ww, dev, 1)
     t.update(zip(('m1', 'r1', 'm2', 'r2'), (_f32(s) for s in stats)))
     if gn_x is not None:
         t.update(zip(('gx_mean', 'gx_rstd', 'gx_gamma', 'gx_beta'),
                      (_f32(v) for v in gn_x)), xin=e((pl, cin, h, w), dt))
+    slots = 0
     if head is not None:
+        slots = fd._wgrad_slots(dev, 9, cout)
+        t['scr_b'], = fd._tma_scratch(pl, channels, hh, ww, dev, 1)
         t.update(head_wd=fd._dgrad_weight(head['weight'].to(dt).float()),
-                 g_out=g.to(dt).contiguous(), g_a2=e(plane), a2=e(plane, dt),
-                 g_hw=e((cout, 9, 1)), g_hb=e((1,)))
+                 g_out=g.to(dt).contiguous(), g_a2=e(plane, dt),
+                 a2=e(plane, dt), wpart=e((slots, 9, cout, 16)),
+                 bpart=e((pl,)), scr_g=e((pl * hh * (-(-ww // 8) * 8),), dt),
+                 g_hw=e((9, cout, 16)), g_hb=e((1,)))
     else:
-        t['g_a2'] = _f32(g)
+        t['g_a2'] = g.to(dt).contiguous()
     fd._call('banded_pass_a', _A_SLOTS, t,
-             _dims(pl, cin, h, w, b, cs, cu, cout), x,
-             lib='fused_decoder_banded')
+             _dims(pl, cin, h, w, b, cs, cu, cout, skip_half=skip_half,
+                   slots=(slots, 0, 0)), x, lib='fused_decoder_banded')
     pass_a_launches += 1
     out = {k: t[k] for k in ('xin', 'up', 'raw1', 'raw2', 'gy2')}
     out.update(sgy2=t['sums'][..., 0], sgyx2=t['sums'][..., 1])
     if head is not None:
-        out.update(head_weight=fd._from_k3(t['g_hw'], cout, 1),
+        out.update(head_weight=fd._from_taps(t['g_hw'][..., :1], cout, 1),
                    head_bias=t['g_hb'])
     return out
 
@@ -252,15 +277,15 @@ def pass_b(raw1, raw2, gy2, p, stats, mg2):
                          f'(P, Cout, H, W) shape, got {tuple(raw1.shape)}')
     dt, e = raw1.dtype, _empty(raw1.device)
     plane = (pl, cout, hh, ww)
-    t = dict(raw1=raw1, raw2=raw2, gy2=_f32(gy2),
+    t = dict(raw1=raw1, raw2=raw2, gy2=gy2.to(dt).contiguous(),
              g1w=_f32(p['gn1_weight']), g1b=_f32(p['gn1_bias']),
              g2w=_f32(p['gn2_weight']), g2b=_f32(p['gn2_bias']),
              mga=_f32(mg2[0]), mgb=_f32(mg2[1]),
              w2_d=fd._dgrad_weight(p['conv2_weight'].to(dt).float()),
-             graw2=e(plane), a1=e(plane, dt), gy1=e(plane),
+             graw2=e(plane, dt), a1=e(plane, dt), gy1=e(plane, dt),
              gpart=e((pl, cout, -(-hh * ww // 256), 2)),
              sums=e((pl, cout, 2)), wpart=e((_R, cout * 9 * cout)),
-             bpart=e((_R, 1)), g_w2=e((cout, 9, cout)))
+             g_w2=e((cout, 9, cout)))
     t.update(zip(('m1', 'r1', 'm2', 'r2'), (_f32(s) for s in stats)))
     fd._call('banded_pass_b', _B_SLOTS, t,
              _dims(pl, 0, hh // 2, ww // 2, 0, 0, 0, cout), raw1,
@@ -276,7 +301,7 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
     global pass_c_launches
     if not xin.is_cuda:
         return pass_c_plain(xin, up, skip, raw1, gy1, p, stats, mg1)
-    fd._check_bwd(xin, skip, p)
+    fd._check_igemm(xin, skip, p)
     _check_stored(up=up, raw1=raw1)
     pl, cin, h, w = xin.shape
     b, cs, hh, ww = skip.shape
@@ -285,31 +310,36 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
     if up.shape != (pl, cu, hh, ww) or raw1.shape != (pl, cout, hh, ww):
         raise ValueError(f'pass C: up {tuple(up.shape)} / raw1 '
                          f'{tuple(raw1.shape)} do not match the stage')
-    dt, e = xin.dtype, _empty(xin.device)
-    w1 = p['conv1_weight'].to(dt).float()
-    m = max(cu * 9 * cout, cs * 9 * cout, cin * 4 * cu)
-    t = dict(xin=xin, up=up, skip=skip, raw1=raw1, gy1=_f32(gy1),
+    dt, dev = xin.dtype, xin.device
+    e = _empty(dev)
+    pitch = -(-w // 8) * 8
+    slots = (fd._wgrad_slots(dev, 9, cu), fd._wgrad_slots(dev, 9, cs),
+             fd._wgrad_slots(dev, 1, 4 * cu))
+    kw = fd._igemm_input_weights(p)
+    t = dict(xin=xin, up=up, skip=skip, raw1=raw1, gy1=gy1.to(dt).contiguous(),
              m1=_f32(stats[0]), r1=_f32(stats[1]),
              g1w=_f32(p['gn1_weight']), g1b=_f32(p['gn1_bias']),
-             mga=_f32(mg1[0]), mgb=_f32(mg1[1]),
-             up_w=fd._kernel_weights(p, dt)['up_w'],
-             w1u_d=fd._dgrad_weight(w1[:, :cu]),
-             w1s_d=fd._dgrad_weight(w1[:, cu:]),
-             graw1=e((pl, cout, hh, ww)), g_up=e((pl, cu, hh, ww)),
-             g_img=e((b, cout, hh, ww)), wpart=e((_R, m)),
-             bpart=e((_R, cu)), g_xin=e((pl, cin, h, w)),
-             g_skip=e((b, cs, hh, ww)), g_w1u=e((cu, 9, cout)),
-             g_w1s=e((cs, 9, cout)), g_up_w=e((cin, 4, cu)),
+             mga=_f32(mg1[0]), mgb=_f32(mg1[1]), up_w=kw['up_wd'],
+             w1u_d=kw['w1u_d'], w1s_d=kw['w1s_d'],
+             graw1=e((pl, cout, hh, ww), dt), g_up=e((pl, 4, cu, h, pitch), dt),
+             g_img=e((b, cout, hh, ww), dt),
+             wpart=e(max(slots[0] * 9 * cu * cout, slots[1] * 9 * cs * cout,
+                         slots[2] * 4 * cu * cin)),
+             bpart=e((pl, cu)), g_xin=e((pl, cin, h, w), dt),
+             g_skip=e((b, cs, hh, ww)), g_w1u=e((9, cu, cout)),
+             g_w1s=e((9, cs, cout)), g_up_w=e((4 * cu, cin)),
              g_up_b=e((cu,)))
+    t['scr_a'], t['scr_b'] = fd._tma_scratch(pl, (cin, cu, cout, cs), hh, ww,
+                                             dev)
     fd._call('banded_pass_c', _C_SLOTS, t,
-             _dims(pl, cin, h, w, b, cs, cu, cout), xin,
+             _dims(pl, cin, h, w, b, cs, cu, cout, pitch, slots=slots), xin,
              lib='fused_decoder_banded')
     pass_c_launches += 1
     return dict(
         g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
-        up_weight=t['g_up_w'].reshape(cin, 2, 2, cu).permute(0, 3, 1, 2),
-        conv1_weight=torch.cat([fd._from_k3(t['g_w1u'], cu, cout),
-                                fd._from_k3(t['g_w1s'], cs, cout)], dim=1))
+        up_weight=fd._tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
+        conv1_weight=torch.cat([fd._from_taps(t['g_w1u'], cu, cout),
+                                fd._from_taps(t['g_w1s'], cs, cout)], dim=1))
 
 
 # ---------------------------------------------------------------------------

@@ -1,19 +1,35 @@
-"""Times the whole-plane decoder backward (kernels #6/#7) of this checkout
-against another checkout's, in turns, on the card.
+"""Times the decoder backward of this checkout against another checkout's,
+in turns, on the card: the whole-plane route (kernels #6/#7) and the
+banded route (passes #8-#10).
 
 ``other`` is the root of another checkout (e.g. a parent commit unpacked
-with ``git archive``): its ``semivl_tpu_torch.ops.fused_decoder`` is
-imported beside this one's, with its own sources and build directory, so
-each build runs through its own wrapper. At each case of ``CASES`` (the
-flagship VOC step's decoder at P = 126 and the tiny step's at P = 42) both
-builds run in turns (other, this, this, other): both stages' tail calls
-(``decoder_stage_bwd_tail``), both input calls (``decoder_stage_bwd_input``)
-and the whole backward through autograd (the two forward launches are
-outside it), timed by CUDA events and by the profiler's kernel durations
-(``chip_smoke.cuda_ms`` and ``device_ms``), with cuDNN's backward of the
-same chain beside (``chip_smoke._cudnn_chain``); ``speedup`` is the other
-build's device time over this one's, ``vs_cudnn`` this build's over
-cuDNN's, and ``rel_l2`` the worst gradient leaf of this build against the
+with ``git archive``): its ``semivl_tpu_torch.ops.fused_decoder`` and
+``fused_decoder_banded`` are imported beside this one's, with their own
+sources and build directory, so each build runs through its own wrappers.
+Both builds run in turns (other, this, this, other), timed by CUDA events
+and by the profiler's kernel durations (``chip_smoke.cuda_ms`` and
+``device_ms``):
+
+- at each case of ``CASES`` (the flagship VOC step's decoder at P = 126
+  and the tiny step's at P = 42, the whole-plane route): both stages' tail
+  calls (``decoder_stage_bwd_tail``), both input calls
+  (``decoder_stage_bwd_input``) and the whole backward through autograd
+  (the two forward launches are outside it), with cuDNN's backward of the
+  same chain beside (``chip_smoke._cudnn_chain``);
+- at each case of ``BANDED_CASES`` (the Cityscapes step's decoder at P =
+  57 on a 51^2 base grid, the banded route): passes A, B and C of both
+  stages, each on its own build's inputs, and the whole banded backward
+  through autograd, with the library's convolutions for each pass's work
+  (``chip_smoke._cudnn_pass_calls``) and cuDNN's backward of the chain
+  beside. Each turn of this case runs in a process of its own, which runs
+  one build's kernels only: once the other build's banded passes have run
+  in a process, the profiler on the card's machine drops records of
+  PyTorch's copy kernels from every later window, so no device-only time
+  would be kept.
+
+``speedup`` is the other build's device time over this one's (per part
+too, ``speedups``), ``vs_cudnn`` this build's over cuDNN's, and ``rel_l2``
+the worst gradient leaf of this build's whole backward against the
 other's. A time the profiler did not keep whole is null. Run it from the
 repository's root:
 
@@ -24,23 +40,28 @@ import argparse
 import importlib
 import json
 import os
+import subprocess
 import sys
+import tempfile
 
 import torch
 
 from semivl_tpu_torch.device import resolve_device
-from semivl_tpu_torch.ops import fused_decoder
+from semivl_tpu_torch.ops import fused_decoder, fused_decoder_banded
 
 # (name, images, planes per image, base grid h, channels, up channels,
 # skip channels)
 CASES = (('flagship VOC step, P=126', 6, 21, 32, 128, (64, 32), (32, 16)),
          ('tiny step, P=42', 2, 21, 4, 32, (32, 16), (16, 16)))
+BANDED_CASES = (('Cityscapes step, banded, P=57', 3, 19, 51, 128, (64, 32),
+                 (32, 32)),)
 
 
 def load_other(root):
-    """``semivl_tpu_torch.ops.fused_decoder`` of the checkout at ``root``,
-    imported with its own package (its own ``_build``, sources and build
-    directory); this checkout's modules are left as they were."""
+    """``semivl_tpu_torch.ops.fused_decoder`` and ``fused_decoder_banded``
+    of the checkout at ``root``, imported with their own package (its own
+    ``_build``, sources and build directory); this checkout's modules are
+    left as they were."""
     ours = {k: v for k, v in sys.modules.items()
             if k == 'semivl_tpu_torch' or k.startswith('semivl_tpu_torch.')}
     for k in ours:
@@ -48,7 +69,9 @@ def load_other(root):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     try:
-        return importlib.import_module('semivl_tpu_torch.ops.fused_decoder')
+        return (importlib.import_module('semivl_tpu_torch.ops.fused_decoder'),
+                importlib.import_module(
+                    'semivl_tpu_torch.ops.fused_decoder_banded'))
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if k == 'semivl_tpu_torch'
@@ -64,6 +87,21 @@ def _mean(xs):
 
 def _ratio(a, b):
     return None if a is None or b is None else a / b
+
+
+def _ratios(row, parts, made):
+    """``speedups`` per part and ``speedup`` of the whole backward (the
+    other build's device time over this one's), ``vs_cudnn`` and
+    ``rel_l2`` (this build's gradients against the other's)."""
+    import chip_smoke
+    row['speedups'] = {part: _ratio(row['other'][part]['device_ms'],
+                                    row['this'][part]['device_ms'])
+                       for part in parts}
+    row['speedup'] = row['speedups']['whole']
+    row['vs_cudnn'] = _ratio(row['this']['whole']['device_ms'],
+                             row['cudnn']['device_ms'])
+    row['rel_l2'] = max(chip_smoke._rel_l2(a, r) for a, r in zip(
+        made['this'][1], made['other'][1]))
 
 
 def calls(fd, acts, params, g):
@@ -100,63 +138,195 @@ def calls(fd, acts, params, g):
     return dict(tail=tail, input=inputs, whole=whole), whole()
 
 
+def banded_calls(fd, fdb, acts, params, g):
+    """No-argument calls of ``fdb``'s banded backward on one case: passes
+    A, B and C of both stages, each on the inputs its own build's pass
+    before gave it, and the whole banded backward through autograd; and
+    the gradients of the whole backward."""
+    x, s1, s2 = acts
+    p1, p2, head = params
+    ins = {k: [] for k in 'ABC'}
+    with torch.no_grad():
+        _, c2, st1, st2 = fdb.decoder_fwd_stats(x, s1, s2, p1, p2, head)
+        gn_x = (st1[2], st1[3], p1['gn2_weight'], p1['gn2_bias'])
+        g_in = g
+        for xin, skip, prm, st, gx, hd in ((c2, s2, p2, st2, gn_x, head),
+                                           (x, s1, p1, st1, None, None)):
+            ins['A'].append((xin, skip, prm, st, g_in, gx, hd))
+            a = fdb.pass_a(*ins['A'][-1])
+            hw = a['raw2'].shape[2] * a['raw2'].shape[3]
+            mg2 = fdb.close_gn(a['sgy2'], a['sgyx2'], prm['gn2_weight'],
+                               hw)[2:]
+            ins['B'].append((a['raw1'], a['raw2'], a['gy2'], prm, st, mg2))
+            bb = fdb.pass_b(*ins['B'][-1])
+            mg1 = fdb.close_gn(bb['sgy1'], bb['sgyx1'], prm['gn1_weight'],
+                               hw)[2:]
+            ins['C'].append((a['xin'], a['up'], skip, a['raw1'], bb['gy1'],
+                             prm, st, mg1))
+            g_in = fdb.pass_c(*ins['C'][-1])['g_x']
+
+    def each(fn, args):
+        return lambda: [fn(*a) for a in args]
+
+    xs = [t.detach().requires_grad_(True) for t in acts]
+    prms = ([p1[k] for k in fd.STAGE_KEYS] + [p2[k] for k in fd.STAGE_KEYS]
+            + [head['weight'], head['bias']])
+    # fdb's own autograd route (fused_vlg_decoder would import this
+    # checkout's banded module for either build)
+    out = fdb.BandedDecoder.apply(*xs, *prms)
+
+    def whole():
+        return torch.autograd.grad(out, xs + prms, g, retain_graph=True)
+
+    return dict(A=each(fdb.pass_a, ins['A']), B=each(fdb.pass_b, ins['B']),
+                C=each(fdb.pass_c, ins['C']), whole=whole), whole()
+
+
+def _case(gen, device, b, n, h, c, ups, skips):
+    """Seeded random decoder weights, activations and the logits' gradient
+    of one case."""
+    import chip_smoke
+    p = b * n
+    up1, up2, head = chip_smoke._random_decoder(gen, c, ups, skips)
+    params = [up1.stage_params(), up2.stage_params(),
+              dict(weight=head.weight, bias=head.bias)]
+    acts = [torch.randn(p, c, h, h, generator=gen),
+            torch.randn(b, skips[0], 2 * h, 2 * h, generator=gen),
+            torch.randn(b, skips[1], 4 * h, 4 * h, generator=gen)]
+    acts = [t.to(device).bfloat16() for t in acts]
+    g = torch.randn(p, 1, 4 * h, 4 * h, generator=gen).to(device).bfloat16()
+    return (up1, up2, head), params, acts, g
+
+
+def _timed(made, parts, timers, extra):
+    """Each build's parts in turns (other, this, this, other), then the
+    library's calls ``extra`` once: {build: {part: {timer: ms}}}."""
+    got = {k: {part: [] for part in parts} for k in made}
+    for k in ('other', 'this', 'this', 'other'):
+        for part in parts:
+            got[k][part].append({m: t(made[k][0][part])
+                                 for m, t in timers.items()})
+    row = {k: {part: {m: _mean([x[m] for x in meas]) for m in timers}
+               for part, meas in got[k].items()} for k in made}
+    row.update({name: {m: t(fn) for m, t in timers.items()}
+                for name, fn in extra.items()})
+    return row
+
+
+def banded_turn(case, root=None, library=False):
+    """One turn of a banded case in this process: the event and device
+    times of passes A, B, C and the whole banded backward of this
+    checkout's build (``root`` None) or of the checkout at ``root``, and
+    with ``library`` the library's times; and the whole backward's
+    gradients."""
+    import chip_smoke
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timers = dict(event_ms=lambda f: chip_smoke.cuda_ms(f, 5),
+                  device_ms=lambda f: chip_smoke.device_ms(f, 5))
+    name, b, n, h, c, ups, skips = case
+    mods, params, acts, g = _case(torch.Generator().manual_seed(1),
+                                  resolve_device(None), b, n, h, c, ups,
+                                  skips)
+    fd, fdb = ((fused_decoder, fused_decoder_banded) if root is None
+               else load_other(root))
+    fns, grads = banded_calls(fd, fdb, acts, params, g)
+    out = {part: {m: t(fn) for m, t in timers.items()}
+           for part, fn in fns.items()}
+    if library:
+        xs = [t.detach().requires_grad_(True) for t in acts]
+        prms = [t for d in params for t in d.values()]
+        y = chip_smoke._cudnn_chain(*mods, *xs)
+        lib = dict(cudnn=lambda: torch.autograd.grad(y, xs + prms, g,
+                                                     retain_graph=True),
+                   **{f'library_{k}': fn for k, fn in
+                      chip_smoke._cudnn_pass_calls(*mods, acts).items()})
+        out.update({k: {m: t(fn) for m, t in timers.items()}
+                    for k, fn in lib.items()})
+    return out, [t.float().cpu() for t in grads]
+
+
+def _banded_row(case, other_root):
+    """A banded case's row: its turns (other, this, this, other) each in a
+    process of its own (``banded_turn``), the library's times from the
+    first turn of this build."""
+    import chip_smoke
+    parts = ('A', 'B', 'C', 'whole')
+    got = {'this': [], 'other': []}
+    grads = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, k in enumerate(('other', 'this', 'this', 'other')):
+            path = os.path.join(tmp, f'{i}.pt')
+            cmd = [sys.executable, '-m', 'semivl_tpu_torch.tools.decoder_bench',
+                   '--banded-turn', json.dumps(case), '--save', path]
+            if k == 'other':
+                cmd += ['--root', other_root]
+            if i == 1:
+                cmd += ['--library']
+            subprocess.run(cmd, check=True)
+            times, grads[k] = torch.load(path)
+            got[k].append(times)
+    row = dict(case=case[0], planes=case[1] * case[2], base=case[3])
+    for k, turns in got.items():
+        row[k] = {part: {m: _mean([t[part][m] for t in turns])
+                         for m in ('event_ms', 'device_ms')}
+                  for part in parts}
+    row.update({k: v for k, v in got['this'][0].items() if k not in parts})
+    _ratios(row, parts, {k: (None, g) for k, g in grads.items()})
+    return row
+
+
 def run(other_root):
-    """One dict per case: each build's event and device times of the tail,
-    the input half and the whole backward, cuDNN's backward, ``speedup``,
-    ``vs_cudnn`` and ``rel_l2``."""
+    """One dict per case: each build's event and device times of each part
+    (the tail, the input half and the whole backward; or passes A, B, C
+    and the whole banded backward), the library's, ``speedup``,
+    ``speedups``, ``vs_cudnn`` and ``rel_l2``."""
     import chip_smoke
     device = resolve_device(None)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    builds = {'this': fused_decoder, 'other': load_other(other_root)}
+    other_fd = load_other(other_root)[0]
     timers = dict(event_ms=lambda f: chip_smoke.cuda_ms(f, 5),
                   device_ms=lambda f: chip_smoke.device_ms(f, 5))
     gen = torch.Generator().manual_seed(0)
     rows = []
     for name, b, n, h, c, ups, skips in CASES:
-        p = b * n
-        up1, up2, head = chip_smoke._random_decoder(gen, c, ups, skips)
-        params = [up1.stage_params(), up2.stage_params(),
-                  dict(weight=head.weight, bias=head.bias)]
-        acts = [torch.randn(p, c, h, h, generator=gen),
-                torch.randn(b, skips[0], 2 * h, 2 * h, generator=gen),
-                torch.randn(b, skips[1], 4 * h, 4 * h, generator=gen)]
-        acts = [t.to(device).bfloat16() for t in acts]
-        g = torch.randn(p, 1, 4 * h, 4 * h, generator=gen).to(
-            device).bfloat16()
-        made = {k: calls(fd, acts, params, g) for k, fd in builds.items()}
-        got = {k: {part: [] for part in ('tail', 'input', 'whole')}
-               for k in builds}
-        for k in ('other', 'this', 'this', 'other'):
-            for part, fn in made[k][0].items():
-                got[k][part].append({m: t(fn) for m, t in timers.items()})
-        row = dict(case=name, planes=p, base=h)
-        for k in builds:
-            row[k] = {part: {m: _mean([x[m] for x in meas]) for m in timers}
-                      for part, meas in got[k].items()}
+        mods, params, acts, g = _case(gen, device, b, n, h, c, ups, skips)
+        made = {k: calls(fd, acts, params, g) for k, fd in (
+            ('this', fused_decoder), ('other', other_fd))}
         xs = [t.detach().requires_grad_(True) for t in acts]
         prms = [t for d in params for t in d.values()]
-        out = chip_smoke._cudnn_chain(up1, up2, head, *xs)
-
-        def cudnn():
-            return torch.autograd.grad(out, xs + prms, g, retain_graph=True)
-
-        row['cudnn'] = {m: t(cudnn) for m, t in timers.items()}
-        this_ms = row['this']['whole']['device_ms']
-        row['speedup'] = _ratio(row['other']['whole']['device_ms'], this_ms)
-        row['vs_cudnn'] = _ratio(this_ms, row['cudnn']['device_ms'])
-        row['rel_l2'] = max(chip_smoke._rel_l2(a, r) for a, r in zip(
-            made['this'][1], made['other'][1]))
+        out = chip_smoke._cudnn_chain(*mods, *xs)
+        row = dict(case=name, planes=b * n, base=h, **_timed(
+            made, ('tail', 'input', 'whole'), timers, dict(
+                cudnn=lambda: torch.autograd.grad(out, xs + prms, g,
+                                                  retain_graph=True))))
+        _ratios(row, ('tail', 'input', 'whole'), made)
         rows.append(row)
         del made, out
         torch.cuda.empty_cache()
+    for case in BANDED_CASES:
+        rows.append(_banded_row(case, other_root))
     return rows
 
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('other', help='root of another checkout to time against')
-    rows = run(ap.parse_args(argv).other)
+    ap.add_argument('other', nargs='?',
+                    help='root of another checkout to time against')
+    ap.add_argument('--banded-turn', help=argparse.SUPPRESS)
+    ap.add_argument('--root', help=argparse.SUPPRESS)
+    ap.add_argument('--save', help=argparse.SUPPRESS)
+    ap.add_argument('--library', action='store_true', help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.banded_turn:   # one turn of a banded case (_banded_row)
+        case = json.loads(args.banded_turn)
+        case = tuple(tuple(v) if isinstance(v, list) else v for v in case)
+        torch.save(banded_turn(case, args.root, args.library), args.save)
+        return None
+    if args.other is None:
+        ap.error('the root of another checkout is required')
+    rows = run(args.other)
 
     def num(x, spec='.4f'):
         return 'n/a' if x is None else format(x, spec)
@@ -166,8 +336,11 @@ def main(argv=None):
             f'{part}: this event {num(r["this"][part]["event_ms"])} device '
             f'{num(r["this"][part]["device_ms"])}, other event '
             f'{num(r["other"][part]["event_ms"])} device '
-            f'{num(r["other"][part]["device_ms"])}'
-            for part in ('tail', 'input', 'whole'))
+            f'{num(r["other"][part]["device_ms"])}, speed-up '
+            f'{num(r["speedups"][part], ".2f")}x'
+            + (f', library device {num(r["library_" + part]["device_ms"])}'
+               if 'library_' + part in r else '')
+            for part in r['speedups'])
         print(f'decoder bwd {r["case"]}: {parts}; cudnn event '
               f'{num(r["cudnn"]["event_ms"])} device '
               f'{num(r["cudnn"]["device_ms"])} ms; speed-up (whole, device) '

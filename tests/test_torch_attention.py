@@ -109,16 +109,34 @@ def test_head_dims_are_the_kernel_instances():
     assert flash_attention.HEAD_DIMS == tuple(range(16, 129, 16))
 
 
-@pytest.mark.parametrize('d', [8, 24, 48, 112, 136, 144])
+@pytest.mark.parametrize('d', [8, 24, 48, 112, 136, 144, 192, 256])
 def test_heads_kernel_names_a_width_it_does_not_take(d):
-    """The kernels' checks refuse a width above 128 by name before any
-    other check, so a kernel route on the card raises where JAX's
-    any-width kernel would run (never the plain math in its place); every
-    width up to 128 (those not a multiple of 16 zero-padded to the next
-    one) passes on to the next check, the tensor's device."""
+    """The kernels' checks take every head width, as JAX's any-width
+    kernels do (a width that is not a multiple of 16 zero-padded to the
+    next one, those above 128 on the CUDA-core kernels), and pass it on to
+    the next check, the tensor's device: the wrappers name no width they
+    refuse, forward or backward."""
     qkv = torch.zeros(1, 8, 3 * 2 * d, dtype=torch.bfloat16)
-    match = 'bf16 CUDA' if d <= 128 else f'head_dim {d}'
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(ValueError, match='bf16 CUDA'):
+        flash_attention.flash_mha_heads(qkv, 2)
+    out = torch.zeros(1, 8, 2 * d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='bf16 CUDA'):
+        flash_attention.flash_mha_heads_bwd(qkv, out, None, out, 2)
+
+
+@pytest.mark.parametrize('d', [136, 192, 256])
+def test_wide_heads_route_to_the_kernels(d):
+    """Heads wider than 128: the dispatcher sends them where JAX sends
+    them, the head-split kernel under 'pallas' and under 'auto' on the card
+    from 1536 tokens on; the wrappers take them through to the device
+    check."""
+    for length, impl, want in ((1536, 'auto', 'heads'), (1535, 'auto', 'plain'),
+                               (64, 'pallas', 'heads')):
+        got = attention.route(length, length, 2 * d, 2, impl, True)
+        assert got == want == _jax_route(length, length, 2 * d, 2, impl,
+                                         True), (length, impl)
+    qkv = torch.zeros(1, 1536, 3 * 2 * d, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='bf16 CUDA'):
         flash_attention.flash_mha_heads(qkv, 2)
 
 
@@ -130,7 +148,7 @@ def _attention_at(qkv, heads, scale):
     return flash_attention._merge_heads(torch.matmul(p, v))
 
 
-@pytest.mark.parametrize('d', [8, 24, 40])
+@pytest.mark.parametrize('d', [8, 24, 40, 136, 200])
 def test_padded_heads_are_attention_at_the_true_width(d):
     """What the kernels get for a width that is not a multiple of 16: each
     head zero-padded to the next (``pad_heads``), attention there with the

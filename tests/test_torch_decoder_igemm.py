@@ -1,5 +1,7 @@
-"""The host side of the whole-plane decoder backward's tensor-core products
-(``csrc/decoder_igemm.cuh``, ``csrc/fused_decoder_bwd.cu``), on the CPU.
+"""The host side of the decoder backward's tensor-core products
+(``csrc/decoder_igemm.cuh``, ``csrc/decoder_stage_bwd.cuh``: the
+whole-plane route's ``csrc/fused_decoder_bwd.cu`` and the banded route's
+passes A and C, ``csrc/fused_decoder_banded.cu``), on the CPU.
 
 A CUDA kernel does not run here, so each test writes out in PyTorch the
 index arithmetic a kernel does with the operands ``ops/fused_decoder.py``
@@ -17,6 +19,7 @@ import torch
 import torch.nn.functional as F
 
 from semivl_tpu_torch.ops import fused_decoder as fd
+from semivl_tpu_torch.ops import fused_decoder_banded as fdb
 
 CSRC = os.path.join(os.path.dirname(fd.__file__), os.pardir, 'csrc')
 
@@ -30,10 +33,14 @@ def _rand(*shape, seed=0):
     return torch.randn(*shape, generator=g, dtype=torch.float64)
 
 
-@pytest.mark.parametrize('enum,slots', [('TailSlot', fd._TAIL_SLOTS),
-                                        ('InputSlot', fd._INPUT_SLOTS)])
-def test_slots_match_the_entry_points(enum, slots):
-    with open(os.path.join(CSRC, 'fused_decoder_bwd.cu')) as f:
+@pytest.mark.parametrize('source,enum,slots', [
+    ('fused_decoder_bwd', 'TailSlot', fd._TAIL_SLOTS),
+    ('fused_decoder_bwd', 'InputSlot', fd._INPUT_SLOTS),
+    ('fused_decoder_banded', 'ASlot', fdb._A_SLOTS),
+    ('fused_decoder_banded', 'BSlot', fdb._B_SLOTS),
+    ('fused_decoder_banded', 'CSlot', fdb._C_SLOTS)])
+def test_slots_match_the_entry_points(source, enum, slots):
+    with open(os.path.join(CSRC, source + '.cu')) as f:
         src = f.read()
     body = re.search(rf'enum {enum} {{(.*?)}};', src, re.S).group(1)
     names = [n.strip() for n in body.split(',') if n.strip()]
@@ -108,3 +115,99 @@ def test_transpose_conv_layouts():
     d = torch.einsum('pkhw,pchw->kc', gph.reshape(p, 4 * cu, h, w),
                      x.detach())
     assert _close(fd._tconv_wgrad_to_torch(d, cin, cu), gw)
+
+
+def _stage(ci, cu, cs, co, seed):
+    """Stage weights (float64 holding bf16 values, as the kernels read
+    them) in torch layouts."""
+    def r(*shape, seed):
+        return _rand(*shape, seed=seed).bfloat16().double()
+    return dict(up_weight=r(ci, cu, 2, 2, seed=seed),
+                up_bias=r(cu, seed=seed + 1),
+                conv1_weight=r(co, cu + cs, 3, 3, seed=seed + 2),
+                conv2_weight=r(co, co, 3, 3, seed=seed + 3),
+                gn1_weight=torch.ones(co), gn1_bias=torch.zeros(co),
+                gn2_weight=torch.ones(co), gn2_bias=torch.zeros(co))
+
+
+@pytest.mark.parametrize('head', [False, True])
+def test_pass_a_layouts(head):
+    """Pass A's tensor-core products with the weights its wrapper hands the
+    kernel (``fused_decoder._igemm_stage_weights``): the transpose conv per
+    output phase, conv1's skip half per image as the up half's addend, conv2
+    over GN1+ReLU(raw1), and with the head its CUDA-core dgrad
+    (``_dgrad_weight``'s [1][9][cout]) and its wgrad at N = 16 (column 0),
+    against the plain chain and its autograd."""
+    ci, cu, cs, co, b, n, h, w = 8, 6, 4, 16, 2, 2, 3, 4
+    p = _stage(ci, cu, cs, co, 10)
+    x = _rand(b * n, ci, h, w, seed=20)
+    skip = _rand(b, cs, 2 * h, 2 * w, seed=21)
+    kw = {k: v.double() for k, v in fd._igemm_stage_weights(
+        p, torch.float64).items()}
+    up = torch.empty(b * n, cu, 2 * h, 2 * w, dtype=torch.float64)
+    for k in range(4):
+        up[:, :, k // 2::2, k % 2::2] = torch.einsum(
+            'nc,pchw->pnhw', kw['up_wf'][k], x) + kw['up_b'][:, None, None]
+    ys = _igemm_conv(skip, kw['w1s'])
+    raw1 = _igemm_conv(up, kw['w1u']) + ys.repeat_interleave(n, 0)
+    w1 = p['conv1_weight']
+    up_ref = fd.conv_transpose_2x2(x, p['up_weight'], p['up_bias'])
+    raw1_ref = (F.conv2d(up_ref, w1[:, :cu], padding=1)
+                + F.conv2d(skip, w1[:, cu:], padding=1).repeat_interleave(n, 0))
+    assert _close(up, up_ref) and _close(raw1, raw1_ref)
+    a1 = F.relu(F.group_norm(raw1, co // 16))
+    raw2 = _igemm_conv(a1, kw['w2'])
+    assert _close(raw2, F.conv2d(a1, p['conv2_weight'], padding=1))
+    if not head:
+        return
+    hw = _rand(1, co, 3, 3, seed=30).bfloat16().double()
+    a2 = F.relu(F.group_norm(raw2, co // 16)).requires_grad_(True)
+    hwt = hw.clone().requires_grad_(True)
+    out = F.conv2d(a2, hwt, padding=1)
+    g = _rand(*out.shape, seed=31)
+    ga2, ghw = torch.autograd.grad(out, (a2, hwt), g)
+    # the CUDA-core conv: out[co][pix] = sum_tap w[0][tap][co] g[pix + tap]
+    wd = fd._dgrad_weight(hw).reshape(1, 9, co)
+    got = _igemm_conv(g, wd.permute(1, 2, 0))
+    assert _close(got, ga2)
+    g16 = F.pad(g, (0, 0, 0, 0, 0, 15))   # N = 16, column 0 the head's
+    got = fd._from_taps(_igemm_wgrad(a2.detach(), g16)[..., :1], co, 1)
+    assert got.shape == ghw.shape and _close(got, ghw)
+
+
+def test_pass_c_layouts():
+    """Pass C's tensor-core products from graw1 with the weights its
+    wrapper hands the kernel (``fused_decoder._igemm_input_weights``):
+    conv1's up-half dgrad into the phase-separated g_up and its wgrad, the
+    skip half's dgrad and wgrad on the per-image sum g_img, and the
+    transpose conv's input, weight and bias gradients, against autograd of
+    the stage's conv1 and transpose conv."""
+    ci, cu, cs, co, b, n, h, w = 8, 6, 4, 16, 2, 2, 3, 4
+    p = _stage(ci, cu, cs, co, 40)
+    x = _rand(b * n, ci, h, w, seed=50).requires_grad_(True)
+    skip = _rand(b, cs, 2 * h, 2 * w, seed=51).requires_grad_(True)
+    prm = {k: v.clone().requires_grad_(True) for k, v in p.items()}
+    up = fd.conv_transpose_2x2(x, prm['up_weight'], prm['up_bias'])
+    w1 = prm['conv1_weight']
+    raw1 = (F.conv2d(up, w1[:, :cu], padding=1)
+            + F.conv2d(skip, w1[:, cu:], padding=1).repeat_interleave(n, 0))
+    graw1 = _rand(*raw1.shape, seed=52)
+    want = torch.autograd.grad(raw1, (x, skip, prm['conv1_weight'],
+                                      prm['up_weight'], prm['up_bias']),
+                               graw1)
+    kw = {k: v.double() for k, v in fd._igemm_input_weights(p).items()}
+    up = up.detach()
+    g_up = _igemm_conv(graw1, kw['w1u_d'])
+    gph = torch.stack([g_up[:, :, k // 2::2, k % 2::2] for k in range(4)],
+                      1).reshape(b * n, 4 * cu, h, w)
+    g_img = graw1.unflatten(0, (b, n)).sum(1)
+    got = [torch.einsum('pkhw,ck->pchw', gph, kw['up_wd']),
+           _igemm_conv(g_img, kw['w1s_d']),
+           torch.cat([fd._from_taps(_igemm_wgrad(up, graw1), cu, co),
+                      fd._from_taps(_igemm_wgrad(skip.detach(), g_img), cs,
+                                    co)], 1),
+           fd._tconv_wgrad_to_torch(torch.einsum(
+               'pkhw,pchw->kc', gph, x.detach()), ci, cu),
+           gph.unflatten(1, (4, cu)).sum((0, 1, 3, 4))]
+    for i, (a, r) in enumerate(zip(got, want)):
+        assert a.shape == r.shape and _close(a, r), i

@@ -271,7 +271,8 @@ def _pass_errors(got, want):
 @pytest.mark.parametrize('b,n,h,w', [(3, 19, 51, 51), (1, 3, 13, 11)])
 def test_banded_passes_match_plain(card, b, n, h, w):
     """Passes A, B and C of both stages, each on its own inputs (the
-    kernels' outputs of the pass before) against its plain version: every
+    kernels' outputs of the pass before) against its plain version, both
+    storing gy2, gy1 and the stage input's gradient in bf16: every
     output within PASS_TOL relative L2, bit for bit on a second run; the
     forward's saved statistics against the plain forward's. (3, 19, 51):
     the Cityscapes student shape with its odd 51-wide grid; (1, 3, 13, 11):
@@ -301,8 +302,15 @@ def test_banded_passes_match_plain(card, b, n, h, w):
                     mg1)
             c = fdb.pass_c(*args)
             errs[f'C{2 - stage}'] = _pass_errors(c, fdb.pass_c_plain(*args))
-            again = fdb.pass_b(a['raw1'], a['raw2'], a['gy2'], p, st, mg2)
-            assert all(torch.equal(bb[k], again[k]) for k in bb)
+            for out, again in (
+                    (a, fdb.pass_a(xin, skip, p, st, g, gx, hd)),
+                    (bb, fdb.pass_b(a['raw1'], a['raw2'], a['gy2'], p, st,
+                                    mg2)),
+                    (c, fdb.pass_c(*args))):
+                assert all(torch.equal(out[k], again[k]) for k in out)
+            for k in ('gy2', 'raw1', 'raw2', 'up'):
+                assert a[k].dtype == torch.bfloat16, k
+            assert bb['gy1'].dtype == c['g_x'].dtype == torch.bfloat16
             g = c['g_x']
     torch.cuda.synchronize()
     for name, e in errs.items():
@@ -311,11 +319,12 @@ def test_banded_passes_match_plain(card, b, n, h, w):
 
 def test_banded_backward_matches_rounded_reference(card):
     """The composed banded backward (``bwd='banded'``) against autograd
-    through ``fused_vlg_decoder_rounded`` with float32 gradients (the
-    banded passes keep them in float32): every leaf within 2e-2 relative
-    L2, as the whole-plane kernels are held; a planted fault, pass B's
-    conv2 weight gradient reading its first 16-row band twice, must fail
-    that limit."""
+    through ``fused_vlg_decoder_rounded`` with its bf16 gradient roundings
+    (the points where the banded passes store gradients in bf16): every
+    leaf within 2e-2 relative L2, as the whole-plane kernels are held; two
+    planted faults must fail that limit: pass B's conv2 weight gradient
+    reading its first 16-row band twice, and pass A's recompute without
+    conv1's skip half (inside its tensor-core product)."""
     from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     params, acts, g = _cityscapes_decoder(card, 1, 19, 51, 51)
 
@@ -326,9 +335,8 @@ def test_banded_backward_matches_rounded_reference(card):
     got = decoder_grads(banded, acts, params, g, torch.bfloat16)
     assert (fdb.pass_a_launches, fdb.pass_b_launches,
             fdb.pass_c_launches) == tuple(v + 2 for v in counts)
-    ref = decoder_grads(functools.partial(
-        fused_decoder.fused_vlg_decoder_rounded, bf16_grads=False), acts,
-        params, g, torch.bfloat16)
+    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts,
+                        params, g, torch.bfloat16)
     torch.cuda.synchronize()
     errs = [rel_l2(a, r.float()) for a, r in zip(got, ref)]
     assert max(errs) < 2e-2, errs
@@ -342,6 +350,10 @@ def test_banded_backward_matches_rounded_reference(card):
                     + extra['conv2_weight'])
 
     with mock.patch.object(fdb, 'pass_b', band_twice):
+        bad = decoder_grads(banded, acts, params, g, torch.bfloat16)
+    assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+    with mock.patch.object(fdb, 'pass_a', functools.partial(
+            fdb.pass_a, skip_half=False)):
         bad = decoder_grads(banded, acts, params, g, torch.bfloat16)
     assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
 
@@ -506,19 +518,57 @@ def test_heads_kernels_take_padded_head_dims(card, d):
 
 
 def test_heads_kernel_refuses_other_head_dims(card):
-    qkv = torch.zeros(1, 8, 3 * 4 * 136, device='cuda', dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='head_dim 136'):
-        flash_attention.heads_attention(qkv, 4)
+    """Every width runs; what the kernels refuse is a width that does not
+    split into the heads and a tensor that is not bf16."""
+    qkv = torch.zeros(1, 8, 3 * 100, device='cuda', dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match='does not split'):
+        flash_attention.heads_attention(qkv, 3)
     f = torch.zeros(1, 8, 3 * 64, device='cuda')
     with pytest.raises(ValueError, match='bf16'):
         flash_attention.heads_attention(f, 4)
 
 
+@pytest.mark.parametrize('b,length,heads,d,valid_len', [
+    (1, 300, 2, 136, None), (2, 200, 3, 192, 150), (1, 257, 2, 256, None)])
+def test_wide_heads_kernels_match_plain(card, b, length, heads, d,
+                                        valid_len):
+    """Widths above 128 on the CUDA-core kernels (136 zero-padded to 144):
+    forward within 2e-3 relative L2 of the plain version and backward
+    within 5e-3 and 2e-2 of the scale of ``flash_mha_bwd_plain`` (the same
+    rounding points, as at the tensor-core widths); bit for bit on a
+    rerun; the launches counted; masked keys get zero dk and dv."""
+    qkv, g = _attention_case(card, b, length, heads, d)
+    f0, b0 = flash_attention.heads_launches, flash_attention.heads_bwd_launches
+    out, lse = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    got = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads,
+                                              valid_len)
+    assert (flash_attention.heads_launches,
+            flash_attention.heads_bwd_launches) == (f0 + 1, b0 + 1)
+    want = flash_attention.heads_attention_plain(qkv, heads, valid_len)
+    want_g = flash_attention.flash_mha_bwd_plain(qkv, out, g, heads,
+                                                 valid_len)
+    again = flash_attention.flash_mha_heads(qkv, heads, valid_len, True)
+    again_g = flash_attention.flash_mha_heads_bwd(qkv, out, lse, g, heads,
+                                                  valid_len)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out.float()).all() and torch.isfinite(
+        got.float()).all()
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+    assert torch.equal(got, again_g)
+    assert rel_l2(out, want.float()) < 2e-3
+    scale = want_g.float().abs().max().item()
+    assert (got.float() - want_g.float()).abs().max().item() < 2e-2 * scale
+    assert rel_l2(got, want_g.float()) < 5e-3
+    if valid_len is not None:
+        c = heads * d
+        assert (got[:, valid_len:, c:] == 0).all()
+
+
 def test_dispatcher_routes_on_the_card(card):
     """'pallas' sends heads of 32 to the head-split kernel at any length;
     'auto' only from 1536 tokens on (plain below), and heads of 64 in an
-    even count to the packed kernel. A width above 128 raises on a kernel
-    route, never falls back to the plain math."""
+    even count to the packed kernel; heads wider than 128 take the
+    head-split kernels too."""
     from semivl_tpu_torch.ops import attention
 
     def launches():
@@ -534,19 +584,14 @@ def test_dispatcher_routes_on_the_card(card):
     before = launches()
     attention.qkv_attention(qkv, 2, 'auto')
     assert tuple(a - b for a, b in zip(launches(), before)) == (0, 1)
-    # heads of 48 (a split p v product) and of 24 (zero-padded to 32) as
-    # JAX routes them; heads of 136, which no kernel takes, raise under
-    # 'auto' from 1536 tokens and under 'pallas', naming the width
-    for d in (48, 24):
+    # heads of 48 (a split p v product), of 24 (zero-padded to 32) and of
+    # 136 (zero-padded to 144, the CUDA-core kernels) as JAX routes them
+    for d in (48, 24, 136):
         qkv, _ = _attention_case(card, 1, 1536, 4, d)
         before = launches()
         out = attention.qkv_attention(qkv, 4, 'auto')
         assert tuple(a - b for a, b in zip(launches(), before)) == (1, 0)
         assert torch.isfinite(out.float()).all()
-    qkv, _ = _attention_case(card, 1, 1536, 2, 136)
-    for impl in ('auto', 'pallas'):
-        with pytest.raises(ValueError, match='head_dim 136'):
-            attention.qkv_attention(qkv, 2, impl)
 
 
 # ------------------------------------------------------ fused Up stage

@@ -365,15 +365,20 @@ def _conv_pass_stats_of_stored(taps_lists, read, w_at, geo, cdt, store,
     return ssum, ssq
 
 
-def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch):
-    """The whole-plane backward's bf16 gradient rounding points against the
-    JAX fused chain at its own bf16 storage (interpret mode): each gradient
+@pytest.mark.parametrize('route', ['whole', 'banded'])
+def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch, route):
+    """The backward's bf16 gradient rounding points against the JAX fused
+    chain at its own bf16 storage (interpret mode), on the whole-plane
+    route and on the banded one (``SEMIVL_FORCE_BANDED_BWD=1``, whose
+    kernels store gy2, graw2, gy1, graw1 and g_x in bf16): each gradient
     leaf of ``fused_vlg_decoder_rounded`` within 1e-2 relative L2, and the
     leaves' summed squared distances under 0.9 of those of the float32-
     gradient reference (``bf16_grads=False``) to the same JAX run, which
     shows that the rounding points agree. (Measured: 2.3e-4 against
-    3.0e-4; the tail leaves of the last stage, which see only the head's
-    rounded gradient, 3.9e-4 and 5e-9 against 3.1e-3 and 8.7e-4.)
+    3.0e-4, the same on both routes; the tail leaves of the last stage,
+    which see only the head's rounded gradient, 3.9e-4 and 5e-9 against
+    3.1e-3 and 8.7e-4.) The banded case also asserts that JAX ran its
+    banded kernels, once per stage.
 
     The two forwards are made to agree first, so that the gradient
     roundings are not buried under forward differences that GroupNorm
@@ -389,6 +394,13 @@ def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch):
     bf16 roundings."""
     from semivl_tpu.ops import fused_decoder as jfd
     monkeypatch.setattr(jfd, '_conv_pass', _conv_pass_stats_of_stored)
+    banded_calls = []
+    if route == 'banded':
+        from semivl_tpu.ops import fused_decoder_banded as jfdb
+        monkeypatch.setenv('SEMIVL_FORCE_BANDED_BWD', '1')
+        real = jfdb._stage_bwd_banded
+        monkeypatch.setattr(jfdb, '_stage_bwd_banded', lambda *a, **k: (
+            banded_calls.append(1), real(*a, **k))[1])
 
     def bf16(a):
         return torch.from_numpy(a).bfloat16().float().numpy()
@@ -412,6 +424,7 @@ def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch):
     out, vjp = jax.vjp(lambda *a: jax_decoder(*a, interpret=True), *jargs,
                        p1, p2, head)
     gx, gs1, gs2, gp1, gp2, gh = vjp(jnp.asarray(g, out.dtype))
+    assert len(banded_calls) == (2 if route == 'banded' else 0)
     tp1, tp2, th = _port_params(*(jax.tree.map(
         lambda a: np.asarray(a, np.float32), t) for t in (gp1, gp2, gh)))
     want = [np.asarray(a, np.float32) for a in (gx, gs1, gs2)] + [
@@ -445,7 +458,8 @@ def test_decoder_bf16_grad_reference_matches_jax_kernel(monkeypatch):
 # float32 storage on both sides, against the JAX package's row-banded
 # Pallas passes (interpret mode) at its own multi-band test geometry, with
 # the bound that test holds the banded kernels to: 2e-5 of each output's
-# scale (floored at 1e-3, as there).
+# scale (floored at 1e-3, as there); and passes A and C at bf16 storage on
+# both sides (``BF16_PASS_TOL``).
 
 def _scaled_err(got, want):
     got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
@@ -467,9 +481,29 @@ def _port_stage(p):
                 gn2_weight=t['gn2.weight'], gn2_bias=t['gn2.bias'])
 
 
-def _banded_stage(b, n, h, w, cin, cs, cout, head, seed):
+def _exact_composite(params, seed):
+    """Make JAX's composite conv1 weights (the transpose conv folded into
+    conv1, rounded to the storage dtype) exact in bf16, as the port's
+    rounding of the transpose conv output is: the transpose conv copies
+    channels (0/1 weights, zero bias), conv1's weights are multiples of
+    1/64 up to 1/4."""
+    rs = np.random.RandomState(seed)
+    k = np.asarray(params['up_kernel'])
+    sel = np.zeros(k.shape, np.float32)
+    for c in range(k.shape[3]):
+        sel[:, :, c % k.shape[2], c] = 1
+    params['up_kernel'] = sel
+    params['up_bias'] = np.zeros(k.shape[3], np.float32)
+    w1 = params['conv1']['conv']['kernel']
+    params['conv1']['conv']['kernel'] = (
+        rs.randint(-16, 17, w1.shape) / 64).astype(np.float32)
+
+
+def _banded_stage(b, n, h, w, cin, cs, cout, head, seed, storage=jnp.float32):
     """One stage on both sides: the JAX stage's packed weights, saved
-    statistics and banded-backward callable, and the port's inputs."""
+    statistics and banded-backward callable, and the port's inputs. With
+    bf16 ``storage`` the inputs hold bf16 values and the weights make JAX's
+    composite conv exact (``_exact_composite``)."""
     from semivl_tpu.models.vlg_head import Up
     from semivl_tpu.ops.fused_decoder import (
         _deinterleave, _fwd_tap_lists, _pack_stage_weights, _stage_fwd_core)
@@ -479,6 +513,10 @@ def _banded_stage(b, n, h, w, cin, cs, cout, head, seed):
     skip = rs.randn(b, cs, 2 * h, 2 * w).astype(np.float32)
     g = rs.randn(b * n, 1 if head else cout, 2 * h, 2 * w).astype(np.float32)
     params = random_tree({'up': jax_eval_up(Up(cout, cs), cin)}, seed)['up']
+    if storage == jnp.bfloat16:
+        x, skip, g = (torch.from_numpy(t).bfloat16().float().numpy()
+                      for t in (x, skip, g))
+        _exact_composite(params, seed)
     hp = None
     if head:
         hp = {'kernel': (0.3 * rs.randn(3, 3, cout, 1)).astype(np.float32),
@@ -495,11 +533,11 @@ def _banded_stage(b, n, h, w, cin, cs, cout, head, seed):
     jx, skip_ph = jnp.asarray(x), _deinterleave(jnp.asarray(skip))
     g_ph = _deinterleave(jnp.asarray(g))
     _, jstats = _stage_fwd_core(jx, skip_ph, *args, interpret=True,
-                                storage=jnp.float32, save_stats=True)
+                                storage=storage, save_stats=True)
 
     def jax_bwd(stop_after=None):
         return _stage_bwd_banded(jx, skip_ph, g_ph, jstats, *args,
-                                 interpret=True, storage=jnp.float32,
+                                 interpret=True, storage=storage,
                                  band_rows=4, stop_after=stop_after)
 
     def unpack_grads(outs):
@@ -586,6 +624,74 @@ def test_banded_passes_match_jax(geom):
     # the GN2 closure after pass A gives the stage's GN2 gradients
     assert torch.equal(g2w, grads['gn2_weight'])
     assert torch.equal(g2b, grads['gn2_bias'])
+
+
+# relative L2 of each output at bf16 storage: pass A's outputs are JAX's
+# to float32 sum order (measured <= 7e-5); pass C's also carry the port's
+# bf16 g_up and g_img (measured <= 2.7e-3)
+BF16_PASS_TOL = dict(A=1e-3, C=5e-3)
+
+
+@pytest.mark.parametrize('which', ['A', 'C'])
+@pytest.mark.parametrize('geom', [
+    (1, 2, 40, 8, 24, 16, 32, False, 0),
+    (1, 2, 11, 12, 24, 16, 32, True, 3)])
+def test_banded_plain_passes_match_jax_at_bf16(geom, which):
+    """The plain passes A and C at bf16 storage, the points where the
+    kernels store, against JAX's banded kernels at their own bf16 storage
+    (interpret mode), each on the same inputs (JAX's saved statistics;
+    pass C on JAX's raw1, gy1 and GN1 sums): every output within
+    ``BF16_PASS_TOL`` relative L2. What is left between them is the order of
+    float32 sums, which flips rare bf16 roundings, and, in pass C, the
+    port's two extra bf16 operands (g_up and g_img), which JAX never
+    forms."""
+    from semivl_tpu.ops.fused_decoder import _interleave
+    from semivl_tpu.ops.fused_decoder_banded import make_band_plan
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    b, n, h, w, cin, cs, cout, head, seed = geom
+    port, jstats, jax_bwd, unpack_grads = _banded_stage(
+        *geom, storage=jnp.bfloat16)
+    p, hp = port['p'], port['head']
+    x, skip, g = (port[k].bfloat16() for k in ('x', 'skip', 'g'))
+    pl, hw = b * n, 4 * h * w
+    stats = [torch.from_numpy(np.asarray(t, np.float32)[..., 0])
+             for t in jstats]
+    a = fdb.pass_a_plain(x, skip, p, stats, g, head=hp)
+    ja = jax_bwd('A')
+    plan_a = make_band_plan(h, w, 3 if head else 2, 4)
+    got = {}
+    if which == 'A':
+        for i, k in enumerate(('raw1', 'raw2', 'gy2')):
+            got[k] = _rel_l2(a[k].float(), torch.from_numpy(
+                _from_bands(ja[i], plan_a, pl, cout).astype(np.float32)))
+        for i, k in ((3, 'sgy2'), (4, 'sgyx2')):
+            got[k] = _rel_l2(a[k], torch.from_numpy(
+                np.asarray(ja[i], np.float32)[..., 0]))
+        if head:
+            got['head_weight'] = _rel_l2(a['head_weight'], torch.from_numpy(
+                np.asarray(unpack_grads(jax_bwd())[1]['kernel'])
+                .transpose(3, 2, 0, 1).copy()))
+    else:
+        jb = jax_bwd('B')
+        plan_b = make_band_plan(h, w, 1, 4)
+        raw1 = torch.from_numpy(_from_bands(ja[0], plan_a, pl, cout)
+                                .astype(np.float32)).bfloat16()
+        gy1 = torch.from_numpy(_from_bands(jb[0], plan_b, pl, cout)
+                               .astype(np.float32)).bfloat16()
+        sgy1, sgyx1 = (torch.from_numpy(np.asarray(jb[i], np.float32)[..., 0])
+                       for i in (1, 2))
+        mg1 = fdb.close_gn(sgy1, sgyx1, p['gn1_weight'], hw)[2:]
+        c = fdb.pass_c_plain(a['xin'], a['up'], skip, raw1, gy1, p, stats,
+                             mg1)
+        jout = jax_bwd()
+        got['g_x'] = _rel_l2(c['g_x'].float(), torch.from_numpy(
+            np.asarray(jout[0], np.float32)))
+        got['g_skip'] = _rel_l2(c['g_skip'], torch.from_numpy(
+            np.asarray(_interleave(jout[1]), np.float32)))
+        want = _port_stage(jax.tree.map(np.asarray, unpack_grads(jout)[0]))
+        for k in ('conv1_weight', 'up_weight', 'up_bias'):
+            got[k] = _rel_l2(c[k], want[k])
+    assert all(v < BF16_PASS_TOL[which] for v in got.values()), got
 
 
 def test_decoder_banded_chain_matches_jax(monkeypatch):
