@@ -10,9 +10,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    source, all at once) into the ignored ``semivl_tpu_torch/_build``, and
    read the SASS (``cuobjdump``): wgmma and TMA loads in every instance of
    the attention forwards, of the attention backward's dK/dV and dQ
-   kernels and of both decoder backward routes' igemm conv and wgrad
-   kernels (the whole-plane kernels and banded passes A and C), no
-   mma.sync;
+   kernels and of the decoder's igemm conv and wgrad kernels (the
+   whole-plane backward, the banded passes A, B and C, the fused Up
+   stage), no mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
    and semantic transformer, and a ``valid_len`` case) and the Cityscapes
@@ -32,7 +32,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    pass against its plain pass on its own inputs, the composed backward
    against the rounded reference (its float64 distance logged first) and
    against the whole-plane kernels, planted faults that must fail (one
-   inside pass A's tensor-core product), and the times of each pass (with
+   inside pass A's tensor-core product; pass B's wgrad reduction without
+   its last plane, inside the kernel, must fail the per-pass limit too),
+   and the times of each pass (with
    the library's convolutions for the same work beside), the whole-plane
    pair and cuDNN's chain;
 5. evaluation: the full-width flagship model (ViT-B/16 + VLG, VOC-21, bf16
@@ -73,7 +75,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    (``tools.fused_up_bench``, the flagship's two stages at 14 x 21
    planes) with launches counted around it, then each stage with and
    without the head against its plain version, its rounded reference and
-   cuDNN's chain, and a planted fault;
+   cuDNN's chain (times by events and device-only), two planted faults
+   (conv1 without its top-left tap; conv1's skip half left out inside the
+   kernel's sequence), and two stages at widths it zero-pads (Cu 80 and
+   Cs 24; Cu 144 in two column groups and Cs 8);
 11. the tiny VLM (``tiny-vlm-test`` + ``tiny-mcvit-test``, every attention
    on the head-split kernels under ``attention_impl = 'pallas'``):
    ``zegclip_sliding_window`` evaluation of 64-px-scale images and SemiVL
@@ -83,9 +88,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
 12. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
    "device": ...}``.
 
-Phase 9 runs right after phase 3: once the step and image profiles of
-phases 5-8 have run, the profiler on the card's machine keeps no whole
-window of the short kernel calls that phase 9 times device-only.
+Phase 9 runs right after phase 3 and phase 10 right after phase 4: once
+the step and image profiles of phases 5-8 have run, the profiler on the
+card's machine keeps no whole window of the kernel calls that they time
+device-only (and once phase 10 has run, none of phase 4's).
 
 Comparisons run with TF32 off. Times are CUDA-event means after warm-up
 over a stream of calls; "device-only" times are the profiler's kernel
@@ -301,20 +307,23 @@ def _sass_counts(build, lib, keep):
     return counts
 
 
-# instances of each decoder backward's tensor-core products (the
-# whole-plane kernels #6/#7 and the banded passes #8-#10, both on
-# csrc/decoder_stage_bwd.cuh's conv_n and wgrad_n): conv_kernel<N, 9> at 5
-# widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3 and <N, 1> at 4
+# instances of the decoder's tensor-core products in each library that
+# includes csrc/decoder_stage_bwd.cuh (the whole-plane backward #6/#7, the
+# banded passes #8-#10, the fused Up stage #11; its conv_n and wgrad_n):
+# conv_kernel<N, 9> at 5 widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3
+# and <N, 1> at 4
 DECODER_IGEMM_INSTANCES = (11, 7)
+DECODER_IGEMM_LIBS = ('fused_decoder_bwd', 'fused_decoder_banded', 'fused_up')
 
 
 def check_sass(build):
     """Every instance of the attention forward core (the packed one and the
     head-split one per head width), of the backward's dK/dV and dQ kernels
-    (per head width) and of the igemm conv and wgrad kernels of both
-    decoder backward routes (the whole-plane kernels and the banded passes
-    A and C) compiled to Hopper's own instructions: wgmma (HGMMA) and TMA
-    loads (UTMALDG), and no mma.sync (HMMA)."""
+    (per head width) and of the igemm conv and wgrad kernels of the
+    decoder's libraries (``DECODER_IGEMM_LIBS``: the whole-plane backward,
+    the banded passes, the fused Up stage) compiled to Hopper's own
+    instructions: wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync
+    (HMMA)."""
     from semivl_tpu_torch.ops import flash_attention as fa
     counts = {}
     for name in ('flash_attention', 'flash_attention_heads'):
@@ -328,7 +337,7 @@ def check_sass(build):
     assert (len(counts) - n_bwd, n_bwd) == (1 + n_dims, 2 * n_dims), \
         list(counts)
     dec = {}
-    for lib in ('fused_decoder_bwd', 'fused_decoder_banded'):
+    for lib in DECODER_IGEMM_LIBS:
         got = _sass_counts(build, lib, lambda f: 'igemm' in f and (
             'conv_kernel' in f or 'wgrad_kernel' in f))
         log(f'sass: {lib} igemm kernels {json.dumps(got)}')
@@ -852,6 +861,24 @@ def pass_b_band_twice():
         yield
 
 
+def pass_b_wgrad_without_last_plane(pass_b):
+    """Planted fault inside pass B's igemm wgrad reduction
+    (``D_WG_PLANES``): conv2's weight gradient reduces over every plane
+    but the last."""
+    def faulty(raw1, *args):
+        return pass_b(raw1, *args, wgrad_planes=raw1.shape[0] - 1)
+    return faulty
+
+
+@contextlib.contextmanager
+def pass_b_kernel_without_last_plane():
+    """``pass_b_wgrad_without_last_plane`` in the place of pass B."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    with mock.patch.object(fdb, 'pass_b',
+                           pass_b_wgrad_without_last_plane(fdb.pass_b)):
+        yield
+
+
 @contextlib.contextmanager
 def pass_a_sums_without_last_band():
     """Planted fault: pass A's GN2 reduction sums miss the plane's last
@@ -915,6 +942,8 @@ BANDED_FAULTS = {
         pass_a_without_skip_half,
     'pass A GN2 sums miss the last 16-row band':
         pass_a_sums_without_last_band,
+    'pass B conv2 wgrad reduction without the last plane (in the kernel)':
+        pass_b_kernel_without_last_plane,
     'pass C conv1 dgrad without its top-left tap': pass_c_dgrad_without_a_tap}
 
 
@@ -998,6 +1027,17 @@ def check_banded_bwd(gen):
                 f'({CUDNN_PASS_WORK[k]}); ' + json.dumps(
                     {n_: float(f'{v:.2e}') for n_, v in rel.items()}))
             assert rel[worst] <= PASS_TOL, (k, worst, rel[worst])
+        # the planted fault inside pass B's wgrad reduction must fail the
+        # per-pass limit
+        faulty = pass_b_wgrad_without_last_plane(fdb.pass_b)
+        bad = max(_rel_l2(faulty(*ins)['conv2_weight'],
+                          plain(*ins)['conv2_weight'])
+                  for _, plain, ins, _ in calls['B'])
+        log(f'banded pass B planted fault "conv2 wgrad reduction without '
+            f'the last plane (in the kernel)": conv2_weight rel-L2 '
+            f'{bad:.3e} (tol {PASS_TOL})')
+        assert bad > PASS_TOL, bad
+        passes['B']['planted_fault_rel_err'] = bad
 
     # the composed backward
     names = decoder_leaves()
@@ -1783,9 +1823,8 @@ PROFILED_KERNELS = (
 # decoder_igemm.cuh's products and fused_decoder_bwd.cu's passes) and the
 # banded passes (#8-#10)
 DECODER_KERNEL_KEYS = ('conv3x3_kernel', 'tconv2x2_kernel', 'gn_relu_kernel',
-                       'gn_stats_kernel', 'igemm::', 'gn_bwd_', 'wgrad3x3',
-                       'sum_partials', 'plane_sum', 'channel_total',
-                       'gn_solve')
+                       'gn_stats_kernel', 'igemm::', 'gn_bwd_', 'sum_partials',
+                       'plane_sum', 'channel_total', 'gn_solve')
 
 
 def _profile(run, wall_ms, what, top, windows=4):
@@ -2077,12 +2116,19 @@ def check_heads_attention(gen):
 
 # ----------------------------------------------------------- phase 10
 
-def _up_stage_flops(p, b, h, cin, cs, cout):
+def _up_stage_flops(p, b, h, cin, cs, cout, cu=None):
     """Flops of one Up stage on h x h input planes: the transpose conv, the
     up half of conv1 per plane, the skip half per image, conv2."""
-    hw, cu = 4 * h * h, cin - cs
+    hw, cu = 4 * h * h, cin - cs if cu is None else cu
     return 2 * hw * (p * cin * cu + 9 * p * cu * cout + 9 * b * cs * cout
                      + 9 * p * cout * cout)
+
+
+# stages at widths the fused Up stage zero-pads (fused_decoder.stage_plan):
+# (name, h, Cin, Cs, Cout, Cu) at 14 x 21 planes
+PADDED_UP_STAGES = (('padded Cu 80 -> 96, Cs 24 -> 32', 32, 128, 24, 32, 80),
+                    ('Cu 144 in column groups 128 + 16, Cs 8 -> 16', 16, 160,
+                     8, 16, 144))
 
 
 def check_fused_up():
@@ -2090,8 +2136,9 @@ def check_fused_up():
     (``tools.fused_up_bench.run``: the flagship's two stages at 14 x 21
     planes), with the kernel's launches read around it; then each stage,
     with and without the head, against its plain version, its rounded
-    reference and cuDNN's chain, with a planted fault (conv1 without its
-    top-left tap) that must fail."""
+    reference and cuDNN's chain, with two planted faults that must fail
+    (conv1 without its top-left tap; conv1's skip half left out inside the
+    kernel's sequence); then the stages of ``PADDED_UP_STAGES``."""
     import torch.nn.functional as F
     from semivl_tpu_torch.ops import fused_up as fu
     from semivl_tpu_torch.tools import fused_up_bench as bench
@@ -2110,13 +2157,17 @@ def check_fused_up():
     assert launches == sum(r['fused_calls'] for r in bench_rows) > 0
     rows = {}
     gen = torch.Generator(device='cuda').manual_seed(11)
-    for i, (name, h, cin, cs, cout) in enumerate(bench.STAGES):
+    stages = [(name, h, cin, cs, cout, None)
+              for name, h, cin, cs, cout in bench.STAGES]
+    for i, (name, h, cin, cs, cout, cu) in enumerate(
+            stages + list(PADDED_UP_STAGES)):
         x, skip, p = bench.make_stage(h, cin, cs, cout, device='cuda',
-                                      seed=i)
+                                      seed=i, cu=cu)
         b = skip.shape[0]
         head = dict(weight=0.2 * torch.randn(1, cout, 3, 3, generator=gen,
                                              device='cuda'),
                     bias=torch.randn(1, generator=gen, device='cuda'))
+        padded = cu is not None
         for hd in (None, head):
             case = name + (' + head' if hd else '')
             with torch.no_grad():
@@ -2141,19 +2192,26 @@ def check_fused_up():
                 rel = _rel_l2(got, rounded)
                 lib_rel = _rel_l2(lib_out, plain)
                 ms = cuda_ms(lambda: fu.fused_up_stage(x, skip, p, hd), 10)
+                dev_ms = None if padded else device_ms(
+                    lambda: fu.fused_up_stage(x, skip, p, hd), 5)
                 plain_ms = cuda_ms(
                     lambda: fu.fused_up_stage_plain(x, skip, p, hd), 10)
                 lib_ms = cuda_ms(lib, 10)
+                lib_dev = None if padded else device_ms(lib, 5)
                 fault = ''
                 if hd is None:
                     w0 = p['conv1_weight'].clone()
                     w0[:, :, 0, 0] = 0
                     bad = _rel_l2(fu.fused_up_stage(
                         x, skip, dict(p, conv1_weight=w0)), rounded)
-                    fault = (f'; planted fault (conv1 without its top-left '
-                             f'tap) rel-L2 {bad:.3e}')
+                    bad_seq = _rel_l2(fu._kernel(x, skip, p, None,
+                                                 skip_half=False), rounded)
+                    fault = (f'; planted faults (conv1 without its top-left '
+                             f'tap) rel-L2 {bad:.3e}, (conv1\'s skip half '
+                             f'left out in the kernel) {bad_seq:.3e}')
                     assert bad > DEC_REL_TOL, (case, bad)
-            flops = _up_stage_flops(x.shape[0], b, h, cin, cs, cout) + (
+                    assert bad_seq > DEC_REL_TOL, (case, bad_seq)
+            flops = _up_stage_flops(x.shape[0], b, h, cin, cs, cout, cu) + (
                 2 * x.shape[0] * 4 * h * h * 9 * cout if hd else 0)
             nbytes = 2 * (x.numel() + skip.numel() + got.numel())
             bound_ms, by = bound(flops, nbytes)
@@ -2162,13 +2220,16 @@ def check_fused_up():
                 f'plain {err:.3e} of scale {scale:.3f} (tol {DEC_TOL} x '
                 f'scale), rel-L2 vs rounded {rel:.3e} (tol {DEC_REL_TOL}), '
                 f'cuDNN chain vs plain rel-L2 {lib_rel:.3e}; kernel_ms '
-                f'{ms:.3f} plain_ms {plain_ms:.3f} cudnn_ms {lib_ms:.3f} '
-                f'bound_ms {bound_ms:.4f} ({by}) GFLOP {flops / 1e9:.1f}'
-                + fault)
+                f'{ms:.3f} device_ms {fmt_ms(dev_ms)} plain_ms '
+                f'{plain_ms:.3f} cudnn_ms {lib_ms:.3f} cudnn device_ms '
+                f'{fmt_ms(lib_dev)} bound_ms {bound_ms:.4f} ({by}) GFLOP '
+                f'{flops / 1e9:.1f} ({tflops(flops, dev_ms)} TFLOP/s '
+                f'device-only)' + fault)
             assert err <= DEC_TOL * max(scale, 1.0), (case, err, scale)
             assert rel <= DEC_REL_TOL, (case, rel)
             rows[case] = dict(max_abs_err=err, rel_err=rel, tol=DEC_REL_TOL,
-                              ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                              ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                              library_ms=lib_ms, library_device_ms=lib_dev,
                               bound_ms=bound_ms, bound_by=by)
         del x, skip, got, again, plain, rounded, lib_out
         torch.cuda.empty_cache()
@@ -2313,6 +2374,9 @@ def main():
                              h=31, w=28, skips=(32, 32))
     dec_tail, dec_input = check_decoder_bwd(torch.Generator().manual_seed(2))
     banded = check_banded_bwd(torch.Generator().manual_seed(5))
+    torch.cuda.empty_cache()
+    up_rows, up_launches, bench_rows = check_fused_up()   # phase 10
+    torch.cuda.empty_cache()
     eval_launches = run_slice()
 
     from semivl_tpu_torch.configs import flagship_train_cfg
@@ -2338,8 +2402,6 @@ def main():
         f'{json.dumps(cs_train)}')
     torch.cuda.empty_cache()
 
-    up_rows, up_launches, bench_rows = check_fused_up()
-    torch.cuda.empty_cache()
     tiny_err, tiny_launches, tiny_eval_launches, tiny_perf = run_tiny()
     log(f'tiny: {json.dumps(tiny_perf)}')
 
@@ -2421,8 +2483,7 @@ def main():
             'library_ms: the library\'s convolutions for this pass\'s work '
             '(library_is); launches per Cityscapes training step',
             cs_err['decoder_banded'][0],
-            products='semivl_tpu_torch/csrc/decoder_igemm.cuh'
-            if k != 'B' else None,
+            products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             **{x: banded[k][x] for x in (
                 'library_is', 'composed_rel_err_vs_rounded', 'banded_bwd_ms',
                 'whole_plane_bwd_ms', 'plain_bwd_ms',
@@ -2444,6 +2505,7 @@ def main():
         up_launches, up_rows['up1'], 'up1 x (294, 128, 32, 32) skip (14, 32, '
         '64, 64) Cout 64; launches over one run of tools/fused_up_bench.py '
         '(both stages); no model routes to it', None,
+        products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
         cases={name: times(r) for name, r in up_rows.items()},
         bench=bench_rows, launches_by_path=dict(fused_up_bench=up_launches)))
     log(json.dumps({'kernels': kernels}))

@@ -3,10 +3,11 @@
 // accumulators, every operand tile brought in by TMA through a ring of
 // shared-memory stages (one producer warp, consumer warpgroups that release
 // each stage on an mbarrier), on the helpers of hopper_common.cuh.
-// fused_decoder_bwd.cu (kernels #6 and #7, the whole-plane backward) is
-// built on it; the decoder forward (#5), the banded backward (#8-#10) and
-// the fused Up stage (#11) still run decoder_common.cuh's CUDA-core
-// convolution and can move here.
+// The whole-plane backward (fused_decoder_bwd.cu, kernels #6 and #7), the
+// banded backward's three passes (fused_decoder_banded.cu, #8-#10) and the
+// fused Up stage (fused_up.cu, #11) are built on it, through the sequences
+// of decoder_stage_bwd.cuh; the decoder forward (#5) still runs
+// decoder_common.cuh's CUDA-core convolution and can move here.
 //
 // Two kernels:
 //  - conv_kernel<N, TAPS>: out[pix][n] = sum_k A[pix][k] B[k][n] over a
@@ -30,6 +31,12 @@
 //    per-image float32 addend (conv1's skip half), writes per-tile
 //    GroupNorm partial sums of the stored values, or scatters into the
 //    transpose conv's output phases or into a phase-separated gradient.
+//    A bf16 NCHW output of N <= 64 channels goes through shared memory
+//    (each warpgroup's two rows as lines of 64 pixels: bf16, or float32
+//    where the addend comes before the rounding), so a warp reads the
+//    addend and stores a whole line with one coalesced instruction each:
+//    the accumulator layout gives each instruction pieces of four lines,
+//    and the addend's loads, between the stores, waited for each other.
 //  - wgrad_kernel<N, TAPS>: gW[tap][m][n] = sum_pix A[m][pix + tap]
 //    g[n][pix], M = the input channels (64-row tiles), N = the output
 //    channels, K = pixels, both operands K-major (pixels contiguous).
@@ -62,7 +69,9 @@ constexpr int CONV_ROWS = 4;           // image rows of a conv tile
 constexpr int CONV_THREADS = 384;      // two consumer warpgroups + one producer warpgroup
 constexpr int WG_ROWS = 2;             // image rows of a wgrad item
 constexpr int WG_THREADS = 160;        // one consumer warpgroup + one producer warp
-constexpr int SMEM_BUDGET = 200 * 1024;
+constexpr int SMEM_BUDGET = 200 * 1024;   // the ring of a kernel, at most
+constexpr int SMEM_MAX = 227 * 1024;      // a block's dynamic shared memory
+constexpr int OUT_PITCH = TW + 4;         // a staged output line: 64 pixels + 4 (banks)
 
 // d (64 x N) += A B, both from shared memory: wgmma_ss_t* with A MN-major
 // (transposed), wgmma_ss_k* with A K-major; B K-major in both.
@@ -298,13 +307,15 @@ struct Epi {
   int mode;
   void* out;           // EPI_BF16 / EPI_F32: [planes][N][H][W]; EPI_PHASE: bf16
                        // [planes][4][N][H / 2][pitch] (phase ky * 2 + kx of the
-                       // (H, W) output); EPI_TCONV: bf16 [planes][N][2H][2W], the
-                       // tile's sums landing on output phase `split`
+                       // (H, W) output); EPI_TCONV: bf16 [planes][cstride][2H][2W]
+                       // from its channel 0 (a group of N of the cstride channels),
+                       // the tile's sums landing on output phase `split`
   const float* add;    // EPI_BF16: float32 addend [plane / add_rep][N][H][W] or null
   int add_rep;
   const float* bias;   // EPI_TCONV: [N]
   float* gn_part;      // EPI_BF16: GroupNorm partials [planes][N / 16][tiles][2] or null
   int pitch;           // EPI_PHASE: row pitch of the phase planes
+  int cstride;         // EPI_TCONV: channels of an output plane (N or more)
 };
 
 struct ConvArgs {
@@ -317,9 +328,103 @@ struct ConvArgs {
   Epi epi;
 };
 
+// Whether conv_kernel<N> stages a tile's output in shared memory.
+__host__ __device__ constexpr bool staged_out(int n, int mode) {
+  return n <= 64 && mode == EPI_BF16;
+}
+
+// Writes a warpgroup's staged lines s_out [2 rows][N][OUT_PITCH] of T
+// (rows y0, y0 + 1 from column x0) to out [p][N][H][W] in bf16 and adds
+// the stored values to the GroupNorm sums gs, gq. Lines of float32 take
+// e.add's addend before the rounding (lines of bf16 are rounded already,
+// with no addend). Warp w takes lines w, w + 4, ...; a lane 2 pixels (a
+// 4-byte store where W is even), so a warp reads and writes a line of 64
+// pixels with one coalesced instruction each; the addend of all its lines
+// is loaded first, all in flight at once.
+template <int N, typename T>
+__device__ __forceinline__ void store_lines(const T* s_out, const Epi& e, int p, int y0, int x0,
+                                            int H, int W, int warp, int lane, float* gs,
+                                            float* gq) {
+  constexpr int L = 2 * N / 4;   // lines a warp writes
+  constexpr bool ADD = sizeof(T) == 4;
+  const size_t hw = (size_t)H * W;
+  const int x = x0 + 2 * lane;
+  const bool even = (W & 1) == 0;
+  float2 add[ADD ? L : 1];
+  if constexpr (ADD) {
+#pragma unroll
+    for (int k = 0; k < L; ++k) {
+      const int line = warp + 4 * k, y = y0 + line / N;
+      add[k] = make_float2(0.f, 0.f);
+      if (y >= H || x >= W) continue;
+      const float* a = e.add + ((size_t)(p / e.add_rep) * N + line % N) * hw + (size_t)y * W + x;
+      if (even) {
+        add[k] = __ldg(reinterpret_cast<const float2*>(a));
+      } else {
+        add[k].x = __ldg(a);
+        if (x + 1 < W) add[k].y = __ldg(a + 1);
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < L; ++k) {
+    const int line = warp + 4 * k, y = y0 + line / N;
+    const int g = (4 * k % N) / 16;   // the group of channel line % N (warp < 4)
+    if (y >= H || x >= W) continue;
+    const T* s = s_out + line * OUT_PITCH + 2 * lane;
+    __nv_bfloat162 o;
+    if constexpr (ADD) {
+      const float2 v = *reinterpret_cast<const float2*>(s);
+      o = __floats2bfloat162_rn(v.x + add[k].x, v.y + add[k].y);
+    } else {
+      o = *reinterpret_cast<const __nv_bfloat162*>(s);
+    }
+    const float2 f = __bfloat1622float2(o);   // statistics of the stored values
+    bf16* d = static_cast<bf16*>(e.out) + ((size_t)p * N + line % N) * hw + (size_t)y * W + x;
+    if (even) {
+      *reinterpret_cast<__nv_bfloat162*>(d) = o;
+      gs[g] += f.x + f.y;
+      gq[g] += f.x * f.x + f.y * f.y;
+    } else {
+      d[0] = o.x;
+      gs[g] += f.x;
+      gq[g] += f.x * f.x;
+      if (x + 1 < W) {
+        d[1] = o.y;
+        gs[g] += f.y;
+        gq[g] += f.y * f.y;
+      }
+    }
+  }
+}
+
+// A bf16 output through shared memory: this warpgroup's two rows of the
+// tile as lines of T (float32 when an addend comes before the rounding,
+// else bf16), then store_lines.
+template <int N, typename T>
+__device__ __forceinline__ void staged_epilogue(const float (&acc)[2][N / 2], void* s_out,
+                                                const Epi& e, int p, int ty, int tx, int H,
+                                                int W, float* gs, float* gq) {
+  const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  T* so = static_cast<T*>(s_out) + wg * 2 * N * OUT_PITCH;
+  named_barrier(2 + wg, 128);   // the previous tile's lines are out
+#pragma unroll
+  for (int r = 0; r < 2; ++r)
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {
+      const int xl = 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+      const int n = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      if constexpr (sizeof(T) == 4) so[(r * N + n) * OUT_PITCH + xl] = acc[r][i];
+      else so[(r * N + n) * OUT_PITCH + xl] = __float2bfloat16(acc[r][i]);
+    }
+  named_barrier(2 + wg, 128);
+  store_lines<N, T>(so, e, p, ty * CONV_ROWS + wg * 2, tx * TW, H, W, warp, lane, gs, gq);
+}
+
 template <int N>
 __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, float (&acc)[2][N / 2], int p,
-                                              int ty, int tx, int split, float* s_gn) {
+                                              int ty, int tx, int split, float* s_gn,
+                                              float* s_out) {
   const Epi& e = a.epi;
   const int wg = threadIdx.x / 128, warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const int H = a.H, W = a.W;
@@ -328,38 +433,43 @@ __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, float (&acc)[2]
   float gs[G], gq[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) gs[g] = gq[g] = 0.f;
+  if (staged_out(N, e.mode)) {
+    if (e.add != nullptr) staged_epilogue<N, float>(acc, s_out, e, p, ty, tx, H, W, gs, gq);
+    else staged_epilogue<N, bf16>(acc, s_out, e, p, ty, tx, H, W, gs, gq);
+  } else {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const int y = ty * CONV_ROWS + wg * 2 + r;
+    for (int r = 0; r < 2; ++r) {
+      const int y = ty * CONV_ROWS + wg * 2 + r;
 #pragma unroll
-    for (int i = 0; i < N / 2; ++i) {
-      const int x = tx * TW + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
-      const int n = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
-      if (y >= H || x >= W) continue;
-      float v = acc[r][i];
-      const size_t pix = (size_t)y * W + x;
-      if (e.mode == EPI_BF16) {
-        if (e.add != nullptr) v += e.add[((size_t)(p / e.add_rep) * N + n) * hw + pix];
-        const bf16 o = __float2bfloat16(v);
-        static_cast<bf16*>(e.out)[((size_t)p * N + n) * hw + pix] = o;
-        v = __bfloat162float(o);   // statistics of the stored values
-        gs[i / 8] += v;   // group n / 16 = i / 8
-        gq[i / 8] += v * v;
-      } else if (e.mode == EPI_F32) {
-        static_cast<float*>(e.out)[((size_t)p * N + n) * hw + pix] = v;
-      } else if (e.mode == EPI_PHASE) {
-        const int ph = (y & 1) * 2 + (x & 1);
-        static_cast<bf16*>(e.out)[(((size_t)p * 4 + ph) * N + n) * (H / 2) * (size_t)e.pitch +
-                                  (size_t)(y >> 1) * e.pitch + (x >> 1)] = __float2bfloat16(v);
-      } else {   // EPI_TCONV
-        const int oy = 2 * y + split / 2, ox = 2 * x + split % 2;
-        static_cast<bf16*>(e.out)[((size_t)p * N + n) * 4 * hw + (size_t)oy * 2 * W + ox] =
-            __float2bfloat16(v + e.bias[n]);
+      for (int i = 0; i < N / 2; ++i) {
+        const int x = tx * TW + 16 * warp + lane / 4 + 8 * ((i / 2) % 2);
+        const int n = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        if (y >= H || x >= W) continue;
+        float v = acc[r][i];
+        const size_t pix = (size_t)y * W + x;
+        if (e.mode == EPI_BF16) {
+          if (e.add != nullptr) v += e.add[((size_t)(p / e.add_rep) * N + n) * hw + pix];
+          const bf16 o = __float2bfloat16(v);
+          static_cast<bf16*>(e.out)[((size_t)p * N + n) * hw + pix] = o;
+          v = __bfloat162float(o);   // statistics of the stored values
+          gs[i / 8] += v;   // group n / 16 = i / 8
+          gq[i / 8] += v * v;
+        } else if (e.mode == EPI_F32) {
+          static_cast<float*>(e.out)[((size_t)p * N + n) * hw + pix] = v;
+        } else if (e.mode == EPI_PHASE) {
+          const int ph = (y & 1) * 2 + (x & 1);
+          static_cast<bf16*>(e.out)[(((size_t)p * 4 + ph) * N + n) * (H / 2) * (size_t)e.pitch +
+                                    (size_t)(y >> 1) * e.pitch + (x >> 1)] = __float2bfloat16(v);
+        } else {   // EPI_TCONV
+          const int oy = 2 * y + split / 2, ox = 2 * x + split % 2;
+          const size_t o = ((size_t)p * e.cstride + n) * 4 * hw + (size_t)oy * 2 * W + ox;
+          static_cast<bf16*>(e.out)[o] = __float2bfloat16(v + e.bias[n]);
+        }
       }
     }
   }
   if (e.mode != EPI_BF16 || e.gn_part == nullptr) return;
-  // per-group sums: a thread's values of group g are i in [8g, 8g + 8)
+  // per-group sums of the threads' stored values (gs[g], gq[g])
 #pragma unroll
   for (int g = 0; g < G; ++g) {
 #pragma unroll
@@ -423,6 +533,7 @@ conv_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUte
   const uint32_t base = (raw + 1023) & ~1023u;
   const uint32_t full0 = base + a.stages * a.stage_bytes, empty0 = full0 + 8 * a.stages;
   float* s_gn = reinterpret_cast<float*>(smem_raw + (empty0 + 8 * a.stages - raw));
+  float* s_out = s_gn + 8 * 8 * 2;   // staged_out's lines (float32 or bf16)
   const int ksteps = a.nchunks * NDX;
 
   if (threadIdx.x == 0) {
@@ -497,7 +608,7 @@ conv_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUte
         fence_regs(acc[1]);
         mbar_arrive(empty0 + 8 * s);
       }
-      conv_epilogue<N>(a, acc, p, ty, tx, split, s_gn);
+      conv_epilogue<N>(a, acc, p, ty, tx, split, s_gn, s_out);
     }
   }
 }
@@ -665,11 +776,15 @@ int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream
   a.b_bytes = ((uint32_t)N * a.kc * 2 + 1023) & ~1023u;
   a.stage_bytes = SLABS * a.a_bytes + NB * a.b_bytes;
   const int tail = 16 * 4 + 8 * 8 * 2 * 4;   // barriers (up to 4 stages) and GroupNorm sums
-  a.stages = (SMEM_BUDGET - 1024 - tail) / (int)a.stage_bytes;
+  const int lines =
+      staged_out(N, epi.mode) ? 2 * 2 * N * OUT_PITCH * (epi.add != nullptr ? 4 : 2) : 0;
+  const int ring = SMEM_MAX - 1024 - tail - lines;
+  a.stages = (ring < SMEM_BUDGET - 1024 - tail ? ring : SMEM_BUDGET - 1024 - tail) /
+             (int)a.stage_bytes;
   a.stages = a.stages > 4 ? 4 : a.stages;
   if (a.stages < 2 || in.C % 16 || in.shifted != (TAPS == 9)) return (int)cudaErrorInvalidValue;
   a.epi = epi;
-  const int smem = 1024 + a.stages * (int)a.stage_bytes + tail;
+  const int smem = 1024 + a.stages * (int)a.stage_bytes + tail + lines;
   auto kernel = conv_kernel<N, TAPS>;
   // a runtime call first: it makes the context current in this thread,
   // which the tensor-map encode needs

@@ -1,24 +1,29 @@
-// The tensor-core sequences of one decoder stage's backward, shared by the
-// whole-plane route (fused_decoder_bwd.cu, kernels #6 and #7) and the
-// banded route (fused_decoder_banded.cu, passes A and C of #8-#10): every
-// product of more than one channel on decoder_igemm.cuh's wgmma implicit
-// GEMM, the elementwise passes and the head's dgrad (K = 9) on the CUDA
-// cores of decoder_common.cuh.
+// The tensor-core sequences of one decoder stage, shared by the
+// whole-plane backward (fused_decoder_bwd.cu, kernels #6 and #7), the
+// banded backward (fused_decoder_banded.cu, passes A, B and C of #8-#10)
+// and the fused Up stage forward (fused_up.cu, #11): every product of more
+// than one channel on decoder_igemm.cuh's wgmma implicit GEMM, the
+// elementwise passes and the head's convolutions to and from one channel
+// (K = 9) on the CUDA cores of decoder_common.cuh.
 //
 //  - stage_recompute: the stage forward from its inputs (the transpose
-//    conv per output phase, conv1's skip half per image as a float32
-//    addend of its up half, GroupNorm+ReLU of raw conv1, conv2), storing
-//    up, raw1 and raw2 in bf16;
+//    conv per output phase, in column groups of at most 128 channels;
+//    conv1's skip half per image as a float32 addend of its up half;
+//    GroupNorm+ReLU of raw conv1; conv2), storing up, raw1 and raw2 in
+//    bf16; the Up stage's forward (#11) and the recompute of both
+//    backward routes;
 //  - head_bwd: the head's input gradient g_a2 (bf16), weight gradient (the
 //    wgrad kernel at N = 16, column 0 the logits' gradient) and bias
 //    gradient;
+//  - conv2_bwd: from g_raw2 (bf16), conv2's input gradient g_a1 (bf16) and
+//    weight gradient (the tail of #6 and pass B);
 //  - stage_input_bwd: from g_raw1 (bf16), conv1's dgrad and wgrad (the up
 //    half per plane into the phase-separated g_up; the skip half once per
 //    image on the image's summed g_raw1, g_img) and the transpose conv's
 //    input, weight and bias gradients.
 //
-// The routes differ in where GroupNorm's statistics come from (the
-// whole-plane route reduces them from the partial sums its recompute
+// The backward routes differ in where GroupNorm's statistics come from
+// (the whole-plane route reduces them from the partial sums its recompute
 // writes; the banded route reads those the forward saved) and in the
 // GroupNorm backward between these sequences.
 #pragma once
@@ -117,9 +122,12 @@ struct Stage {
   int P, cin, h, w, B, cs, cu, cout;
 };
 
+constexpr int TCONV_GROUP = 128;   // output channels of one transpose-conv product
+
 // The stage forward from its inputs (xin, the stage input after any
-// GroupNorm+ReLU; skip). Weights in the igemm layouts (bf16): up_wf [4][cu]
-// [cin] (phase ky * 2 + kx), w1u [9][cout][cu], w1s [9][cout][cs], w2 [9]
+// GroupNorm+ReLU; skip). Weights in the igemm layouts (bf16): up_wf, per
+// group of TCONV_GROUP output channels (the last group the rest), [4][group]
+// [cin] (phase ky * 2 + kx); w1u [9][cout][cu], w1s [9][cout][cs], w2 [9]
 // [cout][cout]; up_b float32 [cu]. Writes up (P, cu, H, W), raw1 and raw2
 // (P, cout, H, W) in bf16, with GroupNorm partials of each into part1 /
 // part2 when they are set ([P][cout / 16][tiles][2]); a1 = GN1+ReLU(raw1)
@@ -132,14 +140,18 @@ int stage_recompute(const Stage& s, const bf16* xin, const bf16* skip, const bf1
                     float* part1, bf16* a1, bf16* c2, float* part2, bf16* scr, Planes* a1_src,
                     cudaStream_t st) {
   const int H = 2 * s.h, W = 2 * s.w, HW = H * W;
-  Epi e = epi(igemm::EPI_TCONV, up);
-  e.bias = up_b;
-  SEMIVL_CK(conv_n<1>(s.cu, igemm::tma_source(xin, s.P, s.cin, s.h, s.w, scr, st), up_wf, 4, e,
-                      st));
+  const Planes xs = igemm::tma_source(xin, s.P, s.cin, s.h, s.w, scr, st);
+  for (int n0 = 0; n0 < s.cu; n0 += TCONV_GROUP) {
+    const int n = s.cu - n0 < TCONV_GROUP ? s.cu - n0 : TCONV_GROUP;
+    Epi e = epi(igemm::EPI_TCONV, up + (size_t)n0 * HW);
+    e.bias = up_b + n0;
+    e.cstride = s.cu;
+    SEMIVL_CK(conv_n<1>(n, xs, up_wf + (size_t)4 * n0 * s.cin, 4, e, st));
+  }
   if (skip_half)
     SEMIVL_CK(conv_n<9>(s.cout, igemm::shifted_source(skip, s.B, s.cs, H, W, scr, st), w1s, 1,
                         epi(igemm::EPI_F32, ys), st));
-  e = epi(igemm::EPI_BF16, c1);
+  Epi e = epi(igemm::EPI_BF16, c1);
   e.add = skip_half ? ys : nullptr;
   e.add_rep = s.P / s.B;
   e.gn_part = part1;
@@ -174,6 +186,24 @@ int head_bwd(const Stage& s, const bf16* c2, const GNIn& gn2, const bf16* g_out,
   sum_partials(igpart, slots, 9 * s.cout * 16, g_hw, st);
   channel_total_kernel<<<dim3(1, s.P), NT, 0, st>>>(g_out, 1, 1, H, W, W, bpart);
   sum_partials(bpart, s.P, 1, g_hb, st);
+  return (int)cudaGetLastError();
+}
+
+// conv2's backward from g_raw2 (bf16 (P, cout, H, W)): g_a1 = its dgrad
+// (bf16; w2_d [9][cout][cout], flipped and transposed) and g_w2 [9][cout]
+// [cout] = its wgrad over a1 (a1_src: stage_recompute's column-shifted
+// copies of GN1+ReLU(raw1)) and g_raw2, reduced over the first
+// `wg_planes` planes (P; fewer only for a planted fault) in `slots`
+// partials (igpart: slots 9 cout cout floats) added in order. scr: room
+// for g_raw2's three shifted copies (3 P cout H tma_pitch(W)).
+int conv2_bwd(const Stage& s, const bf16* g_raw2, const Planes& a1_src, const bf16* w2_d,
+              int wg_planes, int slots, float* igpart, bf16* g_a1, float* g_w2, bf16* scr,
+              cudaStream_t st) {
+  const Planes gr2 = igemm::shifted_source(g_raw2, s.P, s.cout, 2 * s.h, 2 * s.w, scr, st);
+  SEMIVL_CK(conv_n<9>(s.cout, gr2, w2_d, 1, epi(igemm::EPI_BF16, g_a1), st));
+  SEMIVL_CK(wgrad_n<9>(s.cout, a1_src, igemm::center(gr2), wg_planes, s.cout, slots, igpart,
+                       st));
+  sum_partials(igpart, slots, 9 * s.cout * s.cout, g_w2, st);
   return (int)cudaGetLastError();
 }
 

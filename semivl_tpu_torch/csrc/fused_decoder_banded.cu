@@ -23,8 +23,8 @@
 //
 // What bounds it on this card: about twice the forward's convolution work
 // plus one recompute (tens of GFLOP at the Cityscapes training shape, P =
-// 57 planes on a 51x51 base grid), so the tensor cores. Passes A and C run
-// every product of more than one channel on decoder_igemm.cuh's wgmma
+// 57 planes on a 51x51 base grid), so the tensor cores. The three passes
+// run every product of more than one channel on decoder_igemm.cuh's wgmma
 // implicit GEMM (bf16 operands, float32 sums, TMA rings), through the
 // sequences they share with the whole-plane route (decoder_stage_bwd.cuh):
 // pass A is stage_recompute (the transpose conv per output phase, conv1's
@@ -33,9 +33,10 @@
 // on the last stage, head_bwd (the head's dgrad on the CUDA cores, K = 9;
 // its wgrad at N = 16); pass C is stage_input_bwd from graw1 (conv1's
 // dgrad and wgrad, the skip half on the per-image sum g_img, the transpose
-// conv's dgrad with K = 4 cu and its weight and bias gradients). Pass B
-// keeps its CUDA-core design (decoder_common.cuh's conv3x3, the ordered
-// wgrad3x3 partials of decoder_bwd_common.cuh).
+// conv's dgrad with K = 4 cu and its weight and bias gradients); pass B is
+// conv2_bwd after a GN2 solve (conv2's dgrad on the column-shifted graw2,
+// its wgrad over the shifted GN1+ReLU(raw1) with per-slot partials), the
+// tail of the whole-plane route's kernel #6.
 //
 // The elementwise passes stay apart from the igemm epilogues: the GN solve
 // (graw from gy), the ReLU mask with the per-plane sums, and GN1+ReLU of
@@ -126,14 +127,15 @@ void relu_mask_and_sums(const bf16* g_a, const bf16* c, int P, int C, int HW, co
   plane_sums_kernel<<<(P * C + NT - 1) / NT, NT, 0, st>>>(gpart, P * C, eb, sums);
 }
 
-// D_R: blocks of pass B's weight-gradient reduction; D_PITCH: the row pitch
-// of pass C's phase-separated g_up; D_SKIP_HALF: 1 (0 leaves conv1's skip
-// half out of pass A's recompute, a planted fault); D_SLOTS*: slots of the
-// igemm weight-gradient reductions (pass A's head; pass C's conv1 up half,
-// skip half and transpose conv).
+// D_PITCH: the row pitch of pass C's phase-separated g_up; D_SKIP_HALF: 1
+// (0 leaves conv1's skip half out of pass A's recompute, a planted fault);
+// D_WG_PLANES: the planes pass B's conv2 wgrad reduces over (P; fewer only
+// for a planted fault); D_SLOTS*: slots of the igemm weight-gradient
+// reductions (pass A's head; pass B's conv2; pass C's conv1 up half, skip
+// half and transpose conv).
 enum Dim {
-  D_P, D_CIN, D_H, D_W, D_B, D_CS, D_CU, D_COUT, D_R, D_PITCH, D_SKIP_HALF, D_SLOTS, D_SLOTS2,
-  D_SLOTS3, D_COUNT
+  D_P, D_CIN, D_H, D_W, D_B, D_CS, D_CU, D_COUT, D_PITCH, D_SKIP_HALF, D_WG_PLANES, D_SLOTS,
+  D_SLOTS2, D_SLOTS3, D_COUNT
 };
 
 enum ASlot {
@@ -144,7 +146,7 @@ enum ASlot {
 };
 enum BSlot {
   B_RAW1, B_RAW2, B_GY2, B_M1, B_R1, B_M2, B_R2, B_G1W, B_G1B, B_G2W, B_G2B, B_MGA, B_MGB,
-  B_W2_D, B_GRAW2, B_A1, B_GY1, B_GPART, B_SUMS, B_WPART, B_G_W2, B_COUNT
+  B_W2_D, B_GRAW2, B_A1, B_GY1, B_GPART, B_SUMS, B_WPART, B_SCR_A, B_SCR_B, B_G_W2, B_COUNT
 };
 enum CSlot {
   C_XIN, C_UP, C_SKIP, C_RAW1, C_GY1, C_M1, C_R1, C_G1W, C_G1B, C_MGA, C_MGB, C_UP_W,
@@ -204,15 +206,18 @@ extern "C" int banded_pass_a(void* const* t, const int* d, void* stream) {
 // Pass B of one stage. Inputs: raw1, raw2 and gy2 (P, cout, H, W) bf16
 // from pass A; the saved statistics; gamma/beta of both GroupNorms; the
 // closed GN2 vectors B_MGA, B_MGB (P, cout); conv2's dgrad weights B_W2_D
-// float32 [cout][9][cout] (flipped, transposed). Outputs: B_GY1 (P, cout,
-// H, W) bf16, B_SUMS (P, cout, 2), B_G_W2 [cout][9][cout]. Scratch:
-// B_GRAW2 and B_A1 bf16 (P, cout, H, W), B_GPART, B_WPART (R, cout * 9 *
-// cout). d[D_H], d[D_W] are the stage's INPUT grid (the planes are twice
-// that). Returns cudaGetLastError() after the launches.
+// in the igemm layout, bf16 [9][cout][cout] (flipped, transposed).
+// Outputs: B_GY1 (P, cout, H, W) bf16, B_SUMS (P, cout, 2), B_G_W2 [9]
+// [cout][cout]. Scratch: B_GRAW2 and B_A1 bf16 (P, cout, H, W), B_GPART
+// (P, cout, ceil(H W / 256), 2), B_WPART (D_SLOTS, 9, cout, cout), B_SCR_A
+// and B_SCR_B bf16, each room for the three column-shifted copies of a
+// (P, cout, H, W) source (3 P cout H tma_pitch(W)). d[D_H], d[D_W] are the
+// stage's INPUT grid (the planes are twice that). Returns the first CUDA
+// error of the launches.
 extern "C" int banded_pass_b(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-  const int P = d[D_P], cout = d[D_COUT], R = d[D_R];
-  const int H = 2 * d[D_H], W = 2 * d[D_W], HW = H * W, eb = (HW + NT - 1) / NT;
+  const int P = d[D_P], h = d[D_H], w = d[D_W], cout = d[D_COUT];
+  const int H = 2 * h, W = 2 * w, HW = H * W, eb = (HW + NT - 1) / NT;
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
   const GNIn gn1 = saved(t[B_G1W], t[B_G1B], t[B_M1], t[B_R1]);
@@ -221,9 +226,10 @@ extern "C" int banded_pass_b(void* const* t, const int* d, void* stream) {
   gn_solve_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(B_GY2), b16(B_RAW2), cout, HW, gn2, f(B_MGA),
                                                f(B_MGB), b16(B_GRAW2));
   gn_relu_kernel<<<dim3(eb, P), NT, 0, st>>>(b16(B_RAW1), cout, HW, gn1, b16(B_A1));
-  wgrad(cout, b16(B_GRAW2), b16(B_A1), P, cout, H, W, R, f(B_WPART), f(B_G_W2), st);
-  conv(cout, (const bf16*)b16(B_GRAW2), P, cout, H, W, NO_GN, f(B_W2_D), nullptr, nullptr, 1,
-       b16(B_GY1), nullptr, nullptr, st);                                // g_a1
+  const Planes a1 = igemm::shifted_source(b16(B_A1), P, cout, H, W, b16(B_SCR_A), st);
+  SEMIVL_CK(conv2_bwd(Stage{P, 0, h, w, 0, 0, 0, cout}, b16(B_GRAW2), a1, b16(B_W2_D),
+                      d[D_WG_PLANES], d[D_SLOTS], f(B_WPART), b16(B_GY1), f(B_G_W2),
+                      b16(B_SCR_B), st));                                 // g_a1 into gy1
   relu_mask_and_sums(b16(B_GY1), b16(B_RAW1), P, cout, HW, gn1, b16(B_GY1), f(B_GPART),
                      f(B_SUMS), st);
   return (int)cudaGetLastError();

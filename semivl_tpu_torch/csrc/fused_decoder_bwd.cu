@@ -29,9 +29,9 @@
 // = 4 cu) and wgrad (K = input pixels). The head's dgrad (32 -> 1
 // channel, K = 9) stays on decoder_common.cuh's CUDA cores, as do the
 // elementwise passes; its wgrad runs on the wgrad kernel at N = 16. The
-// recompute, the head and the input half are decoder_stage_bwd.cuh's
-// sequences, which the banded passes A and C (fused_decoder_banded.cu)
-// share.
+// recompute, the head, conv2's backward and the input half are
+// decoder_stage_bwd.cuh's sequences, which the banded passes
+// (fused_decoder_banded.cu) share.
 //
 // GroupNorm+ReLU backward: a separate elementwise pass (gn_backward below:
 // per-slab sums of g_y and g_y x_hat, a per-plane reduction in double, the
@@ -282,11 +282,8 @@ extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream
   SEMIVL_CK(gn_backward(b16(T_G_A2), b16(T_C2), P, cout, HW, gn2, f(T_GPART), f(T_GSUM),
                         f(T_GAB), b16(T_G_RAW2), f(T_G_G2W), f(T_G_G2B), st));
   // 4. conv2: g_a1 = dgrad(g_raw2), g_w2 = wgrad(a1, g_raw2)
-  const Planes gr2 = igemm::shifted_source(b16(T_G_RAW2), P, cout, H, W, b16(T_SCR_B), st);
-  SEMIVL_CK(conv_n<9>(cout, gr2, b16(T_W2_D), 1, epi(igemm::EPI_BF16, b16(T_G_A1)), st));
-  SEMIVL_CK(wgrad_n<9>(cout, a1, igemm::center(gr2), d[D_WG_PLANES], cout, d[D_SLOTS],
-                       f(T_IGPART), st));
-  sum_partials(f(T_IGPART), d[D_SLOTS], 9 * cout * cout, f(T_G_W2), st);
+  SEMIVL_CK(conv2_bwd(s, b16(T_G_RAW2), a1, b16(T_W2_D), d[D_WG_PLANES], d[D_SLOTS],
+                      f(T_IGPART), b16(T_G_A1), f(T_G_W2), b16(T_SCR_B), st));
   // 5. GN1+ReLU backward -> g_raw1
   SEMIVL_CK(gn_backward(b16(T_G_A1), b16(T_C1), P, cout, HW, gn1, f(T_GPART), f(T_GSUM),
                         f(T_GAB), b16(T_G_C1), f(T_G_G1W), f(T_G_G1B), st));

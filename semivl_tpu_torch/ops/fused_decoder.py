@@ -271,6 +271,13 @@ def _kernel_weights(p, dt):
         g2b=p['gn2_bias'].float().contiguous())
 
 
+def _head_weight(head, dt):
+    """The head's weight in the CUDA-core conv's float32 [cin][9][1] layout
+    (rounded to the activation dtype first) and its float32 bias."""
+    return (head['weight'].to(dt).float().permute(1, 2, 3, 0).contiguous(),
+            head['bias'].float().contiguous())
+
+
 def _check(x, skip, p, what='fused_vlg_decoder kernel'):
     if not (x.is_cuda and skip.is_cuda) or x.dtype != torch.bfloat16 \
             or skip.dtype != torch.bfloat16:
@@ -333,8 +340,7 @@ def _stage(x, skip, p, gn_in=None, head=None, stats=False):
     out = None
     head_ptrs = (null, null, null)
     if head is not None:
-        hw_ = head['weight'].to(x.dtype).float().permute(1, 2, 3, 0)
-        hw_, hb = hw_.contiguous(), head['bias'].float().contiguous()
+        hw_, hb = _head_weight(head, x.dtype)
         out = torch.empty((pl, 1, hh, ww), dtype=x.dtype, device=dev)
         head_ptrs = (_build.ptr(hw_), _build.ptr(hb), _build.ptr(out))
     fn = _build.load('fused_decoder').decoder_stage_fwd
@@ -376,7 +382,6 @@ def _gn_stats(part, shape):
 # ---------------------------------------------------------------------------
 # backward kernel wrappers
 
-_R = 256   # blocks that share a banded pass's weight-gradient reduction
 _TAIL_SLOTS = (
     'x gn_part gn_gamma gn_beta skip up_wf up_b w1u w1s w2 g1w g1b g2w g2b '
     'w2_d head_wd g_out g_a2 xin up ys c1 part1 c2 part2 a1 a2 g_raw2 g_a1 '
@@ -418,6 +423,16 @@ def _tconv_fwd_weight(w):
         .contiguous()
 
 
+def _tconv_groups(wf):
+    """[4][cu][cin] transpose conv weight -> the column groups of at most
+    ``TCONV_GROUP`` output channels that ``stage_recompute`` runs, each
+    [4][group][cin], one after another (itself for cu <= TCONV_GROUP)."""
+    if wf.shape[1] <= TCONV_GROUP:
+        return wf
+    return torch.cat([wf[:, n0:n0 + TCONV_GROUP].flatten()
+                      for n0 in range(0, wf.shape[1], TCONV_GROUP)])
+
+
 def _tconv_dgrad_weight(w):
     """Transpose conv weight (cin, cu, 2, 2) -> bf16 [cin][4 cu] (K index
     (ky * 2 + kx) cu + c), the B operand of its input gradient."""
@@ -434,11 +449,6 @@ def _tconv_wgrad_to_torch(g, cin, cu):
 def _from_taps(g, ci, co):
     """[9][ci][co] weight gradient -> torch (co, ci, 3, 3)."""
     return g.reshape(3, 3, ci, co).permute(3, 2, 0, 1)
-
-
-def _from_k3(g, ci, co):
-    """[ci][9][co] weight gradient -> torch (co, ci, 3, 3)."""
-    return g.reshape(ci, 3, 3, co).permute(3, 0, 1, 2)
 
 
 def _wgrad_slots(dev, taps, mrows):
@@ -465,7 +475,8 @@ def _igemm_stage_weights(p, dt):
     kw = _kernel_weights(p, dt)
     cu = p['up_weight'].shape[1]
     w1 = p['conv1_weight']
-    return dict(up_wf=_tconv_fwd_weight(p['up_weight']), up_b=kw['up_b'],
+    return dict(up_wf=_tconv_groups(_tconv_fwd_weight(p['up_weight'])),
+                up_b=kw['up_b'],
                 w1u=_igemm_weight(w1[:, :cu]), w1s=_igemm_weight(w1[:, cu:]),
                 w2=_igemm_weight(p['conv2_weight']),
                 **{k: kw[k] for k in ('g1w', 'g1b', 'g2w', 'g2b')})
@@ -493,23 +504,96 @@ def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
     _build.check(err, fn_name)
 
 
-def _check_igemm(x, skip, p):
-    """What both decoder backward routes' igemm products take besides
-    ``_check``: Cu and Cs in (16, 32, 48, 64, 96), Cin (the transpose
-    conv's dgrad width) in (32, 64, 96, 128) and 16-byte aligned planes
-    (TMA)."""
-    _check(x, skip, p)
-    cu = p['up_weight'].shape[1]
-    if cu not in (16, 32, 48, 64, 96) or skip.shape[1] not in (16, 32, 48,
-                                                               64, 96):
-        raise ValueError(f'decoder backward kernel takes Cu and Cs in (16, '
-                         f'32, 48, 64, 96); got {cu}, {skip.shape[1]}')
-    if x.shape[1] not in (32, 64, 96, 128):
-        raise ValueError(f'decoder backward kernel takes Cin in (32, 64, 96, '
-                         f'128); got {x.shape[1]}')
+# Output widths (N) of decoder_stage_bwd.cuh's igemm products: the 3x3
+# conv and its wgrad (conv_n<9>; wgrad_n<9> takes 16, 32, 64) and the
+# transpose conv's products (conv_n<1>, wgrad_n<1>), whose forward runs
+# in column groups of at most TCONV_GROUP channels. K (input channels) is
+# any multiple of 16.
+CONV_N = (16, 32, 48, 64, 96)
+TCONV_N = CONV_N + (128,)
+TCONV_GROUP = 128
+# what the backward routes' transpose conv dgrad and wgrad take as Cin (N)
+BWD_CIN = (32, 64, 96, 128)
+
+
+def _next(c, widths):
+    return next((n for n in widths if n >= c), None)
+
+
+def stage_plan(cin, cu, cs, bwd=False):
+    """The widths the igemm sequences run a stage of Cin, Cu, Cs channels
+    at: dict(cu=, cs=, tconv_groups=), cu and cs zero-padded (exact:
+    ``pad_stage``). The forward (``bwd`` False, the fused Up stage #11)
+    pads Cs to a multiple of 16 (a K width) and Cu to column groups of
+    ``TCONV_N`` widths (TCONV_GROUP each but the last, that one padded to
+    the next width). The backward routes (#6-#10) also take Cu and Cs as N
+    of 3x3 dgrads, so both pad to the next of ``CONV_N``, and Cin as N of
+    the transpose conv's dgrad, one of ``BWD_CIN``: a wider Cin, Cu or Cs
+    raises, naming the widths. Cin is a multiple of 32 (``_check``), a K
+    width as it is."""
+    if bwd:
+        pcu, pcs = _next(cu, CONV_N), _next(cs, CONV_N)
+        if pcu is None or pcs is None or cin not in BWD_CIN:
+            raise ValueError(
+                f'decoder backward kernel takes Cu and Cs up to {CONV_N[-1]} '
+                f'(padded to one of {CONV_N}) and Cin in {BWD_CIN}; got Cu '
+                f'{cu}, Cs {cs}, Cin {cin}')
+        return dict(cu=pcu, cs=pcs, tconv_groups=(pcu,))
+    full, rest = divmod(cu - 1, TCONV_GROUP)
+    groups = (TCONV_GROUP,) * full + (_next(rest + 1, TCONV_N),)
+    return dict(cu=sum(groups), cs=-(-cs // 16) * 16, tconv_groups=groups)
+
+
+def _pad_channels(t, c):
+    """``t`` zero-padded along dim 1 to ``c`` channels (itself if it has
+    them), contiguous."""
+    if t.shape[1] == c:
+        return t
+    return torch.cat([t, t.new_zeros((t.shape[0], c - t.shape[1])
+                                     + tuple(t.shape[2:]))], 1).contiguous()
+
+
+def pad_stage(skip, p, plan):
+    """The skip and a stage's weights zero-padded to ``plan``'s widths:
+    skip channels (and conv1's skip columns) to plan['cs'], the transpose
+    conv's output channels (up_weight, up_bias; conv1's up columns) to
+    plan['cu']. The padded up channels are 0 (zero weights and bias) and
+    every padded column multiplies zeros, so the padded stage computes the
+    true one. Returns (skip, p), themselves when nothing is padded."""
+    cu, cs = p['up_weight'].shape[1], skip.shape[1]
+    if (cu, cs) == (plan['cu'], plan['cs']):
+        return skip, p
+    w1 = p['conv1_weight']
+    return _pad_channels(skip, plan['cs']), dict(
+        p, up_weight=_pad_channels(p['up_weight'], plan['cu']),
+        up_bias=_pad_channels(p['up_bias'][None], plan['cu'])[0],
+        conv1_weight=torch.cat([_pad_channels(w1[:, :cu], plan['cu']),
+                                _pad_channels(w1[:, cu:], plan['cs'])], 1))
+
+
+def unpad_grads(g, cu, cs):
+    """A padded stage's gradients (``g_skip``, ``up_weight``, ``up_bias``,
+    ``conv1_weight``; any other key as it is) cut back to the true widths
+    Cu and Cs."""
+    out = dict(g)
+    pcu = g['up_bias'].shape[0]
+    out.update(g_skip=g['g_skip'][:, :cs], up_weight=g['up_weight'][:, :cu],
+               up_bias=g['up_bias'][:cu],
+               conv1_weight=torch.cat([g['conv1_weight'][:, :cu],
+                                       g['conv1_weight'][:, pcu:pcu + cs]],
+                                      1))
+    return out
+
+
+def _check_igemm(x, skip, p, what='decoder backward kernel', bwd=True):
+    """What the igemm sequences take besides ``_check``: the widths of
+    ``stage_plan`` (returned) and 16-byte aligned planes (TMA)."""
+    _check(x, skip, p, what)
+    plan = stage_plan(x.shape[1], p['up_weight'].shape[1], skip.shape[1],
+                      bwd)
     if x.data_ptr() % 16 or skip.data_ptr() % 16:
-        raise ValueError('decoder backward kernel needs 16-byte aligned '
-                         'planes')
+        raise ValueError(f'{what} needs 16-byte aligned planes')
+    return plan
 
 
 def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
@@ -520,9 +604,11 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
     g_raw1. Returns a dict with g_c1 (bf16), the recomputed up / xin, and
     the gradients of conv2, the GroupNorms and the head in torch layouts.
     ``wgrad_planes``: the planes conv2's weight gradient reduces over (all
-    of them unless a planted fault asks for fewer)."""
+    of them unless a planted fault asks for fewer). A stage whose Cu or Cs
+    is not an igemm width runs zero-padded (``stage_plan``); the returned
+    ``up`` keeps the padded channels, which ``_stage_bwd_input`` takes."""
     global bwd_tail_launches
-    _check_igemm(x, skip, p)
+    skip, p = pad_stage(skip, p, _check_igemm(x, skip, p))
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
@@ -581,8 +667,13 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
     """Stage backward, input half (kernel #7): from g_raw1 (bf16), the
     gradients of the stage input (bf16), the skip (float32, from each
     image's summed planes), conv1 and the transpose conv, in torch
-    layouts."""
+    layouts, at the stage's true widths (``up`` at them or at the padded
+    ones)."""
     global bwd_input_launches
+    cu0, cs0 = p['up_weight'].shape[1], skip.shape[1]
+    plan = _check_igemm(xin, skip, p)
+    skip, p = pad_stage(skip, p, plan)
+    up = _pad_channels(up, plan['cu'])
     pl, cin, h, w = xin.shape
     b, cs, hh, ww = skip.shape
     cu = p['up_weight'].shape[1]
@@ -609,11 +700,12 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
     _call('decoder_stage_bwd_input', _INPUT_SLOTS, t,
           (pl, cin, h, w, 0, b, cs, cu, cout, pitch, pl, s1, s2, s3), xin)
     bwd_input_launches += 1
-    return dict(
+    return unpad_grads(dict(
         g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
         up_weight=_tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
         conv1_weight=torch.cat([_from_taps(t['g_w1u'], cu, cout),
-                                _from_taps(t['g_w1s'], cs, cout)], dim=1))
+                                _from_taps(t['g_w1s'], cs, cout)], dim=1)),
+        cu0, cs0)
 
 
 def _unflatten(flat):

@@ -49,7 +49,7 @@ _A_SLOTS = (
     'gpart sums wpart bpart scr_a scr_b scr_g g_hw g_hb').split()
 _B_SLOTS = (
     'raw1 raw2 gy2 m1 r1 m2 r2 g1w g1b g2w g2b mga mgb w2_d graw2 a1 gy1 '
-    'gpart sums wpart g_w2').split()
+    'gpart sums wpart scr_a scr_b g_w2').split()
 _C_SLOTS = (
     'xin up skip raw1 gy1 m1 r1 g1w g1b mga mgb up_w w1u_d w1s_d graw1 g_up '
     'g_img wpart bpart scr_a scr_b g_xin g_skip g_w1u g_w1s g_up_w '
@@ -189,13 +189,10 @@ def close_gn(sgy, sgyx, gamma, hw):
 # ---------------------------------------------------------------------------
 # kernel wrappers
 
-_R = fd._R
-
-
 def _dims(pl, cin, h, w, b, cs, cu, cout, pitch=0, skip_half=True,
-          slots=(0, 0, 0)):
+          wg_planes=0, slots=(0, 0, 0)):
     """The C entry points' sizes (``enum Dim``)."""
-    return (pl, cin, h, w, b, cs, cu, cout, _R, pitch, int(skip_half),
+    return (pl, cin, h, w, b, cs, cu, cout, pitch, int(skip_half), wg_planes,
             *slots)
 
 
@@ -217,11 +214,14 @@ def _empty(dev):
 def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
     """Pass A (kernel #8); arguments and results as ``pass_a_plain``.
     ``skip_half=False`` leaves conv1's skip half out of the recompute (a
-    planted fault inside the kernel's tensor-core product)."""
+    planted fault inside the kernel's tensor-core product). A stage whose
+    Cu or Cs is not an igemm width runs zero-padded
+    (``fused_decoder.stage_plan``); ``up`` is returned at the true Cu."""
     global pass_a_launches
     if not x.is_cuda:
         return pass_a_plain(x, skip, p, stats, g, gn_x, head)
-    fd._check_igemm(x, skip, p)
+    cu0 = p['up_weight'].shape[1]
+    skip, p = fd.pad_stage(skip, p, fd._check_igemm(x, skip, p))
     pl, cin, h, w = x.shape
     b, cs, hh, ww = skip.shape
     cu = p['up_weight'].shape[1]
@@ -256,7 +256,8 @@ def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
              _dims(pl, cin, h, w, b, cs, cu, cout, skip_half=skip_half,
                    slots=(slots, 0, 0)), x, lib='fused_decoder_banded')
     pass_a_launches += 1
-    out = {k: t[k] for k in ('xin', 'up', 'raw1', 'raw2', 'gy2')}
+    out = {k: t[k] for k in ('xin', 'raw1', 'raw2', 'gy2')}
+    out['up'] = t['up'][:, :cu0]
     out.update(sgy2=t['sums'][..., 0], sgyx2=t['sums'][..., 1])
     if head is not None:
         out.update(head_weight=fd._from_taps(t['g_hw'][..., :1], cout, 1),
@@ -264,8 +265,10 @@ def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
     return out
 
 
-def pass_b(raw1, raw2, gy2, p, stats, mg2):
-    """Pass B (kernel #9); arguments and results as ``pass_b_plain``."""
+def pass_b(raw1, raw2, gy2, p, stats, mg2, wgrad_planes=None):
+    """Pass B (kernel #9); arguments and results as ``pass_b_plain``.
+    ``wgrad_planes``: the planes conv2's weight gradient reduces over (all
+    of them unless a planted fault asks for fewer)."""
     global pass_b_launches
     if not raw1.is_cuda:
         return pass_b_plain(raw1, raw2, gy2, p, stats, mg2)
@@ -275,25 +278,29 @@ def pass_b(raw1, raw2, gy2, p, stats, mg2):
             raw1.shape or p['conv2_weight'].shape[0] != cout:
         raise ValueError('pass B: raw1, raw2, gy2 must share an even '
                          f'(P, Cout, H, W) shape, got {tuple(raw1.shape)}')
-    dt, e = raw1.dtype, _empty(raw1.device)
+    dt, dev = raw1.dtype, raw1.device
+    e = _empty(dev)
     plane = (pl, cout, hh, ww)
+    slots = fd._wgrad_slots(dev, 9, cout)
     t = dict(raw1=raw1, raw2=raw2, gy2=gy2.to(dt).contiguous(),
              g1w=_f32(p['gn1_weight']), g1b=_f32(p['gn1_bias']),
              g2w=_f32(p['gn2_weight']), g2b=_f32(p['gn2_bias']),
              mga=_f32(mg2[0]), mgb=_f32(mg2[1]),
-             w2_d=fd._dgrad_weight(p['conv2_weight'].to(dt).float()),
+             w2_d=fd._igemm_dgrad_weight(p['conv2_weight']),
              graw2=e(plane, dt), a1=e(plane, dt), gy1=e(plane, dt),
              gpart=e((pl, cout, -(-hh * ww // 256), 2)),
-             sums=e((pl, cout, 2)), wpart=e((_R, cout * 9 * cout)),
-             g_w2=e((cout, 9, cout)))
+             sums=e((pl, cout, 2)), wpart=e((slots, 9, cout, cout)),
+             g_w2=e((9, cout, cout)))
+    t['scr_a'], t['scr_b'] = fd._tma_scratch(pl, (cout,), hh, ww, dev)
     t.update(zip(('m1', 'r1', 'm2', 'r2'), (_f32(s) for s in stats)))
     fd._call('banded_pass_b', _B_SLOTS, t,
-             _dims(pl, 0, hh // 2, ww // 2, 0, 0, 0, cout), raw1,
-             lib='fused_decoder_banded')
+             _dims(pl, 0, hh // 2, ww // 2, 0, 0, 0, cout,
+                   wg_planes=pl if wgrad_planes is None else wgrad_planes,
+                   slots=(slots, 0, 0)), raw1, lib='fused_decoder_banded')
     pass_b_launches += 1
     return dict(gy1=t['gy1'], sgy1=t['sums'][..., 0],
                 sgyx1=t['sums'][..., 1],
-                conv2_weight=fd._from_k3(t['g_w2'], cout, cout))
+                conv2_weight=fd._from_taps(t['g_w2'], cout, cout))
 
 
 def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
@@ -301,15 +308,18 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
     global pass_c_launches
     if not xin.is_cuda:
         return pass_c_plain(xin, up, skip, raw1, gy1, p, stats, mg1)
-    fd._check_igemm(xin, skip, p)
-    _check_stored(up=up, raw1=raw1)
+    plan = fd._check_igemm(xin, skip, p)
     pl, cin, h, w = xin.shape
-    b, cs, hh, ww = skip.shape
-    cu = p['up_weight'].shape[1]
+    b, cs0, hh, ww = skip.shape
+    cu0 = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
-    if up.shape != (pl, cu, hh, ww) or raw1.shape != (pl, cout, hh, ww):
+    if up.shape != (pl, cu0, hh, ww) or raw1.shape != (pl, cout, hh, ww):
         raise ValueError(f'pass C: up {tuple(up.shape)} / raw1 '
                          f'{tuple(raw1.shape)} do not match the stage')
+    skip, p = fd.pad_stage(skip, p, plan)
+    up = fd._pad_channels(up, plan['cu'])
+    _check_stored(up=up, raw1=raw1)
+    cs, cu = plan['cs'], plan['cu']
     dt, dev = xin.dtype, xin.device
     e = _empty(dev)
     pitch = -(-w // 8) * 8
@@ -335,11 +345,12 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
              _dims(pl, cin, h, w, b, cs, cu, cout, pitch, slots=slots), xin,
              lib='fused_decoder_banded')
     pass_c_launches += 1
-    return dict(
+    return fd.unpad_grads(dict(
         g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
         up_weight=fd._tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
         conv1_weight=torch.cat([fd._from_taps(t['g_w1u'], cu, cout),
-                                fd._from_taps(t['g_w1s'], cs, cout)], dim=1))
+                                fd._from_taps(t['g_w1s'], cs, cout)], dim=1)),
+        cu0, cs0)
 
 
 # ---------------------------------------------------------------------------

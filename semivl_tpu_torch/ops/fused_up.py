@@ -13,23 +13,22 @@ Planes are NCHW; ``stage_params`` carries the torch-layout names of
 ``gn1_bias``, ``conv2_weight``, ``gn2_weight``, ``gn2_bias``; from a JAX
 ``Up`` tree: ``convert.up_stage_params``), the head ``{'weight': (1, Cout,
 3, 3), 'bias': (1,)}``. CUDA tensors launch ``csrc/fused_up.cu`` (bf16,
-Cout 16, 32 or 64) or raise; CPU tensors take ``fused_up_stage_plain``.
-``fused_up_stage_rounded`` is the kernel's own arithmetic in plain PyTorch,
-the reference it is held to on the card.
+Cout 16, 32 or 64, Cin a multiple of 32, Cu of 16, Cs of 8; the skip and up
+channels zero-padded to the widths of its tensor-core products,
+``fused_decoder.stage_plan``) or raise; CPU tensors take
+``fused_up_stage_plain``. ``fused_up_stage_rounded`` is the kernel's own
+arithmetic in plain PyTorch, the reference it is held to on the card.
 """
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
-from semivl_tpu_torch.ops import _build, fused_decoder
+from semivl_tpu_torch.ops import fused_decoder
 
 launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
 
-_ARGTYPES = ([ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-             + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int]
-             + [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 14)
+_SLOTS = ('x skip up_wf up_b w1u w1s w2 g1w g1b g2w g2b head_w head_b up ys '
+          'c1 part1 a1 c2 part2 scr out').split()
 
 
 def fused_up_stage_plain(x, skip, stage_params, head_params=None):
@@ -58,52 +57,52 @@ def fused_up_stage_rounded(x, skip, stage_params, head_params=None,
 
 
 def _check(x, skip, p, head_params):
-    fused_decoder._check(x, skip, p, 'fused_up_stage kernel')
+    """The stage's widths (``fused_decoder.stage_plan``, returned) and, with
+    a head, its weight's shape."""
+    plan = fused_decoder._check_igemm(x, skip, p, 'fused_up_stage kernel',
+                                      bwd=False)
     if head_params is not None and tuple(head_params['weight'].shape) != (
             1, p['conv2_weight'].shape[0], 3, 3):
         raise ValueError('head weight must be (1, Cout, 3, 3)')
+    return plan
 
 
-def _kernel(x, skip, p, head_params):
+def _kernel(x, skip, p, head_params, skip_half=True):
+    """One launch of ``up_stage_fwd``. ``skip_half=False`` leaves conv1's
+    skip half out (a planted fault inside the kernel's sequence)."""
     global launches
-    _check(x, skip, p, head_params)
+    skip, p = fused_decoder.pad_stage(skip, p, _check(x, skip, p,
+                                                      head_params))
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
     dev, hh, ww = x.device, 2 * h, 2 * w
-    kw = fused_decoder._kernel_weights(p, x.dtype)
-    tiles = -(-hh // 16) * -(-ww // 16)
+    tiles = -(-hh // fused_decoder._TILE_ROWS) * -(
+        -ww // fused_decoder._TILE_COLS)
 
     def e(shape, dtype=x.dtype):
         return torch.empty(shape, dtype=dtype, device=dev)
 
-    up, ys = e((pl, cu, hh, ww)), e((b, cout, hh, ww), torch.float32)
-    c1, c2 = e((pl, cout, hh, ww)), e((pl, cout, hh, ww))
-    part1 = e((pl, cout // 16, tiles, 2), torch.float32)
-    part2 = torch.empty_like(part1)
-    null = ctypes.c_void_p(None)
-    hw_ = hb = null
+    plane = (pl, cout, hh, ww)
+    t = dict(fused_decoder._igemm_stage_weights(p, x.dtype), x=x, skip=skip,
+             up=e((pl, cu, hh, ww)), ys=e((b, cout, hh, ww), torch.float32),
+             c1=e(plane), a1=e(plane), c2=e(plane),
+             part1=e((pl, cout // 16, tiles, 2), torch.float32),
+             part2=e((pl, cout // 16, tiles, 2), torch.float32))
+    t['scr'], = fused_decoder._tma_scratch(pl, (cin, cu, cs, cout), hh, ww,
+                                           dev, 1)
     if head_params is None:
-        out = e((pl, cout, hh, ww))
+        t['out'] = e(plane)
     else:
-        out = e((pl, 1, hh, ww))
-        head_w = head_params['weight'].to(x.dtype).float().permute(1, 2, 3, 0)
-        head_w = head_w.contiguous()
-        head_b = head_params['bias'].float().contiguous()
-        hw_, hb = _build.ptr(head_w), _build.ptr(head_b)
-    fn = _build.load('fused_up').up_stage_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    k = {n: _build.ptr(t) for n, t in kw.items()}
-    err = fn(_build.ptr(x), pl, cin, h, w, _build.ptr(skip), b, cs,
-             k['up_w'], k['up_b'], cu, k['w1u'], k['w1s'], k['w2'], cout,
-             k['g1w'], k['g1b'], k['g2w'], k['g2b'], hw_, hb,
-             _build.ptr(up), _build.ptr(ys), _build.ptr(c1), _build.ptr(part1),
-             _build.ptr(c2), _build.ptr(part2), _build.ptr(out),
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, 'up_stage_fwd')
+        t['out'] = e((pl, 1, hh, ww))
+        t['head_w'], t['head_b'] = fused_decoder._head_weight(head_params,
+                                                              x.dtype)
+    fused_decoder._call('up_stage_fwd', _SLOTS, t,
+                        (pl, cin, h, w, b, cs, cu, cout, int(skip_half)), x,
+                        lib='fused_up')
     launches += 1
-    return out
+    return t['out']
 
 
 def fused_up_stage(x, skip, stage_params, head_params=None):
@@ -112,8 +111,8 @@ def fused_up_stage(x, skip, stage_params, head_params=None):
     x: (P, Cin, h, w) with P = B * N; skip: (B, Cs, 2h, 2w), already at the
     output size. Returns (P, Cout, 2h, 2w) in x's dtype, or with
     ``head_params`` the (P, 1, 2h, 2w) head logits. On the card the
-    kernel takes bf16 planes, Cout in (16, 32, 64), Cin % 32 == 0 and
-    Cu % 16 == 0; like the TPU kernel it has no gradient."""
+    kernel takes bf16 planes, Cout in (16, 32, 64), Cin % 32 == 0, Cu % 16
+    == 0 and Cs % 8 == 0; like the TPU kernel it has no gradient."""
     if not x.is_cuda:
         return fused_up_stage_plain(x, skip, stage_params, head_params)
     tensors = [x, skip, *stage_params.values(),

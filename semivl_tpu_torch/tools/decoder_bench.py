@@ -1,11 +1,12 @@
-"""Times the decoder backward of this checkout against another checkout's,
-in turns, on the card: the whole-plane route (kernels #6/#7) and the
-banded route (passes #8-#10).
+"""Times the decoder kernels of this checkout against another checkout's,
+in turns, on the card: the backward's whole-plane route (kernels #6/#7)
+and banded route (passes #8-#10), and the fused Up stage (#11).
 
 ``other`` is the root of another checkout (e.g. a parent commit unpacked
-with ``git archive``): its ``semivl_tpu_torch.ops.fused_decoder`` and
-``fused_decoder_banded`` are imported beside this one's, with their own
-sources and build directory, so each build runs through its own wrappers.
+with ``git archive``): its ``semivl_tpu_torch.ops.fused_decoder``,
+``fused_decoder_banded`` and ``fused_up`` are imported beside this one's,
+with their own sources and build directory, so each build runs through
+its own wrappers.
 Both builds run in turns (other, this, this, other), timed by CUDA events
 and by the profiler's kernel durations (``chip_smoke.cuda_ms`` and
 ``device_ms``):
@@ -25,12 +26,20 @@ and by the profiler's kernel durations (``chip_smoke.cuda_ms`` and
   one build's kernels only: once the other build's banded passes have run
   in a process, the profiler on the card's machine drops records of
   PyTorch's copy kernels from every later window, so no device-only time
-  would be kept.
+  would be kept;
+- at the stages of ``fused_up_bench.STAGES`` (the flagship's up1 and up2
+  at 14 x 21 planes), each without and with the head: ``fused_up_stage``
+  under no_grad, with cuDNN's chain for the same stage beside
+  (``fused_up_bench.cudnn_stage``, then the head's conv), each turn in a
+  process of its own as the banded turns; the first turn of this build
+  also takes the profiler's per-kernel device times of one call of each
+  part (``kernels``, ms per call by kernel name).
 
 ``speedup`` is the other build's device time over this one's (per part
 too, ``speedups``), ``vs_cudnn`` this build's over cuDNN's, and ``rel_l2``
 the worst gradient leaf of this build's whole backward against the
-other's. A time the profiler did not keep whole is null. Run it from the
+other's (for the Up stage, per part, the output of one image's planes).
+A time the profiler did not keep whole is null. Run it from the
 repository's root:
 
     python -m semivl_tpu_torch.tools.decoder_bench OTHER_ROOT
@@ -47,7 +56,7 @@ import tempfile
 import torch
 
 from semivl_tpu_torch.device import resolve_device
-from semivl_tpu_torch.ops import fused_decoder, fused_decoder_banded
+from semivl_tpu_torch.ops import fused_decoder, fused_decoder_banded, fused_up
 
 # (name, images, planes per image, base grid h, channels, up channels,
 # skip channels)
@@ -58,10 +67,10 @@ BANDED_CASES = (('Cityscapes step, banded, P=57', 3, 19, 51, 128, (64, 32),
 
 
 def load_other(root):
-    """``semivl_tpu_torch.ops.fused_decoder`` and ``fused_decoder_banded``
-    of the checkout at ``root``, imported with their own package (its own
-    ``_build``, sources and build directory); this checkout's modules are
-    left as they were."""
+    """``semivl_tpu_torch.ops.fused_decoder``, ``fused_decoder_banded`` and
+    ``fused_up`` of the checkout at ``root``, imported with their own
+    package (its own ``_build``, sources and build directory); this
+    checkout's modules are left as they were."""
     ours = {k: v for k, v in sys.modules.items()
             if k == 'semivl_tpu_torch' or k.startswith('semivl_tpu_torch.')}
     for k in ours:
@@ -69,9 +78,9 @@ def load_other(root):
     root = os.path.abspath(root)
     sys.path.insert(0, root)
     try:
-        return (importlib.import_module('semivl_tpu_torch.ops.fused_decoder'),
-                importlib.import_module(
-                    'semivl_tpu_torch.ops.fused_decoder_banded'))
+        return tuple(importlib.import_module(f'semivl_tpu_torch.ops.{m}')
+                     for m in ('fused_decoder', 'fused_decoder_banded',
+                               'fused_up'))
     finally:
         sys.path.remove(root)
         for k in [k for k in sys.modules if k == 'semivl_tpu_torch'
@@ -229,7 +238,7 @@ def banded_turn(case, root=None, library=False):
                                   resolve_device(None), b, n, h, c, ups,
                                   skips)
     fd, fdb = ((fused_decoder, fused_decoder_banded) if root is None
-               else load_other(root))
+               else load_other(root)[:2])
     fns, grads = banded_calls(fd, fdb, acts, params, g)
     out = {part: {m: t(fn) for m, t in timers.items()}
            for part, fn in fns.items()}
@@ -246,33 +255,136 @@ def banded_turn(case, root=None, library=False):
     return out, [t.float().cpu() for t in grads]
 
 
-def _banded_row(case, other_root):
-    """A banded case's row: its turns (other, this, this, other) each in a
-    process of its own (``banded_turn``), the library's times from the
-    first turn of this build."""
+def up_parts():
+    """(part, stage index, with the head) of the Up stage's turns."""
+    from semivl_tpu_torch.tools import fused_up_bench
+    return [(name + (' + head' if hd else ''), i, hd)
+            for i, (name, *_) in enumerate(fused_up_bench.STAGES)
+            for hd in (False, True)]
+
+
+def _kernel_ms(fn, calls=5):
+    """{kernel name: device ms per call of ``fn``} from one profiled
+    window (the breakdown of a part; not held to whole windows)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls / 1e3
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count}
+
+
+def up_turn(root=None, library=False):
+    """One turn of the Up stage in this process: the event and device times
+    of ``fused_up_stage`` at each of ``up_parts()`` with this checkout's
+    build (``root`` None) or the checkout's at ``root``; with ``library``
+    cuDNN's times and the per-kernel breakdown; and each part's output on
+    the first image's planes."""
     import chip_smoke
-    parts = ('A', 'B', 'C', 'whole')
+    import torch.nn.functional as F
+    from semivl_tpu_torch.tools import fused_up_bench as bench
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timers = dict(event_ms=lambda f: chip_smoke.cuda_ms(f, 5),
+                  device_ms=lambda f: chip_smoke.device_ms(f, 5))
+    fu = fused_up if root is None else load_other(root)[2]
+    out, outs = {}, {}
+    for part, i, with_head in up_parts():
+        _, h, cin, cs, cout = bench.STAGES[i]
+        x, skip, p = bench.make_stage(h, cin, cs, cout,
+                                      device=resolve_device(None), seed=i)
+        gen = torch.Generator().manual_seed(10 + i)
+        hd = dict(weight=0.2 * torch.randn(1, cout, 3, 3, generator=gen),
+                  bias=torch.randn(1, generator=gen)) if with_head else None
+        hd = hd and {k: v.to(x.device) for k, v in hd.items()}
+
+        def fn():
+            return fu.fused_up_stage(x, skip, p, hd)
+
+        def lib():
+            y = bench.cudnn_stage(x, skip, p)
+            return y if hd is None else F.conv2d(
+                y, hd['weight'].to(y.dtype), hd['bias'].to(y.dtype),
+                padding=1)
+
+        with torch.no_grad():
+            out[part] = {m: t(fn) for m, t in timers.items()}
+            outs[part] = fn()[:x.shape[0] // skip.shape[0]].float().cpu()
+            if library:
+                out[f'library {part}'] = {m: t(lib) for m, t in
+                                          timers.items()}
+                out[f'kernels {part}'] = _kernel_ms(fn)
+        del x, skip, p
+        torch.cuda.empty_cache()
+    return out, outs
+
+
+def _turns(flag, case, other_root):
+    """Run ``decoder_bench`` with ``flag`` (one turn of ``case``) four times,
+    other, this, this, other, each in a process of its own, the second
+    with ``--library``: {'this': [times], 'other': [times]} and each
+    build's last results."""
     got = {'this': [], 'other': []}
-    grads = {}
+    res = {}
     with tempfile.TemporaryDirectory() as tmp:
         for i, k in enumerate(('other', 'this', 'this', 'other')):
             path = os.path.join(tmp, f'{i}.pt')
             cmd = [sys.executable, '-m', 'semivl_tpu_torch.tools.decoder_bench',
-                   '--banded-turn', json.dumps(case), '--save', path]
+                   flag, json.dumps(case), '--save', path]
             if k == 'other':
                 cmd += ['--root', other_root]
             if i == 1:
                 cmd += ['--library']
             subprocess.run(cmd, check=True)
-            times, grads[k] = torch.load(path)
+            times, res[k] = torch.load(path)
             got[k].append(times)
-    row = dict(case=case[0], planes=case[1] * case[2], base=case[3])
+    return got, res
+
+
+def _mean_turns(row, got, parts):
     for k, turns in got.items():
         row[k] = {part: {m: _mean([t[part][m] for t in turns])
                          for m in ('event_ms', 'device_ms')}
                   for part in parts}
     row.update({k: v for k, v in got['this'][0].items() if k not in parts})
+
+
+def _banded_row(case, other_root):
+    """A banded case's row: its turns (other, this, this, other) each in a
+    process of its own (``banded_turn``), the library's times from the
+    first turn of this build."""
+    parts = ('A', 'B', 'C', 'whole')
+    got, grads = _turns('--banded-turn', case, other_root)
+    row = dict(case=case[0], planes=case[1] * case[2], base=case[3])
+    _mean_turns(row, got, parts)
     _ratios(row, parts, {k: (None, g) for k, g in grads.items()})
+    return row
+
+
+def _up_row(other_root):
+    """The Up stage's row: its turns (other, this, this, other) each in a
+    process of its own (``up_turn``); per part the speed-up (device), this
+    build against cuDNN's chain, and the rel-L2 of this build's output
+    against the other's."""
+    import chip_smoke
+    parts = [part for part, _, _ in up_parts()]
+    got, outs = _turns('--up-turn', 'up', other_root)
+    row = dict(case='fused Up stage (#11), P=294')
+    _mean_turns(row, got, parts)
+    row['speedups'] = {part: _ratio(row['other'][part]['device_ms'],
+                                    row['this'][part]['device_ms'])
+                       for part in parts}
+    row['vs_cudnn'] = {part: _ratio(row['this'][part]['device_ms'],
+                                    row[f'library {part}']['device_ms'])
+                       for part in parts}
+    row['rel_l2'] = {part: chip_smoke._rel_l2(outs['this'][part],
+                                              outs['other'][part])
+                     for part in parts}
     return row
 
 
@@ -307,6 +419,7 @@ def run(other_root):
         torch.cuda.empty_cache()
     for case in BANDED_CASES:
         rows.append(_banded_row(case, other_root))
+    rows.append(_up_row(other_root))
     return rows
 
 
@@ -315,6 +428,7 @@ def main(argv=None):
     ap.add_argument('other', nargs='?',
                     help='root of another checkout to time against')
     ap.add_argument('--banded-turn', help=argparse.SUPPRESS)
+    ap.add_argument('--up-turn', help=argparse.SUPPRESS)
     ap.add_argument('--root', help=argparse.SUPPRESS)
     ap.add_argument('--save', help=argparse.SUPPRESS)
     ap.add_argument('--library', action='store_true', help=argparse.SUPPRESS)
@@ -324,6 +438,9 @@ def main(argv=None):
         case = tuple(tuple(v) if isinstance(v, list) else v for v in case)
         torch.save(banded_turn(case, args.root, args.library), args.save)
         return None
+    if args.up_turn:   # one turn of the Up stage (_up_row)
+        torch.save(up_turn(args.root, args.library), args.save)
+        return None
     if args.other is None:
         ap.error('the root of another checkout is required')
     rows = run(args.other)
@@ -332,6 +449,18 @@ def main(argv=None):
         return 'n/a' if x is None else format(x, spec)
 
     for r in rows:
+        if 'kernels ' + next(iter(r['speedups'])) in r:   # the Up stage
+            for part, s in r['speedups'].items():
+                print(f'fused up {part}: this event '
+                      f'{num(r["this"][part]["event_ms"])} device '
+                      f'{num(r["this"][part]["device_ms"])}, other event '
+                      f'{num(r["other"][part]["event_ms"])} device '
+                      f'{num(r["other"][part]["device_ms"])}, speed-up '
+                      f'{num(s, ".2f")}x; cudnn device '
+                      f'{num(r["library " + part]["device_ms"])}, vs cudnn '
+                      f'{num(r["vs_cudnn"][part], ".2f")}x; rel-L2 vs other '
+                      f'{r["rel_l2"][part]:.2e}', flush=True)
+            continue
         parts = '; '.join(
             f'{part}: this event {num(r["this"][part]["event_ms"])} device '
             f'{num(r["this"][part]["device_ms"])}, other event '

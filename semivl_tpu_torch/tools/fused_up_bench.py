@@ -34,13 +34,14 @@ STAGES = (('up1', 32, 128, 32, 64), ('up2', 64, 64, 16, 32))
 
 
 def make_stage(h, cin, cs, cout, batch=14, classes=21, device='cuda',
-               seed=0, dtype=torch.bfloat16):
+               seed=0, dtype=torch.bfloat16, cu=None):
     """Seeded inputs and weights of one stage: x (batch * classes, Cin, h,
     h), skip (batch, Cs, 2h, 2h) in ``dtype``; the stage dict (float32)
     with torch's default conv bounds, biases N(0, 0.1^2) and GroupNorm
-    scales 1 + N(0, 0.1^2)."""
+    scales 1 + N(0, 0.1^2). The up channels Cu are Cin - Cs (the VLG
+    stages) unless given."""
     gen = torch.Generator().manual_seed(seed)
-    cu = cin - cs
+    cu = cin - cs if cu is None else cu
 
     def u(*shape):
         bound = torch.Size(shape[1:]).numel() ** -0.5
@@ -50,7 +51,7 @@ def make_stage(h, cin, cs, cout, batch=14, classes=21, device='cuda',
         return mean + 0.1 * torch.randn(c, generator=gen)
 
     p = dict(up_weight=u(cin, cu, 2, 2), up_bias=n(cu, 0.0),
-             conv1_weight=u(cout, cin, 3, 3), gn1_weight=n(cout, 1.0),
+             conv1_weight=u(cout, cu + cs, 3, 3), gn1_weight=n(cout, 1.0),
              gn1_bias=n(cout, 0.0), conv2_weight=u(cout, cout, 3, 3),
              gn2_weight=n(cout, 1.0), gn2_bias=n(cout, 0.0))
     x = torch.randn(batch * classes, cin, h, h, generator=gen)

@@ -134,6 +134,19 @@ def test_attention_bench_needs_a_card():
         attention_bench.run('semivl_tpu_torch/csrc')
 
 
+@pytest.mark.parametrize('tool', ['decoder_bench', 'conv_probe'])
+def test_decoder_tools_need_a_card(tool):
+    """The decoder bench (both backward routes and the fused Up stage
+    against another checkout) and the conv probe time CUDA kernels only:
+    without a card each raises before it builds anything."""
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: the default device exists')
+    import importlib
+    mod = importlib.import_module(f'semivl_tpu_torch.tools.{tool}')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        mod.run(*(['.scratch/parent'] if tool == 'decoder_bench' else []))
+
+
 def test_flagship_config_and_text_asset():
     train = flagship_train_cfg()
     assert (train['clip_encoder'], train['mcc_text']) == ('mcvit16',

@@ -75,8 +75,8 @@ def test_attention_kernel_refuses_other_head_dims(card):
         flash_attention.packed_attention(f, 1)
 
 
-def _stage_params(gen, cin, cs, cout):
-    cu = cin - cs
+def _stage_params(gen, cin, cs, cout, cu=None):
+    cu = cin - cs if cu is None else cu
 
     def u(*shape):
         fan_in = torch.Size(shape[1:]).numel()
@@ -87,7 +87,7 @@ def _stage_params(gen, cin, cs, cout):
         return mean + 0.2 * torch.randn(c, generator=gen, device='cuda')
 
     return dict(up_weight=u(cin, cu, 2, 2), up_bias=n(cu, 0.0),
-                conv1_weight=u(cout, cin, 3, 3), gn1_weight=n(cout, 1.0),
+                conv1_weight=u(cout, cu + cs, 3, 3), gn1_weight=n(cout, 1.0),
                 gn1_bias=n(cout, 0.0), conv2_weight=u(cout, cout, 3, 3),
                 gn2_weight=n(cout, 1.0), gn2_bias=n(cout, 0.0))
 
@@ -321,10 +321,12 @@ def test_banded_backward_matches_rounded_reference(card):
     """The composed banded backward (``bwd='banded'``) against autograd
     through ``fused_vlg_decoder_rounded`` with its bf16 gradient roundings
     (the points where the banded passes store gradients in bf16): every
-    leaf within 2e-2 relative L2, as the whole-plane kernels are held; two
-    planted faults must fail that limit: pass B's conv2 weight gradient
-    reading its first 16-row band twice, and pass A's recompute without
-    conv1's skip half (inside its tensor-core product)."""
+    leaf within 2e-2 relative L2, as the whole-plane kernels are held;
+    three planted faults must fail that limit: pass B's conv2 weight
+    gradient reading its first 16-row band twice, pass A's recompute
+    without conv1's skip half (inside its tensor-core product) and pass
+    B's conv2 wgrad reduction without the last plane (inside the kernel,
+    ``D_WG_PLANES``)."""
     from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     params, acts, g = _cityscapes_decoder(card, 1, 19, 51, 51)
 
@@ -356,6 +358,59 @@ def test_banded_backward_matches_rounded_reference(card):
             fdb.pass_a, skip_half=False)):
         bad = decoder_grads(banded, acts, params, g, torch.bfloat16)
     assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+
+    def without_last_plane(raw1, *a):
+        return real(raw1, *a, wgrad_planes=raw1.shape[0] - 1)
+
+    with mock.patch.object(fdb, 'pass_b', without_last_plane):
+        bad = decoder_grads(banded, acts, params, g, torch.bfloat16)
+    assert max(rel_l2(a, r.float()) for a, r in zip(bad, ref)) > 2e-2
+
+
+def test_decoder_kernels_take_padded_widths(card):
+    """Widths the igemm products reach by zero padding (stage 1: Cin 128,
+    Cu 80 -> 96, Cs 24 -> 32, Cout 32; stage 2: Cin 32, Cu 32, Cs 8 -> 16,
+    Cout 16) through the forward (against the plain chain, 5e-2 of the
+    logit scale) and both backward routes (every gradient leaf, at its
+    true shape, within 2e-2 relative L2 of autograd through
+    ``fused_vlg_decoder_rounded``); a Cs above 96 is refused by name."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    b, n, h = 2, 3, 12
+    p1 = _stage_params(card, 128, 24, 32, cu=80)
+    p2 = _stage_params(card, 32, 8, 16, cu=32)
+    head = dict(weight=0.2 * torch.randn(1, 16, 3, 3, generator=card,
+                                         device='cuda'),
+                bias=torch.randn(1, generator=card, device='cuda'))
+    acts = [torch.randn(b * n, 128, h, h, generator=card, device='cuda'),
+            torch.randn(b, 24, 2 * h, 2 * h, generator=card, device='cuda'),
+            torch.randn(b, 8, 4 * h, 4 * h, generator=card, device='cuda')]
+    acts = [t.bfloat16() for t in acts]
+    g = torch.randn(b * n, 1, 4 * h, 4 * h, generator=card,
+                    device='cuda').bfloat16()
+    with torch.no_grad():
+        got = fused_decoder.fused_vlg_decoder(*acts, p1, p2, head)
+        want = fused_decoder.fused_vlg_decoder_plain(*acts, p1, p2, head)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() < 5e-2 * max(
+        scale, 1.0)
+    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts,
+                        [p1, p2, head], g, torch.bfloat16)
+    counts = (fused_decoder.bwd_tail_launches, fdb.pass_b_launches)
+    for route in ('whole', 'banded'):
+        grads = decoder_grads(functools.partial(
+            fused_decoder.fused_vlg_decoder, bwd=route), acts,
+            [p1, p2, head], g, torch.bfloat16)
+        torch.cuda.synchronize()
+        for a, r in zip(grads, ref):
+            assert a.shape == r.shape, route
+            assert rel_l2(a, r.float()) < 2e-2, route
+    assert (fused_decoder.bwd_tail_launches, fdb.pass_b_launches) == tuple(
+        c + 2 for c in counts)
+    wide = _stage_params(card, 128, 32, 32, cu=112)
+    with pytest.raises(ValueError, match='Cu and Cs up to 96'):
+        fused_decoder._stage_bwd_tail(acts[0], torch.zeros(
+            b, 32, 2 * h, 2 * h, device='cuda', dtype=torch.bfloat16), wide,
+            g=torch.zeros(b * n, 32, 2 * h, 2 * h, device='cuda'))
 
 
 def test_banded_passes_refuse_what_they_cannot_read(card):
@@ -598,16 +653,19 @@ def test_dispatcher_routes_on_the_card(card):
 
 @pytest.mark.parametrize('b,n,h,w,cin,cs,cout,with_head', [
     (2, 3, 16, 16, 128, 32, 64, False), (2, 3, 16, 16, 64, 16, 32, True),
-    (1, 2, 13, 9, 32, 16, 16, False), (1, 2, 13, 9, 32, 16, 16, True)])
+    (1, 2, 13, 9, 32, 16, 16, False), (1, 2, 13, 9, 32, 16, 16, True),
+    (2, 3, 12, 10, 128, 24, 32, True), (1, 3, 8, 8, 160, 16, 16, False)])
 def test_fused_up_kernel_matches_plain(card, b, n, h, w, cin, cs, cout,
                                        with_head):
-    """The Up stage (flagship widths, and the tiny decoder's with ragged
-    tiles) against ``fused_up_stage_rounded`` (its own bf16 points) within
-    1e-2 relative L2 and against the plain bf16 chain within 5e-2 of the
-    output scale; bit-identical reruns; a planted fault (conv1 without its
-    top-left tap) fails the first limit."""
+    """The Up stage (flagship widths, the tiny decoder's with ragged tiles,
+    and widths it zero-pads: Cs 24 -> 32 with Cu 80 -> 96, Cs 8 -> 16 with
+    Cu 144 in two column groups) against ``fused_up_stage_rounded`` (its
+    own bf16 points) within 1e-2 relative L2 and against the plain bf16
+    chain within 5e-2 of the output scale; bit-identical reruns; two
+    planted faults (conv1 without its top-left tap; the kernel's sequence
+    without conv1's skip half) fail the first limit."""
     from semivl_tpu_torch.ops import fused_up
-    p = _stage_params(card, cin, cs, cout)
+    p = _stage_params(card, cin, cs, cout, {(128, 24): 80}.get((cin, cs)))
     x = torch.randn(b * n, cin, h, w, generator=card,
                     device='cuda').bfloat16()
     skip = torch.randn(b, cs, 2 * h, 2 * w, generator=card,
@@ -626,6 +684,7 @@ def test_fused_up_kernel_matches_plain(card, b, n, h, w, cin, cs, cout,
     w0 = p['conv1_weight'].clone()
     w0[:, :, 0, 0] = 0
     bad = fused_up.fused_up_stage(x, skip, dict(p, conv1_weight=w0), hd)
+    bad_seq = fused_up._kernel(x, skip, p, hd, skip_half=False)
     torch.cuda.synchronize()
     assert got.shape == plain.shape == (b * n, 1 if with_head else cout,
                                         2 * h, 2 * w)
@@ -635,6 +694,7 @@ def test_fused_up_kernel_matches_plain(card, b, n, h, w, cin, cs, cout,
     assert (got.float() - plain.float()).abs().max().item() < 5e-2 * max(
         scale, 1.0)
     assert rel_l2(bad, ref.float()) > 1e-2
+    assert rel_l2(bad_seq, ref.float()) > 1e-2
 
 
 def test_fused_up_kernel_refuses(card):
