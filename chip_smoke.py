@@ -11,8 +11,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    read the SASS (``cuobjdump``): wgmma and TMA loads in every instance of
    the attention forwards, of the attention backward's dK/dV and dQ
    kernels and of the decoder's igemm conv and wgrad kernels (the
-   whole-plane backward, the banded passes A, B and C, the fused Up
-   stage), no mma.sync;
+   forward with the fused Up stage, the whole-plane backward, the banded
+   passes A, B and C), no mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
    and semantic transformer, and a ``valid_len`` case) and the Cityscapes
@@ -23,15 +23,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    must fail;
 4. fused VLG decoder kernels, forward and backward (tail and input), against
    their plain versions and their rounded references at the flagship
-   decoder shapes (the forward also at the Cityscapes 51^2 and edge-crop
-   grids; the whole-plane backward against the reference with its bf16
-   gradient roundings), with planted faults that the backward's limit must
-   catch (one inside the igemm wgrad reduction), the tail, input and whole
-   backward timed by events and device-only beside cuDNN's backward; the
+   decoder shapes (the forward at P = 42 and at the VOC step's P = 126, at
+   the Cityscapes 51^2 and edge-crop grids, timed by events and
+   device-only beside cuDNN's chain, with two planted faults that must
+   fail: conv1's skip half left out inside the kernel's sequence, stage 2
+   reading its input without GN+ReLU; the whole-plane backward against the
+   reference with its bf16 gradient roundings, float64 sums at the
+   forward's stored stage-1 conv2, and, forward and backward composed,
+   against that reference recomputing stage 1), with planted faults that
+   the backward's limit must catch (one inside the igemm wgrad reduction)
+   and forward faults of stage 1 that the composed limit must catch,
+   the tail, input and whole backward timed by events and device-only
+   beside cuDNN's backward; the
    banded backward (passes A, B and C) at the Cityscapes stage shapes: each
    pass against its plain pass on its own inputs, the composed backward
-   against the rounded reference (its float64 distance logged first) and
-   against the whole-plane kernels, planted faults that must fail (one
+   against the rounded references the whole-plane backward is held to
+   (the float32-sum reference's distance logged as data) and against the
+   whole-plane kernels, planted faults that must fail (one
    inside pass A's tensor-core product; pass B's wgrad reduction without
    its last plane, inside the kernel, must fail the per-pass limit too),
    and the times of each pass (with
@@ -85,7 +93,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
    steps, every kernel call of one step held to its reference, launch
    counts derived from the configs; phases 5-8 assert that the flagship
    and Cityscapes paths launch no head-split kernel;
-12. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
+12. decoder widths beyond the shipped models' (run right after phase 10):
+   Cout 48 and 96, Cin 24 (padded), 48 and 224, Cu and Cs 112 (column
+   groups), forward and both backward routes on the kernels (launches
+   counted), against the rounded references with the limits of phase 4;
+13. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
    "device": ...}``.
 
 Phase 9 runs right after phase 3 and phase 10 right after phase 4: once
@@ -118,7 +130,11 @@ PEAK_BYTES = 3.35e12        # H100 SXM HBM3
 # absolute limits. The rounded reference (``*_rounded``: float32 sums, bf16
 # rounding where the kernel stores bf16) differs from the kernel only in the
 # order of float32 sums, which flips rare bf16 roundings; it is held to
-# tight relative-L2 limits, and planted faults must fail them.
+# tight relative-L2 limits, and planted faults must fail them. The decoder
+# backward's reference sums in float64 at the point the kernels' forward
+# reached (``raw2_1``): GroupNorm amplifies each flipped rounding of the
+# stored conv2, and the reference's own float32 sums lie as far from its
+# float64 ones as the limit.
 ATTN_TOL = 2e-2             # vs plain, absolute: bf16 logits in the plain
 ATTN_REL_TOL = 2e-3         # vs rounded, relative L2
 DEC_TOL = 5e-2              # vs plain, relative to the logit scale
@@ -126,19 +142,26 @@ DEC_REL_TOL = 1e-2          # vs rounded, relative L2 (GroupNorm amplifies a
                             # flipped rounding of a raw conv output)
 ATTN_BWD_TOL = 2e-2         # vs plain (same rounding points), of the scale
 ATTN_BWD_REL_TOL = 5e-3     # relative L2
-DEC_BWD_TOL = 2e-2          # per gradient leaf vs rounded, relative L2
-                            # (H100: worst leaf 6.3e-3 at P = 126, 1.1e-2
-                            # at P = 3; a 3% fault must fail)
+DEC_BWD_TOL = 2e-2          # per gradient leaf vs rounded (float64 sums at
+                            # the forward's stored stage-1 conv2), relative
+                            # L2 (H100: worst leaf 4.1e-3 at P = 126; a 3%
+                            # fault must fail, 3.0e-2)
+DEC_BWD_COMPOSED_TOL = 6e-2  # per leaf, forward and backward composed vs
+                            # rounded with float64 sums recomputing stage 1
+                            # (independent of what the forward stored):
+                            # GroupNorm amplifies every flipped rounding of
+                            # stage 1's raw conv2 (PERF.md: the readings
+                            # behind it, tools/decoder_precision.py)
 STEP_DEC_BWD_TOL = 5e-2     # per leaf, the decoder backward on a step's own
-                            # inputs: the loss gradient sums to ~0 over each
-                            # pixel's class planes, so the parameter
-                            # gradients cancel (H100: kernel 2.0e-2, float64
-                            # against float32 sums of the reference 8.3e-2)
+                            # inputs, as DEC_BWD_TOL's reference: the loss
+                            # gradient sums to ~0 over each pixel's class
+                            # planes, so the parameter gradients cancel
+                            # (H100: 6.9e-3 VOC, 1.1e-2 to 2.4e-2
+                            # Cityscapes)
 TINY_DEC_BWD_TOL = 1.5e-2   # per leaf, the tiny step's decoder backward on
-                            # each call's own inputs against the rounded
-                            # reference with float64 sums (H100: worst leaf
-                            # 6.5e-4 at P = 42, 7.9e-3 at P = 63; planted
-                            # faults 3.0e-2 and 0.58 must fail)
+                            # each call's own inputs, as DEC_BWD_TOL's
+                            # reference (H100: worst leaf 3.1e-3; planted
+                            # faults 3.0e-2 and 0.58-0.62 must fail)
 STEP_LOSS_TOL = 1e-3        # kernels vs rounded step: loss terms, relative
 STEP_GRAD_TOL = 0.15        # median over the trainable leaves of the
                             # gradient's relative L2 (bf16 noise: 6.6e-2)
@@ -152,8 +175,8 @@ TOTAL_ITERS = 1000          # schedule length of the training slice
 # pass, since the last encoder block's attention output feeds only the
 # cls-token embedding, which the decoder does not read, so autograd never
 # reaches its backward. Decoder: 2 stage launches per pass; its backward 2
-# tail + 2 input per student pass. Every attention has heads of 64 in an
-# even count: no head-split launch.
+# tail + 2 input per student pass.
+# Every attention has heads of 64 in an even count: no head-split launch.
 EXPECTED_PER_STEP = dict(attention_fwd=54, attention_bwd=26, heads_fwd=0,
                          heads_bwd=0, decoder_fwd=6, decoder_bwd_tail=4,
                          decoder_bwd_input=4, banded_pass_a=0,
@@ -308,20 +331,22 @@ def _sass_counts(build, lib, keep):
 
 
 # instances of the decoder's tensor-core products in each library that
-# includes csrc/decoder_stage_bwd.cuh (the whole-plane backward #6/#7, the
-# banded passes #8-#10, the fused Up stage #11; its conv_n and wgrad_n):
-# conv_kernel<N, 9> at 5 widths and <N, 1> at 6, wgrad_kernel<N, 9> at 3
-# and <N, 1> at 4
+# includes csrc/decoder_stage_bwd.cuh (the decoder forward #5 with the
+# fused Up stage #11, the whole-plane backward #6/#7, the banded passes
+# #8-#10; its conv_n and wgrad_n): conv_kernel<N, 9> at 5 widths and
+# <N, 1> at 6, wgrad_kernel<N, 9> at 3 and <N, 1> at 4
 DECODER_IGEMM_INSTANCES = (11, 7)
-DECODER_IGEMM_LIBS = ('fused_decoder_bwd', 'fused_decoder_banded', 'fused_up')
+DECODER_IGEMM_LIBS = ('fused_decoder', 'fused_decoder_bwd',
+                      'fused_decoder_banded')
 
 
 def check_sass(build):
     """Every instance of the attention forward core (the packed one and the
     head-split one per head width), of the backward's dK/dV and dQ kernels
     (per head width) and of the igemm conv and wgrad kernels of the
-    decoder's libraries (``DECODER_IGEMM_LIBS``: the whole-plane backward,
-    the banded passes, the fused Up stage) compiled to Hopper's own
+    decoder's libraries (``DECODER_IGEMM_LIBS``: the forward with the
+    fused Up stage, the whole-plane backward, the banded passes) compiled
+    to Hopper's own
     instructions: wgmma (HGMMA) and TMA loads (UTMALDG), and no mma.sync
     (HMMA)."""
     from semivl_tpu_torch.ops import flash_attention as fa
@@ -515,9 +540,26 @@ def _decoder_flops(p, c, h, w, cs, cu, c1, c2, b):
     return s1 + s2
 
 
+def _stage_launches(fd, x, s1, s2, p1, p2, head, skip_half=True,
+                    gn_in2=True):
+    """The decoder forward as its two stage launches, with two plantable
+    faults: ``skip_half=False`` leaves conv1's skip half out inside the
+    kernel's sequence, ``gn_in2=False`` has stage 2 read stage 1's raw
+    conv2 without its GN+ReLU."""
+    c2, part2 = fd._stage(x, s1, p1, skip_half=skip_half)
+    gn_in = (part2, p1['gn2_weight'].float().contiguous(),
+             p1['gn2_bias'].float().contiguous()) if gn_in2 else None
+    return fd._stage(c2, s2, p2, gn_in=gn_in, head=head, skip_half=skip_half)
+
+
 def check_decoder(gen, b=2, n=21, h=32, w=32, skips=(32, 16)):
-    """The forward kernel at P = b n planes on an h x w base grid:
-    flagship (2 x 21 at 32^2, skips 32/16) by default."""
+    """The forward kernel (#5, two launches of ``decoder_stage_fwd``) at P
+    = b n planes on an h x w base grid: flagship (2 x 21 at 32^2, skips
+    32/16) by default. Against the plain chain (DEC_TOL of the logit
+    scale) and the rounded reference (DEC_REL_TOL), with two planted faults
+    that must fail the second (conv1's skip half left out inside the
+    kernel's sequence; stage 2 reading its input without GN+ReLU); times by
+    events and device-only beside cuDNN's chain."""
     from semivl_tpu_torch.ops import fused_decoder as fd
     c = 128
     p = b * n
@@ -528,20 +570,37 @@ def check_decoder(gen, b=2, n=21, h=32, w=32, skips=(32, 16)):
     p1, p2 = up1.stage_params(), up2.stage_params()
     hp = dict(weight=head.weight, bias=head.bias)
     with torch.no_grad():
+        before = fd.launches
         got = fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp)
+        assert fd.launches == before + 2
         want = fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp)
-        rel = _rel_l2(got, fd.fused_vlg_decoder_rounded(x, s1, s2, p1, p2,
-                                                        hp))
+        ref = fd.fused_vlg_decoder_rounded(x, s1, s2, p1, p2, hp)
+        rel = _rel_l2(got, ref)
+        faults = {what: _rel_l2(_stage_launches(fd, x, s1, s2, p1, p2, hp,
+                                                **kw), ref)
+                  for what, kw in (
+                      ('conv1 skip half left out in the kernel',
+                       dict(skip_half=False)),
+                      ('stage 2 input without GN+ReLU',
+                       dict(gn_in2=False)))}
+
+        def kernel():
+            return fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp)
+
+        def lib():
+            return _cudnn_chain(up1, up2, head, x, s1, s2)
+
+        ms, dev_ms = cuda_ms(kernel, 10), device_ms(kernel, 5)
+        plain_ms = cuda_ms(
+            lambda: fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp), 10)
+        lib_ms, lib_dev = cuda_ms(lib, 10), device_ms(lib, 5)
+        lib_rel = _rel_l2(lib(), want)
     torch.cuda.synchronize()
     assert got.shape == want.shape == (p, 1, 4 * h, 4 * w)
     assert torch.isfinite(got.float()).all()
     diff = (got.float() - want.float()).abs()
     scale = want.float().abs().max().item()
     err = diff.max().item()
-    ms = cuda_ms(lambda: fd.fused_vlg_decoder(x, s1, s2, p1, p2, hp), 10)
-    plain_ms = cuda_ms(
-        lambda: fd.fused_vlg_decoder_plain(x, s1, s2, p1, p2, hp), 10)
-    lib_ms = cuda_ms(lambda: _cudnn_chain(up1, up2, head, x, s1, s2), 10)
     flops = _decoder_flops(p, c, h, w, skips, (c - skips[0], 64 - skips[1]),
                            64, 32, b)
     nbytes = 2 * (x.numel() + s1.numel() + s2.numel() + got.numel())
@@ -549,14 +608,155 @@ def check_decoder(gen, b=2, n=21, h=32, w=32, skips=(32, 16)):
     log(f'decoder x {tuple(x.shape)} skips {tuple(s1.shape)} '
         f'{tuple(s2.shape)}: max_abs_err vs plain {err:.3e} mean_abs_err '
         f'{diff.mean().item():.3e} logit scale {scale:.3f} (tol {DEC_TOL} x '
-        f'scale), rel-L2 vs rounded {rel:.3e} (tol {DEC_REL_TOL}) kernel_ms '
-        f'{ms:.4f} plain_ms {plain_ms:.4f} cudnn_ms {lib_ms:.4f} bound_ms '
-        f'{bound_ms:.4f} ({by}) GFLOP {flops / 1e9:.2f}')
+        f'scale), rel-L2 vs rounded {rel:.3e} (tol {DEC_REL_TOL}); planted '
+        f'faults rel-L2 '
+        f'{json.dumps({k: float(f"{v:.3e}") for k, v in faults.items()})}'
+        f'; cuDNN chain vs plain rel-L2 {lib_rel:.3e}; kernel_ms {ms:.4f} '
+        f'device_ms {fmt_ms(dev_ms)} plain_ms {plain_ms:.4f} cudnn_ms '
+        f'{lib_ms:.4f} cudnn device_ms {fmt_ms(lib_dev)} bound_ms '
+        f'{bound_ms:.4f} ({by}) GFLOP {flops / 1e9:.2f} '
+        f'({tflops(flops, dev_ms)} TFLOP/s device-only)')
     assert err <= DEC_TOL * max(scale, 1.0), (err, scale)
     assert rel <= DEC_REL_TOL, rel
+    assert all(v > DEC_REL_TOL for v in faults.values()), faults
     return dict(max_abs_err=err, rel_err=rel, tol=DEC_REL_TOL, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound_ms,
-                bound_by=by, shape=f'P={p} at {h}x{w}')
+                device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=bound_ms, bound_by=by,
+                planted_faults=faults, shape=f'P={p} at {h}x{w}')
+
+
+# decoder widths beyond the shipped models' (phase 12): (name, Cin,
+# (Cout1, Cout2), (Cs1, Cs2)); each stage's Cu is its Cin - Cs
+WIDE_CASES = (
+    ('Cout 48; stage 2 Cin 48', 64, (48, 16), (16, 16)),
+    ('Cin 224, Cu 112, Cs 112, Cout 96; stage 2 Cu 72, Cs 24', 224,
+     (96, 32), (112, 24)),
+    ('Cin 24 (padded to 32), Cs 8', 24, (32, 16), (8, 16)))
+
+
+def check_wide_widths():
+    """Decoder widths beyond the shipped models' (``WIDE_CASES``: Cout 48
+    and 96, any Cin, Cu and Cs above the backward's widest product, run in
+    column groups) at P = 3 on a ragged 13 x 11 base: the forward against
+    the plain chain (DEC_TOL) and the rounded reference (DEC_REL_TOL), both
+    backward routes against the rounded references phase 4 holds the
+    backward to (DEC_BWD_TOL at the stored stage-1 conv2, and forward and
+    backward composed, DEC_BWD_COMPOSED_TOL), with every launch on the
+    kernels."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    gen = torch.Generator().manual_seed(12)
+    b, n, h, w = 1, 3, 13, 11
+    names = decoder_leaves()
+    rows = {}
+    for name, cin, ups, skips in WIDE_CASES:
+        up1, up2, head = _random_decoder(gen, channels=cin, ups=ups,
+                                         skips=skips)
+        params = [up1.stage_params(), up2.stage_params(),
+                  dict(weight=head.weight, bias=head.bias)]
+        acts = [torch.randn(b * n, cin, h, w, generator=gen),
+                torch.randn(b, skips[0], 2 * h, 2 * w, generator=gen),
+                torch.randn(b, skips[1], 4 * h, 4 * w, generator=gen)]
+        acts = [t.cuda().bfloat16() for t in acts]
+        g = torch.randn(b * n, 1, 4 * h, 4 * w, generator=gen).cuda() \
+            .bfloat16()
+        before = _counters()
+        with torch.no_grad():
+            got = fd.fused_vlg_decoder(*acts, *params)
+        moved = _moved(before)
+        with torch.no_grad():
+            ref = fd.fused_vlg_decoder_rounded(*acts, *params)
+            want = fd.fused_vlg_decoder_plain(*acts, *params)
+        scale = want.float().abs().max().item()
+        err = (got.float() - want.float()).abs().max().item()
+        row = dict(fwd_launches=moved, fwd_rel_err=_rel_l2(got, ref),
+                   fwd_max_abs_err=err, logit_scale=scale)
+        refs = _held_refs(acts, params, g)
+        for route in ('whole', 'banded'):
+            before = _counters()
+            grads = decoder_grads(
+                lambda *a, r=route: fd.fused_vlg_decoder(*a, bwd=r), acts,
+                params, g)
+            row[route] = dict(launches=_moved(before), **_gates(grads, refs,
+                                                                names))
+        torch.cuda.synchronize()
+        log(f'wide widths "{name}" at P={b * n} on {h}x{w}: '
+            + json.dumps(row))
+        assert moved == {'decoder_fwd': 2}, moved
+        assert err <= DEC_TOL * max(scale, 1.0), (err, scale)
+        assert row['fwd_rel_err'] <= DEC_REL_TOL, row
+        for route, kinds in (('whole', ('decoder_bwd_tail',
+                                        'decoder_bwd_input')),
+                             ('banded', ('banded_pass_a', 'banded_pass_b',
+                                         'banded_pass_c'))):
+            r = row[route]
+            assert r['launches'] == dict({k: 2 for k in kinds},
+                                         decoder_fwd=2), r
+            assert r['at_stored'] <= DEC_BWD_TOL, (name, route, r)
+            assert r['composed'] <= DEC_BWD_COMPOSED_TOL, (name, route, r)
+        rows[name] = row
+    return rows
+
+
+def _moved(before):
+    """The launch counters that moved since ``before``, by how much."""
+    return {k: v - before[k] for k, v in _counters().items()
+            if v != before[k]}
+
+
+def _held_refs(acts, params, g):
+    """The gradients of the two references a decoder backward is held to:
+    autograd through ``fused_vlg_decoder_rounded`` with float64 sums at the
+    point the kernels' forward reached (stage 1's raw conv2 as ``_stage``
+    stores it, ``raw2_1``: DEC_BWD_TOL), and with float64 sums recomputing
+    stage 1 itself (the composed gate, independent of what the forward
+    stored: DEC_BWD_COMPOSED_TOL)."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    with torch.no_grad():
+        raw2_1 = fd._stage(*acts[:2], params[0])[0]
+    return (decoder_grads(_rounded(float64=True, raw2_1=raw2_1), acts,
+                          params, g),
+            decoder_grads(_rounded(float64=True), acts, params, g))
+
+
+def _gates(got, refs, names):
+    """dict(at_stored=, composed=): the worst leaf's relative L2 of
+    gradients ``got`` against each of ``_held_refs``, and the leaf."""
+    out = {}
+    for key, ref in zip(('at_stored', 'composed'), refs):
+        errs = {nm: _rel_l2(a, r) for nm, a, r in zip(names, got, ref)}
+        worst = max(errs, key=errs.get)
+        out[key], out[key + '_leaf'] = errs[worst], worst
+    return out
+
+
+@contextlib.contextmanager
+def stage1_forward_fault(skip_half=True, conv2_tap=True):
+    """Planted fault in the forward's stage 1 (``_stage`` without
+    ``gn_in``), whose raw conv2 and GroupNorm partials the backward reads:
+    ``skip_half=False`` leaves conv1's skip half out inside the kernel's
+    sequence; ``conv2_tap=False`` runs conv2 without its top-left tap."""
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    real = fd._stage
+
+    def faulty(x, skip, p, gn_in=None, **kw):
+        if gn_in is None:
+            kw['skip_half'] = skip_half
+            if not conv2_tap:
+                w2 = p['conv2_weight'].detach().clone()
+                w2[:, :, 0, 0] = 0
+                p = dict(p, conv2_weight=w2)
+        return real(x, skip, p, gn_in=gn_in, **kw)
+
+    with mock.patch.object(fd, '_stage', faulty):
+        yield
+
+
+# forward faults the composed gate (DEC_BWD_COMPOSED_TOL) must catch
+FORWARD_FAULTS = {
+    'stage 1 forward without conv1\'s skip half (in the kernel)':
+    lambda: stage1_forward_fault(skip_half=False),
+    'stage 1 forward conv2 without its top-left tap':
+    lambda: stage1_forward_fault(conv2_tap=False)}
 
 
 def _stage_bwd_flops(p, b, cin, cs, cout, h, w, head):
@@ -624,15 +824,16 @@ def _route_blind(fn):
     return call
 
 
-def _rounded(float64=False):
+def _rounded(float64=False, raw2_1=None):
     """The rounded reference both decoder backward routes are held to (its
     bf16 gradient roundings are where both store gradients in bf16), with
-    float64 sums with ``float64``."""
+    float64 sums with ``float64``; ``raw2_1``: stage 1's raw conv2 as the
+    kernels stored it (``fused_vlg_decoder_rounded``)."""
     from semivl_tpu_torch.ops import fused_decoder as fd
     dtype = torch.float64 if float64 else torch.float32
 
     def ref(*args):
-        return fd.fused_vlg_decoder_rounded(*args, dtype=dtype)
+        return fd.fused_vlg_decoder_rounded(*args, dtype=dtype, raw2_1=raw2_1)
     return ref
 
 
@@ -670,8 +871,15 @@ WHOLE_BWD_FAULTS = dict(DECODER_FAULTS, **{
 def check_decoder_bwd(gen):
     """The decoder backward at the student pass-1 shape (P = 6 x 21 = 126):
     gradients of every input and parameter through the kernels against
-    autograd through ``fused_vlg_decoder_rounded``, each within
-    DEC_BWD_TOL; each planted fault must exceed it."""
+    autograd through ``fused_vlg_decoder_rounded`` with float64 sums at the
+    point the kernels' forward reached (stage 1's raw conv2 as they stored
+    it, ``raw2_1``), each within DEC_BWD_TOL, and, forward and backward
+    composed, against it with float64 sums recomputing stage 1, each within
+    DEC_BWD_COMPOSED_TOL (``_held_refs``). Each planted backward fault
+    must fail the first limit, each forward fault of stage 1 the second.
+    The float32-sum reference's distance to the float64 one (a sound
+    computation at lower precision: the control of the composed limit) is
+    logged as data."""
     from semivl_tpu_torch.ops import fused_decoder as fd
     b, n, c, h = 6, 21, 128, 32
     p = b * n
@@ -691,11 +899,12 @@ def check_decoder_bwd(gen):
         return decoder_grads(fn, acts, params, g)
 
     got = grads(fd.fused_vlg_decoder)
-    ref = grads(fd.fused_vlg_decoder_rounded)
-    ref64 = grads(_rounded(float64=True))
+    ref, own64 = _held_refs(acts, params, g)
+    ref32 = grads(_rounded())
     again = grads(fd.fused_vlg_decoder)
     torch.cuda.synchronize()
-    noise = max(_rel_l2(a, r) for a, r in zip(ref64, ref))
+    noise = max(_rel_l2(a, r) for a, r in zip(ref32, own64))
+    composed = _gates(got, (ref, own64), names)
     rel, abs_err = {}, {}
     for name, a, r, a2 in zip(names, got, ref, again):
         assert a.dtype == r.dtype and a.shape == r.shape, name
@@ -704,9 +913,14 @@ def check_decoder_bwd(gen):
         rel[name] = _rel_l2(a, r)
         abs_err[name] = (a.float() - r.float()).abs().max().item()
     worst = max(rel, key=rel.get)
-    log(f'decoder bwd P={p}: per-leaf rel-L2 vs rounded: worst {worst} '
-        f'{rel[worst]:.3e} (tol {DEC_BWD_TOL}; the reference\'s float64 '
-        f'against its float32 sums: worst leaf {noise:.3e}); '
+    vs32 = max(_rel_l2(a, r) for a, r in zip(got, ref32))
+    log(f'decoder bwd P={p}: per-leaf rel-L2 vs rounded (float64 sums, '
+        f'the stored stage-1 conv2): worst {worst} {rel[worst]:.3e} (tol '
+        f'{DEC_BWD_TOL}); composed, vs rounded with float64 sums recomputing '
+        f'stage 1: worst {composed["composed_leaf"]} '
+        f'{composed["composed"]:.3e} (tol {DEC_BWD_COMPOSED_TOL}; the '
+        f'float32-sum reference, the control: worst leaf {noise:.3e}); '
+        f'kernels vs the float32-sum reference (data): {vs32:.3e}; '
         f'{json.dumps({k: float(f"{v:.3e}") for k, v in rel.items()})}')
     faults = {}
     for what, planted in WHOLE_BWD_FAULTS.items():
@@ -718,8 +932,19 @@ def check_decoder_bwd(gen):
             f'{faults[what]:.3e} ({max(errs, key=errs.get)}), '
             f'{sum(e > DEC_BWD_TOL for e in errs.values())} of {len(errs)} '
             f'leaves past the tol')
+    fwd_faults = {}
+    for what, planted in FORWARD_FAULTS.items():
+        with planted():
+            bad = grads(fd.fused_vlg_decoder)
+        fwd_faults[what] = _gates(bad, (ref, own64), names)['composed']
+        log(f'decoder bwd planted forward fault "{what}": composed worst '
+            f'rel-L2 {fwd_faults[what]:.3e} (must exceed '
+            f'{DEC_BWD_COMPOSED_TOL})')
     assert rel[worst] <= DEC_BWD_TOL, (worst, rel[worst])
+    assert composed['composed'] <= DEC_BWD_COMPOSED_TOL, composed
     assert all(e > DEC_BWD_TOL for e in faults.values()), faults
+    assert all(e > DEC_BWD_COMPOSED_TOL for e in fwd_faults.values()), \
+        fwd_faults
 
     # times: both stages' tail calls, both input calls, the whole backward
     # through autograd; events and device-only
@@ -759,7 +984,11 @@ def check_decoder_bwd(gen):
         f'{(f1[1] + f2[1]) / 1e9:.1f}')
     common = dict(tol=DEC_BWD_TOL, plain_ms=plain_ms, library_ms=lib_ms,
                   library_device_ms=lib_dev, whole_bwd_ms=ms,
-                  whole_bwd_device_ms=whole_dev, planted_faults=faults)
+                  whole_bwd_device_ms=whole_dev, planted_faults=faults,
+                  composed_rel_err=composed['composed'],
+                  composed_tol=DEC_BWD_COMPOSED_TOL,
+                  composed_control=noise,
+                  planted_forward_faults=fwd_faults)
     rows = []
     for names_, t_ms, t_dev, t_bound, t_by in (
             (tail, tail_ms, tail_dev, tail_bound, tail_by),
@@ -1048,21 +1277,27 @@ def check_banded_bwd(gen):
     def grads(fn):
         return decoder_grads(fn, acts, params, g)
 
-    ref64 = grads(_rounded(float64=True))
-    ref = grads(_rounded())
-    noise = {nm: _rel_l2(a, r) for nm, a, r in zip(names, ref64, ref)}
-    log(f'banded bwd P={p}: the rounded reference\'s float64 against its '
-        f'float32 sums: worst leaf {max(noise.values()):.3e} '
-        f'({max(noise, key=noise.get)})')
+    ref, ref64 = _held_refs(acts, params, g)
+    ref32 = grads(_rounded())
+    noise = {nm: _rel_l2(a, r) for nm, a, r in zip(names, ref64, ref32)}
+    log(f'banded bwd P={p}: the float32-sum reference against the float64 '
+        f'one (the control of the composed limit): worst leaf '
+        f'{max(noise.values()):.3e} ({max(noise, key=noise.get)})')
     got = grads(banded)
     whole = grads(fd.fused_vlg_decoder)
     torch.cuda.synchronize()
     rel = {nm: _rel_l2(a, r) for nm, a, r in zip(names, got, ref)}
+    composed = _gates(got, (ref, ref64), names)
     vs_whole = {nm: _rel_l2(a, r) for nm, a, r in zip(names, got, whole)}
     whole_rel = {nm: _rel_l2(a, r) for nm, a, r in zip(names, whole, ref)}
+    vs32 = max(_rel_l2(a, r) for a, r in zip(got, ref32))
     worst = max(rel, key=rel.get)
-    log(f'banded bwd P={p}: per-leaf rel-L2 vs rounded: worst {worst} '
-        f'{rel[worst]:.3e} (tol {DEC_BWD_TOL}); whole-plane kernels vs '
+    log(f'banded bwd P={p}: per-leaf rel-L2 vs rounded (float64 sums, the '
+        f'stored stage-1 conv2): worst {worst} {rel[worst]:.3e} (tol '
+        f'{DEC_BWD_TOL}); composed, vs rounded with float64 sums '
+        f'recomputing stage 1: worst {composed["composed_leaf"]} '
+        f'{composed["composed"]:.3e} (tol {DEC_BWD_COMPOSED_TOL}); vs the '
+        f'float32-sum reference (data): {vs32:.3e}; whole-plane kernels vs '
         f'rounded: worst {max(whole_rel.values()):.3e}; banded vs '
         f'whole-plane: worst {max(vs_whole.values()):.3e} '
         f'({max(vs_whole, key=vs_whole.get)}); ' + json.dumps(
@@ -1077,9 +1312,20 @@ def check_banded_bwd(gen):
             f'{faults[what]:.3e} ({max(errs, key=errs.get)}), '
             f'{sum(e > DEC_BWD_TOL for e in errs.values())} of {len(errs)} '
             f'leaves past the tol')
+    fwd_faults = {}
+    for what, planted in FORWARD_FAULTS.items():
+        with planted():
+            bad = grads(banded)
+        fwd_faults[what] = _gates(bad, (ref, ref64), names)['composed']
+        log(f'banded bwd planted forward fault "{what}": composed worst '
+            f'rel-L2 {fwd_faults[what]:.3e} (must exceed '
+            f'{DEC_BWD_COMPOSED_TOL})')
     assert rel[worst] <= DEC_BWD_TOL, (worst, rel[worst])
+    assert composed['composed'] <= DEC_BWD_COMPOSED_TOL, composed
     assert max(vs_whole.values()) <= DEC_BWD_TOL, vs_whole
     assert all(e > DEC_BWD_TOL for e in faults.values()), faults
+    assert all(e > DEC_BWD_COMPOSED_TOL for e in fwd_faults.values()), \
+        fwd_faults
 
     prms = ([p1[k] for k in fd.STAGE_KEYS] + [p2[k] for k in fd.STAGE_KEYS]
             + [head.weight, head.bias])
@@ -1116,6 +1362,9 @@ def check_banded_bwd(gen):
                        library_is=CUDNN_PASS_WORK[k],
                        chain_library_bwd_ms=lib_ms,
                        composed_rel_err_vs_rounded=rel[worst],
+                       composed_rel_err=composed['composed'],
+                       composed_tol=DEC_BWD_COMPOSED_TOL,
+                       planted_forward_faults=fwd_faults,
                        banded_bwd_ms=banded_ms, whole_plane_bwd_ms=whole_ms,
                        plain_bwd_ms=plain_ms, planted_faults=faults)
     return rows
@@ -1465,12 +1714,16 @@ def run_cityscapes_train():
     batch = train_batch(torch.Generator(device='cuda').manual_seed(6), b=1,
                         size=801, nclass=19)
     # the timed steps first: run after the per-call check's float64
-    # references, the same steps measured ~50 % slower
+    # references, the same steps measured ~50 % slower. The check then
+    # takes its step from the model as built: the timed steps' updates are
+    # not bit for bit the same from run to run (library reductions), and
+    # GroupNorm amplifies what that moves in the decoder's inputs.
+    state = {k: v.clone() for k, v in model.state_dict().items()}
     step, launches, perf = run_train(cfg, bundle, batch,
                                      expected=EXPECTED_CITYSCAPES)
     prof = profile_step(step, batch)
     del step
-    state = {k: v.clone() for k, v in model.state_dict().items()}
+    model.load_state_dict(state)
     per_call = PerCallCheck(bwd='banded')
     opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
     check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
@@ -1526,14 +1779,18 @@ class PerCallCheck:
     each call's recorded inputs, parameters and output gradient. ``worst``
     holds each kernel's worst relative L2 and the number of calls.
 
-    ``exact_ref``: the decoder backward is held to the rounded reference
-    with float64 sums (TINY_DEC_BWD_TOL per leaf) and each call is rerun
-    under DECODER_FAULTS, which must exceed that limit; its distance to
-    the float32-sum reference is logged as data. The tiny VLM's 16^2
-    planes leave the float32-sum reference itself several per cent off
-    the float64 one on some calls."""
+    The decoder backward is held to the rounded reference with float64
+    sums, at the point the call's forward reached: the reference takes
+    stage 1's raw conv2 as the kernels stored it, the input their backward
+    reads (``raw2_1``). Its distance to the float32-sum reference is logged
+    as data: on a step's own inputs that reference's float32 sums lie
+    several per cent from its float64 ones, as far as the limits, and a
+    flipped bf16 rounding of the stored raw conv2, which GroupNorm
+    amplifies, moves the whole backward of stage 2. ``faults``: each call is
+    rerun under DECODER_FAULTS, which must exceed the decoder's limit
+    (TINY_DEC_BWD_TOL, the tiny VLM's)."""
 
-    def __init__(self, bwd='whole', exact_ref=False):
+    def __init__(self, bwd='whole', faults=False):
         from semivl_tpu_torch.ops import flash_attention as fa
         from semivl_tpu_torch.ops import fused_decoder as fd
         self.fa, self.fd = fa, fd
@@ -1542,7 +1799,7 @@ class PerCallCheck:
                                             'heads_fwd', 'heads_bwd',
                                             'decoder_fwd', self.bwd_key)}
         self.decoder_calls = []
-        self.exact_ref, self.fault_reads = exact_ref, []
+        self.faults, self.fault_reads = faults, []
 
     def note(self, key, err):
         w = self.worst[key]
@@ -1601,7 +1858,7 @@ class PerCallCheck:
     def check(self, tols, absent):
         """Every kernel of the path called and within its limit; the
         kernels in ``absent`` never called (the routing of the path); with
-        ``exact_ref`` every planted fault past the decoder's limit."""
+        ``faults`` every planted fault past the decoder's limit."""
         for k, (err, n) in self.worst.items():
             if k in absent:
                 assert n == 0, (k, n)
@@ -1620,10 +1877,13 @@ class PerCallCheck:
             def kernels(*a):
                 return fd.fused_vlg_decoder(*a, bwd=bwd)
 
+            with torch.no_grad():   # the stage-2 input the backward reads
+                raw2_1 = fd._stage(*inputs[:2], params[0])[0]
             got, ref32, ref64 = (
                 decoder_grads(fn, inputs, params, g) for fn in (
-                    kernels, _rounded(), _rounded(float64=True)))
-            ref = ref64 if self.exact_ref else ref32
+                    kernels, _rounded(raw2_1=raw2_1),
+                    _rounded(float64=True, raw2_1=raw2_1)))
+            ref = ref64
             top = max(r.abs().max().item() for r in ref)
             kept = [i for i, r in enumerate(ref)
                     if r.abs().max().item() > VANISHING * top]
@@ -1636,15 +1896,13 @@ class PerCallCheck:
 
             errs, noise = rel(got, ref), rel(ref32, ref64)
             p = inputs[0].shape[0]
-            sums = 'float64' if self.exact_ref else 'float32'
             msg = (f'compare: decoder backward ({bwd}) call P={p}, per-leaf '
-                   f'rel-L2 vs rounded ({sums} sums): {fmt(errs)}; vanishing: '
-                   f'{sorted(set(names) - set(errs))}; the reference\'s '
-                   f'float32 against its float64 sums: worst leaf '
-                   f'{max(noise.values()):.3e}')
-            if self.exact_ref:
-                msg += (f'; kernels vs the float32-sum reference (data): '
-                        f'{fmt(rel(got, ref32))}')
+                   f'rel-L2 vs rounded (float64 sums): {fmt(errs)}; '
+                   f'vanishing: {sorted(set(names) - set(errs))}; the '
+                   f'reference\'s float32 against its float64 sums: worst '
+                   f'leaf {max(noise.values()):.3e}; kernels vs the '
+                   f'float32-sum reference (data): {fmt(rel(got, ref32))}')
+            if self.faults:
                 for what, fault in DECODER_FAULTS.items():
                     with fault():
                         bad = max(rel(decoder_grads(kernels, inputs, params,
@@ -1819,12 +2077,13 @@ PROFILED_KERNELS = (
 
 
 # the decoder's kernels in a profile, by a part of their profiler key: the
-# stage forward (#5, decoder_common.cuh), the whole-plane backward (#6/#7:
-# decoder_igemm.cuh's products and fused_decoder_bwd.cu's passes) and the
-# banded passes (#8-#10)
-DECODER_KERNEL_KEYS = ('conv3x3_kernel', 'tconv2x2_kernel', 'gn_relu_kernel',
-                       'gn_stats_kernel', 'igemm::', 'gn_bwd_', 'sum_partials',
-                       'plane_sum', 'channel_total', 'gn_solve')
+# stage forward (#5: decoder_igemm.cuh's products, GN+ReLU passes and the
+# head's CUDA-core conv3x3_kernel), the whole-plane backward (#6/#7:
+# the same products and fused_decoder_bwd.cu's passes) and the banded
+# passes (#8-#10)
+DECODER_KERNEL_KEYS = ('conv3x3_kernel', 'gn_relu_kernel', 'gn_stats_kernel',
+                       'igemm::', 'gn_bwd_', 'sum_partials', 'plane_sum',
+                       'channel_total', 'gn_solve')
 
 
 def _profile(run, wall_ms, what, top, windows=4):
@@ -2326,7 +2585,7 @@ def run_tiny():
     batch = train_batch(torch.Generator(device='cuda').manual_seed(8), b=1,
                         size=64)
     state = {k: v.clone() for k, v in model.state_dict().items()}
-    per_call = PerCallCheck(exact_ref=True)
+    per_call = PerCallCheck(faults=True)
     opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
     check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
     with contextlib.ExitStack() as stack:
@@ -2368,6 +2627,7 @@ def main():
     heads = check_heads_attention(gen)   # phase 9, before any profile
     torch.cuda.empty_cache()
     dec = check_decoder(torch.Generator().manual_seed(1))
+    dec_voc = check_decoder(torch.Generator().manual_seed(6), b=6)
     dec_cs = check_decoder(torch.Generator().manual_seed(3), b=3, n=19, h=51,
                            w=51, skips=(32, 32))
     dec_edge = check_decoder(torch.Generator().manual_seed(4), b=1, n=19,
@@ -2376,6 +2636,7 @@ def main():
     banded = check_banded_bwd(torch.Generator().manual_seed(5))
     torch.cuda.empty_cache()
     up_rows, up_launches, bench_rows = check_fused_up()   # phase 10
+    wide = check_wide_widths()   # phase 12
     torch.cuda.empty_cache()
     eval_launches = run_slice()
 
@@ -2406,7 +2667,9 @@ def main():
     log(f'tiny: {json.dumps(tiny_perf)}')
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
-            'bound_by', 'library_ms', 'device_ms', 'library_device_ms')
+            'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
+            'composed_rel_err', 'composed_tol', 'composed_control',
+            'planted_forward_faults')
 
     def times(meas):
         return {k: meas[k] for k in keys if k in meas}
@@ -2447,9 +2710,13 @@ def main():
         row('decoder_stage_fwd', 'fused_decoder.cu',
             'semivl_tpu/ops/fused_decoder.py:459', cs_launches['decoder_fwd'],
             dec_cs, 'fused_vlg_decoder call (2 stage launches), P=57 at '
-            '51x51; launches per Cityscapes training step',
-            worst('decoder_fwd'), flagship_p42_32x32=times(dec),
+            '51x51; library: cuDNN\'s chain; launches per Cityscapes '
+            'training step', worst('decoder_fwd'),
+            products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
+            planted_faults=dec_cs['planted_faults'],
+            flagship_p42_32x32=times(dec), voc_step_p126_32x32=times(dec_voc),
             cityscapes_edge_p19_31x28=times(dec_edge),
+            wide_widths=wide,
             **paths('decoder_fwd', eval_launches['decoder'],
                     cs_eval_launches['decoder'])),
         row('decoder_stage_bwd_tail', 'fused_decoder_bwd.cu',
@@ -2501,7 +2768,8 @@ def main():
                     cs_eval_launches['heads'] if i == 0 else None,
                     tiny_eval_launches['heads'] if i == 0 else None)))
     kernels.append(row(
-        'fused_up_stage', 'fused_up.cu', 'semivl_tpu/ops/fused_up.py:129',
+        'fused_up_stage', 'fused_decoder.cu',
+        'semivl_tpu/ops/fused_up.py:129',
         up_launches, up_rows['up1'], 'up1 x (294, 128, 32, 32) skip (14, 32, '
         '64, 64) Cout 64; launches over one run of tools/fused_up_bench.py '
         '(both stages); no model routes to it', None,

@@ -57,10 +57,15 @@ def export_maskclip_vit(out, p, prefix='backbone.'):
     out[prefix + 'pos_embed'] = _f(p['pos_embed'])
     out[prefix + 'patch_embed.projection.weight'] = _f(
         p['patch_embed']['kernel']).transpose(3, 2, 0, 1)
-    _norm(out, prefix + 'ln0', p['ln0'])
-    _norm(out, prefix + 'ln1', p['ln1'])
-    # CLIP's visual projection, stored as a 1x1 conv by the reference
-    out[prefix + 'proj.weight'] = _f(p['proj']['kernel']).T[:, :, None, None]
+    # ln0, ln1 and proj exist as pre_norm, final_norm and return_clip_embed
+    # say
+    for norm in ('ln0', 'ln1'):
+        if norm in p:
+            _norm(out, prefix + norm, p[norm])
+    if 'proj' in p:
+        # CLIP's visual projection, stored as a 1x1 conv by the reference
+        out[prefix + 'proj.weight'] = _f(
+            p['proj']['kernel']).T[:, :, None, None]
     i = 0
     while f'layers_{i}' in p:
         _block(out, f'{prefix}layers.{i}.', p[f'layers_{i}'])

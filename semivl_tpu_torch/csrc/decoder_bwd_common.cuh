@@ -54,4 +54,23 @@ void sum_partials(const float* part, int R, int M, float* out, cudaStream_t st) 
   sum_partials_kernel<<<(M + NT - 1) / NT, NT, 0, st>>>(part, R, M, out);
 }
 
+// out[m][n] (row stride ld) = sum_r part[r][m][n] for n < ncols, r in
+// order: a column group's wgrad partials [R][M][N] into its columns of a
+// wider weight gradient.
+__global__ void sum_partial_cols_kernel(const float* __restrict__ part, int R, int M, int N,
+                                        int ncols, int ld, float* __restrict__ out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= M * ncols) return;
+  const int m = i / ncols, n = i % ncols;
+  float s = 0.f;
+  for (int r = 0; r < R; ++r) s += part[((size_t)r * M + m) * N + n];
+  out[(size_t)m * ld + n] = s;
+}
+
+void sum_partial_cols(const float* part, int R, int M, int N, int ncols, int ld, float* out,
+                      cudaStream_t st) {
+  sum_partial_cols_kernel<<<(M * ncols + NT - 1) / NT, NT, 0, st>>>(part, R, M, N, ncols, ld,
+                                                                     out);
+}
+
 }  // namespace

@@ -1,9 +1,10 @@
 // Device code shared by the fused VLG decoder kernels (fused_decoder.cu,
-// the forward; fused_decoder_bwd.cu and fused_decoder_banded.cu, the two
-// backward routes): GroupNorm statistics reduced from per-tile partial
-// sums or read as saved, the direct 3x3 convolution, the 2x2 stride-2
-// transpose convolution and GroupNorm+ReLU as its own pass, all on the CUDA
-// cores in float32. fused_up.cu (one Up stage) uses them too.
+// the forward and the fused Up stage; fused_decoder_bwd.cu and
+// fused_decoder_banded.cu, the two backward routes), on the CUDA cores in
+// float32: GroupNorm statistics reduced from per-tile partial sums or read
+// as saved, GroupNorm+ReLU as its own pass, and the direct 3x3 convolution
+// to or from one channel (the head's forward and its input gradient; every
+// wider product runs on decoder_igemm.cuh's tensor cores).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -24,9 +25,6 @@ constexpr int MAXG = 8;
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
-
-__device__ __forceinline__ float ld(const bf16* p, size_t i) { return __bfloat162float(p[i]); }
-__device__ __forceinline__ float ld(const float* p, size_t i) { return p[i]; }
 
 // GroupNorm + ReLU applied to an input as it is loaded. The statistics are
 // either reduced from the producer's per-tile partials, [plane][group]
@@ -111,21 +109,17 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float2* s_red) {
   return r;
 }
 
-// 3x3 convolution, padding 1, over planes (P, cin, H, W) of bf16 or float.
-// w: float32 [cin][9][COUT]. Optional: GroupNorm+ReLU on the input (gn),
-// a float32 addend add[(p / add_rep)][COUT][H][W], a bias, and per-tile
-// group partial sums of the output (stats: [P][COUT/16][tiles][2]).
-// Writes bf16 (out_h) or float32 (out_f). Any cin >= 1 is taken.
-template <int COUT, typename TIn>
+// 3x3 convolution, padding 1, over bf16 planes (P, cin, H, W) into bf16
+// (P, COUT, H, W). w: float32 [cin][9][COUT]. Optional: GroupNorm+ReLU on
+// the input (gn) and a bias. Any cin >= 1 is taken.
+template <int COUT>
 __global__ void __launch_bounds__(NT)
-conv3x3_kernel(const TIn* __restrict__ in, int cin, int H, int W, GNIn gn,
+conv3x3_kernel(const bf16* __restrict__ in, int cin, int H, int W, GNIn gn,
                const float* __restrict__ w, const float* __restrict__ bias,
-               const float* __restrict__ add, int add_rep, bf16* __restrict__ out_h,
-               float* __restrict__ out_f, float* __restrict__ stats) {
+               bf16* __restrict__ out) {
   __shared__ float s_in[CI][HALO][HALO + 1];
   __shared__ __align__(16) float s_w[CI * 9 * COUT];
   __shared__ float s_mean[MAXG], s_rstd[MAXG];
-  __shared__ float2 s_red[NT / 32];
 
   const int p = blockIdx.y;
   const int tiles_x = (W + TILE - 1) / TILE;
@@ -148,7 +142,7 @@ conv3x3_kernel(const TIn* __restrict__ in, int cin, int H, int W, GNIn gn,
       const int y = ty0 - 1 + r, x = tx0 - 1 + col;
       float v = 0.f;  // zero padding applies after the activation
       if (c0 + c < cin && y >= 0 && y < H && x >= 0 && x < W) {
-        v = ld(in, ((size_t)p * cin + c0 + c) * hw + (size_t)y * W + x);
+        v = __bfloat162float(in[((size_t)p * cin + c0 + c) * hw + (size_t)y * W + x]);
         if (gn_on(gn)) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
       }
       s_in[c][r][col] = v;
@@ -181,117 +175,12 @@ conv3x3_kernel(const TIn* __restrict__ in, int cin, int H, int W, GNIn gn,
     }
   }
 
+  if (!valid) return;
   const size_t pix = (size_t)oy * W + ox;
-  if (valid) {
-    if (add != nullptr) {
-      const float* a = add + (size_t)(p / add_rep) * COUT * hw + pix;
 #pragma unroll
-      for (int j = 0; j < COUT; ++j) acc[j] += a[j * hw];
-    }
-    if (bias != nullptr) {
-#pragma unroll
-      for (int j = 0; j < COUT; ++j) acc[j] += bias[j];
-    }
-#pragma unroll
-    for (int j = 0; j < COUT; ++j) {
-      if (out_h != nullptr) {
-        const bf16 o = __float2bfloat16(acc[j]);
-        out_h[((size_t)p * COUT + j) * hw + pix] = o;
-        acc[j] = __bfloat162float(o);  // statistics of the stored values
-      } else {
-        out_f[((size_t)p * COUT + j) * hw + pix] = acc[j];
-      }
-    }
-  }
-  if (stats != nullptr) {
-    const int groups = COUT / GSIZE, ntiles = gridDim.x;
-#pragma unroll
-    for (int g = 0; g < COUT / GSIZE; ++g) {
-      float s = 0.f, ss = 0.f;
-      if (valid) {
-#pragma unroll
-        for (int j = g * GSIZE; j < (g + 1) * GSIZE; ++j) {
-          s += acc[j];
-          ss += acc[j] * acc[j];
-        }
-      }
-      const float2 r = block_sum2(s, ss, s_red);
-      if (threadIdx.x == 0) {
-        float* o = stats + (((size_t)p * groups + g) * ntiles + blockIdx.x) * 2;
-        o[0] = r.x;
-        o[1] = r.y;
-      }
-    }
-  }
-}
-
-// 2x2 stride-2 transpose conv: up[p][cu][2y+ky][2x+kx] =
-//   b[cu] + sum_ci x[p][ci][y][x] * W[ci][cu][ky][kx].
-// w: float32 [cin][4 = ky*2+kx][cu]; CU_T output channels per block (grid z).
-constexpr int CU_T = 16;
-constexpr int CIT = 32;
-
-__global__ void __launch_bounds__(NT)
-tconv2x2_kernel(const bf16* __restrict__ in, int cin, int h, int w_in, GNIn gn,
-                const float* __restrict__ w, const float* __restrict__ bias, int cu,
-                bf16* __restrict__ out) {
-  __shared__ float s_in[CIT][TILE / 2][TILE / 2 + 1];
-  __shared__ __align__(16) float s_w[CIT * 4 * CU_T];
-  __shared__ float s_mean[MAXG], s_rstd[MAXG];
-
-  const int p = blockIdx.y, cz = blockIdx.z * CU_T;
-  const int H = 2 * h, W = 2 * w_in;
-  const int tiles_x = (W + TILE - 1) / TILE;
-  const int ty0 = (blockIdx.x / tiles_x) * TILE, tx0 = (blockIdx.x % tiles_x) * TILE;
-  const int ly = threadIdx.x / TILE, lx = threadIdx.x % TILE;
-  const int oy = ty0 + ly, ox = tx0 + lx;
-  const int ph = (oy & 1) * 2 + (ox & 1);
-  const size_t hw_in = (size_t)h * w_in;
-
-  gn_prologue(gn, p, cin / GSIZE, s_mean, s_rstd);
-
-  float acc[CU_T];
-#pragma unroll
-  for (int j = 0; j < CU_T; ++j) acc[j] = 0.f;
-
-  for (int c0 = 0; c0 < cin; c0 += CIT) {
-    __syncthreads();
-    for (int i = threadIdx.x; i < CIT * (TILE / 2) * (TILE / 2); i += NT) {
-      const int c = i / ((TILE / 2) * (TILE / 2));
-      const int r = (i / (TILE / 2)) % (TILE / 2), col = i % (TILE / 2);
-      const int y = ty0 / 2 + r, x = tx0 / 2 + col;
-      float v = 0.f;
-      if (y < h && x < w_in) {
-        v = __bfloat162float(in[((size_t)p * cin + c0 + c) * hw_in + (size_t)y * w_in + x]);
-        if (gn_on(gn)) v = gn_apply(gn, c0 + c, v, s_mean, s_rstd);
-      }
-      s_in[c][r][col] = v;
-    }
-    for (int i = threadIdx.x; i < CIT * 4 * CU_T; i += NT) {
-      const int j = i % CU_T, rest = i / CU_T;  // rest = c * 4 + phase
-      s_w[i] = w[((size_t)c0 * 4 + rest) * cu + cz + j];
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int c = 0; c < CIT; ++c) {
-      const float xv = s_in[c][ly / 2][lx / 2];
-      const float4* wp = reinterpret_cast<const float4*>(&s_w[(c * 4 + ph) * CU_T]);
-#pragma unroll
-      for (int j = 0; j < CU_T / 4; ++j) {
-        const float4 wv = wp[j];
-        acc[4 * j] += xv * wv.x;
-        acc[4 * j + 1] += xv * wv.y;
-        acc[4 * j + 2] += xv * wv.z;
-        acc[4 * j + 3] += xv * wv.w;
-      }
-    }
-  }
-  if (oy < H && ox < W) {
-    const size_t hw = (size_t)H * W, pix = (size_t)oy * W + ox;
-#pragma unroll
-    for (int j = 0; j < CU_T; ++j)
-      out[((size_t)p * cu + cz + j) * hw + pix] = __float2bfloat16(acc[j] + bias[cz + j]);
-  }
+  for (int j = 0; j < COUT; ++j)
+    out[((size_t)p * COUT + j) * hw + pix] =
+        __float2bfloat16(bias != nullptr ? acc[j] + bias[j] : acc[j]);
 }
 
 // out = GN+ReLU(in), bf16, over (P, C, HW) planes.
@@ -308,34 +197,22 @@ gn_relu_kernel(const bf16* __restrict__ in, int C, int HW, GNIn gn, bf16* __rest
   }
 }
 
-template <int COUT, typename TIn>
-void launch_conv(const TIn* in, int planes, int cin, int H, int W, GNIn gn, const float* w,
-                 const float* bias, const float* add, int add_rep, bf16* out_h, float* out_f,
-                 float* stats, cudaStream_t st) {
-  dim3 grid(((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE), planes);
-  conv3x3_kernel<COUT, TIn><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, add, add_rep,
-                                                 out_h, out_f, stats);
-}
-
-// Dispatch on the output channel count (1, 16, 32, 48, 64 or 96).
-template <typename TIn>
-void conv(int cout, const TIn* in, int planes, int cin, int H, int W, GNIn gn,
-          const float* w, const float* bias, const float* add, int add_rep, bf16* out_h,
-          float* out_f, float* stats, cudaStream_t st) {
-#define SEMIVL_CONV_CASE(N)                                                               \
-  case N:                                                                                 \
-    launch_conv<N, TIn>(in, planes, cin, H, W, gn, w, bias, add, add_rep, out_h, out_f,   \
-                        stats, st);                                                       \
-    break;
+// Dispatch on the output channel count: 1 (the head's forward) or 16, 32,
+// 48, 64, 96 (its input gradient, one per stage width); another count is
+// an error (returned; the launch's own errors come from cudaGetLastError).
+int conv(int cout, const bf16* in, int planes, int cin, int H, int W, GNIn gn,
+          const float* w, const float* bias, bf16* out, cudaStream_t st) {
+  const dim3 grid(((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE), planes);
   switch (cout) {
-    SEMIVL_CONV_CASE(1)
-    SEMIVL_CONV_CASE(16)
-    SEMIVL_CONV_CASE(32)
-    SEMIVL_CONV_CASE(48)
-    SEMIVL_CONV_CASE(64)
-    SEMIVL_CONV_CASE(96)
+    case 1: conv3x3_kernel<1><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    case 16: conv3x3_kernel<16><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    case 32: conv3x3_kernel<32><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    case 48: conv3x3_kernel<48><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    case 64: conv3x3_kernel<64><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    case 96: conv3x3_kernel<96><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
+    default: return (int)cudaErrorInvalidValue;
   }
-#undef SEMIVL_CONV_CASE
+  return 0;
 }
 
 constexpr GNIn NO_GN{nullptr, nullptr, nullptr, 0, 0.f, nullptr, nullptr};

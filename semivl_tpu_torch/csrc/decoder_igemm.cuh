@@ -3,11 +3,10 @@
 // accumulators, every operand tile brought in by TMA through a ring of
 // shared-memory stages (one producer warp, consumer warpgroups that release
 // each stage on an mbarrier), on the helpers of hopper_common.cuh.
-// The whole-plane backward (fused_decoder_bwd.cu, kernels #6 and #7), the
-// banded backward's three passes (fused_decoder_banded.cu, #8-#10) and the
-// fused Up stage (fused_up.cu, #11) are built on it, through the sequences
-// of decoder_stage_bwd.cuh; the decoder forward (#5) still runs
-// decoder_common.cuh's CUDA-core convolution and can move here.
+// The decoder forward and the fused Up stage (fused_decoder.cu, kernels #5
+// and #11), the whole-plane backward (fused_decoder_bwd.cu, #6 and #7) and
+// the banded backward's three passes (fused_decoder_banded.cu, #8-#10) are
+// built on it, through the sequences of decoder_stage_bwd.cuh.
 //
 // Two kernels:
 //  - conv_kernel<N, TAPS>: out[pix][n] = sum_k A[pix][k] B[k][n] over a
@@ -303,19 +302,23 @@ enum EpiMode { EPI_BF16 = 0, EPI_F32 = 1, EPI_PHASE = 2, EPI_TCONV = 3 };
 
 // What conv_kernel does with a tile's sums. Output geometry is the tile
 // grid's (H x W) unless stated.
+// Every mode writes N channels of an output plane of `cstride` channels
+// (0: N), from the channel `out` points at: a column group of a wider
+// output (conv_cols) or the whole of it.
 struct Epi {
   int mode;
-  void* out;           // EPI_BF16 / EPI_F32: [planes][N][H][W]; EPI_PHASE: bf16
-                       // [planes][4][N][H / 2][pitch] (phase ky * 2 + kx of the
-                       // (H, W) output); EPI_TCONV: bf16 [planes][cstride][2H][2W]
-                       // from its channel 0 (a group of N of the cstride channels),
+  void* out;           // EPI_BF16 / EPI_F32: [planes][cstride][H][W]; EPI_PHASE: bf16
+                       // [planes][4][cstride][H / 2][pitch] (phase ky * 2 + kx of the
+                       // (H, W) output); EPI_TCONV: bf16 [planes][cstride][2H][2W],
                        // the tile's sums landing on output phase `split`
   const float* add;    // EPI_BF16: float32 addend [plane / add_rep][N][H][W] or null
   int add_rep;
   const float* bias;   // EPI_TCONV: [N]
   float* gn_part;      // EPI_BF16: GroupNorm partials [planes][N / 16][tiles][2] or null
   int pitch;           // EPI_PHASE: row pitch of the phase planes
-  int cstride;         // EPI_TCONV: channels of an output plane (N or more)
+  int cstride;         // channels of an output plane (0: N); no addend or partials
+                       // unless it is N
+  bool promote;        // add each K step's products into the sums on the CUDA cores
 };
 
 struct ConvArgs {
@@ -380,7 +383,8 @@ __device__ __forceinline__ void store_lines(const T* s_out, const Epi& e, int p,
       o = *reinterpret_cast<const __nv_bfloat162*>(s);
     }
     const float2 f = __bfloat1622float2(o);   // statistics of the stored values
-    bf16* d = static_cast<bf16*>(e.out) + ((size_t)p * N + line % N) * hw + (size_t)y * W + x;
+    bf16* d =
+        static_cast<bf16*>(e.out) + ((size_t)p * e.cstride + line % N) * hw + (size_t)y * W + x;
     if (even) {
       *reinterpret_cast<__nv_bfloat162*>(d) = o;
       gs[g] += f.x + f.y;
@@ -450,15 +454,16 @@ __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, float (&acc)[2]
         if (e.mode == EPI_BF16) {
           if (e.add != nullptr) v += e.add[((size_t)(p / e.add_rep) * N + n) * hw + pix];
           const bf16 o = __float2bfloat16(v);
-          static_cast<bf16*>(e.out)[((size_t)p * N + n) * hw + pix] = o;
+          static_cast<bf16*>(e.out)[((size_t)p * e.cstride + n) * hw + pix] = o;
           v = __bfloat162float(o);   // statistics of the stored values
           gs[i / 8] += v;   // group n / 16 = i / 8
           gq[i / 8] += v * v;
         } else if (e.mode == EPI_F32) {
-          static_cast<float*>(e.out)[((size_t)p * N + n) * hw + pix] = v;
+          static_cast<float*>(e.out)[((size_t)p * e.cstride + n) * hw + pix] = v;
         } else if (e.mode == EPI_PHASE) {
           const int ph = (y & 1) * 2 + (x & 1);
-          static_cast<bf16*>(e.out)[(((size_t)p * 4 + ph) * N + n) * (H / 2) * (size_t)e.pitch +
+          static_cast<bf16*>(e.out)[(((size_t)p * 4 + ph) * e.cstride + n) * (H / 2) *
+                                        (size_t)e.pitch +
                                     (size_t)(y >> 1) * e.pitch + (x >> 1)] = __float2bfloat16(v);
         } else {   // EPI_TCONV
           const int oy = 2 * y + split / 2, ox = 2 * x + split % 2;
@@ -521,6 +526,22 @@ __device__ __forceinline__ void conv_step(float (&acc)[2][N / 2], uint32_t sa, u
     }
 }
 
+// Issue one K step's products into d for this warpgroup and wait for them.
+template <int N, int NDY>
+__device__ __forceinline__ void conv_issue(float (&d)[2][N / 2], uint32_t sa, uint32_t sb,
+                                           const ConvArgs& a, int wg) {
+  fence_regs(d[0]);
+  fence_regs(d[1]);
+  wgmma_fence();
+  if (a.kc == 64) conv_step<N, 4, NDY>(d, sa, sb, a.a_bytes, a.b_bytes, wg);
+  else if (a.kc == 32) conv_step<N, 2, NDY>(d, sa, sb, a.a_bytes, a.b_bytes, wg);
+  else conv_step<N, 1, NDY>(d, sa, sb, a.a_bytes, a.b_bytes, wg);
+  wgmma_commit();
+  wgmma_wait<0>();
+  fence_regs(d[0]);
+  fence_regs(d[1]);
+}
+
 template <int N, int TAPS>
 __global__ void __launch_bounds__(CONV_THREADS, 1)
 conv_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
@@ -528,6 +549,17 @@ conv_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUte
   constexpr int SLABS = TAPS == 9 ? CONV_ROWS + 2 : CONV_ROWS;
   constexpr int NDX = TAPS == 9 ? 3 : 1;   // column shifts: K steps per channel chunk
   constexpr int NDY = TAPS == 9 ? 3 : 1;   // row shifts: slabs (and B boxes) per K step
+  // With epi.promote, each K step's products go into fresh accumulators,
+  // which are then added to the tile's sums on the CUDA cores (float32,
+  // round to nearest). Chained over all of K, wgmma's accumulation flipped
+  // more bf16 roundings of the stored outputs than float32 sums do, and the
+  // GroupNorm after each conv amplifies every flip; per K step it flips no
+  // more than float32 sums (tools/decoder_precision.py). The stage
+  // forward's products ask for it (stage_recompute), the backward's do
+  // not. N = 128 (only the transpose conv's products, K at most 4 x 128)
+  // keeps one set of accumulators: two would not fit the consumers' 232
+  // registers.
+  constexpr bool PROMOTE = N <= 96;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023) & ~1023u;
@@ -596,17 +628,22 @@ conv_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUte
         const int s = it % a.stages;
         mbar_wait(full0 + 8 * s, (it / a.stages) & 1);
         const uint32_t sa = base + s * a.stage_bytes, sb = sa + SLABS * a.a_bytes;
-        fence_regs(acc[0]);
-        fence_regs(acc[1]);
-        wgmma_fence();
-        if (a.kc == 64) conv_step<N, 4, NDY>(acc, sa, sb, a.a_bytes, a.b_bytes, wg);
-        else if (a.kc == 32) conv_step<N, 2, NDY>(acc, sa, sb, a.a_bytes, a.b_bytes, wg);
-        else conv_step<N, 1, NDY>(acc, sa, sb, a.a_bytes, a.b_bytes, wg);
-        wgmma_commit();
-        wgmma_wait<0>();
-        fence_regs(acc[0]);
-        fence_regs(acc[1]);
-        mbar_arrive(empty0 + 8 * s);
+        if (PROMOTE && a.epi.promote) {
+          float part[2][N / 2];
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) part[r][i] = 0.f;
+          conv_issue<N, NDY>(part, sa, sb, a, wg);
+          mbar_arrive(empty0 + 8 * s);
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int i = 0; i < N / 2; ++i) acc[r][i] += part[r][i];
+        } else {
+          conv_issue<N, NDY>(acc, sa, sb, a, wg);
+          mbar_arrive(empty0 + 8 * s);
+        }
       }
       conv_epilogue<N>(a, acc, p, ty, tx, split, s_gn, s_out);
     }
@@ -754,11 +791,13 @@ struct Planes {
   bool shifted;
 };
 
-// The conv kernel over `in` with weights w: TAPS = 9, bf16 [9][N][C] (tap
-// ky * 3 + kx; the 3x3 convolution, padding 1); TAPS = 1, bf16 [nsplit][N]
-// [C]. Returns a CUDA error code.
+// The conv kernel over `in` with weights w: TAPS = 9, bf16 [9][wrows][C]
+// (tap ky * 3 + kx; the 3x3 convolution, padding 1; its first N rows, or
+// with wrows 0 all of [9][N][C]); TAPS = 1, bf16 [nsplit][N][C]. Returns a
+// CUDA error code.
 template <int N, int TAPS>
-int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream_t st) {
+int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream_t st,
+         int wrows = 0) {
   constexpr int SLABS = TAPS == 9 ? CONV_ROWS + 2 : CONV_ROWS;
   constexpr int NB = TAPS == 9 ? 3 : 1;
   ConvArgs a;
@@ -782,8 +821,11 @@ int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream
   a.stages = (ring < SMEM_BUDGET - 1024 - tail ? ring : SMEM_BUDGET - 1024 - tail) /
              (int)a.stage_bytes;
   a.stages = a.stages > 4 ? 4 : a.stages;
-  if (a.stages < 2 || in.C % 16 || in.shifted != (TAPS == 9)) return (int)cudaErrorInvalidValue;
   a.epi = epi;
+  if (a.epi.cstride == 0) a.epi.cstride = N;
+  if (a.stages < 2 || in.C % 16 || in.shifted != (TAPS == 9) ||
+      (a.epi.cstride != N && (a.epi.add != nullptr || a.epi.gn_part != nullptr)))
+    return (int)cudaErrorInvalidValue;
   const int smem = 1024 + a.stages * (int)a.stage_bytes + tail + lines;
   auto kernel = conv_kernel<N, TAPS>;
   // a runtime call first: it makes the context current in this thread,
@@ -793,8 +835,8 @@ int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream
   CUtensorMap ma, mb;
   if (!plane_map(&ma, in.ptr, in.W, in.H, (long long)(TAPS == 9 ? 3 : 1) * in.planes * in.C,
                  in.pitch, a.kc) ||
-      !tensor_map_3d(&mb, w, in.C, N, TAPS == 9 ? 9 : nsplit, in.C, (long long)N * in.C, a.kc,
-                     N))
+      !tensor_map_3d(&mb, w, in.C, N, TAPS == 9 ? 9 : nsplit, in.C,
+                     (long long)(wrows > 0 ? wrows : N) * in.C, a.kc, N))
     return (int)cudaErrorInvalidValue;
   const int grid = a.items < sm_count() ? a.items : sm_count();
   kernel<<<grid, CONV_THREADS, smem, st>>>(ma, mb, a);
@@ -802,14 +844,14 @@ int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream
 }
 
 // Weight-gradient partials of the wgrad kernel: part [slots][TAPS][mrows]
-// [N] with A = `in` (rows: its channels) and B = `g` (N channels; with
-// fewer, columns past g's channels read the next planes' and are to be
-// dropped: the head's gradient, 1 channel, runs at N = 16), reduced
-// over the first `planes` planes; `slots` is what the caller sized part for
-// (wgrad_slots). Returns a CUDA error code.
+// [N] with A = `in` (rows: its channels) and B = g's channels n0 .. n0 + N
+// (where g has fewer, the columns past its channels read the next planes'
+// and are to be dropped: the head's gradient, 1 channel, runs at N = 16;
+// wgrad_cols), reduced over the first `planes` planes; `slots` is what the
+// caller sized part for (wgrad_slots). Returns a CUDA error code.
 template <int N, int TAPS>
 int wgrad(const Planes& in, const Planes& g, int planes, int mrows, int slots, float* part,
-          cudaStream_t st) {
+          cudaStream_t st, int n0 = 0) {
   constexpr int SLABS = TAPS == 9 ? WG_ROWS + 2 : WG_ROWS;
   WgradArgs a;
   a.planes = planes;
@@ -826,7 +868,7 @@ int wgrad(const Planes& in, const Planes& g, int planes, int mrows, int slots, f
   a.stages = (SMEM_BUDGET - 1024 - 64) / (int)a.stage_bytes;
   a.stages = a.stages > 4 ? 4 : a.stages;
   a.part = part;
-  if (g.C > N || a.stages < 2 || in.shifted != (TAPS == 9) || g.shifted)
+  if (n0 < 0 || n0 >= g.C || a.stages < 2 || in.shifted != (TAPS == 9) || g.shifted)
     return (int)cudaErrorInvalidValue;
   const int smem = 1024 + a.stages * (int)a.stage_bytes + 64;
   auto kernel = wgrad_kernel<N, TAPS>;
@@ -835,7 +877,8 @@ int wgrad(const Planes& in, const Planes& g, int planes, int mrows, int slots, f
   CUtensorMap ma, mb;
   if (!plane_map(&ma, in.ptr, in.W, in.H, (long long)(TAPS == 9 ? 3 : 1) * in.planes * in.C,
                  in.pitch, 64) ||
-      !plane_map(&mb, g.ptr, g.W, g.H, (long long)g.planes * g.C, g.pitch, N))
+      !plane_map(&mb, g.ptr + (size_t)n0 * g.H * g.pitch, g.W, g.H, (long long)g.planes * g.C,
+                 g.pitch, N))
     return (int)cudaErrorInvalidValue;
   dim3 grid((TAPS == 9 ? 3 : 1) * ((mrows + 63) / 64), slots);
   kernel<<<grid, WG_THREADS, smem, st>>>(ma, mb, a);

@@ -1,85 +1,120 @@
 // Fused VLG decoder Up stage forward for Hopper (sm_90a).
 //
-// Replaces semivl_tpu/ops/fused_decoder.py::_stage_fwd_kernel (the Pallas
-// TPU kernel behind fused_vlg_decoder): per class plane, the 2x2 stride-2
-// transpose conv, conv1 3x3 over [up(x), skip], GroupNorm -> ReLU ->
-// conv2 3x3 -> GroupNorm -> ReLU, and on the last stage the 3x3 head to one
-// channel with bias. Storage between the convs is bf16; accumulation and
-// GroupNorm statistics are float32 (double for the final reduction).
+// Replaces two Pallas TPU kernels: semivl_tpu/ops/fused_decoder.py::
+// _stage_fwd_kernel (behind fused_vlg_decoder; #5) and semivl_tpu/ops/
+// fused_up.py::_up_fused_kernel (behind fused_up_stage; #11). Per class
+// plane: the 2x2 stride-2 transpose conv, conv1 3x3 over [up(x), skip],
+// GroupNorm -> ReLU -> conv2 3x3 -> GroupNorm -> ReLU, and on the last
+// stage the 3x3 head to one channel with bias. Storage between the convs
+// is bf16; accumulation and GroupNorm statistics are float32 (double for
+// the final reduction).
 //
 // What bounds it on this card: the flagship decoder (P = 42 planes, x
 // 128x32x32 -> 1x128x128) does about 72 GFLOP on about 15 MB of inputs and
-// outputs, so it is bound by operations. This first version computes on the
-// CUDA cores in float32 (register-tiled direct convolution: each thread owns
-// one output pixel and all output channels, weights stream through shared
-// memory as float4 broadcasts), which is right but far from the tensor-core
-// bound; implicit GEMM on the tensor cores is later work.
+// outputs, and the fused Up stage at P = 294 about 254 GFLOP per stage on
+// 235-470 MB, so both are bound by operations: the tensor cores. The stage
+// is decoder_stage_bwd.cuh's stage_recompute, the sequence both decoder
+// backward routes recompute their stage with, on decoder_igemm.cuh's wgmma
+// implicit GEMM (bf16 operands, float32 sums, TMA rings): the transpose
+// conv per output phase (in column groups of at most 128 channels), conv1's
+// skip half once per image (the skip is shared by the N class planes of an
+// image) as the float32 addend of its up half's epilogue, GroupNorm
+// partials of the stored raw conv1 and conv2 in their epilogues, GN1+ReLU
+// as its own pass, conv2. The head (K = 9 Cout, one output channel) stays
+// on decoder_common.cuh's CUDA cores, GN2+ReLU applied as it loads raw
+// conv2.
 //
-// Design against the TPU kernel. The TPU kernel kept a whole plane in VMEM
-// (megabytes) and ran the grid in order; a stage-2 plane is 32x128x128, 1 MB
-// per conv output in bf16, more than a block's shared memory, and blocks
-// run in parallel. So one stage is a short sequence of kernels on the
-// stream, each over (16x16 output tile, plane) blocks:
-//   1. tconv2x2: up = x (*) W + b, bf16. The input may carry the previous
-//      stage's GroupNorm+ReLU, applied as it is loaded.
-//   2. conv3x3 on the skip, once per IMAGE (the skip is shared by the N
-//      class planes of an image, as _SplitSkipConv computes it), float32.
-//   3. conv3x3 over up, plus the skip term of the plane's image -> raw
-//      conv1 output (bf16) and per-(plane, group, tile) partial sums.
-//   4. conv3x3 over GN1+ReLU(conv1), applied on load -> raw conv2 + sums.
-//   5. last stage only: the head conv over GN2+ReLU(conv2), plus bias.
-// GroupNorm statistics need the whole plane: each conv block writes its
-// tile's (sum, sum of squares) per group (no atomics), and the consumer's
-// prologue reduces the plane's partials in double (the second pass). A
-// stage that ends without the head hands its raw conv2 and partial sums to
-// the next stage, whose tconv applies GN2+ReLU on load.
+// The stage ends in one of three ways, chosen by the slots that are set:
+// the head's logits (S_HEAD_W); GN2+ReLU(raw conv2) as its own pass into
+// S_OUT (the fused Up stage without a head); or, with neither, the raw
+// conv2 and its GroupNorm partials for the next stage. That stage first
+// runs GN+ReLU of its input as its own pass into a bf16 copy
+// (gn_relu_kernel, as the whole-plane backward's recompute does), then the
+// stage. The copy costs one read and one write of the input plane (stage
+// 2's input is a quarter of its output plane); folding the normalisation
+// into the transpose conv's TMA source instead would need a
+// GroupNorm-applying copy there all the same, since TMA loads raw bytes.
+//
+// GroupNorm statistics need the whole plane: each conv tile (4 rows x 64
+// pixels) writes its (sum, sum of squares) per group (no atomics), and the
+// consumer's prologue reduces the plane's partials in double in tile
+// order. decoder_gn_stats reduces the same partials in the same order for
+// the banded backward.
+//
+// Design against the TPU kernels. They ran one program per plane with the
+// whole plane and conv1's output in VMEM. A plane at 128^2 x 32 channels is
+// 1 MB in bf16, more than a block's shared memory, and blocks run in
+// parallel, so the stage is a short sequence of kernels over whole planes.
+// The statistics are those of the bf16-stored raw conv outputs; the fused
+// Up stage's TPU kernel took them from the float32 sums before the
+// rounding.
 
-#include "decoder_common.cuh"
+#include "decoder_stage_bwd.cuh"
 
-// One Up stage (plus the head when head_w is not null) over P = B * n_rep
-// planes. Shapes (all NCHW, contiguous):
-//   x (P, cin, h, w) bf16, optionally still raw: gn_part/gn_gamma/gn_beta
-//     (the previous stage's conv2 partials) apply GN+ReLU on load;
-//   skip (B, cs, 2h, 2w) bf16;
-//   up_w float32 [cin][4][cu], up_b [cu];
-//   w1u [cu][9][cout], w1s [cs][9][cout], w2 [cout][9][cout] float32;
-//   g1w, g1b, g2w, g2b [cout]; head_w [cout][9][1], head_b [1];
-//   scratch: up (P, cu, 2h, 2w) bf16, ys (B, cout, 2h, 2w) float32,
-//     c1 (P, cout, 2h, 2w) bf16, part1 / part2 (P, cout/16, tiles, 2);
-//   out: c2 raw (P, cout, 2h, 2w) bf16, or head logits (P, 1, 2h, 2w) bf16.
-// cin, cs, cu and cout are multiples of 16 (cout in {16, 32, 64}, cin and cu
-// of 32 for the transpose conv, cin, cs, cu and cout of 8 for the convs).
-// Returns cudaGetLastError() after the launches.
-extern "C" int decoder_stage_fwd(
-    const void* x, int P, int cin, int h, int w, const void* gn_part, const void* gn_gamma,
-    const void* gn_beta, int gn_nparts, const void* skip, int B, int cs, const void* up_w,
-    const void* up_b, int cu, const void* w1u, const void* w1s, const void* w2, int cout,
-    const void* g1w, const void* g1b, const void* g2w, const void* g2b, const void* head_w,
-    const void* head_b, void* up, void* ys, void* c1, void* part1, void* part2, void* c2,
-    void* out, void* stream) {
+namespace {
+
+// Tensor slots of decoder_stage_fwd (t[]) and its sizes (d[]).
+// D_SKIP_HALF: 1 (0 leaves conv1's skip half out, a planted fault).
+enum StageSlot {
+  S_X, S_GN_PART, S_GN_GAMMA, S_GN_BETA, S_SKIP, S_UP_WF, S_UP_B, S_W1U, S_W1S, S_W2, S_G1W,
+  S_G1B, S_G2W, S_G2B, S_HEAD_W, S_HEAD_B, S_XIN, S_UP, S_YS, S_C1, S_PART1, S_A1, S_C2,
+  S_PART2, S_SCR, S_OUT, S_COUNT
+};
+enum Dim { D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_SKIP_HALF, D_COUNT };
+
+}  // namespace
+
+// One Up stage over P = B * n_rep planes, ending in the head when
+// S_HEAD_W is set, else in GN2+ReLU when S_OUT is set. Inputs (NCHW,
+// contiguous): x (P, cin, h, w) bf16, still raw when S_GN_PART is set:
+// GN+ReLU by the previous stage's conv2 partials (S_GN_PART [P][cin / 16]
+// [D_GN_NPARTS][2], S_GN_GAMMA, S_GN_BETA [cin] float32) into S_XIN (P,
+// cin, h, w) bf16 first; skip (B, cs, 2h, 2w) bf16; the weights in the
+// igemm layouts (bf16): S_UP_WF per column group of the up channels
+// [4][group][cin] (phase ky * 2 + kx; stage_recompute), S_W1U [9][cout]
+// [cu], S_W1S [9][cout][cs], S_W2 [9][cout][cout]; float32 S_UP_B [cu],
+// S_G1W, S_G1B, S_G2W, S_G2B [cout]; with the head S_HEAD_W float32 [cout]
+// [9][1] and S_HEAD_B [1]. Outputs: S_C2 raw conv2 (P, cout, 2h, 2w) bf16
+// and its partials S_PART2; S_C1 raw conv1 and S_PART1; S_OUT, with the
+// head the logits (P, 1, 2h, 2w) bf16, else GN2+ReLU(raw conv2) (P, cout,
+// 2h, 2w) bf16. The partials are (P, cout / 16, tiles, 2) float32 with
+// tiles = ceil(2h / 4) ceil(2w / 64). Scratch: S_UP (P, cu, 2h, 2w) bf16;
+// S_YS (B, cout, 2h, 2w) float32; S_A1 (P, cout, 2h, 2w) bf16; S_SCR
+// bf16, room for the three column-shifted copies of the widest source (3 P
+// max(cin, cu, cs, cout) 2h tma_pitch(2w)). cout in {16, 32, 48, 64, 96};
+// cin, cs and cu multiples of 16. Returns the first CUDA error of the
+// launches.
+extern "C" int decoder_stage_fwd(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
+  const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], cout = d[D_COUT];
   const int H = 2 * h, W = 2 * w;
-  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+  const int tiles = ((H + igemm::CONV_ROWS - 1) / igemm::CONV_ROWS) *
+                    ((W + igemm::TW - 1) / igemm::TW);
   const float inv_in = 1.f / (GSIZE * (float)h * (float)w);
   const float inv_out = 1.f / (GSIZE * (float)H * (float)W);
-  const GNIn none = NO_GN;
+  auto f = [&](int i) { return (float*)t[i]; };
+  auto b16 = [&](int i) { return (bf16*)t[i]; };
 
-  GNIn gn_x{(const float*)gn_part, (const float*)gn_gamma, (const float*)gn_beta, gn_nparts,
-            inv_in};
-  tconv2x2_kernel<<<dim3(tiles, P, cu / CU_T), NT, 0, st>>>(
-      (const bf16*)x, cin, h, w, gn_x, (const float*)up_w, (const float*)up_b, cu, (bf16*)up);
-  conv(cout, (const bf16*)skip, B, cs, H, W, none, (const float*)w1s, nullptr, nullptr, 1,
-       nullptr, (float*)ys, nullptr, st);
-  conv(cout, (const bf16*)up, P, cu, H, W, none, (const float*)w1u, nullptr, (const float*)ys,
-       P / B, (bf16*)c1, nullptr, (float*)part1, st);
-  GNIn gn1{(const float*)part1, (const float*)g1w, (const float*)g1b, tiles, inv_out};
-  conv(cout, (const bf16*)c1, P, cout, H, W, gn1, (const float*)w2, nullptr, nullptr, 1,
-       (bf16*)c2, nullptr, (float*)part2, st);
-  if (head_w != nullptr) {
-    GNIn gn2{(const float*)part2, (const float*)g2w, (const float*)g2b, tiles, inv_out};
-    conv(1, (const bf16*)c2, P, cout, H, W, gn2, (const float*)head_w, (const float*)head_b,
-         nullptr, 1, (bf16*)out, nullptr, nullptr, st);
+  const bf16* xin = b16(S_X);
+  if (t[S_GN_PART] != nullptr) {
+    const GNIn gx{f(S_GN_PART), f(S_GN_GAMMA), f(S_GN_BETA), d[D_GN_NPARTS], inv_in};
+    gn_relu_kernel<<<dim3((h * w + NT - 1) / NT, P), NT, 0, st>>>(b16(S_X), cin, h * w, gx,
+                                                                   b16(S_XIN));
+    xin = b16(S_XIN);
   }
+  const Stage s{P, cin, h, w, d[D_B], d[D_CS], d[D_CU], cout};
+  const GNIn gn1{f(S_PART1), f(S_G1W), f(S_G1B), tiles, inv_out};
+  Planes a1;
+  SEMIVL_CK(stage_recompute(s, xin, b16(S_SKIP), b16(S_UP_WF), f(S_UP_B), b16(S_W1U),
+                            b16(S_W1S), b16(S_W2), d[D_SKIP_HALF] != 0, gn1, b16(S_UP),
+                            f(S_YS), b16(S_C1), f(S_PART1), b16(S_A1), b16(S_C2), f(S_PART2),
+                            b16(S_SCR), &a1, st));
+  const GNIn gn2{f(S_PART2), f(S_G2W), f(S_G2B), tiles, inv_out};
+  if (t[S_HEAD_W] != nullptr)
+    SEMIVL_CK(conv(1, b16(S_C2), P, cout, H, W, gn2, f(S_HEAD_W), f(S_HEAD_B), b16(S_OUT), st));
+  else if (t[S_OUT] != nullptr)
+    gn_relu_kernel<<<dim3((H * W + NT - 1) / NT, P), NT, 0, st>>>(b16(S_C2), cout, H * W, gn2,
+                                                                   b16(S_OUT));
   return (int)cudaGetLastError();
 }
 
@@ -103,16 +138,15 @@ __global__ void gn_stats_kernel(const float* __restrict__ part, int P, int group
 }  // namespace
 
 // The GroupNorm statistics that decoder_stage_fwd normalised with, for the
-// banded backward: from the partials part1 or part2 of a stage whose conv
-// output is (P, C, H, W), mean and rstd (P, C) float32 (each group's value
-// on its GSIZE channels), bit-identical to the forward's prologue. Returns
-// cudaGetLastError() after the launch.
-extern "C" int decoder_gn_stats(const void* part, int P, int C, int H, int W, void* mean,
-                                void* rstd, void* stream) {
-  const int tiles = ((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE);
+// banded backward: from the partials part1 or part2 (P, C / 16, nparts, 2)
+// of a stage whose conv output is (P, C, H, W), mean and rstd (P, C)
+// float32 (each group's value on its GSIZE channels), bit-identical to the
+// forward's prologue. Returns cudaGetLastError() after the launch.
+extern "C" int decoder_gn_stats(const void* part, int P, int C, int nparts, int H, int W,
+                                void* mean, void* rstd, void* stream) {
   const float inv = 1.f / (GSIZE * (float)H * (float)W);   // as decoder_stage_fwd
   const int n = P * (C / GSIZE);
   gn_stats_kernel<<<(n + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)part, P, C / GSIZE, tiles, inv, (float*)mean, (float*)rstd);
+      (const float*)part, P, C / GSIZE, nparts, inv, (float*)mean, (float*)rstd);
   return (int)cudaGetLastError();
 }

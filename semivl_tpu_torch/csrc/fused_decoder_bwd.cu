@@ -85,7 +85,7 @@ enum Dim {
 // ------------------------------------------------ GroupNorm+ReLU backward
 
 constexpr int GN_SLAB = 1024;   // pixels of one block of gn_bwd_sums_kernel
-constexpr int GN_MAXC = 64;
+constexpr int GN_MAXC = 96;    // the widest Cout (fused_decoder.CONV_N)
 
 // g_y = g_a [gamma x_hat + beta > 0] from the raw input c; per (plane,
 // channel, slab) sums of g_y and g_y x_hat: gpart[p][c][slab][2].

@@ -50,7 +50,8 @@ def build_backbone(cfg, dtype):
     if cfg['type'] != 'MaskClipVisionTransformer':
         raise ValueError(f'Unknown backbone type {cfg["type"]!r}')
     keys = ('patch_size', 'in_channels', 'embed_dims', 'num_layers',
-            'num_heads', 'mlp_ratio', 'out_indices', 'qkv_bias',
+            'num_heads', 'mlp_ratio', 'out_indices', 'qkv_bias', 'pre_norm',
+            'final_norm', 'return_clip_embed', 'return_qkv', 'skip_last_attn',
             'patch_bias', 'clip_dim', 'norm_eps')
     return MaskClipViT(img_size=tuple(cfg['img_size']), dtype=dtype,
                        **{k: cfg[k] for k in keys if k in cfg})
@@ -67,6 +68,21 @@ def build_head(cfg, dtype):
                    dtype=dtype, **{k: cfg[k] for k in keys if k in cfg})
 
 
+def _check_clip_embed(cfg, role):
+    """Refuse a ViT config whose dense CLIP embedding the VLM reads but
+    ``return_clip_embed=False`` drops: the decode head takes it as the last
+    feature map when ``num_layers`` is in ``out_indices``; the guidance
+    encoder's labels always come from it."""
+    if cfg is None or cfg['type'] != 'MaskClipVisionTransformer' \
+            or cfg.get('return_clip_embed', True):
+        return
+    num_layers = cfg.get('num_layers', 12)
+    if role == 'clip_encoder' or num_layers in (cfg.get('out_indices')
+                                                or (num_layers,)):
+        raise ValueError(f'{role}: return_clip_embed=False drops the dense '
+                         'CLIP embedding that the VLM reads')
+
+
 class VLM(nn.Module):
     """``backbone``, ``decode_head``, for training with guidance labels
     ``clip_encoder`` and for the Cityscapes model ``conv_encoder``: the
@@ -76,6 +92,8 @@ class VLM(nn.Module):
                  conv_encoder_cfg=None, renorm_clip_img=False, fp_rate=0.5,
                  mcc_text_name='', dtype=torch.float32):
         super().__init__()
+        _check_clip_embed(backbone_cfg, 'backbone')
+        _check_clip_embed(clip_encoder_cfg, 'clip_encoder')
         self.decode_head_cfg = decode_head_cfg
         self.renorm_clip_img = renorm_clip_img
         self.fp_rate = fp_rate

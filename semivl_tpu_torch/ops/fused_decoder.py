@@ -11,15 +11,20 @@ tensors in torch layout, as ``models.vlg_head.Up.stage_params`` gives them:
 - ``conv2_weight`` (Cout, Cout, 3, 3), ``gn2_weight``, ``gn2_bias``;
 
 and the head is ``{'weight': (1, C, 3, 3), 'bias': (1,)}``. CUDA tensors
-launch ``csrc/fused_decoder.cu`` once per stage (bf16) or raise; under
-autograd the call is a ``torch.autograd.Function`` whose backward launches
-``csrc/fused_decoder_bwd.cu`` twice per stage (tail, then input). CPU
-tensors take ``fused_vlg_decoder_plain``, and autograd through it is the
-plain backward. The forward rounds the float32 weights to the activation
-dtype; the gradient passes that rounding straight through, as autograd of
-``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the kernels' own
-arithmetic in plain PyTorch, the reference the kernels are held to on the
-card (with the bf16 gradient roundings that both backward routes store).
+launch ``csrc/fused_decoder.cu`` once per stage (bf16; the tensor-core
+sequence ``stage_recompute``, the input, skip and up channels zero-padded
+to its products' widths, ``stage_plan``) or raise; under autograd the call
+is a ``torch.autograd.Function`` whose backward launches
+``csrc/fused_decoder_bwd.cu`` twice per stage (tail, then input). The
+kernels take every width but an output width (Cout) outside ``CONV_N``,
+which raises by name before any launch. CPU tensors take
+``fused_vlg_decoder_plain``, and autograd through it is the plain
+backward. The forward rounds the float32 weights to the
+activation dtype; the gradient passes that rounding straight through, as
+autograd of ``.to(bfloat16)`` does. ``fused_vlg_decoder_rounded`` is the
+kernels' own arithmetic in plain PyTorch, the reference the kernels are
+held to on the card (with the bf16 gradient roundings that both backward
+routes store).
 
 ``bwd='banded'`` routes the backward through ``ops.fused_decoder_banded``
 instead: the forward then also saves each stage's GroupNorm statistics
@@ -37,6 +42,8 @@ from semivl_tpu_torch.ops import _build
 launches = 0            # forward stage launches since the last reset
 bwd_tail_launches = 0   # backward launches (read by chip_smoke.py)
 bwd_input_launches = 0
+
+_TILE_ROWS, _TILE_COLS = 4, 64   # the igemm conv's tile (GroupNorm partials)
 
 STAGE_KEYS = ('up_weight', 'up_bias', 'conv1_weight', 'gn1_weight',
               'gn1_bias', 'conv2_weight', 'gn2_weight', 'gn2_bias')
@@ -115,10 +122,12 @@ def _round_grad_bf16(t):
     return _RoundGrad.apply(t)
 
 
-def up_stage_rounded(y, skip, p, dtype=torch.float32, bf16_grads=True):
+def up_stage_rounded(y, skip, p, dtype=torch.float32, bf16_grads=True,
+                     raw2=None):
     """One Up stage as the stage kernels compute it (see
     ``fused_vlg_decoder_rounded``): ``y`` in ``dtype``, the normalised
-    output in ``dtype`` holding bf16 values."""
+    output in ``dtype`` holding bf16 values. ``raw2``: values that replace
+    the raw conv2's, its gradient passing as through the stage's own."""
     gr = _round_grad_bf16 if bf16_grads else (lambda t: t)
     w = {k: _round_bf16(p[k].to(dtype)) for k in ('up_weight', 'up_bias',
                                                   'conv1_weight',
@@ -134,6 +143,8 @@ def up_stage_rounded(y, skip, p, dtype=torch.float32, bf16_grads=True):
                          + ys[:, None]).flatten(0, 1)))   # g_raw1
     a1 = gr(_gn_relu_rounded(c1, p['gn1_weight'], p['gn1_bias']))   # g_a1
     c2 = gr(_round_bf16(F.conv2d(a1, w['conv2_weight'], padding=1)))  # g_raw2
+    if raw2 is not None:
+        c2 = c2 + (raw2.to(dtype) - c2).detach()
     return gr(_gn_relu_rounded(c2, p['gn2_weight'], p['gn2_bias']))  # g_a2
 
 
@@ -153,7 +164,7 @@ def head_rounded(y, head_params):
 
 def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
                               head_params, dtype=torch.float32,
-                              bf16_grads=True):
+                              bf16_grads=True, raw2_1=None):
     """The decoder kernels' arithmetic in plain PyTorch: products and
     GroupNorm in ``dtype`` (float32, as the kernels sum) over weights
     rounded to bf16, and a bf16 rounding wherever the kernels store bf16
@@ -169,11 +180,14 @@ def fused_vlg_decoder_rounded(x, skip1, skip2, params1, params2,
     operands of its bf16 tensor-core products); without, autograd computes
     float32 gradients. The kernels differ from it only in the order of
     float32 sums (``dtype=torch.float64`` measures how much that order
-    matters).
+    matters). ``raw2_1``: stage 1's raw conv2 as the kernels' forward
+    stored it, the input that their backward reads; its values replace the
+    reference's own (the gradient passing as through those), so that a
+    backward is held at the point its forward reached.
     Returns (P, 1, 4h, 4w) logits in x's dtype."""
     y = x.to(dtype)
-    for p, skip in ((params1, skip1), (params2, skip2)):
-        y = up_stage_rounded(y, skip, p, dtype, bf16_grads)
+    for p, skip, raw2 in ((params1, skip1, raw2_1), (params2, skip2, None)):
+        y = up_stage_rounded(y, skip, p, dtype, bf16_grads, raw2)
     return head_rounded(y, head_params).to(x.dtype)
 
 
@@ -250,27 +264,6 @@ def stage_fwd_stats_plain(x, skip, p, gn_x=None, head=None):
 # ---------------------------------------------------------------------------
 # kernel wrapper
 
-def _kernel_weights(p, dt):
-    """float32 weights in the kernel's layouts, rounded to the activation
-    dtype first (the plain chain multiplies in that dtype)."""
-    def r(t):
-        return t.to(dt).float()
-
-    cu = p['up_weight'].shape[1]
-    w1 = r(p['conv1_weight'])
-    return dict(
-        # [ci][4][cu] and [ci][9][co] layouts
-        up_w=r(p['up_weight']).permute(0, 2, 3, 1).contiguous(),
-        up_b=r(p['up_bias']).contiguous(),
-        w1u=w1[:, :cu].permute(1, 2, 3, 0).contiguous(),
-        w1s=w1[:, cu:].permute(1, 2, 3, 0).contiguous(),
-        w2=r(p['conv2_weight']).permute(1, 2, 3, 0).contiguous(),
-        g1w=p['gn1_weight'].float().contiguous(),
-        g1b=p['gn1_bias'].float().contiguous(),
-        g2w=p['gn2_weight'].float().contiguous(),
-        g2b=p['gn2_bias'].float().contiguous())
-
-
 def _head_weight(head, dt):
     """The head's weight in the CUDA-core conv's float32 [cin][9][1] layout
     (rounded to the activation dtype first) and its float32 bias."""
@@ -278,7 +271,23 @@ def _head_weight(head, dt):
             head['bias'].float().contiguous())
 
 
-def _check(x, skip, p, what='fused_vlg_decoder kernel'):
+def _check_widths(cin, cout, gn_in=False, what='fused_vlg_decoder kernel'):
+    """What the stage kernels refuse of a stage's widths, by name: Cout
+    outside ``CONV_N`` (N of the 3x3 products; GroupNorm's groups of 16
+    channels) and, with ``gn_in`` (an input still to be normalised in
+    groups of 16 channels), a Cin that is not a multiple of 16. Every
+    other width runs, zero-padded (``stage_plan``)."""
+    if cout not in CONV_N:
+        raise ValueError(f'{what} takes Cout in {CONV_N} (N of its 3x3 '
+                         f'products), got {cout}')
+    if gn_in and cin % 16:
+        raise ValueError(f'{what} normalises its input in GroupNorm groups '
+                         f'of 16 channels: Cin {cin} is not a multiple of 16')
+
+
+def _check(x, skip, p, what='fused_vlg_decoder kernel', gn_in=None):
+    """bf16 contiguous planes on the card whose shapes match the stage's
+    weights, at widths the kernels take (``_check_widths``)."""
     if not (x.is_cuda and skip.is_cuda) or x.dtype != torch.bfloat16 \
             or skip.dtype != torch.bfloat16:
         raise ValueError(f'{what} takes bf16 CUDA tensors, '
@@ -296,84 +305,93 @@ def _check(x, skip, p, what='fused_vlg_decoder kernel'):
     if p['up_weight'].shape[0] != cin or \
             p['conv1_weight'].shape[1] != cu + cs:
         raise ValueError('stage weights do not match the input channels')
-    if cout not in (16, 32, 64) or cin % 32 or cu % 16 or cs % 8:
-        raise ValueError(f'{what} takes Cout in (16, 32, 64), Cin % 32 == '
-                         f'0, Cu % 16 == 0, Cs % 8 == 0; got {cout}, {cin}, '
-                         f'{cu}, {cs}')
+    _check_widths(cin, cout, gn_in is not None, what)
 
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-              ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
-             + [ctypes.c_void_p] * 2 + [ctypes.c_int] + [ctypes.c_void_p] * 3
-             + [ctypes.c_int] + [ctypes.c_void_p] * 14)
+_FWD_SLOTS = ('x gn_part gn_gamma gn_beta skip up_wf up_b w1u w1s w2 g1w g1b '
+              'g2w g2b head_w head_b xin up ys c1 part1 a1 c2 part2 scr '
+              'out').split()
 
 
-def _stage(x, skip, p, gn_in=None, head=None, stats=False):
-    """One kernel stage. ``gn_in``: (partials, gamma, beta) of a raw input
-    still to be normalised on load. Returns (raw conv2, its partials) or,
-    with ``head``, the head logits; with ``stats`` also the GroupNorm
-    statistics it normalised with, (mean1, rstd1, mean2, rstd2) each
-    (P, Cout) float32, read from the partials by ``decoder_gn_stats``."""
-    global launches
-    _check(x, skip, p)
+def _tiles(hh, ww):
+    """GroupNorm partials per plane and group of an hh x ww conv output:
+    one per igemm conv tile (``_TILE_ROWS`` x ``_TILE_COLS`` pixels)."""
+    return -(-hh // _TILE_ROWS) * -(-ww // _TILE_COLS)
+
+
+def stage_tensors(x, skip, p, head=None):
+    """The tensors of ``stage_recompute`` for a stage at its igemm widths
+    (skip and p padded): the weights in the igemm layouts, x and skip, the
+    outputs and scratch (up, ys, c1, a1, c2, part1, part2, scr), and with
+    ``head`` its weights and the logits ``out``; by slot name."""
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
-    kw = _kernel_weights(p, x.dtype)
     dev, hh, ww = x.device, 2 * h, 2 * w
-    tiles = -(-hh // 16) * -(-ww // 16)
-    up = torch.empty((pl, cu, hh, ww), dtype=x.dtype, device=dev)
-    ys = torch.empty((b, cout, hh, ww), dtype=torch.float32, device=dev)
-    c1 = torch.empty((pl, cout, hh, ww), dtype=x.dtype, device=dev)
-    c2 = torch.empty_like(c1)
-    part1 = torch.empty((pl, cout // 16, tiles, 2), dtype=torch.float32,
-                        device=dev)
-    part2 = torch.empty_like(part1)
-    null = ctypes.c_void_p(None)
-    if gn_in is None:
-        gn_ptrs, gn_nparts = (null, null, null), 0
-    else:
-        gn_ptrs = tuple(_build.ptr(t) for t in gn_in)
-        gn_nparts = gn_in[0].shape[2]
-    out = None
-    head_ptrs = (null, null, null)
+
+    def e(shape, dtype=x.dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    plane = (pl, cout, hh, ww)
+    part = (pl, cout // 16, _tiles(hh, ww), 2)
+    t = dict(_igemm_stage_weights(p, x.dtype), x=x, skip=skip,
+             up=e((pl, cu, hh, ww)), ys=e((b, cout, hh, ww), torch.float32),
+             c1=e(plane), a1=e(plane), c2=e(plane),
+             part1=e(part, torch.float32), part2=e(part, torch.float32))
+    t['scr'], = _tma_scratch(pl, (cin, cu, cs, cout), hh, ww, dev, 1)
     if head is not None:
-        hw_, hb = _head_weight(head, x.dtype)
-        out = torch.empty((pl, 1, hh, ww), dtype=x.dtype, device=dev)
-        head_ptrs = (_build.ptr(hw_), _build.ptr(hb), _build.ptr(out))
-    fn = _build.load('fused_decoder').decoder_stage_fwd
-    fn.argtypes, fn.restype = _ARGTYPES, ctypes.c_int
-    k = {n: _build.ptr(t) for n, t in kw.items()}
-    err = fn(_build.ptr(x), pl, cin, h, w, *gn_ptrs, gn_nparts,
-             _build.ptr(skip), b, cs, k['up_w'], k['up_b'], cu,
-             k['w1u'], k['w1s'], k['w2'], cout, k['g1w'], k['g1b'],
-             k['g2w'], k['g2b'], head_ptrs[0], head_ptrs[1],
-             _build.ptr(up), _build.ptr(ys), _build.ptr(c1),
-             _build.ptr(part1), _build.ptr(part2), _build.ptr(c2),
-             head_ptrs[2],
-             ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
-    _build.check(err, 'decoder_stage_fwd')
+        t['out'] = e((pl, 1, hh, ww))
+        t['head_w'], t['head_b'] = _head_weight(head, x.dtype)
+    return t
+
+
+def _stage(x, skip, p, gn_in=None, head=None, stats=False, skip_half=True):
+    """One launch of ``decoder_stage_fwd``. ``gn_in``: (partials, gamma,
+    beta) of a raw input still to be normalised (GN+ReLU) first. Returns
+    (raw conv2, its partials) or, with ``head``, the head logits; with
+    ``stats`` also the GroupNorm statistics it normalised with, (mean1,
+    rstd1, mean2, rstd2) each (P, Cout) float32, read from the partials by
+    ``decoder_gn_stats``. A stage whose Cin, Cu or Cs is not an igemm
+    width runs zero-padded (``stage_plan``, ``pad_stage``).
+    ``skip_half=False`` leaves
+    conv1's skip half out (a planted fault inside the kernel's
+    sequence)."""
+    global launches
+    x, skip, p = pad_stage(x, skip, p, _check_igemm(
+        x, skip, p, 'fused_vlg_decoder kernel', bwd=False, gn_in=gn_in))
+    pl, cin, h, w = x.shape
+    b, cs = skip.shape[:2]
+    cu = p['up_weight'].shape[1]
+    cout = p['conv2_weight'].shape[0]
+    t = stage_tensors(x, skip, p, head)
+    if gn_in is not None:
+        t.update(gn_part=gn_in[0], gn_gamma=gn_in[1], gn_beta=gn_in[2],
+                 xin=torch.empty_like(x))
+    gn_nparts = 0 if gn_in is None else gn_in[0].shape[2]
+    _call('decoder_stage_fwd', _FWD_SLOTS, t,
+          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, int(skip_half)), x,
+          lib='fused_decoder')
     launches += 1
-    res = (out,) if head is not None else (c2, part2)
+    res = (t['out'],) if head is not None else (t['c2'], t['part2'])
     if stats:
-        res += (_gn_stats(part1, c1.shape) + _gn_stats(part2, c2.shape),)
+        res += (_gn_stats(t['part1'], t['c1'].shape)
+                + _gn_stats(t['part2'], t['c2'].shape),)
     return res[0] if len(res) == 1 else res
 
 
 def _gn_stats(part, shape):
     """(mean, rstd) (P, C) float32 of a conv output of ``shape`` from its
-    partials."""
+    partials (P, C / 16, nparts, 2), reduced as the forward reduced them."""
     pl, c, hh, ww = shape
     mean = torch.empty((pl, c), dtype=torch.float32, device=part.device)
     rstd = torch.empty_like(mean)
     fn = _build.load('fused_decoder').decoder_gn_stats
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 4
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    _build.check(fn(_build.ptr(part), pl, c, hh, ww, _build.ptr(mean),
-                    _build.ptr(rstd), ctypes.c_void_p(
+    _build.check(fn(_build.ptr(part), pl, c, part.shape[2], hh, ww,
+                    _build.ptr(mean), _build.ptr(rstd), ctypes.c_void_p(
                         torch.cuda.current_stream(part.device).cuda_stream)),
                  'decoder_gn_stats')
     return mean, rstd
@@ -391,7 +409,6 @@ _INPUT_SLOTS = (
     'g_c1 up xin skip up_wd w1u_d w1s_d gph g_img igpart bpart scr_a scr_b '
     'g_xin g_skip g_w1u g_w1s g_up_w g_up_b').split()
 _BWD_ARGTYPES = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-_TILE_ROWS, _TILE_COLS = 4, 64   # the igemm conv's tile (GroupNorm partials)
 
 
 def _dgrad_weight(w):
@@ -424,13 +441,17 @@ def _tconv_fwd_weight(w):
 
 
 def _tconv_groups(wf):
-    """[4][cu][cin] transpose conv weight -> the column groups of at most
-    ``TCONV_GROUP`` output channels that ``stage_recompute`` runs, each
-    [4][group][cin], one after another (itself for cu <= TCONV_GROUP)."""
-    if wf.shape[1] <= TCONV_GROUP:
+    """[4][cu][cin] transpose conv weight -> the column groups that
+    ``stage_recompute`` runs (``column_groups(cu, TCONV_N)``), each
+    [4][group][cin], one after another (itself for one group, and for a
+    width that is not a multiple of 16, which no kernel takes)."""
+    cu = wf.shape[1]
+    groups = column_groups(cu, TCONV_N) if cu % 16 == 0 else (cu,)
+    if len(groups) == 1:
         return wf
-    return torch.cat([wf[:, n0:n0 + TCONV_GROUP].flatten()
-                      for n0 in range(0, wf.shape[1], TCONV_GROUP)])
+    starts = [sum(groups[:k]) for k in range(len(groups))]
+    return torch.cat([wf[:, n0:n0 + n].flatten()
+                      for n0, n in zip(starts, groups)])
 
 
 def _tconv_dgrad_weight(w):
@@ -470,16 +491,18 @@ def _tma_scratch(pl, channels, hh, ww, dev, n=2):
 
 
 def _igemm_stage_weights(p, dt):
-    """A stage's recompute weights in the igemm layouts (bf16), the
-    transpose conv's bias and the GroupNorm affines (float32)."""
-    kw = _kernel_weights(p, dt)
+    """A stage's forward weights in the igemm layouts (bf16), the transpose
+    conv's bias (rounded to the activation dtype ``dt``, as the plain chain
+    adds it) and the GroupNorm affines (float32)."""
     cu = p['up_weight'].shape[1]
     w1 = p['conv1_weight']
     return dict(up_wf=_tconv_groups(_tconv_fwd_weight(p['up_weight'])),
-                up_b=kw['up_b'],
+                up_b=p['up_bias'].to(dt).float().contiguous(),
                 w1u=_igemm_weight(w1[:, :cu]), w1s=_igemm_weight(w1[:, cu:]),
                 w2=_igemm_weight(p['conv2_weight']),
-                **{k: kw[k] for k in ('g1w', 'g1b', 'g2w', 'g2b')})
+                **{k: p[n].float().contiguous() for k, n in (
+                    ('g1w', 'gn1_weight'), ('g1b', 'gn1_bias'),
+                    ('g2w', 'gn2_weight'), ('g2b', 'gn2_bias'))})
 
 
 def _igemm_input_weights(p):
@@ -505,43 +528,60 @@ def _call(fn_name, slots, tensors, dims, x, lib='fused_decoder_bwd'):
 
 
 # Output widths (N) of decoder_stage_bwd.cuh's igemm products: the 3x3
-# conv and its wgrad (conv_n<9>; wgrad_n<9> takes 16, 32, 64) and the
-# transpose conv's products (conv_n<1>, wgrad_n<1>), whose forward runs
-# in column groups of at most TCONV_GROUP channels. K (input channels) is
-# any multiple of 16.
+# conv (CONV_N), the transpose conv's products (TCONV_N) and the weight
+# gradients (WGRAD_N, by taps). A wider output runs in column groups:
+# conv_cols and the transpose conv take the widest width that fits what is
+# left (``column_groups``), wgrad_cols the narrowest that covers it
+# (``wgrad_width``). K (input channels) is any multiple of 16.
 CONV_N = (16, 32, 48, 64, 96)
 TCONV_N = CONV_N + (128,)
-TCONV_GROUP = 128
-# what the backward routes' transpose conv dgrad and wgrad take as Cin (N)
-BWD_CIN = (32, 64, 96, 128)
+WGRAD_N = {9: (16, 32, 64), 1: (32, 64, 96, 128)}
 
 
 def _next(c, widths):
     return next((n for n in widths if n >= c), None)
 
 
+def _round16(c):
+    return -(-c // 16) * 16
+
+
+def column_groups(c, widths):
+    """The column groups ``stage_recompute`` and ``conv_cols`` run an
+    output of c channels (a multiple of 16) in: each the widest of
+    ``widths`` that fits what is left."""
+    groups = []
+    while c > 0:
+        groups.append(max(n for n in widths if n <= c))
+        c -= groups[-1]
+    return tuple(groups)
+
+
+def wgrad_width(c, taps):
+    """The widest weight-gradient product ``wgrad_cols`` runs for c
+    columns (the room its partials need per column)."""
+    return _next(c, WGRAD_N[taps]) or WGRAD_N[taps][-1]
+
+
 def stage_plan(cin, cu, cs, bwd=False):
     """The widths the igemm sequences run a stage of Cin, Cu, Cs channels
-    at: dict(cu=, cs=, tconv_groups=), cu and cs zero-padded (exact:
-    ``pad_stage``). The forward (``bwd`` False, the fused Up stage #11)
-    pads Cs to a multiple of 16 (a K width) and Cu to column groups of
-    ``TCONV_N`` widths (TCONV_GROUP each but the last, that one padded to
-    the next width). The backward routes (#6-#10) also take Cu and Cs as N
-    of 3x3 dgrads, so both pad to the next of ``CONV_N``, and Cin as N of
-    the transpose conv's dgrad, one of ``BWD_CIN``: a wider Cin, Cu or Cs
-    raises, naming the widths. Cin is a multiple of 32 (``_check``), a K
-    width as it is."""
+    at: dict(cin=, cu=, cs=, tconv_groups=), each zero-padded (exact:
+    ``pad_stage``). Cin and Cs are K widths, padded to multiples of 16.
+    The forward (``bwd`` False: the decoder forward #5 and the fused Up
+    stage #11) pads Cu to column groups of ``TCONV_N`` widths (128 each but
+    the last, that one padded to the next width). The backward routes
+    (#6-#10) also take Cu and Cs as N of 3x3 dgrads: up to 96 each pads to
+    the next of ``CONV_N`` (one product), a wider one to a multiple of 16
+    (``column_groups``)."""
     if bwd:
-        pcu, pcs = _next(cu, CONV_N), _next(cs, CONV_N)
-        if pcu is None or pcs is None or cin not in BWD_CIN:
-            raise ValueError(
-                f'decoder backward kernel takes Cu and Cs up to {CONV_N[-1]} '
-                f'(padded to one of {CONV_N}) and Cin in {BWD_CIN}; got Cu '
-                f'{cu}, Cs {cs}, Cin {cin}')
-        return dict(cu=pcu, cs=pcs, tconv_groups=(pcu,))
-    full, rest = divmod(cu - 1, TCONV_GROUP)
-    groups = (TCONV_GROUP,) * full + (_next(rest + 1, TCONV_N),)
-    return dict(cu=sum(groups), cs=-(-cs // 16) * 16, tconv_groups=groups)
+        pcu = _next(cu, CONV_N) or _round16(cu)
+        pcs = _next(cs, CONV_N) or _round16(cs)
+    else:
+        full, rest = divmod(cu - 1, TCONV_N[-1])
+        pcu = TCONV_N[-1] * full + _next(rest + 1, TCONV_N)
+        pcs = _round16(cs)
+    return dict(cin=_round16(cin), cu=pcu, cs=pcs,
+                tconv_groups=column_groups(pcu, TCONV_N))
 
 
 def _pad_channels(t, c):
@@ -553,31 +593,36 @@ def _pad_channels(t, c):
                                      + tuple(t.shape[2:]))], 1).contiguous()
 
 
-def pad_stage(skip, p, plan):
-    """The skip and a stage's weights zero-padded to ``plan``'s widths:
-    skip channels (and conv1's skip columns) to plan['cs'], the transpose
-    conv's output channels (up_weight, up_bias; conv1's up columns) to
-    plan['cu']. The padded up channels are 0 (zero weights and bias) and
-    every padded column multiplies zeros, so the padded stage computes the
-    true one. Returns (skip, p), themselves when nothing is padded."""
-    cu, cs = p['up_weight'].shape[1], skip.shape[1]
-    if (cu, cs) == (plan['cu'], plan['cs']):
-        return skip, p
-    w1 = p['conv1_weight']
-    return _pad_channels(skip, plan['cs']), dict(
-        p, up_weight=_pad_channels(p['up_weight'], plan['cu']),
-        up_bias=_pad_channels(p['up_bias'][None], plan['cu'])[0],
-        conv1_weight=torch.cat([_pad_channels(w1[:, :cu], plan['cu']),
-                                _pad_channels(w1[:, cu:], plan['cs'])], 1))
+def pad_stage(x, skip, p, plan):
+    """The input, the skip and a stage's weights zero-padded to ``plan``'s
+    widths: x's channels (and the transpose conv's input rows) to
+    plan['cin'], skip channels (and conv1's skip columns) to plan['cs'],
+    the transpose conv's output channels (up_weight, up_bias; conv1's up
+    columns) to plan['cu']. The padded up channels are 0 (zero weights and
+    bias) and every padded column multiplies zeros, so the padded stage
+    computes the true one. Returns (x, skip, p), themselves when nothing is
+    padded."""
+    cin, cu, cs = x.shape[1], p['up_weight'].shape[1], skip.shape[1]
+    if (cin, cu, cs) == (plan['cin'], plan['cu'], plan['cs']):
+        return x, skip, p
+    w1, wu = p['conv1_weight'], p['up_weight']
+    wu = _pad_channels(wu.transpose(0, 1), plan['cin']).transpose(0, 1)
+    return _pad_channels(x, plan['cin']), _pad_channels(skip, plan['cs']), \
+        dict(p, up_weight=_pad_channels(wu, plan['cu']),
+             up_bias=_pad_channels(p['up_bias'][None], plan['cu'])[0],
+             conv1_weight=torch.cat([_pad_channels(w1[:, :cu], plan['cu']),
+                                     _pad_channels(w1[:, cu:], plan['cs'])],
+                                    1))
 
 
-def unpad_grads(g, cu, cs):
-    """A padded stage's gradients (``g_skip``, ``up_weight``, ``up_bias``,
-    ``conv1_weight``; any other key as it is) cut back to the true widths
-    Cu and Cs."""
+def unpad_grads(g, cin, cu, cs):
+    """A padded stage's gradients (``g_x``, ``g_skip``, ``up_weight``,
+    ``up_bias``, ``conv1_weight``; any other key as it is) cut back to the
+    true widths Cin, Cu and Cs."""
     out = dict(g)
     pcu = g['up_bias'].shape[0]
-    out.update(g_skip=g['g_skip'][:, :cs], up_weight=g['up_weight'][:, :cu],
+    out.update(g_x=g['g_x'][:, :cin], g_skip=g['g_skip'][:, :cs],
+               up_weight=g['up_weight'][:cin, :cu],
                up_bias=g['up_bias'][:cu],
                conv1_weight=torch.cat([g['conv1_weight'][:, :cu],
                                        g['conv1_weight'][:, pcu:pcu + cs]],
@@ -585,10 +630,11 @@ def unpad_grads(g, cu, cs):
     return out
 
 
-def _check_igemm(x, skip, p, what='decoder backward kernel', bwd=True):
+def _check_igemm(x, skip, p, what='decoder backward kernel', bwd=True,
+                 gn_in=None):
     """What the igemm sequences take besides ``_check``: the widths of
     ``stage_plan`` (returned) and 16-byte aligned planes (TMA)."""
-    _check(x, skip, p, what)
+    _check(x, skip, p, what, gn_in)
     plan = stage_plan(x.shape[1], p['up_weight'].shape[1], skip.shape[1],
                       bwd)
     if x.data_ptr() % 16 or skip.data_ptr() % 16:
@@ -604,18 +650,20 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
     g_raw1. Returns a dict with g_c1 (bf16), the recomputed up / xin, and
     the gradients of conv2, the GroupNorms and the head in torch layouts.
     ``wgrad_planes``: the planes conv2's weight gradient reduces over (all
-    of them unless a planted fault asks for fewer). A stage whose Cu or Cs
-    is not an igemm width runs zero-padded (``stage_plan``); the returned
-    ``up`` keeps the padded channels, which ``_stage_bwd_input`` takes."""
+    of them unless a planted fault asks for fewer). A stage whose Cin, Cu
+    or Cs is not an igemm width runs zero-padded (``stage_plan``); the
+    returned ``up`` keeps the padded channels, which ``_stage_bwd_input``
+    takes, and ``xin`` has the true Cin."""
     global bwd_tail_launches
-    skip, p = pad_stage(skip, p, _check_igemm(x, skip, p))
+    cin0 = x.shape[1]
+    x, skip, p = pad_stage(x, skip, p, _check_igemm(x, skip, p, gn_in=gn_in))
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
     dt, dev = x.dtype, x.device
     hh, ww = 2 * h, 2 * w
-    tiles = -(-hh // _TILE_ROWS) * -(-ww // _TILE_COLS)
+    tiles = _tiles(hh, ww)
     slots = _wgrad_slots(dev, 9, cout)
 
     def e(shape, dtype=torch.float32):
@@ -636,7 +684,7 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
              part2=e((pl, cout // 16, tiles, 2)),
              gpart=e((pl, cout, -(-hh * ww // 1024), 2)),
              gsum=e((pl, cout, 2)), gab=e((pl, cout // 16, 2)),
-             igpart=e((slots, 9, cout, max(cout, 16))),
+             igpart=e((slots, 9, cout, wgrad_width(cout, 9))),
              g_w2=e((9, cout, cout)),
              g_g1w=e((cout,)), g_g1b=e((cout,)), g_g2w=e((cout,)),
              g_g2b=e((cout,)))
@@ -653,7 +701,8 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
           (pl, cin, h, w, gn_nparts, b, cs, cu, cout, 0,
            pl if wgrad_planes is None else wgrad_planes, slots, 0, 0), x)
     bwd_tail_launches += 1
-    out = dict(g_c1=t['g_c1'], up=t['up'], xin=t['xin'],
+    xin = t['xin'] if cin == cin0 else t['xin'][:, :cin0].contiguous()
+    out = dict(g_c1=t['g_c1'], up=t['up'], xin=xin,
                conv2_weight=_from_taps(t['g_w2'], cout, cout),
                gn1_weight=t['g_g1w'], gn1_bias=t['g_g1b'],
                gn2_weight=t['g_g2w'], gn2_bias=t['g_g2b'])
@@ -670,9 +719,9 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
     layouts, at the stage's true widths (``up`` at them or at the padded
     ones)."""
     global bwd_input_launches
-    cu0, cs0 = p['up_weight'].shape[1], skip.shape[1]
+    cin0, cu0, cs0 = xin.shape[1], p['up_weight'].shape[1], skip.shape[1]
     plan = _check_igemm(xin, skip, p)
-    skip, p = pad_stage(skip, p, plan)
+    xin, skip, p = pad_stage(xin, skip, p, plan)
     up = _pad_channels(up, plan['cu'])
     pl, cin, h, w = xin.shape
     b, cs, hh, ww = skip.shape
@@ -689,8 +738,9 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
 
     t = dict(_igemm_input_weights(p), g_c1=g_c1, up=up, xin=xin, skip=skip,
              gph=e((pl, 4, cu, h, pitch), dt), g_img=e((b, cout, hh, ww), dt),
-             igpart=e(max(s1 * 9 * cu * cout, s2 * 9 * cs * cout,
-                          s3 * 4 * cu * cin)),
+             igpart=e(max(s1 * 9 * cu * wgrad_width(cout, 9),
+                          s2 * 9 * cs * wgrad_width(cout, 9),
+                          s3 * 4 * cu * wgrad_width(cin, 1))),
              bpart=e((pl, cu)), g_xin=e((pl, cin, h, w), dt),
              g_skip=e((b, cs, hh, ww)), g_w1u=e((9, cu, cout)),
              g_w1s=e((9, cs, cout)), g_up_w=e((4 * cu, cin)),
@@ -705,7 +755,7 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
         up_weight=_tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
         conv1_weight=torch.cat([_from_taps(t['g_w1u'], cu, cout),
                                 _from_taps(t['g_w1s'], cs, cout)], dim=1)),
-        cu0, cs0)
+        cin0, cu0, cs0)
 
 
 def _unflatten(flat):

@@ -215,13 +215,15 @@ def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
     """Pass A (kernel #8); arguments and results as ``pass_a_plain``.
     ``skip_half=False`` leaves conv1's skip half out of the recompute (a
     planted fault inside the kernel's tensor-core product). A stage whose
-    Cu or Cs is not an igemm width runs zero-padded
-    (``fused_decoder.stage_plan``); ``up`` is returned at the true Cu."""
+    Cin, Cu or Cs is not an igemm width runs zero-padded
+    (``fused_decoder.stage_plan``); ``up`` and ``xin`` are returned at the
+    true Cu and Cin."""
     global pass_a_launches
     if not x.is_cuda:
         return pass_a_plain(x, skip, p, stats, g, gn_x, head)
-    cu0 = p['up_weight'].shape[1]
-    skip, p = fd.pad_stage(skip, p, fd._check_igemm(x, skip, p))
+    cin0, cu0 = x.shape[1], p['up_weight'].shape[1]
+    x, skip, p = fd.pad_stage(x, skip, p, fd._check_igemm(
+        x, skip, p, gn_in=gn_x))
     pl, cin, h, w = x.shape
     b, cs, hh, ww = skip.shape
     cu = p['up_weight'].shape[1]
@@ -258,6 +260,8 @@ def pass_a(x, skip, p, stats, g, gn_x=None, head=None, skip_half=True):
     pass_a_launches += 1
     out = {k: t[k] for k in ('xin', 'raw1', 'raw2', 'gy2')}
     out['up'] = t['up'][:, :cu0]
+    if cin != cin0:
+        out['xin'] = t['xin'][:, :cin0].contiguous()
     out.update(sgy2=t['sums'][..., 0], sgyx2=t['sums'][..., 1])
     if head is not None:
         out.update(head_weight=fd._from_taps(t['g_hw'][..., :1], cout, 1),
@@ -289,7 +293,8 @@ def pass_b(raw1, raw2, gy2, p, stats, mg2, wgrad_planes=None):
              w2_d=fd._igemm_dgrad_weight(p['conv2_weight']),
              graw2=e(plane, dt), a1=e(plane, dt), gy1=e(plane, dt),
              gpart=e((pl, cout, -(-hh * ww // 256), 2)),
-             sums=e((pl, cout, 2)), wpart=e((slots, 9, cout, cout)),
+             sums=e((pl, cout, 2)),
+             wpart=e((slots, 9, cout, fd.wgrad_width(cout, 9))),
              g_w2=e((9, cout, cout)))
     t['scr_a'], t['scr_b'] = fd._tma_scratch(pl, (cout,), hh, ww, dev)
     t.update(zip(('m1', 'r1', 'm2', 'r2'), (_f32(s) for s in stats)))
@@ -309,17 +314,17 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
     if not xin.is_cuda:
         return pass_c_plain(xin, up, skip, raw1, gy1, p, stats, mg1)
     plan = fd._check_igemm(xin, skip, p)
-    pl, cin, h, w = xin.shape
+    pl, cin0, h, w = xin.shape
     b, cs0, hh, ww = skip.shape
     cu0 = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
     if up.shape != (pl, cu0, hh, ww) or raw1.shape != (pl, cout, hh, ww):
         raise ValueError(f'pass C: up {tuple(up.shape)} / raw1 '
                          f'{tuple(raw1.shape)} do not match the stage')
-    skip, p = fd.pad_stage(skip, p, plan)
+    xin, skip, p = fd.pad_stage(xin, skip, p, plan)
     up = fd._pad_channels(up, plan['cu'])
     _check_stored(up=up, raw1=raw1)
-    cs, cu = plan['cs'], plan['cu']
+    cin, cs, cu = plan['cin'], plan['cs'], plan['cu']
     dt, dev = xin.dtype, xin.device
     e = _empty(dev)
     pitch = -(-w // 8) * 8
@@ -333,8 +338,9 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
              w1u_d=kw['w1u_d'], w1s_d=kw['w1s_d'],
              graw1=e((pl, cout, hh, ww), dt), g_up=e((pl, 4, cu, h, pitch), dt),
              g_img=e((b, cout, hh, ww), dt),
-             wpart=e(max(slots[0] * 9 * cu * cout, slots[1] * 9 * cs * cout,
-                         slots[2] * 4 * cu * cin)),
+             wpart=e(max(slots[0] * 9 * cu * fd.wgrad_width(cout, 9),
+                         slots[1] * 9 * cs * fd.wgrad_width(cout, 9),
+                         slots[2] * 4 * cu * fd.wgrad_width(cin, 1))),
              bpart=e((pl, cu)), g_xin=e((pl, cin, h, w), dt),
              g_skip=e((b, cs, hh, ww)), g_w1u=e((9, cu, cout)),
              g_w1s=e((9, cs, cout)), g_up_w=e((4 * cu, cin)),
@@ -350,7 +356,7 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
         up_weight=fd._tconv_wgrad_to_torch(t['g_up_w'], cin, cu),
         conv1_weight=torch.cat([fd._from_taps(t['g_w1u'], cu, cout),
                                 fd._from_taps(t['g_w1s'], cs, cout)], dim=1)),
-        cu0, cs0)
+        cin0, cu0, cs0)
 
 
 # ---------------------------------------------------------------------------

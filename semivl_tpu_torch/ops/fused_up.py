@@ -12,10 +12,11 @@ Planes are NCHW; ``stage_params`` carries the torch-layout names of
 ``up_bias``, ``conv1_weight`` (Cout, Cu + Cs, 3, 3), ``gn1_weight``,
 ``gn1_bias``, ``conv2_weight``, ``gn2_weight``, ``gn2_bias``; from a JAX
 ``Up`` tree: ``convert.up_stage_params``), the head ``{'weight': (1, Cout,
-3, 3), 'bias': (1,)}``. CUDA tensors launch ``csrc/fused_up.cu`` (bf16,
-Cout 16, 32 or 64, Cin a multiple of 32, Cu of 16, Cs of 8; the skip and up
-channels zero-padded to the widths of its tensor-core products,
-``fused_decoder.stage_plan``) or raise; CPU tensors take
+3, 3), 'bias': (1,)}``. CUDA tensors launch ``decoder_stage_fwd`` of
+``csrc/fused_decoder.cu``, the decoder forward's stage, ending in
+GN2+ReLU or the head (bf16, Cout in ``fused_decoder.CONV_N``; the input,
+skip and up channels zero-padded to the widths of its tensor-core
+products, ``fused_decoder.stage_plan``) or raise; CPU tensors take
 ``fused_up_stage_plain``. ``fused_up_stage_rounded`` is the kernel's own
 arithmetic in plain PyTorch, the reference it is held to on the card.
 """
@@ -26,9 +27,6 @@ import torch.nn.functional as F
 from semivl_tpu_torch.ops import fused_decoder
 
 launches = 0   # kernel launches since the last reset (read by chip_smoke.py)
-
-_SLOTS = ('x skip up_wf up_b w1u w1s w2 g1w g1b g2w g2b head_w head_b up ys '
-          'c1 part1 a1 c2 part2 scr out').split()
 
 
 def fused_up_stage_plain(x, skip, stage_params, head_params=None):
@@ -68,39 +66,22 @@ def _check(x, skip, p, head_params):
 
 
 def _kernel(x, skip, p, head_params, skip_half=True):
-    """One launch of ``up_stage_fwd``. ``skip_half=False`` leaves conv1's
-    skip half out (a planted fault inside the kernel's sequence)."""
+    """One launch of ``decoder_stage_fwd`` ending in GN2+ReLU (``out`` set,
+    no head) or the head. ``skip_half=False`` leaves conv1's skip half out
+    (a planted fault inside the kernel's sequence)."""
     global launches
-    skip, p = fused_decoder.pad_stage(skip, p, _check(x, skip, p,
-                                                      head_params))
+    x, skip, p = fused_decoder.pad_stage(x, skip, p, _check(x, skip, p,
+                                                            head_params))
     pl, cin, h, w = x.shape
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
-    dev, hh, ww = x.device, 2 * h, 2 * w
-    tiles = -(-hh // fused_decoder._TILE_ROWS) * -(
-        -ww // fused_decoder._TILE_COLS)
-
-    def e(shape, dtype=x.dtype):
-        return torch.empty(shape, dtype=dtype, device=dev)
-
-    plane = (pl, cout, hh, ww)
-    t = dict(fused_decoder._igemm_stage_weights(p, x.dtype), x=x, skip=skip,
-             up=e((pl, cu, hh, ww)), ys=e((b, cout, hh, ww), torch.float32),
-             c1=e(plane), a1=e(plane), c2=e(plane),
-             part1=e((pl, cout // 16, tiles, 2), torch.float32),
-             part2=e((pl, cout // 16, tiles, 2), torch.float32))
-    t['scr'], = fused_decoder._tma_scratch(pl, (cin, cu, cs, cout), hh, ww,
-                                           dev, 1)
+    t = fused_decoder.stage_tensors(x, skip, p, head_params)
     if head_params is None:
-        t['out'] = e(plane)
-    else:
-        t['out'] = e((pl, 1, hh, ww))
-        t['head_w'], t['head_b'] = fused_decoder._head_weight(head_params,
-                                                              x.dtype)
-    fused_decoder._call('up_stage_fwd', _SLOTS, t,
-                        (pl, cin, h, w, b, cs, cu, cout, int(skip_half)), x,
-                        lib='fused_up')
+        t['out'] = torch.empty_like(t['c2'])
+    fused_decoder._call('decoder_stage_fwd', fused_decoder._FWD_SLOTS, t,
+                        (pl, cin, h, w, 0, b, cs, cu, cout, int(skip_half)),
+                        x, lib='fused_decoder')
     launches += 1
     return t['out']
 
@@ -111,8 +92,8 @@ def fused_up_stage(x, skip, stage_params, head_params=None):
     x: (P, Cin, h, w) with P = B * N; skip: (B, Cs, 2h, 2w), already at the
     output size. Returns (P, Cout, 2h, 2w) in x's dtype, or with
     ``head_params`` the (P, 1, 2h, 2w) head logits. On the card the
-    kernel takes bf16 planes, Cout in (16, 32, 64), Cin % 32 == 0, Cu % 16
-    == 0 and Cs % 8 == 0; like the TPU kernel it has no gradient."""
+    kernel takes bf16 planes and Cout in ``fused_decoder.CONV_N``; like the
+    TPU kernel it has no gradient."""
     if not x.is_cuda:
         return fused_up_stage_plain(x, skip, stage_params, head_params)
     tensors = [x, skip, *stage_params.values(),

@@ -1,6 +1,7 @@
 """Times the decoder kernels of this checkout against another checkout's,
-in turns, on the card: the backward's whole-plane route (kernels #6/#7)
-and banded route (passes #8-#10), and the fused Up stage (#11).
+in turns, on the card: the forward (kernel #5), the backward's
+whole-plane route (kernels #6/#7) and banded route (passes #8-#10), and
+the fused Up stage (#11).
 
 ``other`` is the root of another checkout (e.g. a parent commit unpacked
 with ``git archive``): its ``semivl_tpu_torch.ops.fused_decoder``,
@@ -11,6 +12,12 @@ Both builds run in turns (other, this, this, other), timed by CUDA events
 and by the profiler's kernel durations (``chip_smoke.cuda_ms`` and
 ``device_ms``):
 
+- at each case of ``CASES`` and ``BANDED_CASES``, the forward (#5) under
+  no_grad: stage 1 (``fused_decoder._stage``), stage 2 with the head (on
+  its own build's stage-1 output and partials) and the two-stage chain
+  (``fused_vlg_decoder``), with cuDNN's convolutions for each beside
+  (``fused_up_bench.cudnn_stage``, ``chip_smoke._cudnn_chain``), each turn
+  in a process of its own as the banded turns below;
 - at each case of ``CASES`` (the flagship VOC step's decoder at P = 126
   and the tiny step's at P = 42, the whole-plane route): both stages' tail
   calls (``decoder_stage_bwd_tail``), both input calls
@@ -38,7 +45,8 @@ and by the profiler's kernel durations (``chip_smoke.cuda_ms`` and
 ``speedup`` is the other build's device time over this one's (per part
 too, ``speedups``), ``vs_cudnn`` this build's over cuDNN's, and ``rel_l2``
 the worst gradient leaf of this build's whole backward against the
-other's (for the Up stage, per part, the output of one image's planes).
+other's (for the forward, the logits; for the Up stage, per part, the
+output of one image's planes).
 A time the profiler did not keep whole is null. Run it from the
 repository's root:
 
@@ -255,6 +263,81 @@ def banded_turn(case, root=None, library=False):
     return out, [t.float().cpu() for t in grads]
 
 
+FWD_PARTS = ('stage 1', 'stage 2 + head', 'chain')
+
+
+def fwd_turn(case, root=None, library=False):
+    """One turn of the forward at ``case`` in this process: the event and
+    device times of ``FWD_PARTS`` with this checkout's build (``root``
+    None) or the checkout's at ``root``; with ``library`` cuDNN's times of
+    the same parts (``library <part>``) and the per-kernel breakdown of the
+    chain (``kernels chain``); and the chain's logits on the first image's
+    planes."""
+    import chip_smoke
+    import torch.nn.functional as F
+    from semivl_tpu_torch.tools import fused_up_bench as bench
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    timers = dict(event_ms=lambda f: chip_smoke.cuda_ms(f, 5),
+                  device_ms=lambda f: chip_smoke.device_ms(f, 5))
+    name, b, n, h, c, ups, skips = case
+    mods, params, acts, _ = _case(torch.Generator().manual_seed(1),
+                                  resolve_device(None), b, n, h, c, ups,
+                                  skips)
+    fd = fused_decoder if root is None else load_other(root)[0]
+    (x, s1, s2), (p1, p2, head) = acts, params
+    out = {}
+    with torch.no_grad():
+        c2, part2 = fd._stage(x, s1, p1)
+        gn_in = (part2, p1['gn2_weight'].float().contiguous(),
+                 p1['gn2_bias'].float().contiguous())
+        fns = {'stage 1': lambda: fd._stage(x, s1, p1),
+               'stage 2 + head': lambda: fd._stage(c2, s2, p2, gn_in=gn_in,
+                                                   head=head),
+               'chain': lambda: fd.fused_vlg_decoder(x, s1, s2, p1, p2,
+                                                     head)}
+        for part, fn in fns.items():
+            out[part] = {m: t(fn) for m, t in timers.items()}
+        logits = fns['chain']()[:n].float().cpu()
+        if library:
+            y1 = bench.cudnn_stage(x, s1, p1)
+
+            def stage2():
+                y = bench.cudnn_stage(y1, s2, p2)
+                return F.conv2d(y, head['weight'].to(y.dtype),
+                                head['bias'].to(y.dtype), padding=1)
+
+            lib = {'stage 1': lambda: bench.cudnn_stage(x, s1, p1),
+                   'stage 2 + head': stage2,
+                   'chain': lambda: chip_smoke._cudnn_chain(*mods, x, s1,
+                                                            s2)}
+            for part, fn in lib.items():
+                out[f'library {part}'] = {m: t(fn) for m, t in
+                                          timers.items()}
+            out['kernels chain'] = _kernel_ms(fns['chain'])
+    return out, logits
+
+
+def _fwd_row(case, other_root):
+    """The forward's row at ``case``: its turns (other, this, this, other)
+    each in a process of its own (``fwd_turn``); per part the speed-up
+    (device) and this build against cuDNN's; the rel-L2 of this build's
+    logits against the other's."""
+    import chip_smoke
+    got, outs = _turns('--fwd-turn', case, other_root)
+    row = dict(case=f'forward (#5), {case[0]}', kind='forward',
+               planes=case[1] * case[2], base=case[3])
+    _mean_turns(row, got, FWD_PARTS)
+    row['speedups'] = {part: _ratio(row['other'][part]['device_ms'],
+                                    row['this'][part]['device_ms'])
+                       for part in FWD_PARTS}
+    row['vs_cudnn'] = {part: _ratio(row['this'][part]['device_ms'],
+                                    row[f'library {part}']['device_ms'])
+                       for part in FWD_PARTS}
+    row['rel_l2'] = chip_smoke._rel_l2(outs['this'], outs['other'])
+    return row
+
+
 def up_parts():
     """(part, stage index, with the head) of the Up stage's turns."""
     from semivl_tpu_torch.tools import fused_up_bench
@@ -419,6 +502,8 @@ def run(other_root):
         torch.cuda.empty_cache()
     for case in BANDED_CASES:
         rows.append(_banded_row(case, other_root))
+    for case in CASES + BANDED_CASES:
+        rows.append(_fwd_row(case, other_root))
     rows.append(_up_row(other_root))
     return rows
 
@@ -429,6 +514,7 @@ def main(argv=None):
                     help='root of another checkout to time against')
     ap.add_argument('--banded-turn', help=argparse.SUPPRESS)
     ap.add_argument('--up-turn', help=argparse.SUPPRESS)
+    ap.add_argument('--fwd-turn', help=argparse.SUPPRESS)
     ap.add_argument('--root', help=argparse.SUPPRESS)
     ap.add_argument('--save', help=argparse.SUPPRESS)
     ap.add_argument('--library', action='store_true', help=argparse.SUPPRESS)
@@ -441,6 +527,11 @@ def main(argv=None):
     if args.up_turn:   # one turn of the Up stage (_up_row)
         torch.save(up_turn(args.root, args.library), args.save)
         return None
+    if args.fwd_turn:   # one turn of the forward (_fwd_row)
+        case = json.loads(args.fwd_turn)
+        case = tuple(tuple(v) if isinstance(v, list) else v for v in case)
+        torch.save(fwd_turn(case, args.root, args.library), args.save)
+        return None
     if args.other is None:
         ap.error('the root of another checkout is required')
     rows = run(args.other)
@@ -449,6 +540,19 @@ def main(argv=None):
         return 'n/a' if x is None else format(x, spec)
 
     for r in rows:
+        if r.get('kind') == 'forward':
+            for part, sp in r['speedups'].items():
+                print(f'decoder fwd {r["case"]} {part}: this event '
+                      f'{num(r["this"][part]["event_ms"])} device '
+                      f'{num(r["this"][part]["device_ms"])}, other event '
+                      f'{num(r["other"][part]["event_ms"])} device '
+                      f'{num(r["other"][part]["device_ms"])}, speed-up '
+                      f'{num(sp, ".2f")}x; cudnn device '
+                      f'{num(r["library " + part]["device_ms"])}, vs cudnn '
+                      f'{num(r["vs_cudnn"][part], ".2f")}x', flush=True)
+            print(f'decoder fwd {r["case"]}: rel-L2 of the logits vs other '
+                  f'{r["rel_l2"]:.2e}', flush=True)
+            continue
         if 'kernels ' + next(iter(r['speedups'])) in r:   # the Up stage
             for part, s in r['speedups'].items():
                 print(f'fused up {part}: this event '

@@ -1,8 +1,8 @@
 """The host side of the decoder's tensor-core products
 (``csrc/decoder_igemm.cuh``, ``csrc/decoder_stage_bwd.cuh``: the
 whole-plane route's ``csrc/fused_decoder_bwd.cu``, the banded route's
-passes A, B and C, ``csrc/fused_decoder_banded.cu``, and the fused Up
-stage, ``csrc/fused_up.cu``), on the CPU.
+passes A, B and C, ``csrc/fused_decoder_banded.cu``, and the decoder
+forward with the fused Up stage, ``csrc/fused_decoder.cu``), on the CPU.
 
 A CUDA kernel does not run here, so each test writes out in PyTorch the
 index arithmetic a kernel does with the operands ``ops/fused_decoder.py``
@@ -11,12 +11,14 @@ phase-separated gradient, the weight gradients' layouts) and holds the
 result against autograd of the plain operation: float64, to 1e-12 of the
 scale. The widths each route runs a stage at (``stage_plan``, with the
 zero padding of ``pad_stage``) are pinned, and the padded stage is held to
-the unpadded one. The slot names the wrappers pass are checked against
-the C entry points' enums.
+the unpadded one; so are the column groups that wider outputs run in. The
+slot names the wrappers pass are checked against the C entry points'
+enums.
 """
 
 import os
 import re
+from unittest import mock
 
 import pytest
 import torch
@@ -24,7 +26,6 @@ import torch.nn.functional as F
 
 from semivl_tpu_torch.ops import fused_decoder as fd
 from semivl_tpu_torch.ops import fused_decoder_banded as fdb
-from semivl_tpu_torch.ops import fused_up as fu
 
 CSRC = os.path.join(os.path.dirname(fd.__file__), os.pardir, 'csrc')
 
@@ -44,7 +45,7 @@ def _rand(*shape, seed=0):
     ('fused_decoder_banded', 'ASlot', fdb._A_SLOTS),
     ('fused_decoder_banded', 'BSlot', fdb._B_SLOTS),
     ('fused_decoder_banded', 'CSlot', fdb._C_SLOTS),
-    ('fused_up', 'UpSlot', fu._SLOTS)])
+    ('fused_decoder', 'StageSlot', fd._FWD_SLOTS)])
 def test_slots_match_the_entry_points(source, enum, slots):
     with open(os.path.join(CSRC, source + '.cu')) as f:
         src = f.read()
@@ -248,9 +249,9 @@ def test_pass_b_layouts():
     assert not _close(short, gw2)
 
 
-def _stage64(x, skip, p, n):
+def _stage64(x, skip, p, n, raw=False):
     """The Up stage in float64 at its true widths (GroupNorm in float64),
-    the reference of the layout tests."""
+    the reference of the layout tests; with ``raw`` up to the raw conv2."""
     up = fd.conv_transpose_2x2(x, p['up_weight'], p['up_bias'])
     cu = up.shape[1]
     w1 = p['conv1_weight']
@@ -259,6 +260,8 @@ def _stage64(x, skip, p, n):
     a1 = F.relu(F.group_norm(raw1, raw1.shape[1] // 16, p['gn1_weight'],
                              p['gn1_bias']))
     raw2 = F.conv2d(a1, p['conv2_weight'], padding=1)
+    if raw:
+        return raw2
     return F.relu(F.group_norm(raw2, raw2.shape[1] // 16, p['gn2_weight'],
                                p['gn2_bias']))
 
@@ -284,7 +287,7 @@ def test_fused_up_layouts(ci, cu, cs, co, head):
     skip = _rand(b, cs, 2 * h, 2 * w, seed=71)
     plan = fd.stage_plan(ci, cu, cs)
     assert (plan['cu'] > cu or plan['cs'] > cs) == ((cu, cs) != (48, 16))
-    sp, pp = fd.pad_stage(skip, p, plan)
+    _, sp, pp = fd.pad_stage(x, skip, p, plan)
     kw = {k: v.double() for k, v in fd._igemm_stage_weights(
         pp, torch.float64).items()}
     wf = kw['up_wf'].flatten()
@@ -319,62 +322,281 @@ def test_fused_up_layouts(ci, cu, cs, co, head):
     assert got.shape == want.shape and _close(got, want)
 
 
+def _header_const(name):
+    """An integer constant of csrc/decoder_igemm.cuh."""
+    with open(os.path.join(CSRC, 'decoder_igemm.cuh')) as f:
+        return int(re.search(rf'constexpr int {name} = (\d+);', f.read())
+                   .group(1))
+
+
+def _tile_partials(raw):
+    """The igemm conv epilogue's GroupNorm partials of raw (P, C, H, W):
+    per plane, group of 16 channels and CONV_ROWS x TW tile (row-major
+    over the tiles), the sum and the sum of squares."""
+    rows, cols = _header_const('CONV_ROWS'), _header_const('TW')
+    p, c, h, w = raw.shape
+    ty, tx = -(-h // rows), -(-w // cols)
+    r = F.pad(raw, (0, tx * cols - w, 0, ty * rows - h)).reshape(
+        p, c // 16, 16, ty, rows, tx, cols)
+    return torch.stack([r.sum((2, 4, 6)), (r * r).sum((2, 4, 6))],
+                       -1).reshape(p, c // 16, ty * tx, 2)
+
+
+def _gn_relu_from(raw, part, gamma, beta):
+    """GN+ReLU of raw with the statistics its partials give, in float64."""
+    p, c, h, w = raw.shape
+    n = 16 * h * w
+    s = part.double().sum(2)
+    mean = s[..., 0] / n
+    rstd = 1 / torch.sqrt((s[..., 1] / n - mean * mean).clamp(min=0) + 1e-5)
+    y = (raw - mean.repeat_interleave(16, 1)[..., None, None]) \
+        * rstd.repeat_interleave(16, 1)[..., None, None]
+    return F.relu(y * gamma.double()[:, None, None]
+                  + beta.double()[:, None, None])
+
+
+def _decoder_stage_fwd(t, dims):
+    """``decoder_stage_fwd`` in float64 over the tensors its wrapper hands
+    it by slot name (``fused_decoder._FWD_SLOTS``): the input's GN+ReLU
+    from the given partials, the transpose conv per column group and output
+    phase, conv1's skip half per image as the up half's addend, the tile
+    partials of raw conv1 and raw conv2 written into their slots (whose
+    shape must be the kernel's), GN1+ReLU, conv2, and the head's
+    CUDA-core conv, or GN2+ReLU into ``out`` without it."""
+    pl, cin, h, w, nparts, b, cs, cu, cout, skip_half = dims
+    x = t['x'].double()
+    if t.get('gn_part') is not None:
+        assert t['gn_part'].shape[2] == nparts
+        x = _gn_relu_from(x, t['gn_part'], t['gn_gamma'], t['gn_beta'])
+    wf = t['up_wf'].double().flatten()
+    up = torch.empty(pl, cu, 2 * h, 2 * w, dtype=torch.float64)
+    n0 = 0
+    for n in fd.column_groups(cu, fd.TCONV_N):   # EPI_TCONV, cstride cu
+        blk = wf[4 * n0 * cin:4 * (n0 + n) * cin].reshape(4, n, cin)
+        for k in range(4):
+            up[:, n0:n0 + n, k // 2::2, k % 2::2] = torch.einsum(
+                'nc,pchw->pnhw', blk[k], x) + t['up_b'].double()[
+                    n0:n0 + n, None, None]
+        n0 += n
+    raw1 = _igemm_conv(up, t['w1u'].double())
+    if skip_half:
+        raw1 = raw1 + _igemm_conv(t['skip'].double(), t['w1s'].double()) \
+            .repeat_interleave(pl // b, 0)
+    part1 = _tile_partials(raw1)
+    a1 = _gn_relu_from(raw1, part1, t['g1w'], t['g1b'])
+    raw2 = _igemm_conv(a1, t['w2'].double())
+    part2 = _tile_partials(raw2)
+    for k, v in (('c1', raw1), ('part1', part1), ('c2', raw2),
+                 ('part2', part2)):
+        assert t[k].shape == v.shape, k
+        t[k].copy_(v)
+    a2 = _gn_relu_from(raw2, part2, t['g2w'], t['g2b'])
+    if t.get('head_w') is not None:
+        t['out'].copy_(_igemm_conv(a2, t['head_w'].double().reshape(
+            cout, 9, 1).permute(1, 2, 0)) + t['head_b'].double()[:, None,
+                                                                  None])
+    elif t.get('out') is not None:
+        t['out'].copy_(a2)
+
+
+@pytest.mark.parametrize('gn_in,head', [(False, False), (True, False),
+                                        (True, True)],
+                         ids=['stage 1', 'stage 2', 'stage 2 + head'])
+@pytest.mark.parametrize('ci,cu,cs,co', [
+    (32, 48, 16, 32),     # the widths as they are
+    (32, 80, 8, 16),      # Cu 80 -> 96, Cs 8 -> 16
+    (64, 144, 24, 16),    # Cu in two column groups (128 + 16), Cs 24 -> 32
+    (48, 112, 16, 48),    # Cout 48, Cu 112 -> 128
+    (16, 32, 16, 96)])    # Cout 96
+def test_decoder_fwd_layouts(ci, cu, cs, co, gn_in, head):
+    """The decoder forward's wrapper (``fused_decoder._stage``) with the C
+    call run in float64 PyTorch (``_decoder_stage_fwd``) over the tensors
+    it hands the kernel: the weights in the igemm layouts, the skip and
+    weights zero-padded to ``stage_plan``'s widths, the partials in the
+    conv tiles' layout (P, Cout / 16, ceil(H / 4) ceil(W / 64), 2) that
+    the next stage's ``gn_in`` reads; the raw conv2 (or the logits) against
+    the stage at its true widths, to 1e-12 of the scale. W = 72 leaves a
+    ragged second tile column."""
+    b, n, h, w = 2, 2, 3, 36
+    p = {k: v.double() for k, v in _stage(ci, cu, cs, co, 60).items()}
+    # the GroupNorm affines as the kernel reads them, float32
+    p.update(gn1_weight=(1 + 0.1 * _rand(co, seed=66)).float().double(),
+             gn2_bias=(0.1 * _rand(co, seed=67)).float().double())
+    x = _rand(b * n, ci, h, w, seed=70)
+    skip = _rand(b, cs, 2 * h, 2 * w, seed=71)
+    xin, gn = x, None
+    if gn_in:   # x raw, normalised by the previous stage's GN2
+        g_w = 1 + 0.1 * _rand(ci, seed=74)
+        g_b = 0.1 * _rand(ci, seed=75)
+        gn = (_tile_partials(x), g_w, g_b)
+        xin = F.relu(F.group_norm(x, ci // 16, g_w, g_b))
+    hd = None
+    if head:
+        hd = dict(weight=_rand(1, co, 3, 3, seed=72).bfloat16().double(),
+                  bias=_rand(1, seed=73))
+    calls = []
+
+    def c_call(fn_name, slots, t, dims, x, lib):
+        assert (fn_name, slots, lib) == ('decoder_stage_fwd', fd._FWD_SLOTS,
+                                         'fused_decoder')
+        assert set(t) <= set(slots)
+        plan = fd.stage_plan(ci, cu, cs)
+        assert dims[6:8] == (plan['cs'], plan['cu'])
+        assert dims[1] == plan['cin']
+        calls.append(dims)
+        _decoder_stage_fwd(t, dims)
+
+    before = fd.launches
+    with mock.patch.object(fd, '_check', lambda *a: None), \
+            mock.patch.object(fd, '_call', c_call):
+        got = fd._stage(x, skip, p, gn_in=gn, head=hd)
+    assert fd.launches == before + 1 and len(calls) == 1
+    tiles = -(-2 * h // 4) * -(-2 * w // 64)
+    assert calls[0][4] == (gn[0].shape[2] if gn_in else 0)   # D_GN_NPARTS
+    want = _stage64(xin, skip, p, n, raw=not head)
+    if head:
+        want = F.conv2d(want, hd['weight'], hd['bias'].float().double(),
+                        padding=1)
+    else:
+        got, part2 = got
+        assert part2.shape == (b * n, co // 16, tiles, 2)
+        sums = want.reshape(b * n, co // 16, -1).sum(-1)
+        assert torch.allclose(part2[..., 0].double().sum(-1), sums,
+                              rtol=1e-5, atol=1e-5 * sums.abs().max())
+    assert got.shape == want.shape and _close(got, want)
+
+
+def test_decoder_fwd_pads_the_input():
+    """Stage 1 at Cin 24: ``_stage`` hands the kernel x and the transpose
+    conv's weight rows zero-padded to Cin 32 (a K width), and the raw
+    conv2 equals the stage at its true widths."""
+    ci, cu, cs, co, b, n, h, w = 24, 32, 16, 32, 1, 2, 3, 36
+    p = {k: v.double() for k, v in _stage(ci, cu, cs, co, 120).items()}
+    x = _rand(b * n, ci, h, w, seed=121)
+    skip = _rand(b, cs, 2 * h, 2 * w, seed=122)
+    dims = []
+
+    def c_call(fn_name, slots, t, d, x, lib):
+        assert t['x'].shape[1] == 32 and t['up_wf'].shape == (4, 32, 32)
+        dims.append(d)
+        _decoder_stage_fwd(t, d)
+
+    with mock.patch.object(fd, '_check', lambda *a: None), \
+            mock.patch.object(fd, '_call', c_call):
+        got, _ = fd._stage(x, skip, p)
+    assert dims[0][1] == 32
+    want = _stage64(x, skip, p, n, raw=True)
+    assert got.shape == want.shape and _close(got, want)
+
+
 @pytest.mark.parametrize('bwd', [False, True], ids=['fused_up', 'backward'])
 def test_stage_plan_maps_every_width(bwd):
-    """Every width the forward checks take (Cout in 16, 32, 64; Cin % 32,
-    Cu % 16, Cs % 8) maps to a launch plan of igemm widths, padded by less
-    than one step: the fused Up stage (#11) takes them all; both backward
-    routes (the whole-plane #6/#7 and the banded #8-#10, through
-    ``_check_igemm``) take exactly Cin in 32-128, Cu and Cs up to 96, and
-    refuse the rest by name."""
-    for cin in range(32, 288, 32):
-        for cu in range(16, 288, 16):
-            for cs in range(8, 136, 8):
-                takes = not bwd or (cin <= 128 and cu <= 96 and cs <= 96)
-                if not takes:
-                    with pytest.raises(ValueError, match='Cu and Cs up to 96'):
-                        fd.stage_plan(cin, cu, cs, bwd)
-                    continue
+    """Every width maps to a launch plan of igemm widths, each padded by
+    less than one step: Cin and Cs to multiples of 16 (K widths); the
+    forward (#5, #11) Cu to column groups of 128 and a last one of
+    ``TCONV_N``; both backward routes (the whole-plane #6/#7 and the banded
+    #8-#10) Cu and Cs up to 96 to the next of ``CONV_N`` (one product each)
+    and wider ones to multiples of 16 (``column_groups``). The transpose
+    conv's groups are the ones ``stage_recompute`` runs."""
+    for cin in range(8, 296, 24):
+        for cu in range(8, 296, 8):
+            for cs in range(8, 296, 24):
                 plan = fd.stage_plan(cin, cu, cs, bwd)
                 groups = plan['tconv_groups']
+                assert groups == fd.column_groups(plan['cu'], fd.TCONV_N)
                 assert sum(groups) == plan['cu'], (cin, cu, cs)
-                assert all(g == fd.TCONV_GROUP for g in groups[:-1])
-                assert all(g in fd.TCONV_N for g in groups)
+                assert plan['cin'] == -(-cin // 16) * 16
                 assert cu <= plan['cu'] < cu + 32 and cs <= plan['cs']
                 if bwd:
-                    assert plan['cu'] in fd.CONV_N and plan['cs'] in fd.CONV_N
-                    assert plan['cs'] == min(n for n in fd.CONV_N if n >= cs)
-                    assert cin in fd.BWD_CIN
+                    for c, pc in ((cu, plan['cu']), (cs, plan['cs'])):
+                        assert pc == (min(n for n in fd.CONV_N if n >= c)
+                                      if c <= 96 else -(-c // 16) * 16)
                 else:
+                    assert all(g == 128 for g in groups[:-1])
                     assert plan['cs'] == -(-cs // 16) * 16
 
 
+def test_column_groups_cover_every_width():
+    """The column groups a wider output runs in: ``column_groups`` (the
+    transpose conv and conv_cols: the widest instance that fits what is
+    left) covers every multiple of 16 exactly with instances, and
+    ``wgrad_width`` (wgrad_cols: the narrowest instance that covers what is
+    left) sizes the partials of every group. A wgrad group wider than what
+    is left reads the channels after it (the next plane's, or TMA's zeros
+    past the last), and drops those columns: emulated here in float64 for
+    Cout 48 (one product of 64 columns) and Cin 144 (128 + 32), against the
+    whole weight gradient."""
+    for c in range(16, 528, 16):
+        for widths in (fd.CONV_N, fd.TCONV_N):
+            groups = fd.column_groups(c, widths)
+            assert sum(groups) == c and set(groups) <= set(widths)
+        for taps in (9, 1):
+            assert fd.wgrad_width(c, taps) in fd.WGRAD_N[taps]
+    x = _rand(3, 16, 5, 6, seed=100)
+    for c, taps in ((48, 9), (144, 1), (16, 1)):
+        g = _rand(3, c, 5, 6, seed=101)
+        want = (_igemm_wgrad(x, g) if taps == 9 else
+                torch.einsum('pmhw,pnhw->mn', x, g)[None])
+        # B as the kernel reads it: the planes' channels one after another,
+        # zeros past the last
+        flat = torch.cat([g.flatten(0, 1), torch.zeros(128, 5, 6,
+                                                       dtype=g.dtype)])
+        got = torch.empty_like(want)
+        n0 = 0
+        while n0 < c:
+            n = fd.wgrad_width(c - n0, taps)
+            assert n <= fd.wgrad_width(c, taps)
+            b = torch.stack([flat[p * c + n0:p * c + n0 + n]
+                             for p in range(3)])
+            part = (_igemm_wgrad(x, b) if taps == 9 else
+                    torch.einsum('pmhw,pnhw->mn', x, b)[None])
+            cols = min(n, c - n0)
+            got[..., n0:n0 + cols] = part[..., :cols]
+            n0 += cols
+        assert _close(got, want), (c, taps)
+
+
 def test_padded_stage_gradients_match_unpadded():
-    """A stage zero-padded as the backward routes pad it (Cu 80 -> 96, Cs
-    24 -> 32), run and differentiated in float64, with its gradients cut
-    back by ``unpad_grads``, against the unpadded stage's output and
-    gradients."""
-    ci, cu, cs, co, b, n, h, w = 32, 80, 24, 16, 2, 2, 3, 4
+    """A stage zero-padded as the backward routes pad it (Cin 24 -> 32, Cu
+    80 -> 96, Cs 24 -> 32), run and differentiated in float64, with its
+    gradients cut back by ``unpad_grads``, against the unpadded stage's
+    output and gradients."""
+    ci, cu, cs, co, b, n, h, w = 24, 80, 24, 16, 2, 2, 3, 4
     p = {k: v.double() for k, v in _stage(ci, cu, cs, co, 90).items()}
     x = _rand(b * n, ci, h, w, seed=91)
     skip = _rand(b, cs, 2 * h, 2 * w, seed=92)
     plan = fd.stage_plan(ci, cu, cs, bwd=True)
-    assert (plan['cu'], plan['cs']) == (96, 32)
+    assert (plan['cin'], plan['cu'], plan['cs']) == (32, 96, 32)
     g = _rand(b * n, co, 2 * h, 2 * w, seed=93)
     keys = ('up_weight', 'up_bias', 'conv1_weight')
 
-    def grads(skip, p):
+    def grads(x, skip, p):
+        x = x.clone().requires_grad_(True)
         skip = skip.clone().requires_grad_(True)
         p = {k: v.clone().requires_grad_(k in keys) for k, v in p.items()}
         y = _stage64(x, skip, p, n)
-        out = torch.autograd.grad(y, [skip] + [p[k] for k in keys], g)
-        return y.detach(), dict(zip(('g_skip',) + keys, out))
+        out = torch.autograd.grad(y, [x, skip] + [p[k] for k in keys], g)
+        return y.detach(), dict(zip(('g_x', 'g_skip') + keys, out))
 
-    y, want = grads(skip, p)
-    sp, pp = fd.pad_stage(skip, p, plan)
+    y, want = grads(x, skip, p)
+    xp, sp, pp = fd.pad_stage(x, skip, p, plan)
+    assert xp.shape[1] == 32 and pp['up_weight'].shape[:2] == (32, 96)
     assert sp.shape[1] == 32 and pp['conv1_weight'].shape[1] == 128
-    y_pad, got = grads(sp, pp)
-    got = fd.unpad_grads(got, cu, cs)
+    y_pad, got = grads(xp, sp, pp)
+    got = fd.unpad_grads(got, ci, cu, cs)
     assert _close(y_pad, y)
     for k, v in want.items():
         assert got[k].shape == v.shape and _close(got[k], v), k
+
+
+def test_stage_checks_refuse_by_name():
+    """What the stage kernels refuse, by name, before any launch: an output
+    width (Cout) outside ``CONV_N``, and an input still to be normalised
+    (``gn_in``) whose channels do not fill GroupNorm's groups of 16."""
+    for ci, co, gn_in, match in ((32, 128, False, 'takes Cout in'),
+                                 (32, 24, False, 'takes Cout in'),
+                                 (24, 32, True, 'groups of 16')):
+        with pytest.raises(ValueError, match=match):
+            fd._check_widths(ci, co, gn_in)
+    for co in fd.CONV_N:
+        fd._check_widths(24, co)

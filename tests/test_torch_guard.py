@@ -197,9 +197,9 @@ def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
     assert _build.sources() == ['flash_attention', 'flash_attention_heads',
                                 'fused_decoder', 'fused_decoder_banded',
-                                'fused_decoder_bwd', 'fused_up']
+                                'fused_decoder_bwd']
     paths = {n: _build.library_path(n) for n in _build.sources()}
-    assert len(set(paths.values())) == 6
+    assert len(set(paths.values())) == 5
     for n, p in paths.items():
         assert os.path.dirname(p) == _build.BUILD_DIR
         assert os.path.basename(p).startswith(n + '-') and p.endswith('.so')

@@ -16,7 +16,10 @@ plain version rounds the logits and the normalised probabilities to bf16,
 the kernel the unnormalised ones) and within 2e-3 relative L2 of
 ``packed_attention_rounded`` (the kernel's rounding points: only the order
 of float32 sums differs); decoder logits within 5e-2 of the logit scale
-(bf16 storage between the convolutions, GroupNorm amplifying it).
+(bf16 storage between the convolutions, GroupNorm amplifying it) and
+within 1e-2 relative L2 of ``fused_vlg_decoder_rounded``; the forward's
+saved GroupNorm statistics within 1e-6 of those of its stored raw
+convolutions.
 The head-split attention rounds where its plain version does: 2e-3 (forward)
 and 5e-3 (backward) relative L2, and 5e-3 against the packed kernels on the
 same input. The fused Up stage within 1e-2 relative L2 of
@@ -25,7 +28,11 @@ Backward: the attention gradient within 2e-2 of its scale (dq, dk, dv are
 rounded to bf16 once, p and ds before their products, as in the plain
 version); each decoder gradient within 2e-2 relative L2 of autograd
 through ``fused_vlg_decoder_rounded`` (a flipped bf16 rounding of a raw
-conv output, which GroupNorm amplifies, is the whole difference).
+conv output, which GroupNorm amplifies, is the whole difference), with
+float64 sums and the forward's stored stage-1 conv2, and, forward and
+backward composed, within 6e-2 of it with float64 sums recomputing stage 1
+(``composed_ref``; the float32-sum reference itself lies up to 3.4e-2 from
+it: PERF.md).
 """
 
 import functools
@@ -92,27 +99,153 @@ def _stage_params(gen, cin, cs, cout, cu=None):
                 gn2_weight=n(cout, 1.0), gn2_bias=n(cout, 0.0))
 
 
-@pytest.mark.parametrize('b,n,h', [(2, 21, 32), (1, 3, 13)])
-def test_decoder_kernel_matches_plain(card, b, n, h):
-    """Flagship widths; (1, 3, 13) leaves ragged 16x16 tiles."""
-    p1 = _stage_params(card, 128, 32, 64)
-    p2 = _stage_params(card, 64, 16, 32)
-    head = dict(weight=0.2 * torch.randn(1, 32, 3, 3, generator=card,
+def _kernel_chain(x, s1, s2, p1, p2, head, skip_half=True, gn_in2=True):
+    """The two stage launches of ``fused_vlg_decoder``'s forward, with two
+    plantable faults: ``skip_half=False`` leaves conv1's skip half out
+    inside the kernel's sequence, ``gn_in2=False`` has stage 2 read stage
+    1's raw conv2 without its GN+ReLU."""
+    c2, part2 = fused_decoder._stage(x, s1, p1, skip_half=skip_half)
+    gn_in = (part2, p1['gn2_weight'].float().contiguous(),
+             p1['gn2_bias'].float().contiguous()) if gn_in2 else None
+    return fused_decoder._stage(c2, s2, p2, gn_in=gn_in, head=head,
+                                skip_half=skip_half)
+
+
+# (images, planes per image, base h, w; stage 1 (Cin, Cs, Cout, Cu), stage
+# 2's (Cs, Cout, Cu); Cu None: Cin - Cs)
+DECODER_CASES = {
+    'flagship 32^2': (2, 21, 32, 32, (128, 32, 64, None), (16, 32, None)),
+    'ragged 13^2': (1, 3, 13, 13, (128, 32, 64, None), (16, 32, None)),
+    'Cityscapes edge crop 28x51': (1, 3, 28, 51, (128, 32, 64, None),
+                                   (32, 32, None)),
+    'padded Cu 80, Cs 24': (2, 3, 12, 10, (128, 24, 64, 80), (24, 32, 80)),
+    'padded Cu 144, Cs 8': (1, 3, 8, 9, (160, 8, 32, 144), (8, 16, 144)),
+    'Cin 24, Cout 48': (1, 3, 8, 9, (24, 8, 48, None), (16, 32, None)),
+    'Cout 96, Cu 112': (1, 3, 8, 9, (128, 16, 96, 112), (16, 32, None)),
+}
+
+
+@pytest.mark.parametrize('case', list(DECODER_CASES))
+def test_decoder_kernel_matches_plain(card, case):
+    """The forward (two launches of ``decoder_stage_fwd``, the igemm
+    sequence) against the plain bf16 chain within 5e-2 of the logit scale
+    and against ``fused_vlg_decoder_rounded`` (its own bf16 points) within
+    1e-2 relative L2, bit for bit on a rerun. The cases: flagship widths,
+    ragged tiles, the Cityscapes edge-crop grid (widths 56 and 102, not
+    multiples of 8: pitch-padded TMA copies), widths the kernel zero-pads
+    (Cu 80 -> 96 with Cs 24 -> 32; Cu 144 in column groups of 128 + 16 with
+    Cs 8 -> 16; Cin 24 -> 32) and the output widths 48 and 96. Two planted
+    faults must fail the second
+    limit: conv1's skip half left out inside the kernel's sequence, and
+    stage 2 reading its input without GN+ReLU."""
+    b, n, h, w, (cin, cs1, c1, cu1), (cs2, c2, cu2) = DECODER_CASES[case]
+    p1 = _stage_params(card, cin, cs1, c1, cu1)
+    p2 = _stage_params(card, c1, cs2, c2, cu2)
+    head = dict(weight=0.2 * torch.randn(1, c2, 3, 3, generator=card,
                                          device='cuda'),
                 bias=torch.randn(1, generator=card, device='cuda'))
-    x = torch.randn(b * n, 128, h, h, generator=card, device='cuda')
-    s1 = torch.randn(b, 32, 2 * h, 2 * h, generator=card, device='cuda')
-    s2 = torch.randn(b, 16, 4 * h, 4 * h, generator=card, device='cuda')
+    x = torch.randn(b * n, cin, h, w, generator=card, device='cuda')
+    s1 = torch.randn(b, cs1, 2 * h, 2 * w, generator=card, device='cuda')
+    s2 = torch.randn(b, cs2, 4 * h, 4 * w, generator=card, device='cuda')
     args = [t.bfloat16() for t in (x, s1, s2)]
     before = fused_decoder.launches
-    got = fused_decoder.fused_vlg_decoder(*args, p1, p2, head)
-    assert fused_decoder.launches == before + 2
-    want = fused_decoder.fused_vlg_decoder_plain(*args, p1, p2, head)
+    with torch.no_grad():
+        got = fused_decoder.fused_vlg_decoder(*args, p1, p2, head)
+        assert fused_decoder.launches == before + 2
+        again = fused_decoder.fused_vlg_decoder(*args, p1, p2, head)
+        want = fused_decoder.fused_vlg_decoder_plain(*args, p1, p2, head)
+        ref = fused_decoder.fused_vlg_decoder_rounded(*args, p1, p2, head)
+        no_skip = _kernel_chain(*args, p1, p2, head, skip_half=False)
+        raw_in = _kernel_chain(*args, p1, p2, head, gn_in2=False)
     torch.cuda.synchronize()
-    assert got.shape == want.shape == (b * n, 1, 4 * h, 4 * h)
+    assert got.shape == want.shape == (b * n, 1, 4 * h, 4 * w)
+    assert torch.equal(got, again)
     scale = want.float().abs().max().item()
     err = (got.float() - want.float()).abs().max().item()
     assert err < 5e-2 * max(scale, 1.0), (err, scale)
+    assert rel_l2(got, ref.float()) < 1e-2
+    assert rel_l2(no_skip, ref.float()) > 1e-2
+    assert rel_l2(raw_in, ref.float()) > 1e-2
+
+
+@pytest.mark.parametrize('b,n,h,w', [(3, 19, 51, 51), (1, 3, 28, 51)])
+def test_decoder_forward_saved_stats(card, b, n, h, w):
+    """The GroupNorm statistics ``_stage(stats=True)`` hands the banded
+    backward (``decoder_gn_stats`` over the conv tiles' partials) equal
+    ``gn_stats_plain`` of the raw conv1 and conv2 it stored, to 1e-6
+    relative: a wrong tile count or layout of the partials fails."""
+    (p1, p2, head), (x, s1, s2), _ = _cityscapes_decoder(card, b, n, h, w)
+    made = []
+
+    def tensors(*a, **k):
+        made.append(real(*a, **k))
+        return made[-1]
+
+    real = fused_decoder.stage_tensors
+    with torch.no_grad(), mock.patch.object(fused_decoder, 'stage_tensors',
+                                            tensors):
+        c2, part2, st1 = fused_decoder._stage(x, s1, p1, stats=True)
+        gn_in = (part2, p1['gn2_weight'].float().contiguous(),
+                 p1['gn2_bias'].float().contiguous())
+        _, st2 = fused_decoder._stage(c2, s2, p2, gn_in=gn_in, head=head,
+                                      stats=True)
+    torch.cuda.synchronize()
+    assert len(made) == 2 and made[0]['c2'] is c2
+    for t, st in zip(made, (st1, st2)):
+        want = (fused_decoder.gn_stats_plain(t['c1'])
+                + fused_decoder.gn_stats_plain(t['c2']))
+        for got, ref in zip(st, want):
+            assert got.shape == ref.shape
+            assert ((got - ref).abs().max() <= 1e-6 * ref.abs().max()), (
+                got - ref).abs().max()
+
+
+@pytest.mark.parametrize('cin,c1,c2,cs1,cs2,cu1', [
+    (64, 48, 16, 16, 16, None),      # Cout 48; stage 2 Cin 48
+    (224, 96, 32, 112, 24, 112)])    # Cin 224, Cu and Cs 112, Cout 96
+def test_wide_widths_run_on_the_kernels(card, cin, c1, c2, cs1, cs2, cu1):
+    """Widths beyond the shipped models' run on the kernels, forward and
+    on both backward routes (launches counted): output widths 48 and 96,
+    Cin above 128 and Cu and Cs above the backward's widest product (96),
+    in column groups. The logits within 1e-2 relative L2 of
+    ``fused_vlg_decoder_rounded``; every gradient leaf within 2e-2 of
+    ``rounded_at`` and, composed, within 6e-2 of ``composed_ref``."""
+    from semivl_tpu_torch.ops import fused_decoder_banded as fdb
+    b, n, h, w = 1, 3, 13, 11
+    p1 = _stage_params(card, cin, cs1, c1, cu1)
+    p2 = _stage_params(card, c1, cs2, c2)
+    head = dict(weight=0.2 * torch.randn(1, c2, 3, 3, generator=card,
+                                         device='cuda'),
+                bias=torch.randn(1, generator=card, device='cuda'))
+    acts = [torch.randn(b * n, cin, h, w, generator=card, device='cuda'),
+            torch.randn(b, cs1, 2 * h, 2 * w, generator=card, device='cuda'),
+            torch.randn(b, cs2, 4 * h, 4 * w, generator=card, device='cuda')]
+    acts = [t.bfloat16() for t in acts]
+    g = torch.randn(b * n, 1, 4 * h, 4 * w, generator=card,
+                    device='cuda').bfloat16()
+    params = [p1, p2, head]
+    before = fused_decoder.launches
+    with torch.no_grad():
+        got = fused_decoder.fused_vlg_decoder(*acts, *params)
+        ref = fused_decoder.fused_vlg_decoder_rounded(*acts, *params)
+    assert fused_decoder.launches == before + 2
+    assert rel_l2(got, ref.float()) < 1e-2
+    at = decoder_grads(rounded_at(acts[0], acts[1], p1), acts, params, g,
+                       torch.bfloat16)
+    composed = decoder_grads(composed_ref, acts, params, g, torch.bfloat16)
+    for route in ('whole', 'banded'):
+        counts = (fused_decoder.bwd_tail_launches, fdb.pass_c_launches)
+        grads = decoder_grads(functools.partial(
+            fused_decoder.fused_vlg_decoder, bwd=route), acts, params, g,
+            torch.bfloat16)
+        torch.cuda.synchronize()
+        assert (fused_decoder.bwd_tail_launches, fdb.pass_c_launches) == (
+            (counts[0] + 2, counts[1]) if route == 'whole' else
+            (counts[0], counts[1] + 2))
+        for a, r, c in zip(grads, at, composed):
+            assert a.shape == r.shape, route
+            assert rel_l2(a, r.float()) < 2e-2, route
+            assert rel_l2(a, c.float()) < 6e-2, route
 
 
 def _attention_case(card, b, length, heads, d=64):
@@ -179,15 +312,48 @@ def rel_l2(a, ref):
     return ((a.float() - ref).norm() / ref.norm().clamp(min=1e-30)).item()
 
 
+def rounded_at(x, s1, p1):
+    """The whole-plane backward's reference: float64 sums (its float32 sums
+    lie 1.3e-2 to 3.4e-2, worst leaf, from its float64 ones at the ragged
+    and flagship cases, as far as the limit: tools/decoder_precision.py),
+    at the point the kernels' forward reached: stage 1's raw conv2 as
+    ``_stage`` stores it, the input the backward reads (``raw2_1``)."""
+    with torch.no_grad():
+        raw2_1 = fused_decoder._stage(x, s1, p1)[0]
+    return functools.partial(fused_decoder.fused_vlg_decoder_rounded,
+                             dtype=torch.float64, raw2_1=raw2_1)
+
+
+# Forward and backward composed: the rounded reference with float64 sums
+# recomputing stage 1, independent of what the kernels' forward stored.
+composed_ref = functools.partial(fused_decoder.fused_vlg_decoder_rounded,
+                                 dtype=torch.float64)
+
+
+def _stage1_fault(**kw):
+    """``fused_decoder._stage`` patched so that stage 1 (no ``gn_in``)
+    runs with a planted fault: ``skip_half=False`` (conv1's skip half left
+    out inside the kernel's sequence)."""
+    real = fused_decoder._stage
+
+    def faulty(x, skip, p, gn_in=None, **k):
+        return real(x, skip, p, gn_in=gn_in,
+                    **(dict(k, **kw) if gn_in is None else k))
+    return mock.patch.object(fused_decoder, '_stage', faulty)
+
+
 @pytest.mark.parametrize('b,n,h', [(2, 21, 32), (1, 3, 13)])
 def test_decoder_bwd_kernels_match_plain(card, b, n, h):
     """Gradients of every input and parameter against autograd through
     ``fused_vlg_decoder_rounded`` (bf16 where the kernels store bf16, the
-    gradients too, float32 sums): each within 2e-2 relative L2; (1, 3,
+    gradients too, float64 sums at the forward's stored stage-1 conv2:
+    ``rounded_at``): each within 2e-2 relative L2; (1, 3,
     13) leaves ragged tiles in every kernel and widths (26, 52) that TMA
     reads through a padded copy. Two planted faults must fail that limit:
     conv1's dgrad without its top-left tap, and conv2's weight-gradient
-    reduction without the last plane."""
+    reduction without the last plane. Composed, every leaf within 6e-2 of
+    ``composed_ref``; stage 1's forward without conv1's skip half must
+    fail that limit."""
     p1 = _stage_params(card, 128, 32, 64)
     p2 = _stage_params(card, 64, 16, 32)
     head = dict(weight=0.2 * torch.randn(1, 32, 3, 3, generator=card,
@@ -207,19 +373,25 @@ def test_decoder_bwd_kernels_match_plain(card, b, n, h):
     assert (fused_decoder.launches, fused_decoder.bwd_tail_launches,
             fused_decoder.bwd_input_launches) == tuple(
                 c + 2 for c in counts)
-    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts,
-                        params, g, torch.bfloat16)
+    ref = decoder_grads(rounded_at(acts[0], acts[1], p1), acts, params, g,
+                        torch.bfloat16)
     again = decoder_grads(fused_decoder.fused_vlg_decoder, acts, params, g,
                           torch.bfloat16)
     torch.cuda.synchronize()
     names = ['x', 'skip1', 'skip2'] + [
         f'up{i}.{k}' for i in (1, 2) for k in fused_decoder.STAGE_KEYS] + [
         'head.weight', 'head.bias']
-    for name, a, r, a2 in zip(names, got, ref, again):
+    composed = decoder_grads(composed_ref, acts, params, g, torch.bfloat16)
+    for name, a, r, a2, c in zip(names, got, ref, again, composed):
         assert a.shape == r.shape and a.dtype == r.dtype, name
         assert torch.isfinite(a.float()).all(), name
         assert rel_l2(a, r.float()) < 2e-2, name
+        assert rel_l2(a, c.float()) < 6e-2, name
         assert torch.equal(a, a2), name   # no atomics: bit for bit
+    with _stage1_fault(skip_half=False):
+        bad = decoder_grads(fused_decoder.fused_vlg_decoder, acts, params, g,
+                            torch.bfloat16)
+    assert max(rel_l2(a, c.float()) for a, c in zip(bad, composed)) > 6e-2
 
     real = fused_decoder._stage_bwd_input
 
@@ -320,9 +492,10 @@ def test_banded_passes_match_plain(card, b, n, h, w):
 def test_banded_backward_matches_rounded_reference(card):
     """The composed banded backward (``bwd='banded'``) against autograd
     through ``fused_vlg_decoder_rounded`` with its bf16 gradient roundings
-    (the points where the banded passes store gradients in bf16): every
-    leaf within 2e-2 relative L2, as the whole-plane kernels are held;
-    three planted faults must fail that limit: pass B's conv2 weight
+    (the points where the banded passes store gradients in bf16), held as
+    the whole-plane kernels are: every leaf within 2e-2 relative L2 of
+    ``rounded_at`` and within 6e-2 of ``composed_ref``; three planted
+    faults must fail the first limit: pass B's conv2 weight
     gradient reading its first 16-row band twice, pass A's recompute
     without conv1's skip half (inside its tensor-core product) and pass
     B's conv2 wgrad reduction without the last plane (inside the kernel,
@@ -337,11 +510,14 @@ def test_banded_backward_matches_rounded_reference(card):
     got = decoder_grads(banded, acts, params, g, torch.bfloat16)
     assert (fdb.pass_a_launches, fdb.pass_b_launches,
             fdb.pass_c_launches) == tuple(v + 2 for v in counts)
-    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts,
+    ref = decoder_grads(rounded_at(acts[0], acts[1], params[0]), acts,
                         params, g, torch.bfloat16)
+    composed = decoder_grads(composed_ref, acts, params, g, torch.bfloat16)
     torch.cuda.synchronize()
     errs = [rel_l2(a, r.float()) for a, r in zip(got, ref)]
     assert max(errs) < 2e-2, errs
+    errs = [rel_l2(a, c.float()) for a, c in zip(got, composed)]
+    assert max(errs) < 6e-2, errs
     real = fdb.pass_b
 
     def band_twice(raw1, raw2, gy2, p, stats, mg2):
@@ -373,7 +549,9 @@ def test_decoder_kernels_take_padded_widths(card):
     Cout 16) through the forward (against the plain chain, 5e-2 of the
     logit scale) and both backward routes (every gradient leaf, at its
     true shape, within 2e-2 relative L2 of autograd through
-    ``fused_vlg_decoder_rounded``); a Cs above 96 is refused by name."""
+    ``fused_vlg_decoder_rounded`` with float64 sums, ``rounded_at``, and
+    within 6e-2 of ``composed_ref``); an output width outside ``CONV_N``
+    is refused by name."""
     from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     b, n, h = 2, 3, 12
     p1 = _stage_params(card, 128, 24, 32, cu=80)
@@ -393,24 +571,27 @@ def test_decoder_kernels_take_padded_widths(card):
     scale = want.float().abs().max().item()
     assert (got.float() - want.float()).abs().max().item() < 5e-2 * max(
         scale, 1.0)
-    ref = decoder_grads(fused_decoder.fused_vlg_decoder_rounded, acts,
+    ref = decoder_grads(rounded_at(acts[0], acts[1], p1), acts,
                         [p1, p2, head], g, torch.bfloat16)
+    composed = decoder_grads(composed_ref, acts, [p1, p2, head], g,
+                             torch.bfloat16)
     counts = (fused_decoder.bwd_tail_launches, fdb.pass_b_launches)
     for route in ('whole', 'banded'):
         grads = decoder_grads(functools.partial(
             fused_decoder.fused_vlg_decoder, bwd=route), acts,
             [p1, p2, head], g, torch.bfloat16)
         torch.cuda.synchronize()
-        for a, r in zip(grads, ref):
+        for a, r, c in zip(grads, ref, composed):
             assert a.shape == r.shape, route
             assert rel_l2(a, r.float()) < 2e-2, route
+            assert rel_l2(a, c.float()) < 6e-2, route
     assert (fused_decoder.bwd_tail_launches, fdb.pass_b_launches) == tuple(
         c + 2 for c in counts)
-    wide = _stage_params(card, 128, 32, 32, cu=112)
-    with pytest.raises(ValueError, match='Cu and Cs up to 96'):
+    wide = _stage_params(card, 128, 32, 128)
+    with pytest.raises(ValueError, match='takes Cout in'):
         fused_decoder._stage_bwd_tail(acts[0], torch.zeros(
             b, 32, 2 * h, 2 * h, device='cuda', dtype=torch.bfloat16), wide,
-            g=torch.zeros(b * n, 32, 2 * h, 2 * h, device='cuda'))
+            g=torch.zeros(b * n, 128, 2 * h, 2 * h, device='cuda'))
 
 
 def test_banded_passes_refuse_what_they_cannot_read(card):

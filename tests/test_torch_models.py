@@ -49,6 +49,75 @@ def test_maskclip_vit_matches_jax(hw):
     assert rel_err(got['global_emb'].numpy(), want['global_emb']) < 1e-5
 
 
+# one case per JAX flag at its non-default value, and skip_last_attn with
+# return_qkv=False; JAX forms no v-path without return_qkv, so it then makes
+# no CLIP embedding either
+VIT_FLAG_CASES = {
+    'pre_norm': dict(pre_norm=False),
+    'final_norm': dict(final_norm=False),
+    'return_clip_embed': dict(return_clip_embed=False),
+    'return_qkv': dict(return_qkv=False, return_clip_embed=False),
+    'skip_last_attn': dict(skip_last_attn=True),
+    'skip_last_attn_without_qkv': dict(skip_last_attn=True, return_qkv=False,
+                                       return_clip_embed=False),
+}
+
+
+@pytest.mark.parametrize('case', list(VIT_FLAG_CASES))
+def test_maskclip_vit_flags_match_jax(case):
+    """Each flag as JAX's MaskClipViT applies it, fp32, to 1e-5 of the
+    output scale; the bridge consumes every leaf of the flag's tree."""
+    flags = VIT_FLAG_CASES[case]
+    cfg = dict(BACKBONE, **flags)
+    jm = JaxViT(**{**{k: v for k, v in cfg.items() if k != 'type'},
+                   'img_size': tuple(cfg['img_size'])})
+    params = init_params(jm, 11, jnp.zeros((1, 64, 64, 3)))
+    img = np.random.RandomState(12).randn(2, 64, 64, 3).astype(np.float32)
+    want = jm.apply({'params': params}, jnp.asarray(img))
+
+    pm = build_backbone(cfg, torch.float32)
+    sd = {}
+    export_maskclip_vit(sd, params, prefix='')
+    leaves = jax.tree_util.tree_leaves(params)
+    assert len(sd) == len(leaves)
+    assert sum(v.size for v in sd.values()) == sum(x.size for x in leaves)
+    assert set(sd) == set(pm.state_dict())
+    pm.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()},
+                       strict=True)
+    with torch.no_grad():
+        got = pm(torch.from_numpy(img))
+    assert len(got['feats']) == len(want['feats'])
+    for g, w in zip(got['feats'], want['feats']):
+        assert g.shape == w.shape
+        assert rel_err(g.numpy(), w) < 1e-5
+    if want['global_emb'] is None:
+        assert got['global_emb'] is None
+    else:
+        assert rel_err(got['global_emb'].numpy(), want['global_emb']) < 1e-5
+
+
+def test_vit_flags_the_port_cannot_consume_are_refused():
+    """The combinations JAX fails on are refused by name: a CLIP embedding
+    without the v-path it is made from, and a VLM that reads the embedding
+    return_clip_embed=False drops (as the decode head's last feature map,
+    and as the guidance encoder's output)."""
+    cfg = dict(BACKBONE, return_qkv=False)
+    jm = JaxViT(**{**{k: v for k, v in cfg.items() if k != 'type'},
+                   'img_size': tuple(cfg['img_size'])})
+    with pytest.raises(Exception):
+        init_params(jm, 11, jnp.zeros((1, 64, 64, 3)))
+    with pytest.raises(ValueError, match='return_clip_embed needs return_qkv'):
+        build_backbone(cfg, torch.float32)
+    no_embed = dict(BACKBONE, return_clip_embed=False)
+    with pytest.raises(ValueError, match='backbone: return_clip_embed=False'):
+        VLM(no_embed, HEAD)
+    with pytest.raises(ValueError,
+                       match='clip_encoder: return_clip_embed=False'):
+        VLM(BACKBONE, HEAD, clip_encoder_cfg=dict(no_embed, out_indices=None))
+    # an embedding nothing reads may be dropped
+    assert VLM(dict(no_embed, out_indices=[0, 1]), HEAD).backbone.proj is None
+
+
 def test_vlg_head_matches_jax():
     cfg = {k: v for k, v in HEAD.items() if k != 'type'}
     jm = JaxVLGHead(**cfg)

@@ -8,6 +8,8 @@ gradients 1e-4 against the XLA chain and 5e-4 against the JAX kernels'
 backward run with float32 storage (the bound the JAX package's own
 gradient test holds it to)."""
 
+from unittest import mock
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -226,6 +228,133 @@ def test_decoder_bwd_plain_matches_jax_kernel_and_reference():
         assert rel_err(a, grads['kernel'][i]) < 5e-4, i
 
 
+# ------------------------------------------------------------ stage widths
+# The stage kernels take every width but an output width (Cout) outside
+# ``CONV_N`` and a normalised input whose channels do not fill GroupNorm's
+# groups of 16; ``fused_decoder._check_widths`` refuses those by name before
+# any launch, and ``stage_plan`` pads the rest to the products' widths.
+
+def _chain_widths(cin, ups, skips):
+    """((Cin, Cu, Cs, Cout, gn_in) of stage 1, of stage 2) of a decoder
+    chain, from the ``Up`` modules' parameters."""
+    from semivl_tpu_torch.models.vlg_head import Up
+    with torch.device('meta'):
+        ps = (Up(cin, ups[0], skips[0]).stage_params(),
+              Up(ups[0], ups[1], skips[1]).stage_params())
+    return tuple((p['up_weight'].shape[0], p['up_weight'].shape[1], cs,
+                  p['conv2_weight'].shape[0], k == 1)
+                 for k, (p, cs) in enumerate(zip(ps, skips)))
+
+
+def _takes(widths, bwd):
+    for cin, cu, cs, cout, gn_in in widths:
+        fused_decoder._check_widths(cin, cout, gn_in)
+        plan = fused_decoder.stage_plan(cin, cu, cs, bwd)
+        assert plan['cin'] >= cin and plan['cu'] >= cu and plan['cs'] >= cs
+
+
+@pytest.mark.parametrize('bwd', [False, True], ids=['forward', 'backward'])
+@pytest.mark.parametrize('cfg', ['flagship_cfg', 'cityscapes_cfg',
+                                 'tiny_cfg'])
+def test_stage_checks_take_every_shipped_width(cfg, bwd):
+    """Every shipped model's decoder widths (the flagship's, exp 44's and
+    the tiny VLM's, from their model configs) pass the stage checks and
+    map to a plan, forward and backward."""
+    from semivl_tpu_torch import configs
+    run = getattr(configs, cfg)()
+    head = configs.get_model_config(run['model'], img_size=run['crop_size'])[
+        'model']['decode_head']
+    _takes(_chain_widths(head['channels'], head['up_channels'],
+                         head['skip_channels']), bwd)
+
+
+# (Cin, up channels, skip channels) -> None (the kernels take it) or the
+# refusal's words
+WIDTHS = {
+    'Cout 48': ((128, (48, 32), (32, 16)), None),
+    'Cout 96': ((128, (96, 32), (32, 16)), None),
+    'Cin 48': ((48, (64, 32), (16, 16)), None),
+    'Cin 24': ((24, (64, 32), (8, 16)), None),
+    'Cs 112': ((128, (64, 32), (112, 16)), None),
+    'Cu 112': ((128, (64, 32), (16, 16)), None),
+    'Cin 160, Cu 144': ((160, (64, 32), (16, 16)), None),
+    'Cout 128 (stage 2)': ((128, (64, 128), (32, 16)), 'takes Cout in'),
+    'Cout 24': ((128, (24, 16), (32, 16)), 'takes Cout in'),
+}
+
+
+@pytest.mark.parametrize('bwd', [False, True], ids=['forward', 'backward'])
+@pytest.mark.parametrize('case', list(WIDTHS))
+def test_stage_checks_take_wide_widths(case, bwd):
+    """Widths beyond the shipped ones: Cout 48 and 96, any Cin (padded to
+    16), Cu and Cs above the backward's widest product (column groups) run
+    on the kernels in both directions; an output width outside ``CONV_N``
+    is refused by name."""
+    (cin, ups, skips), refusal = WIDTHS[case]
+    widths = _chain_widths(cin, ups, skips)
+    if refusal is None:
+        _takes(widths, bwd)
+    else:
+        with pytest.raises(ValueError, match=refusal):
+            _takes(widths, bwd)
+
+
+def _jax_xla_chain(x, s1, s2, p1, p2, head, cout1, cs1, cout2, cs2):
+    """JAX's XLA Up stages and head (semivl_tpu/models/vlg_head.py:467-475)
+    on NCHW planes, NCHW logits."""
+    import flax.linen as nn
+    from semivl_tpu.models.vlg_head import Up
+    y = jnp.transpose(x, (0, 2, 3, 1))
+    for p, skip, co, cs in ((p1, s1, cout1, cs1), (p2, s2, cout2, cs2)):
+        y = Up(co, cs).apply({'params': p}, y, jnp.transpose(skip,
+                                                             (0, 2, 3, 1)))
+    y = nn.Conv(1, (3, 3), padding=((1, 1), (1, 1))).apply(
+        {'params': head}, y)
+    return jnp.transpose(y, (0, 3, 1, 2))
+
+
+def test_decoder_at_cout_48_matches_jax_xla():
+    """At Cout 48 (so stage 2's Cin 48), ``fused_vlg_decoder`` under
+    autograd on the CPU (the plain chain, no launch) matches JAX's XLA Up
+    stages (``semivl_tpu/models/vlg_head.py:467-475``): the logits within
+    2e-4 and every gradient within 1e-4 of its scale, as the plain chain is
+    held at the shipped widths."""
+    widths = dict(cin=64, cs1=16, cout1=48, cs2=16, cout2=16)
+    x, skip1, skip2, p1, p2, head = _decoder_setup(**widths)
+    g = np.random.RandomState(33).randn(4, 1, 32, 32).astype(np.float32)
+    jargs = [jnp.asarray(a) for a in (x, skip1, skip2)]
+
+    def xla(x, s1, s2, p1, p2, hd):
+        return _jax_xla_chain(x, s1, s2, p1, p2, hd, 48, 16, 16, 16)
+
+    want, vjp = jax.vjp(xla, *jargs, p1, p2, head)
+    gx, gs1, gs2, gp1, gp2, gh = vjp(jnp.asarray(g))
+    tp1, tp2, th = _port_params(*(jax.tree.map(
+        lambda a: np.asarray(a, np.float32), t) for t in (gp1, gp2, gh)))
+    want_g = [np.asarray(a, np.float32) for a in (gx, gs1, gs2)] + [
+        t[k].numpy() for t in (tp1, tp2) for k in fused_decoder.STAGE_KEYS
+    ] + [th['weight'].numpy(), th['bias'].numpy()]
+
+    tp1, tp2, th = _port_params(p1, p2, head)
+    acts = [torch.from_numpy(a).requires_grad_(True)
+            for a in (x, skip1, skip2)]
+    prms = ([tp1[k] for k in fused_decoder.STAGE_KEYS]
+            + [tp2[k] for k in fused_decoder.STAGE_KEYS]
+            + [th['weight'], th['bias']])
+    for t in prms:
+        t.requires_grad_(True)
+    before = fused_decoder.launches
+    out = fused_decoder.fused_vlg_decoder(*acts, tp1, tp2, th)
+    assert fused_decoder.launches == before
+    assert out.shape == want.shape == (4, 1, 32, 32)
+    assert rel_err(out.detach().numpy(), np.asarray(want)) < 2e-4
+    got = torch.autograd.grad(out, acts + prms, torch.from_numpy(g))
+    assert len(got) == len(want_g) == 21
+    for i, (a, wnt) in enumerate(zip(got, want_g)):
+        assert a.shape == wnt.shape, i
+        assert rel_err(a.numpy(), wnt) < 1e-4, i
+
+
 # ---------------------------------------------- rounded references (card)
 # ``packed_attention_rounded`` and ``fused_vlg_decoder_rounded`` are what
 # the CUDA kernels are held to on the card: plain PyTorch that rounds to
@@ -333,6 +462,31 @@ def test_decoder_rounded_reference(monkeypatch):
     assert rel_err(got.detach().numpy(), want.detach().numpy()) < 1e-5
     for i, (a, w) in enumerate(zip(got_grads, want_grads)):
         assert rel_err(a.numpy(), w.numpy()) < 1e-5, i
+
+
+def test_decoder_rounded_reference_takes_the_stored_conv2():
+    """``raw2_1`` (stage 1's raw conv2 as the kernels stored it) replaces
+    the reference's own values: the logits are stage 2 and the head on
+    GN2+ReLU of it, exactly; the gradient still reaches every input and
+    parameter of stage 1, through the reference's own conv2."""
+    x, skip1, skip2, p1, p2, head = _decoder_setup()
+    tp1, tp2, th = _port_params(p1, p2, head)
+    for t in tp1.values():
+        t.requires_grad_(True)
+    acts = [torch.from_numpy(a).requires_grad_(True)
+            for a in (x, skip1, skip2)]
+    raw2 = torch.randn(4, 32, 16, 16, generator=torch.Generator()
+                       .manual_seed(34)).bfloat16().float()
+    out = fused_decoder.fused_vlg_decoder_rounded(*acts, tp1, tp2, th,
+                                                  raw2_1=raw2)
+    a2 = fused_decoder._gn_relu_rounded(raw2, tp1['gn2_weight'],
+                                        tp1['gn2_bias'])
+    want = fused_decoder.head_rounded(fused_decoder.up_stage_rounded(
+        a2, acts[2], tp2), th)
+    assert torch.equal(out, want)
+    grads = torch.autograd.grad(out.sum(), [acts[0], acts[1]]
+                                + [tp1[k] for k in fused_decoder.STAGE_KEYS])
+    assert all(torch.isfinite(g).all() and g.abs().sum() > 0 for g in grads)
 
 
 def test_round_grad_bf16_rounds_only_the_gradient():
