@@ -49,7 +49,10 @@ Phases, each of which fails the run (non-zero exit, no result line):
    compute, seeded random weights) evaluated with ``zegclip_sliding_window``
    over synthetic uint8 images at VOC val geometry, with the launch counts
    of the forward kernels read around that run; then one crop batch through
-   the kernels and through the plain versions;
+   the kernels and through the plain versions; the wall time and the
+   device's idle share of ``evaluate`` pipelined (the prefetch thread and
+   the device histograms, the defaults) and serial, in turns, with equal
+   histograms;
 6. training: the full-width flagship training bundle (student + frozen
    MaskCLIP guidance encoder + VLG) takes SemiVL steps (exp 40: 2 labeled +
    2 unlabeled 512^2 crops, AdamW) on a synthetic batch, with every
@@ -61,7 +64,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
    skip encoder + VLG, 19 classes, seeded random weights) evaluated with
    ``sliding_window`` over one synthetic 1024x2048 image (8 windows of 4
    shapes), launch counts read around it, one crop batch through the
-   kernels and the plain versions, a profile of the image;
+   kernels and the plain versions, a profile of the image, ``evaluate``
+   pipelined and serial as in phase 5;
 8. Cityscapes training: exp 44's step (1 labeled + 1 unlabeled 801^2 crop,
    the decoder backward on the banded route): one step with every kernel
    call held to its rounded reference on that call's own inputs, then
@@ -95,9 +99,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
    and Cityscapes paths launch no head-split kernel;
 12. decoder widths beyond the shipped models' (run right after phase 10):
    Cout 48 and 96, Cin 24 (padded), 48 and 224, Cu and Cs 112 (column
-   groups), forward and both backward routes on the kernels (launches
-   counted), against the rounded references with the limits of phase 4;
-13. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
+   groups), Cout 8, 24, 40 (GroupNorm groups zero-padded to whole chunks
+   of 16 channels), 112, 128 and 160 (column groups), forward and both
+   backward routes on the kernels (launches counted), against the rounded
+   references with the limits of phase 4;
+13. the trainer entry point (the CLI ``python -m
+   semivl_tpu_torch.tools.train``, called in this process): a synthetic
+   dataset at VOC geometry (500x375 JPEG images and palette PNG label
+   maps: 2 labeled, 4 unlabeled, 2 val) written to a temporary directory,
+   exp 40's generated split-92 config pointed at it, trained at full width
+   for one epoch (2 steps of 2 + 2 crops) with one evaluation, from phase
+   6's seeded weights (``init_param_overrides``); every kernel's launches
+   read around it must be twice phase 6's per step plus the evaluation's;
+   the run dir's files, finite losses and parameters; then a run
+   preempted after its first step (``preempt_at_step=0``) and resumed
+   (``--resume-from``) to the same iteration, its distance from the
+   uninterrupted run logged; whether the native decode built;
+14. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
    "device": ...}``.
 
 Phase 9 runs right after phase 3 and phase 10 right after phase 4: once
@@ -117,6 +135,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from unittest import mock
 
@@ -631,13 +650,21 @@ WIDE_CASES = (
     ('Cout 48; stage 2 Cin 48', 64, (48, 16), (16, 16)),
     ('Cin 224, Cu 112, Cs 112, Cout 96; stage 2 Cu 72, Cs 24', 224,
      (96, 32), (112, 24)),
-    ('Cin 24 (padded to 32), Cs 8', 24, (32, 16), (8, 16)))
+    ('Cin 24 (padded to 32), Cs 8', 24, (32, 16), (8, 16)),
+    ('Cout 8 (one group of 8); stage 2 Cout 40 (two groups of 20), Cs 4',
+     64, (8, 40), (16, 4)),
+    ('Cout 112 (96 + 16); stage 2 Cout 128 (96 + 32)', 64, (112, 128),
+     (16, 16)),
+    ('Cout 160 (96 + 64); stage 2 Cout 24 (one group of 24)', 64,
+     (160, 24), (32, 16)))
 
 
 def check_wide_widths():
     """Decoder widths beyond the shipped models' (``WIDE_CASES``: Cout 48
     and 96, any Cin, Cu and Cs above the backward's widest product, run in
-    column groups) at P = 3 on a ragged 13 x 11 base: the forward against
+    column groups; Cout 8, 24, 40, 112, 128 and 160, in GroupNorm's kernel
+    layout, ``fused_decoder.pad_decoder``) at P = 3 on a ragged 13 x 11
+    base: the forward against
     the plain chain (DEC_TOL) and the rounded reference (DEC_REL_TOL), both
     backward routes against the rounded references phase 4 holds the
     backward to (DEC_BWD_TOL at the stored stage-1 conv2, and forward and
@@ -712,7 +739,7 @@ def _held_refs(acts, params, g):
     stored: DEC_BWD_COMPOSED_TOL)."""
     from semivl_tpu_torch.ops import fused_decoder as fd
     with torch.no_grad():
-        raw2_1 = fd._stage(*acts[:2], params[0])[0]
+        raw2_1 = fd.stored_raw2(*acts[:2], params[0])
     return (decoder_grads(_rounded(float64=True, raw2_1=raw2_1), acts,
                           params, g),
             decoder_grads(_rounded(float64=True), acts, params, g))
@@ -1475,6 +1502,7 @@ def run_slice():
         f'{agree:.5f}')
     assert diff.max().item() <= DEC_TOL * scale
     profile_image(evaluator, ds.get(0), cfg)
+    profile_evaluate(evaluator, ds, cfg, 'slice')
     return launches
 
 
@@ -1689,6 +1717,9 @@ def run_cityscapes_eval():
         f'{agree:.5f}')
     assert diff.max().item() <= DEC_TOL * scale
     prof = profile_image(evaluator, s, cfg)
+    profile_evaluate(evaluator, SynthImages(seed=1, sizes=((1024, 2048),) * 2,
+                                            nclass=19), cfg,
+                     'cityscapes eval')
     return launches, dict(ms_per_image=dt * 1e3, peak_mib=peak / 2**20,
                           calls=calls, **prof)
 
@@ -2175,6 +2206,36 @@ def profile_image(evaluator, sample, cfg, top=12):
                     top)
 
 
+def profile_evaluate(evaluator, ds, cfg, what):
+    """``evaluate``'s wall time (unprofiled, mean of 3) and the device's
+    idle share over ``ds``, pipelined (the defaults: ``eval_prefetch`` and
+    ``eval_device_metrics``) and serial (both off), in turns; the two
+    give equal histograms."""
+    from semivl_tpu_torch.evaluation.predict import evaluate_histograms
+    hists, out = {}, {}
+    serial = dict(cfg, eval_prefetch=False, eval_device_metrics=False)
+    for name, c in (('pipelined', cfg), ('serial', serial),
+                    ('pipelined again', cfg)):
+        def run(c=c, name=name):
+            hists[name] = evaluate_histograms(evaluator, ds,
+                                              cfg['eval_mode'], c)
+            torch.cuda.synchronize()
+
+        run()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            run()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+        out[name] = _profile(run, wall_ms, f'{what}: evaluate ({name})', 4)
+    for a, b in zip(hists['pipelined'], hists['serial']):
+        assert np.array_equal(a, b)
+    log(f'{what}: evaluate over {len(ds)} images, wall ms and idle share, '
+        'pipelined / serial / pipelined: ' + json.dumps(
+            {k: [round(v['wall_ms'], 2), round(v['idle_share'], 3)]
+             for k, v in out.items()}))
+    return out
+
+
 # ------------------------------------------------------------ phase 9
 
 def check_heads_attention(gen):
@@ -2608,6 +2669,157 @@ def run_tiny():
         perf, eval_ms=dt * 1e3, eval_batches=n_batches, eval_miou=miou)
 
 
+# ------------------------------------------------------------ phase 13
+
+VOC_HW = (375, 500)   # a Pascal VOC image's usual geometry
+
+
+def write_voc_dataset(root, seed=0, counts=(('labeled', 2),
+                                            ('unlabeled', 4), ('val', 2))):
+    """A synthetic dataset at Pascal VOC's geometry under ``root``: 500x375
+    JPEG images (``JPEGImages/``) and palette PNG label maps
+    (``SegmentationClass/``, 21 classes, a 255 border), with a split list
+    per kind; returns {kind: list path}."""
+    from PIL import Image
+    from semivl_tpu_torch.datasets.palettes import get_palette
+    rs = np.random.RandomState(seed)
+    for d in ('JPEGImages', 'SegmentationClass'):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    palette = get_palette('pascal').flatten().tolist()
+    paths = {}
+    for kind, n in counts:
+        lines = []
+        for i in range(n):
+            name = f'{kind}_{i}'
+            img = rs.randint(0, 256, VOC_HW + (3,), np.uint8)
+            Image.fromarray(img).save(
+                os.path.join(root, 'JPEGImages', name + '.jpg'), quality=90)
+            mask = rs.randint(0, 21, VOC_HW).astype(np.uint8)
+            mask[:, :5] = 255
+            m = Image.fromarray(mask)
+            m.putpalette(palette)   # a palette PNG, as VOC's
+            m.save(os.path.join(root, 'SegmentationClass', name + '.png'))
+            lines.append(f'JPEGImages/{name}.jpg SegmentationClass/{name}.png')
+        paths[kind] = os.path.join(root, f'{kind}.txt')
+        with open(paths[kind], 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+    return paths
+
+
+def save_trained_weights(bundle, path):
+    """The weights phase 6 scaled (every matrix of the backbone, the
+    guidance encoder and the decoder) as an npz of state-dict names, the
+    trainer's ``init_param_overrides``."""
+    m = bundle.model
+    arrays = {f'{scope}.{n}': p.detach().float().cpu().numpy()
+              for scope in ('backbone', 'clip_encoder', 'decode_head')
+              for n, p in getattr(m, scope).named_parameters() if p.ndim >= 2}
+    np.savez(path, **arrays)
+    return path
+
+
+def _ckpt(run, name='latest'):
+    return torch.load(os.path.join(run, 'ckpt', name), map_location='cpu',
+                      weights_only=True)
+
+
+def run_trainer(overrides, step_launches, tmp):
+    """Phase 13: the trainer CLI on the card (see the module's docstring).
+    Returns the launches read around the two-step run, the throughput the
+    loop logged and the resumed run's distance from the uninterrupted one."""
+    import yaml
+    from semivl_tpu_torch import native
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    from semivl_tpu_torch.evaluation.predict import Evaluator, _chunk_sizes
+    from semivl_tpu_torch.tools import train as cli
+    built = native.native_available()
+    log('trainer: native decode ' + ('built' if built else 'not built (g++ '
+        'with the libjpeg and libpng headers is needed); PIL decodes'))
+    paths = write_voc_dataset(os.path.join(tmp, 'voc'))
+    cfg = generate_experiment_cfgs(40)[0]
+    assert cfg['split'] == '92' and cfg['batch_size'] == 2
+    # the counted run leaves the per-epoch debug grid out: its forwards
+    # would add launches that are not the step's nor the evaluation's
+    cfg.update(data_root=os.path.join(tmp, 'voc'),
+               labeled_id_path=paths['labeled'],
+               unlabeled_id_path=paths['unlabeled'],
+               val_id_path=paths['val'], epochs=1, debug_images=False,
+               init_param_overrides=overrides)
+    cfg_path = os.path.join(tmp, 'exp40.yaml')
+    with open(cfg_path, 'w') as f:
+        yaml.dump(cfg, f)
+    valset = SemiDataset(cfg, 'val', id_path=paths['val'])
+    coords = Evaluator(torch.nn.Identity(), np.zeros((21, 512)), cfg,
+                       'cuda')._zegclip_coords
+    batches = sum(len(_chunk_sizes(len(coords(*valset.get(i)['img']
+                                              .shape[:2]))))
+                  for i in range(len(valset)))
+    expected = {k: 2 * v for k, v in step_launches.items()}
+    expected['attention_fwd'] += 14 * batches
+    expected['decoder_fwd'] += 2 * batches
+    cwd = os.getcwd()
+    os.chdir(tmp)   # the run dirs go under exp/ there
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        best, run = cli.main(['--config', cfg_path, '--seed', '0'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters()
+        with open(os.path.join(run, 'metrics.jsonl')) as f:
+            metrics = {}
+            for line in f:
+                metrics.update(json.loads(line))
+        log(f'trainer: exp 40 (split 92) for 1 epoch of 2 steps and an '
+            f'evaluation of {len(valset)} images ({batches} crop batches) in '
+            f'{wall:.1f} s (the CLI call: model build, data, steps, '
+            f'evaluation, checkpoints); best mIoU {best:.4f}; the loop\'s '
+            f'window: imgs_per_sec_per_chip '
+            f'{metrics["train/imgs_per_sec_per_chip"]:.3f}, iter_time '
+            f'{metrics["train/iter_time"]:.3f} s, loss_all '
+            f'{metrics["train/loss_all"]:.4f}; eval fps '
+            f'{metrics["eval/fps"]:.3f}')
+        log(f'trainer: launches {launches} (expected {expected}: 2 x phase '
+            f'6\'s per step + {batches} evaluation batches)')
+        assert launches == expected, (launches, expected)
+        for name in ('all_args.yaml', 'config.yaml', 'metrics.jsonl',
+                     'ckpt/latest', 'ckpt/best'):
+            assert os.path.isfile(os.path.join(run, name)), name
+        assert all(np.isfinite(v) for k, v in metrics.items()
+                   if k.startswith('train/loss')), metrics
+        state = _ckpt(run)
+        assert state['iteration'] == 2
+        assert all(torch.isfinite(v).all() for v in state['model'].values())
+
+        cut = os.path.join(tmp, 'exp40_preempt.yaml')
+        with open(cut, 'w') as f:
+            yaml.dump(dict(cfg, preempt_at_step=0), f)
+        _, run_b = cli.main(['--config', cut, '--seed', '0'])
+        with open(os.path.join(run_b, 'ckpt', 'latest.extra.json')) as f:
+            extra = json.load(f)
+        assert _ckpt(run_b)['iteration'] == 1 and extra['epoch_step'] == 1
+        cli.main(['--config', cfg_path, '--seed', '0', '--resume-from',
+                  run_b])
+        resumed = _ckpt(run_b)
+        assert resumed['iteration'] == 2
+        dist = max(((resumed['model'][k].float() - v.float()).norm()
+                    / v.float().norm().clamp(min=1e-30)).item()
+                   for k, v in state['model'].items())
+        equal = all(torch.equal(resumed['model'][k], v)
+                    for k, v in state['model'].items())
+        log(f'trainer: preempted after step 0 and resumed to step 2: '
+            f'parameters {"bit-equal" if equal else "not bit-equal"} to the '
+            f'uninterrupted run, worst leaf rel-L2 {dist:.3e}')
+    finally:
+        os.chdir(cwd)
+    return launches, dict(wall_s=wall, native_decode=built,
+                          imgs_per_sec_per_chip=metrics[
+                              'train/imgs_per_sec_per_chip'],
+                          resumed_rel_l2=dist, resumed_bit_equal=equal)
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2651,6 +2863,9 @@ def main():
         f'{sum(p.numel() for p in prms if p.requires_grad) / 1e6:.1f} M '
         'trainable')
     step_err = compare_step(cfg, bundle, batch)
+    tmp = tempfile.TemporaryDirectory()
+    overrides = save_trained_weights(bundle,
+                                     os.path.join(tmp.name, 'weights.npz'))
     step, launches, _ = run_train(cfg, bundle, batch)
     profile_step(step, batch)
     del bundle, batch, prms, step
@@ -2665,6 +2880,11 @@ def main():
 
     tiny_err, tiny_launches, tiny_eval_launches, tiny_perf = run_tiny()
     log(f'tiny: {json.dumps(tiny_perf)}')
+    torch.cuda.empty_cache()
+
+    with tmp:
+        trainer_launches, trainer = run_trainer(overrides, launches, tmp.name)
+    log(f'trainer: {json.dumps(trainer)}')
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -2686,7 +2906,8 @@ def main():
             flagship_eval=flagship_eval, flagship_train_step=launches[key],
             cityscapes_eval_image=cityscapes_eval,
             cityscapes_train_step=cs_launches[key], tiny_eval=tiny_eval,
-            tiny_train_step=tiny_launches[key]))
+            tiny_train_step=tiny_launches[key],
+            trainer_cli_two_steps_and_eval=trainer_launches[key]))
 
     def worst(key):
         return max(step_err[key][0], cs_err[key][0])

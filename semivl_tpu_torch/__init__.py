@@ -13,12 +13,19 @@ Layout:
   VLG decoder wrappers (``fused_decoder``, ``fused_decoder_banded``), the
   fused Up stage (``fused_up``) and the kernel build helper (``_build``).
 - ``models/``: ``MaskClipViT``, ``VLGHead``, ``VLM`` and ``build_model``.
-- ``evaluation/``: ``Evaluator`` (``zegclip_sliding_window``), ``evaluate``
-  and the IoU histograms.
+- ``evaluation/``: ``Evaluator`` (``zegclip_sliding_window``,
+  ``sliding_window``), ``evaluate`` (a prefetch thread, histograms on the
+  device) and the IoU histograms.
 - ``configs/``, ``text/``: the flagship, Cityscapes and tiny VLM
-  configurations and their text embeddings.
-- ``tools/``: ``fused_up_bench``.
-- ``convert.py``: JAX parameter tree -> this package's ``state_dict``.
+  configurations, the run-config generator (``configs.experiments``) and
+  the text embeddings.
+- ``data/``, ``datasets/``, ``native/``, ``utils/``: the host data
+  pipeline, class names and palettes, the native image decode, logging.
+- ``train/``: the optimizer, the SemiVL step, the loop and checkpoints.
+- ``tools/``: the trainer CLI (``train``), the config CLI
+  (``experiments``) and the kernel and evaluation benches.
+- ``convert.py``: JAX parameter tree -> this package's ``state_dict``; a
+  converted CLIP tree into the model.
 
 Entry points run on ``cuda`` unless the caller passes ``device='cpu'``.
 """

@@ -12,7 +12,11 @@ exporter (reference tools/convert_to_torch.py):
 - the conv encoder's BatchNorm statistics (the JAX ``batch_stats``
   collection, ``mean``/``var``) become ``running_mean``/``running_var``.
 
-Only numpy is needed to build the state dict.
+Only numpy is needed to build the state dict. ``load_pretrained_into``
+loads a converted CLIP backbone tree (``load_flax_npz``: the npz that
+``semivl_tpu/tools/convert_clip_weights.py`` writes) into the model's
+``backbone`` and frozen ``clip_encoder`` alike, the position embedding
+resized per scope (``resize_pos_embed``).
 """
 
 import numpy as np
@@ -188,4 +192,81 @@ def load_jax_params(model, params, batch_stats=None):
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
           for k, v in vlm_state_dict(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
+    return model
+
+
+def unflatten(flat):
+    """{'a/b/c': array} -> nested dicts (JAX ``_unflatten``)."""
+    tree = {}
+    for key, v in flat.items():
+        parts = key.split('/')
+        node = tree
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = v
+    return tree
+
+
+def load_flax_npz(path):
+    """A converted tree saved as an npz of '/'-joined paths (JAX
+    ``tools/convert_clip_weights.py::load_flax_npz``)."""
+    with np.load(path) as f:
+        return unflatten({k: f[k] for k in f.files})
+
+
+def resize_pos_embed(pos_embed, target_len):
+    """Bicubic-resize a (1, 1 + P, C) position embedding to (1, target_len,
+    C), keeping the cls token (JAX ``convert_clip_weights.resize_pos_embed``,
+    reference maskclip_vit.py:392-403); numpy in and out."""
+    if pos_embed.shape[1] == target_len:
+        return pos_embed
+    from semivl_tpu_torch.ops.resize import resize_longer_matrix
+    old = int(round((pos_embed.shape[1] - 1) ** 0.5))
+    new = int(round((target_len - 1) ** 0.5))
+    if old * old + 1 != pos_embed.shape[1] or new * new + 1 != target_len:
+        raise ValueError(f'position embeddings of square grids only: '
+                         f'{pos_embed.shape[1]} -> {target_len}')
+    out = resize_longer_matrix(torch.from_numpy(_f(pos_embed)), (new, new),
+                               (old, old))
+    return out.numpy()
+
+
+def copy_into(model, sd, what='state dict'):
+    """Copy the numpy state dict ``sd`` into ``model``'s parameters and
+    buffers of the same names, each in its own dtype; every key must name
+    one with its shape."""
+    own = model.state_dict()
+    for k, v in sd.items():
+        if k not in own:
+            raise ValueError(f'{what}: the model has no {k!r}')
+        if tuple(own[k].shape) != tuple(v.shape):
+            raise ValueError(f'{what}: {k} {tuple(v.shape)} vs the model\'s '
+                             f'{tuple(own[k].shape)}')
+    with torch.no_grad():
+        for k, v in sd.items():
+            own[k].copy_(torch.from_numpy(np.ascontiguousarray(v)))
+
+
+def load_pretrained_into(model, path):
+    """A converted CLIP backbone tree (a path to its npz, or the tree) into
+    ``model``'s ``backbone`` and, where the model has one, its frozen
+    ``clip_encoder`` (reference mcvit16.py loads the same checkpoint), the
+    position embedding resized to each scope's grid (JAX
+    ``load_pretrained_into``). Each scope must take every leaf of the tree
+    and nothing else."""
+    tree = load_flax_npz(path) if isinstance(path, str) else path
+    own = model.state_dict()
+    for scope in ('backbone', 'clip_encoder'):
+        prefix = scope + '.'
+        if not any(k.startswith(prefix) for k in own):
+            continue
+        src = dict(tree, pos_embed=resize_pos_embed(
+            np.asarray(tree['pos_embed']), own[prefix + 'pos_embed'].shape[1]))
+        sd = {}
+        export_maskclip_vit(sd, src, prefix)
+        missing = {k for k in own if k.startswith(prefix)} - set(sd)
+        if missing:
+            raise ValueError(f'{scope}: the pretrained tree lacks '
+                             f'{sorted(missing)[:4]}')
+        copy_into(model, sd, scope)
     return model

@@ -19,27 +19,39 @@ constexpr int TILE = 16;          // output tile side (one pixel per thread)
 constexpr int NT = TILE * TILE;   // 256 threads
 constexpr int HALO = TILE + 2;
 constexpr int CI = 8;             // input channels per shared-memory chunk
-constexpr int GSIZE = 16;         // GroupNorm channels per group (C / 16 groups)
-constexpr int MAXG = 8;
+constexpr int GSIZE = 16;         // GroupNorm channels per chunk (C / 16 chunks)
+constexpr int MAXG = 32;          // chunks of a normalised plane, at most (C <= 512)
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16(x));
 }
 
-// GroupNorm + ReLU applied to an input as it is loaded. The statistics are
-// either reduced from the producer's per-tile partials, [plane][group]
-// [tile][2] (part), or read as saved (mean, rstd: [plane][channel] float32,
-// one value per group repeated over its GSIZE channels), as the banded
-// backward takes them from the forward.
+// GroupNorm + ReLU applied to an input as it is loaded. The channels lie
+// in chunks of GSIZE; a group of gs channels fills gk = ceil(gs / 16)
+// chunks, its gs channels first and zero channels (zero weights, gamma and
+// beta) after them, so that sums over its chunks are sums over the group.
+// The statistics are either reduced from the producer's per-tile partials,
+// [plane][chunk][tile][2] (part), or read as saved (mean, rstd:
+// [plane][channel] float32, one value per group repeated over its
+// channels), as the banded backward takes them from the forward.
 struct GNIn {
   const float* part;   // null (and mean null): no normalisation
   const float* gamma;
   const float* beta;
   int nparts;
-  float inv_count;     // 1 / (GSIZE * H * W)
+  float inv_count;     // 1 / (gs * H * W)
   const float* mean;   // saved statistics; take precedence over part
   const float* rstd;
+  int gk;              // chunks per group (0: 1)
 };
+
+// GroupNorm by partials `part` over groups of gs channels of an h x w
+// plane (gk and inv_count from gs).
+inline GNIn gn_parts(const float* part, const float* gamma, const float* beta, int nparts,
+                     int gs, int h, int w) {
+  return GNIn{part, gamma, beta, nparts, 1.f / ((float)gs * (float)h * (float)w), nullptr,
+              nullptr, (gs + GSIZE - 1) / GSIZE};
+}
 
 __device__ __forceinline__ bool gn_on(const GNIn& gn) {
   return gn.part != nullptr || gn.mean != nullptr;
@@ -63,15 +75,20 @@ __device__ __forceinline__ void gn_group_stats(const float* p, int nparts, float
   *rstd_out = (float)(1.0 / sqrt(var + 1e-5));
 }
 
-__device__ void gn_prologue(const GNIn& gn, int plane, int groups, float* s_mean,
+// s_mean, s_rstd [chunk] of one plane of `chunks` chunks: each chunk its
+// group's statistics (a group's partials are its chunks', one after
+// another).
+__device__ void gn_prologue(const GNIn& gn, int plane, int chunks, float* s_mean,
                             float* s_rstd) {
-  if (threadIdx.x < groups) {
-    const size_t pg = (size_t)plane * groups + threadIdx.x;
+  if (threadIdx.x < chunks) {
+    const size_t pg = (size_t)plane * chunks + threadIdx.x;
     if (gn.mean != nullptr) {
       s_mean[threadIdx.x] = gn.mean[pg * GSIZE];
       s_rstd[threadIdx.x] = gn.rstd[pg * GSIZE];
     } else if (gn.part != nullptr) {
-      gn_group_stats(gn.part + pg * gn.nparts * 2, gn.nparts, gn.inv_count,
+      const int gk = gn.gk > 1 ? gn.gk : 1;
+      const size_t first = (size_t)plane * chunks + threadIdx.x / gk * gk;
+      gn_group_stats(gn.part + first * gn.nparts * 2, gk * gn.nparts, gn.inv_count,
                      &s_mean[threadIdx.x], &s_rstd[threadIdx.x]);
     }
   }
@@ -109,14 +126,15 @@ __device__ __forceinline__ float2 block_sum2(float a, float b, float2* s_red) {
   return r;
 }
 
-// 3x3 convolution, padding 1, over bf16 planes (P, cin, H, W) into bf16
-// (P, COUT, H, W). w: float32 [cin][9][COUT]. Optional: GroupNorm+ReLU on
-// the input (gn) and a bias. Any cin >= 1 is taken.
+// 3x3 convolution, padding 1, over bf16 planes (P, cin, H, W) into COUT
+// channels of bf16 (P, ocs, H, W) planes from `out` on. w: float32 [cin]
+// [9][wld], its first COUT columns. Optional: GroupNorm+ReLU on the input
+// (gn) and a bias. Any cin >= 1 is taken.
 template <int COUT>
 __global__ void __launch_bounds__(NT)
 conv3x3_kernel(const bf16* __restrict__ in, int cin, int H, int W, GNIn gn,
-               const float* __restrict__ w, const float* __restrict__ bias,
-               bf16* __restrict__ out) {
+               const float* __restrict__ w, int wld, const float* __restrict__ bias,
+               bf16* __restrict__ out, int ocs) {
   __shared__ float s_in[CI][HALO][HALO + 1];
   __shared__ __align__(16) float s_w[CI * 9 * COUT];
   __shared__ float s_mean[MAXG], s_rstd[MAXG];
@@ -149,7 +167,7 @@ conv3x3_kernel(const bf16* __restrict__ in, int cin, int H, int W, GNIn gn,
     }
     const int wlen = min(CI, cin - c0) * 9 * COUT;
     for (int i = threadIdx.x; i < CI * 9 * COUT; i += NT)
-      s_w[i] = i < wlen ? w[(size_t)c0 * 9 * COUT + i] : 0.f;
+      s_w[i] = i < wlen ? w[((size_t)c0 * 9 + i / COUT) * wld + i % COUT] : 0.f;
     __syncthreads();
 
 #pragma unroll 1
@@ -179,7 +197,7 @@ conv3x3_kernel(const bf16* __restrict__ in, int cin, int H, int W, GNIn gn,
   const size_t pix = (size_t)oy * W + ox;
 #pragma unroll
   for (int j = 0; j < COUT; ++j)
-    out[((size_t)p * COUT + j) * hw + pix] =
+    out[((size_t)p * ocs + j) * hw + pix] =
         __float2bfloat16(bias != nullptr ? acc[j] + bias[j] : acc[j]);
 }
 
@@ -197,24 +215,36 @@ gn_relu_kernel(const bf16* __restrict__ in, int C, int HW, GNIn gn, bf16* __rest
   }
 }
 
-// Dispatch on the output channel count: 1 (the head's forward) or 16, 32,
-// 48, 64, 96 (its input gradient, one per stage width); another count is
-// an error (returned; the launch's own errors come from cudaGetLastError).
+// Dispatch on the output channel count: 1 (the head's forward) or a
+// multiple of 16 (its input gradient, one per stage width), in column
+// groups of 96, 64, 48, 32 or 16 (the widest that fits what is left);
+// another count is an error (returned; the launch's own errors come from
+// cudaGetLastError).
 int conv(int cout, const bf16* in, int planes, int cin, int H, int W, GNIn gn,
           const float* w, const float* bias, bf16* out, cudaStream_t st) {
   const dim3 grid(((H + TILE - 1) / TILE) * ((W + TILE - 1) / TILE), planes);
-  switch (cout) {
-    case 1: conv3x3_kernel<1><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    case 16: conv3x3_kernel<16><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    case 32: conv3x3_kernel<32><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    case 48: conv3x3_kernel<48><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    case 64: conv3x3_kernel<64><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    case 96: conv3x3_kernel<96><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, bias, out); break;
-    default: return (int)cudaErrorInvalidValue;
+  if (cout == 1) {
+    conv3x3_kernel<1><<<grid, NT, 0, st>>>(in, cin, H, W, gn, w, 1, bias, out, 1);
+    return 0;
+  }
+  if (cout % 16 || bias != nullptr) return (int)cudaErrorInvalidValue;
+  const size_t hw = (size_t)H * W;
+  for (int n0 = 0, n; n0 < cout; n0 += n) {
+    const int left = cout - n0;
+    n = left >= 96 ? 96 : left >= 64 ? 64 : left >= 48 ? 48 : left >= 32 ? 32 : 16;
+    const float* wn = w + n0;
+    bf16* on = out + n0 * hw;
+    switch (n) {
+      case 16: conv3x3_kernel<16><<<grid, NT, 0, st>>>(in, cin, H, W, gn, wn, cout, nullptr, on, cout); break;
+      case 32: conv3x3_kernel<32><<<grid, NT, 0, st>>>(in, cin, H, W, gn, wn, cout, nullptr, on, cout); break;
+      case 48: conv3x3_kernel<48><<<grid, NT, 0, st>>>(in, cin, H, W, gn, wn, cout, nullptr, on, cout); break;
+      case 64: conv3x3_kernel<64><<<grid, NT, 0, st>>>(in, cin, H, W, gn, wn, cout, nullptr, on, cout); break;
+      default: conv3x3_kernel<96><<<grid, NT, 0, st>>>(in, cin, H, W, gn, wn, cout, nullptr, on, cout); break;
+    }
   }
   return 0;
 }
 
-constexpr GNIn NO_GN{nullptr, nullptr, nullptr, 0, 0.f, nullptr, nullptr};
+constexpr GNIn NO_GN{nullptr, nullptr, nullptr, 0, 0.f, nullptr, nullptr, 0};
 
 }  // namespace

@@ -311,13 +311,14 @@ struct Epi {
                        // [planes][4][cstride][H / 2][pitch] (phase ky * 2 + kx of the
                        // (H, W) output); EPI_TCONV: bf16 [planes][cstride][2H][2W],
                        // the tile's sums landing on output phase `split`
-  const float* add;    // EPI_BF16: float32 addend [plane / add_rep][N][H][W] or null
+  const float* add;    // EPI_BF16: float32 addend [plane / add_rep][cstride][H][W] or
+                       // null, from the channel it points at
   int add_rep;
   const float* bias;   // EPI_TCONV: [N]
-  float* gn_part;      // EPI_BF16: GroupNorm partials [planes][N / 16][tiles][2] or null
+  float* gn_part;      // EPI_BF16: GroupNorm partials [planes][cstride / 16][tiles][2] or
+                       // null, from the chunk it points at
   int pitch;           // EPI_PHASE: row pitch of the phase planes
-  int cstride;         // channels of an output plane (0: N); no addend or partials
-                       // unless it is N
+  int cstride;         // channels of an output plane (0: N)
   bool promote;        // add each K step's products into the sums on the CUDA cores
 };
 
@@ -360,7 +361,7 @@ __device__ __forceinline__ void store_lines(const T* s_out, const Epi& e, int p,
       const int line = warp + 4 * k, y = y0 + line / N;
       add[k] = make_float2(0.f, 0.f);
       if (y >= H || x >= W) continue;
-      const float* a = e.add + ((size_t)(p / e.add_rep) * N + line % N) * hw + (size_t)y * W + x;
+      const float* a = e.add + ((size_t)(p / e.add_rep) * e.cstride + line % N) * hw + (size_t)y * W + x;
       if (even) {
         add[k] = __ldg(reinterpret_cast<const float2*>(a));
       } else {
@@ -452,7 +453,7 @@ __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, float (&acc)[2]
         float v = acc[r][i];
         const size_t pix = (size_t)y * W + x;
         if (e.mode == EPI_BF16) {
-          if (e.add != nullptr) v += e.add[((size_t)(p / e.add_rep) * N + n) * hw + pix];
+          if (e.add != nullptr) v += e.add[((size_t)(p / e.add_rep) * e.cstride + n) * hw + pix];
           const bf16 o = __float2bfloat16(v);
           static_cast<bf16*>(e.out)[((size_t)p * e.cstride + n) * hw + pix] = o;
           v = __bfloat162float(o);   // statistics of the stored values
@@ -501,7 +502,8 @@ __device__ __forceinline__ void conv_epilogue(const ConvArgs& a, float (&acc)[2]
       q += s_gn[(w * G + g) * 2 + 1];
     }
     const int tiles = a.tiles_x * a.tiles_y;
-    float* o = e.gn_part + (((size_t)p * G + g) * tiles + ty * a.tiles_x + tx) * 2;
+    float* o = e.gn_part +
+               (((size_t)p * (e.cstride / 16) + g) * tiles + ty * a.tiles_x + tx) * 2;
     o[0] = s;
     o[1] = q;
   }
@@ -824,7 +826,7 @@ int conv(const Planes& in, const bf16* w, int nsplit, const Epi& epi, cudaStream
   a.epi = epi;
   if (a.epi.cstride == 0) a.epi.cstride = N;
   if (a.stages < 2 || in.C % 16 || in.shifted != (TAPS == 9) ||
-      (a.epi.cstride != N && (a.epi.add != nullptr || a.epi.gn_part != nullptr)))
+      (a.epi.gn_part != nullptr && (N % 16 || a.epi.cstride % 16)))
     return (int)cudaErrorInvalidValue;
   const int smem = 1024 + a.stages * (int)a.stage_bytes + tail + lines;
   auto kernel = conv_kernel<N, TAPS>;

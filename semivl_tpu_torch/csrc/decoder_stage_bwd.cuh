@@ -24,9 +24,9 @@
 //
 // Widths: a product's output channels (N) are one of the kernel's
 // instances; a wider output runs in column groups (conv_cols, wgrad_cols),
-// so the backward takes any multiple of 16 input, up and skip channels,
-// and conv1 and conv2 any output width N of the 3x3 product (16, 32, 48,
-// 64 or 96).
+// so every sequence takes any multiple of 16 input, up, skip and output
+// channels. GroupNorm groups of other sizes lie zero-padded to whole
+// chunks of 16 channels (decoder_common.cuh's GNIn::gk).
 //
 // The backward routes differ in where GroupNorm's statistics come from
 // (the whole-plane route reduces them from the partial sums its recompute
@@ -117,18 +117,23 @@ constexpr int CONV1_N[] = {16, 32, 48, 64, 96, 128};
 // group n0 reads the weights' rows n0 .. (TAPS = 9: w [9][c][C]; TAPS = 1
 // and nsplit 1: w [c][C]) and writes the output's channels n0 .. of `e`
 // (EPI_BF16, EPI_F32 or EPI_PHASE over planes of c channels, H x W the
-// conv's grid).
+// conv's grid), with the addend's channels n0 .. and the GroupNorm
+// partials of chunks n0 / 16 .. (EPI_BF16).
 template <int TAPS>
 int conv_cols(int c, const Planes& in, const bf16* w, Epi e, cudaStream_t st) {
   if (c % 16) return (int)cudaErrorInvalidValue;
   e.cstride = c;
-  const size_t plane = e.mode == igemm::EPI_PHASE ? (size_t)(in.H / 2) * e.pitch
-                                                  : (size_t)in.H * in.W;
+  const size_t hw = (size_t)in.H * in.W;
+  const size_t plane = e.mode == igemm::EPI_PHASE ? (size_t)(in.H / 2) * e.pitch : hw;
   const size_t elem = e.mode == igemm::EPI_F32 ? 4 : 2;
+  const size_t tiles = (size_t)((in.H + igemm::CONV_ROWS - 1) / igemm::CONV_ROWS) *
+                       ((in.W + igemm::TW - 1) / igemm::TW);
   for (int n0 = 0; n0 < c;) {
     const int n = TAPS == 9 ? widest_in(CONV9_N, c - n0) : widest_in(CONV1_N, c - n0);
     Epi g = e;
     g.out = static_cast<char*>(e.out) + n0 * plane * elem;
+    if (e.add != nullptr) g.add = e.add + n0 * hw;
+    if (e.gn_part != nullptr) g.gn_part = e.gn_part + n0 / 16 * tiles * 2;
     SEMIVL_CK(conv_n<TAPS>(n, in, w + (size_t)n0 * in.C, 1, g, st, c));
     n0 += n;
   }
@@ -227,19 +232,19 @@ int stage_recompute(const Stage& s, const bf16* xin, const bf16* skip, const bf1
     SEMIVL_CK(conv_n<1>(n, xs, up_wf + (size_t)4 * n0 * s.cin, 4, e, st));
   }
   if (skip_half)
-    SEMIVL_CK(conv_n<9>(s.cout, igemm::shifted_source(skip, s.B, s.cs, H, W, scr, st), w1s, 1,
-                        epi(igemm::EPI_F32, ys, true), st));
+    SEMIVL_CK(conv_cols<9>(s.cout, igemm::shifted_source(skip, s.B, s.cs, H, W, scr, st), w1s,
+                           epi(igemm::EPI_F32, ys, true), st));
   Epi e = epi(igemm::EPI_BF16, c1, true);
   e.add = skip_half ? ys : nullptr;
   e.add_rep = s.P / s.B;
   e.gn_part = part1;
-  SEMIVL_CK(conv_n<9>(s.cout, igemm::shifted_source(up, s.P, s.cu, H, W, scr, st), w1u, 1, e,
-                      st));
+  SEMIVL_CK(conv_cols<9>(s.cout, igemm::shifted_source(up, s.P, s.cu, H, W, scr, st), w1u, e,
+                         st));
   gn_relu_kernel<<<dim3((HW + NT - 1) / NT, s.P), NT, 0, st>>>(c1, s.cout, HW, gn1, a1);
   *a1_src = igemm::shifted_source(a1, s.P, s.cout, H, W, scr, st);
   e = epi(igemm::EPI_BF16, c2, true);
   e.gn_part = part2;
-  SEMIVL_CK(conv_n<9>(s.cout, *a1_src, w2, 1, e, st));
+  SEMIVL_CK(conv_cols<9>(s.cout, *a1_src, w2, e, st));
   return (int)cudaGetLastError();
 }
 
@@ -278,7 +283,7 @@ int conv2_bwd(const Stage& s, const bf16* g_raw2, const Planes& a1_src, const bf
               int wg_planes, int slots, float* igpart, bf16* g_a1, float* g_w2, bf16* scr,
               cudaStream_t st) {
   const Planes gr2 = igemm::shifted_source(g_raw2, s.P, s.cout, 2 * s.h, 2 * s.w, scr, st);
-  SEMIVL_CK(conv_n<9>(s.cout, gr2, w2_d, 1, epi(igemm::EPI_BF16, g_a1), st));
+  SEMIVL_CK(conv_cols<9>(s.cout, gr2, w2_d, epi(igemm::EPI_BF16, g_a1), st));
   return wgrad_cols<9>(s.cout, a1_src, igemm::center(gr2), wg_planes, s.cout, slots, igpart,
                        g_w2, st);
 }

@@ -60,7 +60,12 @@ enum StageSlot {
   S_G1B, S_G2W, S_G2B, S_HEAD_W, S_HEAD_B, S_XIN, S_UP, S_YS, S_C1, S_PART1, S_A1, S_C2,
   S_PART2, S_SCR, S_OUT, S_COUNT
 };
-enum Dim { D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_SKIP_HALF, D_COUNT };
+// D_GS, D_GS_IN: channels per GroupNorm group of the output and of a
+// normalised input (16 but where a group lies zero-padded: GNIn::gk).
+enum Dim {
+  D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_SKIP_HALF, D_GS, D_GS_IN,
+  D_COUNT
+};
 
 }  // namespace
 
@@ -81,35 +86,36 @@ enum Dim { D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_SKIP_HA
 // tiles = ceil(2h / 4) ceil(2w / 64). Scratch: S_UP (P, cu, 2h, 2w) bf16;
 // S_YS (B, cout, 2h, 2w) float32; S_A1 (P, cout, 2h, 2w) bf16; S_SCR
 // bf16, room for the three column-shifted copies of the widest source (3 P
-// max(cin, cu, cs, cout) 2h tma_pitch(2w)). cout in {16, 32, 48, 64, 96};
-// cin, cs and cu multiples of 16. Returns the first CUDA error of the
-// launches.
+// max(cin, cu, cs, cout) 2h tma_pitch(2w)). cin, cs, cu and cout
+// multiples of 16, at most 512 for a normalised width. Returns the first
+// CUDA error of the launches.
 extern "C" int decoder_stage_fwd(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], cout = d[D_COUT];
   const int H = 2 * h, W = 2 * w;
   const int tiles = ((H + igemm::CONV_ROWS - 1) / igemm::CONV_ROWS) *
                     ((W + igemm::TW - 1) / igemm::TW);
-  const float inv_in = 1.f / (GSIZE * (float)h * (float)w);
-  const float inv_out = 1.f / (GSIZE * (float)H * (float)W);
+  if ((t[S_GN_PART] != nullptr && cin > GSIZE * MAXG) || cout > GSIZE * MAXG)
+    return (int)cudaErrorInvalidValue;
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
 
   const bf16* xin = b16(S_X);
   if (t[S_GN_PART] != nullptr) {
-    const GNIn gx{f(S_GN_PART), f(S_GN_GAMMA), f(S_GN_BETA), d[D_GN_NPARTS], inv_in};
+    const GNIn gx = gn_parts(f(S_GN_PART), f(S_GN_GAMMA), f(S_GN_BETA), d[D_GN_NPARTS],
+                             d[D_GS_IN], h, w);
     gn_relu_kernel<<<dim3((h * w + NT - 1) / NT, P), NT, 0, st>>>(b16(S_X), cin, h * w, gx,
                                                                    b16(S_XIN));
     xin = b16(S_XIN);
   }
   const Stage s{P, cin, h, w, d[D_B], d[D_CS], d[D_CU], cout};
-  const GNIn gn1{f(S_PART1), f(S_G1W), f(S_G1B), tiles, inv_out};
+  const GNIn gn1 = gn_parts(f(S_PART1), f(S_G1W), f(S_G1B), tiles, d[D_GS], H, W);
   Planes a1;
   SEMIVL_CK(stage_recompute(s, xin, b16(S_SKIP), b16(S_UP_WF), f(S_UP_B), b16(S_W1U),
                             b16(S_W1S), b16(S_W2), d[D_SKIP_HALF] != 0, gn1, b16(S_UP),
                             f(S_YS), b16(S_C1), f(S_PART1), b16(S_A1), b16(S_C2), f(S_PART2),
                             b16(S_SCR), &a1, st));
-  const GNIn gn2{f(S_PART2), f(S_G2W), f(S_G2B), tiles, inv_out};
+  const GNIn gn2 = gn_parts(f(S_PART2), f(S_G2W), f(S_G2B), tiles, d[D_GS], H, W);
   if (t[S_HEAD_W] != nullptr)
     SEMIVL_CK(conv(1, b16(S_C2), P, cout, H, W, gn2, f(S_HEAD_W), f(S_HEAD_B), b16(S_OUT), st));
   else if (t[S_OUT] != nullptr)
@@ -120,15 +126,16 @@ extern "C" int decoder_stage_fwd(void* const* t, const int* d, void* stream) {
 
 namespace {
 
-// mean, rstd [P][groups * GSIZE] from a conv's partials [P][groups][nparts]
-// [2]: one thread per (plane, group), the prologue's own reduction.
-__global__ void gn_stats_kernel(const float* __restrict__ part, int P, int groups, int nparts,
-                                float inv_count, float* __restrict__ mean,
-                                float* __restrict__ rstd) {
+// mean, rstd [P][chunks * GSIZE] from a conv's partials [P][chunks][nparts]
+// [2] in groups of gk chunks: one thread per (plane, chunk), the
+// prologue's own reduction.
+__global__ void gn_stats_kernel(const float* __restrict__ part, int P, int chunks, int nparts,
+                                GNIn gn, float* __restrict__ mean, float* __restrict__ rstd) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= P * groups) return;
+  if (i >= P * chunks) return;
   float m, r;
-  gn_group_stats(part + (size_t)i * nparts * 2, nparts, inv_count, &m, &r);
+  const int first = i / chunks * chunks + i % chunks / gn.gk * gn.gk;
+  gn_group_stats(part + (size_t)first * nparts * 2, gn.gk * nparts, gn.inv_count, &m, &r);
   for (int c = 0; c < GSIZE; ++c) {
     mean[(size_t)i * GSIZE + c] = m;
     rstd[(size_t)i * GSIZE + c] = r;
@@ -139,14 +146,15 @@ __global__ void gn_stats_kernel(const float* __restrict__ part, int P, int group
 
 // The GroupNorm statistics that decoder_stage_fwd normalised with, for the
 // banded backward: from the partials part1 or part2 (P, C / 16, nparts, 2)
-// of a stage whose conv output is (P, C, H, W), mean and rstd (P, C)
-// float32 (each group's value on its GSIZE channels), bit-identical to the
-// forward's prologue. Returns cudaGetLastError() after the launch.
+// of a stage whose conv output is (P, C, H, W) in groups of gs channels,
+// mean and rstd (P, C) float32 (each group's value on its chunks'
+// channels), bit-identical to the forward's prologue. Returns
+// cudaGetLastError() after the launch.
 extern "C" int decoder_gn_stats(const void* part, int P, int C, int nparts, int H, int W,
-                                void* mean, void* rstd, void* stream) {
-  const float inv = 1.f / (GSIZE * (float)H * (float)W);   // as decoder_stage_fwd
+                                int gs, void* mean, void* rstd, void* stream) {
+  const GNIn gn = gn_parts(nullptr, nullptr, nullptr, nparts, gs, H, W);   // as decoder_stage_fwd
   const int n = P * (C / GSIZE);
   gn_stats_kernel<<<(n + NT - 1) / NT, NT, 0, (cudaStream_t)stream>>>(
-      (const float*)part, P, C / GSIZE, nparts, inv, (float*)mean, (float*)rstd);
+      (const float*)part, P, C / GSIZE, nparts, gn, (float*)mean, (float*)rstd);
   return (int)cudaGetLastError();
 }

@@ -114,7 +114,7 @@ __global__ void plane_sums_kernel(const float* __restrict__ gpart, int n, int ns
 
 GNIn saved(const void* gamma, const void* beta, const void* mean, const void* rstd) {
   return GNIn{nullptr, (const float*)gamma, (const float*)beta, 0, 0.f, (const float*)mean,
-              (const float*)rstd};
+              (const float*)rstd, 0};
 }
 
 // gy = g_a (bf16) masked by the ReLU of GN(c), stored in bf16 (gy may alias
@@ -177,6 +177,7 @@ extern "C" int banded_pass_a(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], cin = d[D_CIN], h = d[D_H], w = d[D_W], cout = d[D_COUT];
   const int HW = 4 * h * w;
+  if (cout > GSIZE * MAXG) return (int)cudaErrorInvalidValue;   // GNIn's chunks
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
   const Stage s{P, cin, h, w, d[D_B], d[D_CS], d[D_CU], cout};
@@ -218,6 +219,7 @@ extern "C" int banded_pass_b(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], h = d[D_H], w = d[D_W], cout = d[D_COUT];
   const int H = 2 * h, W = 2 * w, HW = H * W, eb = (HW + NT - 1) / NT;
+  if (cout > GSIZE * MAXG) return (int)cudaErrorInvalidValue;   // GNIn's chunks
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
   const GNIn gn1 = saved(t[B_G1W], t[B_G1B], t[B_M1], t[B_R1]);
@@ -250,6 +252,7 @@ extern "C" int banded_pass_c(void* const* t, const int* d, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   const int P = d[D_P], h = d[D_H], w = d[D_W], B = d[D_B], cout = d[D_COUT];
   const int HW = 4 * h * w, eb = (HW + NT - 1) / NT;
+  if (cout > GSIZE * MAXG) return (int)cudaErrorInvalidValue;   // GNIn's chunks
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
   const GNIn gn1 = saved(t[C_G1W], t[C_G1B], t[C_M1], t[C_R1]);

@@ -77,15 +77,17 @@ enum InputSlot {
 // D_PITCH: the row pitch of the phase-separated g_up (input half);
 // D_WG_PLANES: the planes the tail's conv2 wgrad reduces over (P; fewer
 // only for a planted fault); D_SLOTS*: slots of each wgrad reduction.
+// D_GS, D_GS_IN: channels per GroupNorm group of the output and of a
+// normalised input (16 but where a group lies zero-padded: GNIn::gk).
 enum Dim {
   D_P, D_CIN, D_H, D_W, D_GN_NPARTS, D_B, D_CS, D_CU, D_COUT, D_PITCH, D_WG_PLANES, D_SLOTS,
-  D_SLOTS2, D_SLOTS3, D_COUNT
+  D_SLOTS2, D_SLOTS3, D_GS, D_GS_IN, D_COUNT
 };
 
 // ------------------------------------------------ GroupNorm+ReLU backward
 
 constexpr int GN_SLAB = 1024;   // pixels of one block of gn_bwd_sums_kernel
-constexpr int GN_MAXC = 96;    // the widest Cout (fused_decoder.CONV_N)
+constexpr int GN_MAXC = GSIZE * MAXG;   // the widest normalised plane (512 channels)
 
 // g_y = g_a [gamma x_hat + beta > 0] from the raw input c; per (plane,
 // channel, slab) sums of g_y and g_y x_hat: gpart[p][c][slab][2].
@@ -123,13 +125,13 @@ gn_bwd_sums_kernel(const bf16* __restrict__ g_a, const bf16* __restrict__ c, int
     }
   }
   __syncthreads();
-  if (threadIdx.x < C) {
+  for (int ch = threadIdx.x; ch < C; ch += NT) {
     float s = 0.f, q = 0.f;
     for (int w = 0; w < NT / 32; ++w) {
-      s += s_part[w][threadIdx.x][0];
-      q += s_part[w][threadIdx.x][1];
+      s += s_part[w][ch][0];
+      q += s_part[w][ch][1];
     }
-    float* o = gpart + (((size_t)p * C + threadIdx.x) * gridDim.x + blockIdx.x) * 2;
+    float* o = gpart + (((size_t)p * C + ch) * gridDim.x + blockIdx.x) * 2;
     o[0] = s;
     o[1] = q;
   }
@@ -137,7 +139,8 @@ gn_bwd_sums_kernel(const bf16* __restrict__ g_a, const bf16* __restrict__ c, int
 
 // Per plane (block): the channel totals gsum[p][c][2] (g_y, g_y x_hat),
 // summed over the slabs in order in double, and per group A = sum gamma g_y
-// / n and B = sum gamma g_y x_hat / n: gab[p][g][2].
+// / n and B = sum gamma g_y x_hat / n (n = gs H W), on each of the group's
+// chunks: gab[p][chunk][2].
 __global__ void gn_bwd_reduce_kernel(const float* __restrict__ gpart, int C, int nslabs, GNIn gn,
                                      float* __restrict__ gsum, float* __restrict__ gab) {
   __shared__ double s_a[GN_MAXC], s_b[GN_MAXC];
@@ -155,15 +158,16 @@ __global__ void gn_bwd_reduce_kernel(const float* __restrict__ gpart, int C, int
     s_b[ch] = gn.gamma[ch] * b;
   }
   __syncthreads();
-  const int groups = C / GSIZE;
-  if (ch < groups) {
+  const int chunks = C / GSIZE, gk = gn.gk > 1 ? gn.gk : 1;
+  if (ch < chunks) {
     double a = 0.0, b = 0.0;
-    for (int k = ch * GSIZE; k < (ch + 1) * GSIZE; ++k) {
+    const int first = ch / gk * gk;
+    for (int k = first * GSIZE; k < (first + gk) * GSIZE; ++k) {
       a += s_a[k];
       b += s_b[k];
     }
-    gab[((size_t)p * groups + ch) * 2] = (float)(a * gn.inv_count);
-    gab[((size_t)p * groups + ch) * 2 + 1] = (float)(b * gn.inv_count);
+    gab[((size_t)p * chunks + ch) * 2] = (float)(a * gn.inv_count);
+    gab[((size_t)p * chunks + ch) * 2 + 1] = (float)(b * gn.inv_count);
   }
 }
 
@@ -252,20 +256,21 @@ extern "C" int decoder_stage_bwd_tail(void* const* t, const int* d, void* stream
   const int H = 2 * h, W = 2 * w, HW = H * W;
   const int tiles = ((H + igemm::CONV_ROWS - 1) / igemm::CONV_ROWS) *
                     ((W + igemm::TW - 1) / igemm::TW);
-  const float inv_in = 1.f / (GSIZE * (float)h * (float)w);
-  const float inv_out = 1.f / (GSIZE * (float)H * (float)W);
+  if ((t[T_GN_PART] != nullptr && cin > GSIZE * MAXG) || cout > GSIZE * MAXG)
+    return (int)cudaErrorInvalidValue;
   auto f = [&](int i) { return (float*)t[i]; };
   auto b16 = [&](int i) { return (bf16*)t[i]; };
 
   if (t[T_GN_PART] != nullptr) {
-    GNIn gx{f(T_GN_PART), f(T_GN_GAMMA), f(T_GN_BETA), d[D_GN_NPARTS], inv_in};
+    const GNIn gx = gn_parts(f(T_GN_PART), f(T_GN_GAMMA), f(T_GN_BETA), d[D_GN_NPARTS],
+                             d[D_GS_IN], h, w);
     gn_relu_kernel<<<dim3((h * w + NT - 1) / NT, P), NT, 0, st>>>(b16(T_X), cin, h * w, gx,
                                                                    b16(T_XIN));
   }
   // 1. recompute the stage forward from its inputs
   const Stage s{P, cin, h, w, B, cs, cu, cout};
-  const GNIn gn1{f(T_PART1), f(T_G1W), f(T_G1B), tiles, inv_out};
-  const GNIn gn2{f(T_PART2), f(T_G2W), f(T_G2B), tiles, inv_out};
+  const GNIn gn1 = gn_parts(f(T_PART1), f(T_G1W), f(T_G1B), tiles, d[D_GS], H, W);
+  const GNIn gn2 = gn_parts(f(T_PART2), f(T_G2W), f(T_G2B), tiles, d[D_GS], H, W);
   Planes a1;
   SEMIVL_CK(stage_recompute(s, b16(T_XIN), b16(T_SKIP), b16(T_UP_WF), f(T_UP_B), b16(T_W1U),
                             b16(T_W1S), b16(T_W2), true, gn1, b16(T_UP), f(T_YS), b16(T_C1),

@@ -19,7 +19,19 @@ argmax at image size (reference supervised.py:104-117; JAX
 
 Crops of one shape run through the model in exact power-of-two batches of
 at most 32.
+
+``evaluate`` pipelines the host side as JAX's does (``semivl_tpu/evaluation/
+predict.py:788-924``): a prefetch thread loads image i+1 and uploads it and
+its label map (``preupload``, ``preupload_mask``: pinned memory, a side
+stream) while image i's windows run, and on the device routes the
+intersection/union histograms are counted on the device (``_hist``) into a
+(3, C) int32 buffer (``zero_hist``, ``predict_hist_into``) that is fetched
+once every ``eval_hist_flush_every`` images.
 """
+
+import logging
+import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -30,7 +42,8 @@ from semivl_tpu_torch.evaluation.metrics import (
     miou_from_histograms,
 )
 from semivl_tpu_torch.models.vlm import IMAGENET_MEAN, IMAGENET_STD
-from semivl_tpu_torch.ops.resize import _axis_weights, axis_weights
+from semivl_tpu_torch.ops.resize import (_axis_weights, axis_weights,
+                                         device_constant)
 
 
 def _np_resize_bilinear(x, out_hw, align_corners):
@@ -53,6 +66,23 @@ def _chunk_sizes(n, max_chunk=32):
     return sizes
 
 
+class Uploaded:
+    """A tensor copied to the card on a side stream (``Evaluator.preupload``):
+    ``get()`` makes the current stream wait for the copy and returns the
+    tensor."""
+
+    def __init__(self, tensor, event=None):
+        self.tensor, self.event = tensor, event
+
+    def get(self):
+        if self.event is not None:
+            stream = torch.cuda.current_stream(self.tensor.device)
+            stream.wait_event(self.event)
+            self.tensor.record_stream(stream)
+            self.event = None
+        return self.tensor
+
+
 class Evaluator:
     """Runs ``model`` (a ``models.vlm.VLM`` on ``device``) over windows."""
 
@@ -63,14 +93,89 @@ class Evaluator:
                                     device=self.device)
         self.cfg = cfg
         self.nclass = cfg['nclass']
+        self._streams = {}   # upload thread -> its side stream
+
+    def _upload(self, arr):
+        """A host array on the evaluator's device. On the card: from pinned
+        memory on a side stream of the calling thread, without waiting for
+        it (``Uploaded.get`` orders the use after the copy)."""
+        t = torch.from_numpy(np.require(arr, requirements=('C', 'W')))
+        if self.device.type != 'cuda':
+            return Uploaded(t.to(self.device))
+        key = threading.get_ident()
+        if key not in self._streams:
+            self._streams[key] = torch.cuda.Stream(self.device)
+        stream = self._streams[key]
+        with torch.cuda.stream(stream):
+            dev = t.pin_memory().to(self.device, non_blocking=True)
+            event = torch.cuda.Event()
+            event.record(stream)
+        return Uploaded(dev, event)
+
+    def preupload(self, img):
+        """Upload a (1, H, W, 3) host image (JAX ``preupload``, :148): called
+        from ``evaluate``'s prefetch thread so that the copy of image i+1
+        overlaps image i's windows; feeds ``predict`` and
+        ``predict_hist_into`` as ``img_dev``."""
+        return self._upload(img[0])
+
+    def preupload_mask(self, mask):
+        """Upload an (H, W) label map as uint8 (class ids and the ignore
+        value 255 fit a byte; JAX ``preupload_mask``, :173) for the device
+        histograms."""
+        return self._upload(np.asarray(mask).astype(np.uint8))
+
+    def zero_hist(self):
+        """A fresh (3, C) int32 zero accumulator on the device (JAX
+        ``zero_hist``, :527)."""
+        return torch.zeros((3, self.nclass), dtype=torch.int32,
+                           device=self.device)
+
+    def _hist(self, pred, mask):
+        """(intersection, union, target) (3, C) int32 of a device label map
+        against a uint8 label map (255 ignored), the exact integer counts
+        of ``metrics.intersection_and_union`` (JAX ``_hist``, :445): a
+        label value at or above C that is not 255 counts nowhere, as there."""
+        n = self.nclass
+        pred = pred.reshape(-1).long()
+        mask = mask.reshape(-1).long()
+        valid = mask != 255
+        over = torch.full_like(pred, n)
+        ones = torch.ones_like(pred)
+
+        def hist(src):   # a scatter: bincount would wait for its max
+            return torch.zeros(n + 1, dtype=torch.long, device=src.device) \
+                .scatter_add_(0, src.clamp(max=n), ones)[:n]
+
+        ai = hist(torch.where((pred == mask) & valid, pred, over))
+        ap = hist(torch.where(valid, pred, over))
+        at = hist(torch.where(valid, mask, over))
+        return torch.stack([ai, ap + at - ai, at]).int()
+
+    def predict_hist_into(self, acc, img, mask, mode, img_dev=None,
+                          mask_dev=None):
+        """Predict on the device and add the histograms into ``acc`` (JAX
+        ``predict_hist_into``, :536); returns ``acc``, or None where this
+        mode and geometry take the host route (``acc`` untouched). No
+        per-image transfer to the host."""
+        if not self.use_device(img, mode):
+            return None
+        pred = self.predict_device(img, mask.shape, mode, img_dev)
+        if mask_dev is None:
+            mask_dev = self.preupload_mask(mask)
+        mask_dev = mask_dev.get() if isinstance(mask_dev, Uploaded) \
+            else mask_dev
+        return acc.add_(self._hist(pred, mask_dev))
 
     def _to_model_input(self, x):
         """uint8 crops are normalised on the device (/255, then ImageNet
         mean/std); float crops pass through as already normalised."""
         if x.dtype != torch.uint8:
             return x
-        mean = torch.tensor(IMAGENET_MEAN, device=x.device)
-        std = torch.tensor(IMAGENET_STD, device=x.device)
+        mean = device_constant('imagenet_mean',
+                               lambda: np.asarray(IMAGENET_MEAN), x.device)
+        std = device_constant('imagenet_std',
+                              lambda: np.asarray(IMAGENET_STD), x.device)
         return (x.float() / 255.0 - mean) / std
 
     @torch.no_grad()
@@ -87,19 +192,37 @@ class Evaluator:
     def use_device(self, img, mode):
         """Whether ``mode`` on this geometry keeps the canvas on the device
         (the small-image zegclip route runs on the host)."""
+        if mode == 'sliding_window':
+            return True
         return (mode == 'zegclip_sliding_window'
                 and min(img.shape[1:3]) >= self.cfg['crop_size'])
 
-    def predict(self, img, mask_shape, mode):
-        """img: (1, H, W, 3) numpy, uint8 or normalised float. Returns the
-        (1, h_mask, w_mask) int64 prediction."""
-        if mode == 'sliding_window':
-            return self._sliding_device(img, mask_shape)
-        if mode != 'zegclip_sliding_window':
+    def predict(self, img, mask_shape, mode, img_dev=None):
+        """img: (1, H, W, 3) numpy, uint8 or normalised float; ``img_dev``:
+        it uploaded (``preupload``). Returns the (1, h_mask, w_mask) int64
+        prediction."""
+        if mode not in ('sliding_window', 'zegclip_sliding_window'):
             raise NotImplementedError(f'eval mode {mode!r} is not ported')
         if self.use_device(img, mode):
-            return self._zegclip_sliding_device(img, mask_shape)
+            return self.predict_device(img, mask_shape, mode, img_dev)[
+                None].cpu().numpy()
         return self._zegclip_sliding(img, mask_shape)
+
+    def predict_device(self, img, mask_shape, mode, img_dev=None):
+        """The (h_mask, w_mask) int64 prediction on the device, of a mode and
+        geometry that ``use_device`` keeps there."""
+        img_dev = self._image_on_device(img, img_dev)
+        if mode == 'sliding_window':
+            return self._sliding_device(img_dev, mask_shape)
+        return self._zegclip_sliding_device(img_dev, mask_shape)
+
+    def _image_on_device(self, img, img_dev):
+        """(H, W, 3) on the device: ``img_dev`` (an ``Uploaded`` or a
+        tensor), else ``img`` uploaded now."""
+        if img_dev is None:
+            return torch.from_numpy(np.ascontiguousarray(img[0])).to(
+                self.device)
+        return img_dev.get() if isinstance(img_dev, Uploaded) else img_dev
 
     def _zegclip_coords(self, h_img, w_img):
         crop = self.cfg['crop_size']
@@ -114,15 +237,13 @@ class Evaluator:
                 coords.append((max(y1, 0), max(x1, 0)))
         return coords
 
-    def _zegclip_sliding_device(self, img, mask_shape):
-        """Upload once; slice windows, accumulate the canvas, divide by the
-        visit count, resize and take the argmax on the device; only the
-        label map comes back."""
+    def _zegclip_sliding_device(self, img_dev, mask_shape):
+        """Slice the windows of the image on the device, accumulate the
+        canvas, divide by the visit count, resize and take the argmax on
+        the device: the (h_mask, w_mask) label map."""
         crop = self.cfg['crop_size']
-        _, h_img, w_img, _ = img.shape
+        h_img, w_img = img_dev.shape[:2]
         coords = self._zegclip_coords(h_img, w_img)
-        img_dev = torch.from_numpy(np.ascontiguousarray(img[0])).to(
-            self.device)
         crops = torch.stack([img_dev[y:y + crop, x:x + crop]
                              for y, x in coords])
         logits = self._forward(crops)
@@ -135,7 +256,7 @@ class Evaluator:
         wh = axis_weights(mask_shape[0], h_img, 'bilinear', True, self.device)
         ww = axis_weights(mask_shape[1], w_img, 'bilinear', True, self.device)
         final = torch.matmul(torch.matmul(wh, canvas), ww.t())
-        return final.argmax(dim=0)[None].cpu().numpy()
+        return final.argmax(dim=0)
 
     def sliding_windows(self, h, w):
         """{(crop h, crop w): [(y, x), ...]} of ``sliding_window`` mode, in
@@ -149,15 +270,14 @@ class Evaluator:
                 shapes.setdefault(shape, []).append((y, x))
         return shapes
 
-    def _sliding_device(self, img, mask_shape):
-        """Upload once; per window shape, run the crops, add their softmax
-        probabilities into the canvas, take the argmax on the device."""
-        _, h, w, _ = img.shape
+    def _sliding_device(self, img_dev, mask_shape):
+        """Per window shape, run the crops of the image on the device, add
+        their softmax probabilities into the canvas, take the argmax on the
+        device: the (H, W) label map."""
+        h, w = img_dev.shape[:2]
         if tuple(mask_shape) != (h, w):
             raise ValueError(f'sliding_window predicts at image size {(h, w)}'
                              f', the label is {tuple(mask_shape)}')
-        img_dev = torch.from_numpy(np.ascontiguousarray(img[0])).to(
-            self.device)
         canvas = torch.zeros((self.nclass, h, w), device=self.device)
         for (ch, cw), coords in self.sliding_windows(h, w).items():
             crops = torch.stack([img_dev[y:y + ch, x:x + cw]
@@ -165,7 +285,7 @@ class Evaluator:
             probs = torch.softmax(self._forward(crops), dim=1)
             for i, (y, x) in enumerate(coords):
                 canvas[:, y:y + ch, x:x + cw] += probs[i]
-        return canvas.argmax(dim=0)[None].cpu().numpy()
+        return canvas.argmax(dim=0)
 
     def _zegclip_sliding(self, img, mask_shape):
         """Host route: windows at their clipped size, canvas in numpy."""
@@ -186,19 +306,95 @@ class Evaluator:
         return final.argmax(axis=1)
 
 
-def evaluate(evaluator, dataset, mode, cfg):
-    """mIoU and per-class IoU over ``dataset`` (``len`` and ``get(i)``
-    giving ``{'img': (H, W, 3), 'mask': (H, W)}``), summing the
-    intersection/union histograms over images (reference
-    supervised.py:135-164)."""
-    inter_sum = np.zeros(cfg['nclass'], np.float64)
-    union_sum = np.zeros(cfg['nclass'], np.float64)
-    for i in range(len(dataset)):
+def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
+                        progress=None):
+    """The summed intersection and union histograms, each (C,) int64,
+    over ``dataset`` (``len`` and ``get(i)`` giving ``{'img': (H, W, 3),
+    'mask': (H, W)}``) or its ``indices``, pipelined as JAX's ``evaluate``
+    (``semivl_tpu/evaluation/predict.py:788-924``):
+
+    - with ``cfg['eval_prefetch']`` (default on) a thread loads image i+1
+      and uploads it and its label map while image i runs;
+    - with ``cfg['eval_device_metrics']`` (default on) the device routes
+      count the histograms on the device into a (3, C) int32 buffer,
+      fetched every ``cfg['eval_hist_flush_every']`` images (default 256:
+      below the int32 bound at 1024 x 2048);
+    - an image that takes the host route (zegclip with a short side below
+      the crop) is predicted and counted on the host, and their number is
+      logged as a warning at the end.
+
+    ``progress(i)`` is called after each image."""
+    nclass = cfg['nclass']
+    inter_sum = np.zeros(nclass, np.int64)
+    union_sum = np.zeros(nclass, np.int64)
+    idxs = list(range(len(dataset)) if indices is None else indices)
+    dev_metrics = bool(cfg.get('eval_device_metrics', True))
+    use_prefetch = bool(cfg.get('eval_prefetch', True)) and len(idxs) > 1
+    flush_every = max(1, int(cfg.get('eval_hist_flush_every', 256)))
+
+    def load(i):
         sample = dataset.get(i)
-        mask = sample['mask']
-        pred = evaluator.predict(sample['img'][None], mask.shape, mode)
-        inter, union, _ = intersection_and_union(pred[0], mask,
-                                                 cfg['nclass'])
-        inter_sum += inter
-        union_sum += union
-    return miou_from_histograms(inter_sum, union_sum)
+        img, mask = sample['img'][None], sample['mask']
+        img_dev = mask_dev = None
+        if evaluator.use_device(img, mode):
+            img_dev = evaluator.preupload(img)
+            if dev_metrics:
+                mask_dev = evaluator.preupload_mask(mask)
+        return img, mask, img_dev, mask_dev
+
+    hist_acc, acc_images, n_host = None, 0, 0
+
+    def flush():
+        nonlocal hist_acc, acc_images
+        if hist_acc is not None:
+            counts = hist_acc.cpu().numpy().astype(np.int64)
+            inter_sum[:] += counts[0]
+            union_sum[:] += counts[1]
+        hist_acc, acc_images = None, 0
+
+    executor = (ThreadPoolExecutor(1, thread_name_prefix='eval_prefetch')
+                if use_prefetch else None)
+    try:
+        fut = executor.submit(load, idxs[0]) if executor else None
+        for j, i in enumerate(idxs):
+            img, mask, img_dev, mask_dev = (fut.result() if executor
+                                            else load(i))
+            if executor and j + 1 < len(idxs):
+                fut = executor.submit(load, idxs[j + 1])
+            acc = None
+            if mask_dev is not None:
+                acc = evaluator.predict_hist_into(
+                    evaluator.zero_hist() if hist_acc is None else hist_acc,
+                    img, mask, mode, img_dev=img_dev, mask_dev=mask_dev)
+            if acc is not None:
+                hist_acc, acc_images = acc, acc_images + 1
+                if acc_images >= flush_every:
+                    flush()
+            else:
+                n_host += not evaluator.use_device(img, mode)
+                pred = evaluator.predict(img, mask.shape, mode,
+                                         img_dev=img_dev)
+                inter, union, _ = intersection_and_union(pred[0], mask,
+                                                         nclass)
+                inter_sum += inter
+                union_sum += union
+            if progress is not None:
+                progress(i)
+        flush()
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
+    if n_host:
+        logging.getLogger('global').warning(
+            'evaluate: %d/%d images routed to the slow host predict path '
+            '(image min side < crop_size=%s) - check img_scale/val resize if '
+            'this is unexpected', n_host, len(idxs), cfg.get('crop_size'))
+    return inter_sum, union_sum
+
+
+def evaluate(evaluator, dataset, mode, cfg, indices=None, progress=None):
+    """mIoU and per-class IoU over ``dataset`` from its summed
+    intersection/union histograms (reference supervised.py:135-164;
+    ``evaluate_histograms``)."""
+    return miou_from_histograms(*evaluate_histograms(
+        evaluator, dataset, mode, cfg, indices, progress))

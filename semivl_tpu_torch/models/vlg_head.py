@@ -28,7 +28,8 @@ from semivl_tpu_torch.models.layers import (
     linear,
 )
 from semivl_tpu_torch.ops import fused_decoder
-from semivl_tpu_torch.ops.resize import axis_weights, resize_hw
+from semivl_tpu_torch.ops.resize import (axis_weights, device_constant,
+                                         resize_hw)
 
 
 @functools.lru_cache(maxsize=64)
@@ -93,12 +94,14 @@ class Up(nn.Module):
     def __init__(self, in_channels, out_channels, skip_channels):
         super().__init__()
         up_c = in_channels - skip_channels
+        fused_decoder.gn_layout(out_channels, 'Up')   # JAX's groups split it
+        groups = fused_decoder.gn_groups(out_channels)
         self.up = nn.ConvTranspose2d(in_channels, up_c, 2, stride=2)
         self.conv = nn.Sequential(
             nn.Conv2d(in_channels, out_channels, 3, padding=1, bias=False),
-            nn.GroupNorm(out_channels // 16, out_channels), nn.ReLU(),
+            nn.GroupNorm(groups, out_channels), nn.ReLU(),
             nn.Conv2d(out_channels, out_channels, 3, padding=1, bias=False),
-            nn.GroupNorm(out_channels // 16, out_channels), nn.ReLU())
+            nn.GroupNorm(groups, out_channels), nn.ReLU())
 
     def stage_params(self):
         c = self.conv
@@ -126,8 +129,12 @@ class SemanticTransformer(nn.Module):
         b, n, c, h, w = x.shape
         ph, pw = self.pool_size
         hp, wp = h // ph, w // pw
-        p_h = torch.from_numpy(_pool_matrix(hp, h, ph)).to(x)
-        p_w = torch.from_numpy(_pool_matrix(wp, w, pw)).to(x)
+        p_h = device_constant(('pool', hp, h, ph),
+                              lambda: _pool_matrix(hp, h, ph), x.device,
+                              x.dtype)
+        p_w = device_constant(('pool', wp, w, pw),
+                              lambda: _pool_matrix(wp, w, pw), x.device,
+                              x.dtype)
         tokens = torch.einsum('ph,qw,bnchw->bpqnc', p_h, p_w, x)
         text = text_tokens[:, None, None].expand(b, hp, wp, n, -1)
         tokens = torch.cat([tokens, text.to(tokens.dtype)], dim=-1)

@@ -11,6 +11,7 @@ encoder see the image renormalised from ImageNet to CLIP statistics; the
 conv encoder sees it as given (reference vlm.py:69-78, 112-123).
 """
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -18,7 +19,7 @@ from semivl_tpu_torch.models.clip_vit import MaskClipViT
 from semivl_tpu_torch.models.resnet import ResNetV1c
 from semivl_tpu_torch.models.vlg_head import VLGHead
 from semivl_tpu_torch.ops.dropout import dropout2d
-from semivl_tpu_torch.ops.resize import resize
+from semivl_tpu_torch.ops.resize import device_constant, resize
 from semivl_tpu_torch.text.embeddings import (
     aggregate_concept_predictions,
     get_class_to_concept_idxs,
@@ -35,7 +36,8 @@ def renormalize_img_for_clip(img):
     """ImageNet-normalised -> CLIP-normalised NHWC image (reference
     vlm.py:69-78)."""
     def c(v):
-        return torch.tensor(v, dtype=img.dtype, device=img.device)
+        return device_constant(('renorm', v), lambda: np.asarray(v),
+                               img.device, img.dtype)
 
     return (img * c(IMAGENET_STD) + c(IMAGENET_MEAN) - c(CLIP_MEAN)) \
         / c(CLIP_STD)

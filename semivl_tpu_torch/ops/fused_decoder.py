@@ -16,8 +16,11 @@ sequence ``stage_recompute``, the input, skip and up channels zero-padded
 to its products' widths, ``stage_plan``) or raise; under autograd the call
 is a ``torch.autograd.Function`` whose backward launches
 ``csrc/fused_decoder_bwd.cu`` twice per stage (tail, then input). The
-kernels take every width but an output width (Cout) outside ``CONV_N``,
-which raises by name before any launch. CPU tensors take
+kernels take every width JAX's decoder takes: each stage's output runs in
+GroupNorm's kernel layout (``gn_layout``: a group whose channels are not a
+whole number of 16-channel chunks is zero-padded to one, ``pad_decoder``),
+and an output width that GroupNorm's groups do not split (JAX's assert)
+raises by name before any launch. CPU tensors take
 ``fused_vlg_decoder_plain``, and autograd through it is the plain
 backward. The forward rounds the float32 weights to the
 activation dtype; the gradient passes that rounding straight through, as
@@ -64,6 +67,73 @@ def gn_groups(c):
     """GroupNorm groups of a C-channel map: C // 16, at least one (JAX
     ``fused_up.py:262-267``: C = 24 is one group of 24)."""
     return max(c // 16, 1)
+
+
+MAX_GN_WIDTH = 512   # a normalised plane's channels in the kernels' layout
+
+
+def gn_layout(c, what='fused_vlg_decoder kernel'):
+    """GroupNorm over c channels as the stage kernels lay it out: (gs, the
+    channels of a group; the padded width; index (c,), each channel's
+    place in it). JAX's ``gn_groups(c)`` groups must split c (JAX's assert,
+    ``semivl_tpu/ops/fused_decoder.py:329``; else ValueError). Each group
+    fills ceil(gs / 16) whole chunks of 16 channels, its own channels first
+    and zero channels after them, so that the kernels' per-chunk sums add
+    up to the group's (divided by gs, not the padded count). A multiple of
+    16 lies as it is."""
+    g = gn_groups(c)
+    if c % g:
+        raise ValueError(f'{what}: GroupNorm splits {c} channels into {g} '
+                         f'groups (JAX: assert cout % num_groups == 0, '
+                         f'{(c, g)})')
+    gs = c // g
+    gk = -(-gs // 16)
+    i = torch.arange(c)
+    return gs, g * gk * 16, (i // gs) * gk * 16 + i % gs
+
+
+def _scatter(t, dim, index, width):
+    """``t`` with its axis ``dim`` placed at ``index`` of a zero axis
+    ``width`` long (differentiable: the gradient gathers back)."""
+    shape = list(t.shape)
+    shape[dim] = width
+    return t.new_zeros(shape).index_copy(dim, index.to(t.device), t)
+
+
+_OUT_KEYS = ('conv1_weight', 'gn1_weight', 'gn1_bias', 'conv2_weight',
+             'gn2_weight', 'gn2_bias')
+
+
+def pad_outputs(p, head=None, cin_layout=None):
+    """A stage's parameters with its output channels in GroupNorm's kernel
+    layout (``gn_layout``; zero weights, gamma and beta on the padded
+    channels, so they stay 0 through GN+ReLU), the head's input channels
+    with them, and with ``cin_layout`` (the previous stage's (index,
+    width)) the transpose conv's input rows in that one. Returns (p, head,
+    gs, layout): ``layout`` (index, width) of the outputs, None where they
+    lie as they are."""
+    q = dict(p)
+    if cin_layout is not None:
+        q['up_weight'] = _scatter(p['up_weight'], 0, *cin_layout)
+    gs, width, index = gn_layout(p['conv2_weight'].shape[0])
+    if width == index.numel():
+        return q, head, gs, None
+    layout = (index, width)
+    for k in _OUT_KEYS:
+        q[k] = _scatter(q[k], 0, *layout)
+    q['conv2_weight'] = _scatter(q['conv2_weight'], 1, *layout)
+    if head is not None:
+        head = dict(head, weight=_scatter(head['weight'], 1, *layout))
+    return q, head, gs, layout
+
+
+def pad_decoder(params1, params2, head_params):
+    """Both stages and the head in the kernels' layout (``pad_outputs``):
+    (params1, params2, head, (gs1, gs2)). The padded chain computes the
+    true one; autograd through the padding gathers the gradients back."""
+    p1, _, gs1, layout1 = pad_outputs(params1)
+    p2, head, gs2, _ = pad_outputs(params2, head_params, layout1)
+    return p1, p2, head, (gs1, gs2)
 
 
 def gn_relu(x, weight, bias):
@@ -196,18 +266,24 @@ def _store(t, dt):
     return t.to(dt).float()
 
 
-def gn_stats_plain(c):
+def gn_stats_plain(c, gs=16):
     """GroupNorm statistics (mean, rstd), each (P, C) float32 with every
-    group's value on its 16 channels, of raw conv outputs c (P, C, H, W):
-    sums in double, var = E[c^2] - E[c]^2 clamped at 0, as the kernels'
-    prologue reduces their partials."""
+    group's value on its channels, of raw conv outputs c (P, C, H, W) in
+    GroupNorm's kernel layout (groups of ``gs`` channels on whole chunks of
+    16, ``gn_layout``): sums in double, var = E[c^2] - E[c]^2 clamped at 0,
+    as the kernels' prologue reduces their partials."""
     p, ch = c.shape[:2]
-    g = c.double().reshape(p, ch // 16, -1)
-    mean = g.mean(-1)
-    var = ((g * g).mean(-1) - mean * mean).clamp(min=0)
+    width = -(-gs // 16) * 16
+    g = c.double().reshape(p, ch // width, -1)
+    if width == gs:
+        mean, sq = g.mean(-1), (g * g).mean(-1)
+    else:
+        n = gs * c.shape[2] * c.shape[3]
+        mean, sq = g.sum(-1) / n, (g * g).sum(-1) / n
+    var = (sq - mean * mean).clamp(min=0)
     rstd = 1 / torch.sqrt(var + 1e-5)
-    return (mean.float().repeat_interleave(16, 1),
-            rstd.float().repeat_interleave(16, 1))
+    return (mean.float().repeat_interleave(width, 1),
+            rstd.float().repeat_interleave(width, 1))
 
 
 def gn_act(c, mean, rstd, gamma, beta, dt):
@@ -218,12 +294,13 @@ def gn_act(c, mean, rstd, gamma, beta, dt):
     return _store(F.relu(y), dt)
 
 
-def stage_recompute_plain(x, skip, p, m1, r1, gn_x=None):
+def stage_recompute_plain(x, skip, p, m1, r1, gn_x=None, gs=16):
     """The stage forward up to the raw conv2 in float32, rounding to x's
     dtype where the kernels store, with conv1's GroupNorm from the given
-    statistics (None: computed here). ``gn_x``: (mean, rstd, gamma, beta)
-    of a raw input still to be normalised. Returns a dict of xin, up, raw1
-    (and its statistics m1, r1), raw2, all float32."""
+    statistics (None: computed here, in groups of ``gs`` channels).
+    ``gn_x``: (mean, rstd, gamma, beta) of a raw input still to be
+    normalised. Returns a dict of xin, up, raw1 (and its statistics m1,
+    r1), raw2, all float32."""
     dt = x.dtype
     xin = x.float()
     if gn_x is not None:
@@ -237,21 +314,21 @@ def stage_recompute_plain(x, skip, p, m1, r1, gn_x=None):
     raw1 = _store((ym.unflatten(0, (skip.shape[0], -1))
                    + ys[:, None]).flatten(0, 1), dt)
     if m1 is None:
-        m1, r1 = gn_stats_plain(raw1)
+        m1, r1 = gn_stats_plain(raw1, gs)
     a1 = gn_act(raw1, m1, r1, p['gn1_weight'], p['gn1_bias'], dt)
     raw2 = _store(F.conv2d(a1, w['conv2_weight'], padding=1), dt)
     return dict(xin=xin, up=up, raw1=raw1, m1=m1, r1=r1, raw2=raw2)
 
 
-def stage_fwd_stats_plain(x, skip, p, gn_x=None, head=None):
+def stage_fwd_stats_plain(x, skip, p, gn_x=None, head=None, gs=16):
     """One stage as the forward kernel computes it, in plain PyTorch
     (float32 sums, x's dtype where the kernel stores), with the GroupNorm
-    statistics it normalised with. Returns (raw conv2, or with ``head`` the
-    logits, in x's dtype; (mean1, rstd1, mean2, rstd2), each (P, Cout)
-    float32)."""
+    statistics it normalised with (groups of ``gs`` channels). Returns (raw
+    conv2, or with ``head`` the logits, in x's dtype; (mean1, rstd1, mean2,
+    rstd2), each (P, Cout) float32)."""
     dt = x.dtype
-    r = stage_recompute_plain(x, skip, p, None, None, gn_x)
-    m2, r2 = gn_stats_plain(r['raw2'])
+    r = stage_recompute_plain(x, skip, p, None, None, gn_x, gs)
+    m2, r2 = gn_stats_plain(r['raw2'], gs)
     stats = (r['m1'], r['r1'], m2, r2)
     if head is None:
         return r['raw2'].to(dt), stats
@@ -272,17 +349,27 @@ def _head_weight(head, dt):
 
 
 def _check_widths(cin, cout, gn_in=False, what='fused_vlg_decoder kernel'):
-    """What the stage kernels refuse of a stage's widths, by name: Cout
-    outside ``CONV_N`` (N of the 3x3 products; GroupNorm's groups of 16
-    channels) and, with ``gn_in`` (an input still to be normalised in
-    groups of 16 channels), a Cin that is not a multiple of 16. Every
-    other width runs, zero-padded (``stage_plan``)."""
-    if cout not in CONV_N:
-        raise ValueError(f'{what} takes Cout in {CONV_N} (N of its 3x3 '
-                         f'products), got {cout}')
-    if gn_in and cin % 16:
-        raise ValueError(f'{what} normalises its input in GroupNorm groups '
-                         f'of 16 channels: Cin {cin} is not a multiple of 16')
+    """What the stage kernels refuse of a stage's widths, by name: what
+    JAX's decoder refuses, an output width (and with ``gn_in``, an input
+    still to be normalised) that GroupNorm's groups do not split
+    (``gn_layout``), and a normalised width whose kernel layout is wider
+    than ``MAX_GN_WIDTH``. Every other width runs: the output (and a
+    normalised input) in GroupNorm's kernel layout (``pad_outputs``), the
+    other widths zero-padded (``stage_plan``)."""
+    for c in (cout, cin) if gn_in else (cout,):
+        width = gn_layout(c, what)[1]
+        if width > MAX_GN_WIDTH:
+            raise ValueError(f'{what} normalises at most {MAX_GN_WIDTH} '
+                             f'channels in its layout: {c} take {width}')
+
+
+def _check_layout(cout, gs, what='fused_vlg_decoder kernel'):
+    """A stage handed to a kernel has its output in GroupNorm's kernel
+    layout: Cout whole groups of ceil(gs / 16) chunks of 16 channels."""
+    if cout % (-(-gs // 16) * 16) or gs > cout:
+        raise ValueError(f'{what}: Cout {cout} is not in GroupNorm\'s kernel '
+                         f'layout for groups of {gs} channels (pad_outputs '
+                         f'first)')
 
 
 def _check(x, skip, p, what='fused_vlg_decoder kernel', gn_in=None):
@@ -306,6 +393,9 @@ def _check(x, skip, p, what='fused_vlg_decoder kernel', gn_in=None):
             p['conv1_weight'].shape[1] != cu + cs:
         raise ValueError('stage weights do not match the input channels')
     _check_widths(cin, cout, gn_in is not None, what)
+    if cout % 16:
+        raise ValueError(f'{what} runs Cout {cout} in GroupNorm\'s kernel '
+                         f'layout (pad_outputs first)')
 
 
 _FWD_SLOTS = ('x gn_part gn_gamma gn_beta skip up_wf up_b w1u w1s w2 g1w g1b '
@@ -346,9 +436,19 @@ def stage_tensors(x, skip, p, head=None):
     return t
 
 
-def _stage(x, skip, p, gn_in=None, head=None, stats=False, skip_half=True):
+def _gn_in_size(gn_in):
+    """Channels per GroupNorm group of a normalised input: ``gn_in``'s
+    fourth entry (16 without one)."""
+    return 16 if gn_in is None or len(gn_in) < 4 else gn_in[3]
+
+
+def _stage(x, skip, p, gn_in=None, head=None, stats=False, skip_half=True,
+           gs=16):
     """One launch of ``decoder_stage_fwd``. ``gn_in``: (partials, gamma,
-    beta) of a raw input still to be normalised (GN+ReLU) first. Returns
+    beta[, gs]) of a raw input still to be normalised (GN+ReLU) first, in
+    groups of gs channels (16 without it). ``gs``: channels per GroupNorm
+    group of the stage's output, which lies in the kernels' layout
+    (``pad_outputs``); the raw conv2 returned lies in it too. Returns
     (raw conv2, its partials) or, with ``head``, the head logits; with
     ``stats`` also the GroupNorm statistics it normalised with, (mean1,
     rstd1, mean2, rstd2) each (P, Cout) float32, read from the partials by
@@ -364,33 +464,44 @@ def _stage(x, skip, p, gn_in=None, head=None, stats=False, skip_half=True):
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
+    _check_layout(cout, gs)
     t = stage_tensors(x, skip, p, head)
     if gn_in is not None:
         t.update(gn_part=gn_in[0], gn_gamma=gn_in[1], gn_beta=gn_in[2],
                  xin=torch.empty_like(x))
     gn_nparts = 0 if gn_in is None else gn_in[0].shape[2]
     _call('decoder_stage_fwd', _FWD_SLOTS, t,
-          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, int(skip_half)), x,
-          lib='fused_decoder')
+          (pl, cin, h, w, gn_nparts, b, cs, cu, cout, int(skip_half), gs,
+           _gn_in_size(gn_in)), x, lib='fused_decoder')
     launches += 1
     res = (t['out'],) if head is not None else (t['c2'], t['part2'])
     if stats:
-        res += (_gn_stats(t['part1'], t['c1'].shape)
-                + _gn_stats(t['part2'], t['c2'].shape),)
+        res += (_gn_stats(t['part1'], t['c1'].shape, gs)
+                + _gn_stats(t['part2'], t['c2'].shape, gs),)
     return res[0] if len(res) == 1 else res
 
 
-def _gn_stats(part, shape):
-    """(mean, rstd) (P, C) float32 of a conv output of ``shape`` from its
-    partials (P, C / 16, nparts, 2), reduced as the forward reduced them."""
+def stored_raw2(x, skip, p):
+    """Stage 1's raw conv2 as the forward kernel stores it (the input the
+    backward reads), at the stage's true output width (gathered from
+    GroupNorm's kernel layout, ``pad_outputs``)."""
+    q, _, gs, layout = pad_outputs(p)
+    c2 = _stage(x, skip, q, gs=gs)[0]
+    return c2 if layout is None else c2[:, layout[0].to(c2.device)]
+
+
+def _gn_stats(part, shape, gs=16):
+    """(mean, rstd) (P, C) float32 of a conv output of ``shape`` (groups of
+    ``gs`` channels in the kernels' layout) from its partials (P, C / 16,
+    nparts, 2), reduced as the forward reduced them."""
     pl, c, hh, ww = shape
     mean = torch.empty((pl, c), dtype=torch.float32, device=part.device)
     rstd = torch.empty_like(mean)
     fn = _build.load('fused_decoder').decoder_gn_stats
-    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 5
+    fn.argtypes = ([ctypes.c_void_p] + [ctypes.c_int] * 6
                    + [ctypes.c_void_p] * 3)
     fn.restype = ctypes.c_int
-    _build.check(fn(_build.ptr(part), pl, c, part.shape[2], hh, ww,
+    _build.check(fn(_build.ptr(part), pl, c, part.shape[2], hh, ww, gs,
                     _build.ptr(mean), _build.ptr(rstd), ctypes.c_void_p(
                         torch.cuda.current_stream(part.device).cuda_stream)),
                  'decoder_gn_stats')
@@ -643,17 +754,18 @@ def _check_igemm(x, skip, p, what='decoder backward kernel', bwd=True,
 
 
 def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
-                    wgrad_planes=None):
+                    wgrad_planes=None, gs=16):
     """Stage backward, tail half (kernel #6): recompute the stage, then the
     head (with ``head``; ``g`` the logits' gradient) or GN2+ReLU (``g`` the
     gradient of the stage's normalised output, taken in bf16) down to
     g_raw1. Returns a dict with g_c1 (bf16), the recomputed up / xin, and
     the gradients of conv2, the GroupNorms and the head in torch layouts.
     ``wgrad_planes``: the planes conv2's weight gradient reduces over (all
-    of them unless a planted fault asks for fewer). A stage whose Cin, Cu
-    or Cs is not an igemm width runs zero-padded (``stage_plan``); the
-    returned ``up`` keeps the padded channels, which ``_stage_bwd_input``
-    takes, and ``xin`` has the true Cin."""
+    of them unless a planted fault asks for fewer). ``gn_in`` and ``gs`` as
+    ``_stage`` takes them. A stage whose Cin, Cu or Cs is not an igemm
+    width runs zero-padded (``stage_plan``); the returned ``up`` keeps the
+    padded channels, which ``_stage_bwd_input`` takes, and ``xin`` has the
+    true Cin."""
     global bwd_tail_launches
     cin0 = x.shape[1]
     x, skip, p = pad_stage(x, skip, p, _check_igemm(x, skip, p, gn_in=gn_in))
@@ -661,6 +773,7 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
     b, cs = skip.shape[:2]
     cu = p['up_weight'].shape[1]
     cout = p['conv2_weight'].shape[0]
+    _check_layout(cout, gs)
     dt, dev = x.dtype, x.device
     hh, ww = 2 * h, 2 * w
     tiles = _tiles(hh, ww)
@@ -699,7 +812,8 @@ def _stage_bwd_tail(x, skip, p, gn_in=None, head=None, g=None,
     gn_nparts = 0 if gn_in is None else gn_in[0].shape[2]
     _call('decoder_stage_bwd_tail', _TAIL_SLOTS, t,
           (pl, cin, h, w, gn_nparts, b, cs, cu, cout, 0,
-           pl if wgrad_planes is None else wgrad_planes, slots, 0, 0), x)
+           pl if wgrad_planes is None else wgrad_planes, slots, 0, 0, gs,
+           _gn_in_size(gn_in)), x)
     bwd_tail_launches += 1
     xin = t['xin'] if cin == cin0 else t['xin'][:, :cin0].contiguous()
     out = dict(g_c1=t['g_c1'], up=t['up'], xin=xin,
@@ -748,7 +862,8 @@ def _stage_bwd_input(g_c1, up, xin, skip, p):
     t['scr_a'], t['scr_b'] = _tma_scratch(pl, (cin, cu, cout, cs), hh, ww,
                                           dev)
     _call('decoder_stage_bwd_input', _INPUT_SLOTS, t,
-          (pl, cin, h, w, 0, b, cs, cu, cout, pitch, pl, s1, s2, s3), xin)
+          (pl, cin, h, w, 0, b, cs, cu, cout, pitch, pl, s1, s2, s3, 16, 16),
+          xin)
     bwd_input_launches += 1
     return unpad_grads(dict(
         g_x=t['g_xin'], g_skip=t['g_skip'], up_bias=t['g_up_b'],
@@ -764,12 +879,14 @@ def _unflatten(flat):
     return p1, p2, dict(weight=flat[16], bias=flat[17])
 
 
-def _forward(x, skip1, skip2, params1, params2, head_params):
-    """Both stage launches; returns (logits, stage-1 raw conv2, partials)."""
-    c2, part2 = _stage(x, skip1, params1)
+def _forward(x, skip1, skip2, params1, params2, head_params, gs=(16, 16)):
+    """Both stage launches (the stages in the kernels' layout, ``gs`` their
+    GroupNorm group sizes); returns (logits, stage-1 raw conv2, partials)."""
+    c2, part2 = _stage(x, skip1, params1, gs=gs[0])
     gn_in = (part2, params1['gn2_weight'].float().contiguous(),
-             params1['gn2_bias'].float().contiguous())
-    return _stage(c2, skip2, params2, gn_in=gn_in, head=head_params), c2, part2
+             params1['gn2_bias'].float().contiguous(), gs[0])
+    return _stage(c2, skip2, params2, gn_in=gn_in, head=head_params,
+                  gs=gs[1]), c2, part2
 
 
 class _FusedDecoder(torch.autograd.Function):
@@ -778,29 +895,30 @@ class _FusedDecoder(torch.autograd.Function):
     kept for the backward, which recomputes everything else."""
 
     @staticmethod
-    def forward(ctx, x, skip1, skip2, *flat):
-        out, c2, part2 = _forward(x, skip1, skip2, *_unflatten(flat))
+    def forward(ctx, x, skip1, skip2, gs, *flat):
+        out, c2, part2 = _forward(x, skip1, skip2, *_unflatten(flat), gs)
         ctx.save_for_backward(x, skip1, skip2, *flat)
-        ctx.c2, ctx.part2 = c2, part2
+        ctx.c2, ctx.part2, ctx.gs = c2, part2, gs
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         x, skip1, skip2, *flat = ctx.saved_tensors
         p1, p2, head = _unflatten(flat)
+        gs = ctx.gs
         gn_in = (ctx.part2, p1['gn2_weight'].float().contiguous(),
-                 p1['gn2_bias'].float().contiguous())
+                 p1['gn2_bias'].float().contiguous(), gs[0])
         t2 = _stage_bwd_tail(ctx.c2, skip2, p2, gn_in=gn_in, head=head,
-                             g=g_out)
+                             g=g_out, gs=gs[1])
         i2 = _stage_bwd_input(t2['g_c1'], t2['up'], t2['xin'], skip2, p2)
-        t1 = _stage_bwd_tail(x, skip1, p1, g=i2['g_x'])
+        t1 = _stage_bwd_tail(x, skip1, p1, g=i2['g_x'], gs=gs[0])
         i1 = _stage_bwd_input(t1['g_c1'], t1['up'], t1['xin'], skip1, p1)
         grads = [{**t, **i}[k] for t, i in ((t1, i1), (t2, i2))
                  for k in STAGE_KEYS]
         grads += [t2['head_weight'], t2['head_bias']]
         grads = [g.to(prm.dtype) for g, prm in zip(grads, flat)]
         return (i1['g_x'].to(x.dtype), i1['g_skip'].to(skip1.dtype),
-                i2['g_skip'].to(skip2.dtype), *grads)
+                i2['g_skip'].to(skip2.dtype), None, *grads)
 
 
 def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params,
@@ -814,20 +932,26 @@ def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params,
     'banded' (``ops.fused_decoder_banded``: three passes per stage from the
     forward's saved statistics; the JAX package's route under
     ``SEMIVL_FORCE_BANDED_BWD=1``). Without gradients both routes run the
-    same forward."""
+    same forward. Off the CPU, and on the banded route, the stages run in
+    GroupNorm's kernel layout (``pad_decoder``)."""
     if bwd not in ('whole', 'banded'):
         raise ValueError(f'bwd {bwd!r}: whole or banded')
-    flat = ([params1[k] for k in STAGE_KEYS] + [params2[k] for k in STAGE_KEYS]
-            + [head_params['weight'], head_params['bias']])
     grad = torch.is_grad_enabled() and any(
-        t.requires_grad for t in (x, skip1, skip2, *flat))
-    if grad and bwd == 'banded':
-        from semivl_tpu_torch.ops import fused_decoder_banded
-        return fused_decoder_banded.BandedDecoder.apply(x, skip1, skip2,
-                                                        *flat)
-    if not x.is_cuda:
+        t.requires_grad for t in (x, skip1, skip2, *params1.values(),
+                                  *params2.values(), *head_params.values()))
+    if not x.is_cuda and not (grad and bwd == 'banded'):
         return fused_vlg_decoder_plain(x, skip1, skip2, params1, params2,
                                        head_params)
+    for p, cin in ((params1, x.shape[1]),
+                   (params2, params1['conv2_weight'].shape[0])):
+        _check_widths(cin, p['conv2_weight'].shape[0], p is params2)
+    p1, p2, head, gs = pad_decoder(params1, params2, head_params)
+    flat = ([p1[k] for k in STAGE_KEYS] + [p2[k] for k in STAGE_KEYS]
+            + [head['weight'], head['bias']])
+    if grad and bwd == 'banded':
+        from semivl_tpu_torch.ops import fused_decoder_banded
+        return fused_decoder_banded.BandedDecoder.apply(x, skip1, skip2, gs,
+                                                        *flat)
     if grad:
-        return _FusedDecoder.apply(x, skip1, skip2, *flat)
-    return _forward(x, skip1, skip2, params1, params2, head_params)[0]
+        return _FusedDecoder.apply(x, skip1, skip2, gs, *flat)
+    return _forward(x, skip1, skip2, p1, p2, head, gs)[0]

@@ -170,16 +170,19 @@ def pass_c_plain(xin, up, skip, raw1, gy1, p, stats, mg1):
         up_bias=g_up.double().sum((0, 2, 3)).float())
 
 
-def close_gn(sgy, sgyx, gamma, hw):
+def close_gn(sgy, sgyx, gamma, hw, gs=16):
     """Close a GroupNorm's per-plane sums (P, C): its scale and shift
     gradients (C,) and the mean-gradient vectors mga = group_sum(gamma sgy)
-    / n, mgb = group_sum(gamma sgyx) / n (P, C), n = 16 * H * W."""
+    / n, mgb = group_sum(gamma sgyx) / n (P, C), n = gs * H * W, over
+    groups of ``gs`` channels in the kernels' layout (whole chunks of 16,
+    ``fused_decoder.gn_layout``)."""
     pl, c = sgy.shape
-    n = 16 * hw
+    n = gs * hw
+    width = -(-gs // 16) * 16
 
     def group_mean(v):
-        v = (gamma.double() * v.double()).reshape(pl, c // 16, 16)
-        return (v.sum(-1, keepdim=True) / n).expand(-1, -1, 16).reshape(
+        v = (gamma.double() * v.double()).reshape(pl, c // width, width)
+        return (v.sum(-1, keepdim=True) / n).expand(-1, -1, width).reshape(
             pl, c).float().contiguous()
 
     return (sgyx.double().sum(0).float(), sgy.double().sum(0).float(),
@@ -363,19 +366,19 @@ def pass_c(xin, up, skip, raw1, gy1, p, stats, mg1):
 # the composed backward and the autograd route
 
 def stage_bwd_banded(x, skip, p, stats, g, gn_x=None, head=None,
-                     plain=False):
-    """One stage's backward as passes A, B, C with the closures between.
-    Returns (g_x, g_skip, {parameter: gradient}) (the head's as
-    'head_weight', 'head_bias')."""
+                     plain=False, gs=16):
+    """One stage's backward as passes A, B, C with the closures between
+    (GroupNorm groups of ``gs`` channels). Returns (g_x, g_skip,
+    {parameter: gradient}) (the head's as 'head_weight', 'head_bias')."""
     pa, pb, pc = ((pass_a_plain, pass_b_plain, pass_c_plain) if plain
                   else (pass_a, pass_b, pass_c))
     a = pa(x, skip, p, stats, g, gn_x, head)
     hw = a['raw2'].shape[2] * a['raw2'].shape[3]
     g2w, g2b, mga2, mgb2 = close_gn(a['sgy2'], a['sgyx2'], p['gn2_weight'],
-                                    hw)
+                                    hw, gs)
     b = pb(a['raw1'], a['raw2'], a['gy2'], p, stats, (mga2, mgb2))
     g1w, g1b, mga1, mgb1 = close_gn(b['sgy1'], b['sgyx1'], p['gn1_weight'],
-                                    hw)
+                                    hw, gs)
     c = pc(a['xin'], a['up'], skip, a['raw1'], b['gy1'], p, stats,
            (mga1, mgb1))
     grads = dict(up_weight=c['up_weight'], up_bias=c['up_bias'],
@@ -387,19 +390,20 @@ def stage_bwd_banded(x, skip, p, stats, g, gn_x=None, head=None,
     return c['g_x'], c['g_skip'], grads
 
 
-def decoder_fwd_stats(x, skip1, skip2, p1, p2, head):
+def decoder_fwd_stats(x, skip1, skip2, p1, p2, head, gs=(16, 16)):
     """The forward with saved statistics: (logits, stage 1's raw conv2,
     stage 1's and stage 2's (m1, r1, m2, r2)); the kernel on the card, the
-    plain version on the CPU."""
+    plain version on the CPU. The stages lie in GroupNorm's kernel layout,
+    ``gs`` their group sizes (``fused_decoder.pad_decoder``)."""
     if x.is_cuda:
-        c2, part2, st1 = fd._stage(x, skip1, p1, stats=True)
-        gn_in = (part2, _f32(p1['gn2_weight']), _f32(p1['gn2_bias']))
+        c2, part2, st1 = fd._stage(x, skip1, p1, stats=True, gs=gs[0])
+        gn_in = (part2, _f32(p1['gn2_weight']), _f32(p1['gn2_bias']), gs[0])
         out, st2 = fd._stage(c2, skip2, p2, gn_in=gn_in, head=head,
-                             stats=True)
+                             stats=True, gs=gs[1])
     else:
-        c2, st1 = fd.stage_fwd_stats_plain(x, skip1, p1)
+        c2, st1 = fd.stage_fwd_stats_plain(x, skip1, p1, gs=gs[0])
         out, st2 = fd.stage_fwd_stats_plain(
-            c2, skip2, p2, gn_x=_gn_x(st1, p1), head=head)
+            c2, skip2, p2, gn_x=_gn_x(st1, p1), head=head, gs=gs[1])
     return out, c2, st1, st2
 
 
@@ -409,15 +413,17 @@ def _gn_x(st1, p1):
 
 
 def decoder_bwd_banded(x, skip1, skip2, c2, p1, p2, head, st1, st2, g_out,
-                       plain=False):
+                       plain=False, gs=(16, 16)):
     """The whole decoder's banded backward from the forward's saved stage
     inputs and statistics; gradients of x, skip1, skip2, up1's and up2's
     ``STAGE_KEYS`` and the head's weight and bias, in that order.
-    ``plain``: the plain passes (on any device)."""
-    gx2, gs2, gr2 = stage_bwd_banded(c2, skip2, p2, st2, g_out,
-                                     _gn_x(st1, p1), head, plain)
-    gx1, gs1, gr1 = stage_bwd_banded(x, skip1, p1, st1, gx2, plain=plain)
-    return ([gx1, gs1, gs2] + [gr1[k] for k in fd.STAGE_KEYS]
+    ``plain``: the plain passes (on any device); ``gs``: as
+    ``decoder_fwd_stats`` takes it."""
+    gx2, g_s2, gr2 = stage_bwd_banded(c2, skip2, p2, st2, g_out,
+                                      _gn_x(st1, p1), head, plain, gs[1])
+    gx1, g_s1, gr1 = stage_bwd_banded(x, skip1, p1, st1, gx2, plain=plain,
+                                      gs=gs[0])
+    return ([gx1, g_s1, g_s2] + [gr1[k] for k in fd.STAGE_KEYS]
             + [gr2[k] for k in fd.STAGE_KEYS]
             + [gr2['head_weight'], gr2['head_bias']])
 
@@ -430,11 +436,12 @@ class BandedDecoder(torch.autograd.Function):
     and both stages' statistics."""
 
     @staticmethod
-    def forward(ctx, x, skip1, skip2, *flat):
+    def forward(ctx, x, skip1, skip2, gs, *flat):
         p1, p2, head = fd._unflatten(flat)
-        out, c2, st1, st2 = decoder_fwd_stats(x, skip1, skip2, p1, p2, head)
+        out, c2, st1, st2 = decoder_fwd_stats(x, skip1, skip2, p1, p2, head,
+                                              gs)
         ctx.save_for_backward(x, skip1, skip2, *flat)
-        ctx.c2, ctx.st1, ctx.st2 = c2, st1, st2
+        ctx.c2, ctx.st1, ctx.st2, ctx.gs = c2, st1, st2, gs
         return out
 
     @staticmethod
@@ -442,6 +449,8 @@ class BandedDecoder(torch.autograd.Function):
         x, skip1, skip2, *flat = ctx.saved_tensors
         p1, p2, head = fd._unflatten(flat)
         grads = decoder_bwd_banded(x, skip1, skip2, ctx.c2, p1, p2, head,
-                                   ctx.st1, ctx.st2, g_out.contiguous())
-        return tuple(g.to(t.dtype) for g, t in zip(
-            grads, (x, skip1, skip2, *flat)))
+                                   ctx.st1, ctx.st2, g_out.contiguous(),
+                                   gs=ctx.gs)
+        grads = [g.to(t.dtype) for g, t in zip(grads, (x, skip1, skip2,
+                                                        *flat))]
+        return (*grads[:3], None, *grads[3:])

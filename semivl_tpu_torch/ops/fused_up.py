@@ -14,9 +14,10 @@ Planes are NCHW; ``stage_params`` carries the torch-layout names of
 ``Up`` tree: ``convert.up_stage_params``), the head ``{'weight': (1, Cout,
 3, 3), 'bias': (1,)}``. CUDA tensors launch ``decoder_stage_fwd`` of
 ``csrc/fused_decoder.cu``, the decoder forward's stage, ending in
-GN2+ReLU or the head (bf16, Cout in ``fused_decoder.CONV_N``; the input,
-skip and up channels zero-padded to the widths of its tensor-core
-products, ``fused_decoder.stage_plan``) or raise; CPU tensors take
+GN2+ReLU or the head (bf16; the output in GroupNorm's kernel layout,
+``fused_decoder.pad_outputs``, and cut back; the input, skip and up
+channels zero-padded to the widths of its tensor-core products,
+``fused_decoder.stage_plan``) or raise; CPU tensors take
 ``fused_up_stage_plain``. ``fused_up_stage_rounded`` is the kernel's own
 arithmetic in plain PyTorch, the reference it is held to on the card.
 """
@@ -70,6 +71,9 @@ def _kernel(x, skip, p, head_params, skip_half=True):
     no head) or the head. ``skip_half=False`` leaves conv1's skip half out
     (a planted fault inside the kernel's sequence)."""
     global launches
+    fused_decoder._check_widths(x.shape[1], p['conv2_weight'].shape[0],
+                                what='fused_up_stage kernel')
+    p, head_params, gs, layout = fused_decoder.pad_outputs(p, head_params)
     x, skip, p = fused_decoder.pad_stage(x, skip, p, _check(x, skip, p,
                                                             head_params))
     pl, cin, h, w = x.shape
@@ -80,9 +84,11 @@ def _kernel(x, skip, p, head_params, skip_half=True):
     if head_params is None:
         t['out'] = torch.empty_like(t['c2'])
     fused_decoder._call('decoder_stage_fwd', fused_decoder._FWD_SLOTS, t,
-                        (pl, cin, h, w, 0, b, cs, cu, cout, int(skip_half)),
-                        x, lib='fused_decoder')
+                        (pl, cin, h, w, 0, b, cs, cu, cout, int(skip_half),
+                         gs, 16), x, lib='fused_decoder')
     launches += 1
+    if head_params is None and layout is not None:
+        return t['out'][:, layout[0].to(x.device)]
     return t['out']
 
 
@@ -92,8 +98,9 @@ def fused_up_stage(x, skip, stage_params, head_params=None):
     x: (P, Cin, h, w) with P = B * N; skip: (B, Cs, 2h, 2w), already at the
     output size. Returns (P, Cout, 2h, 2w) in x's dtype, or with
     ``head_params`` the (P, 1, 2h, 2w) head logits. On the card the
-    kernel takes bf16 planes and Cout in ``fused_decoder.CONV_N``; like the
-    TPU kernel it has no gradient."""
+    kernel takes bf16 planes and every Cout that JAX's GroupNorm splits
+    (``fused_decoder.gn_layout``); like the TPU kernel it has no
+    gradient."""
     if not x.is_cuda:
         return fused_up_stage_plain(x, skip, stage_params, head_params)
     tensors = [x, skip, *stage_params.values(),

@@ -4,12 +4,36 @@ Counterpart of ``semivl_tpu/ops/resize.py``: per-axis interpolation
 matrices are computed on the host with numpy (bilinear with and without
 ``align_corners``, bicubic with A=-0.75, legacy nearest) and applied as two
 float32 matrix products. The products are plain ``torch`` matrix products.
+The matrices are uploaded once per device (``device_constant``).
 """
 
+import collections
 import functools
 
 import numpy as np
 import torch
+
+_DEVICE_CONSTANTS = collections.OrderedDict()   # key -> tensor, LRU order
+_MAX_DEVICE_CONSTANTS = 256
+
+
+def device_constant(key, make, device, dtype=torch.float32):
+    """``make()`` (a numpy array) as a ``dtype`` tensor on ``device``, made
+    and uploaded once per (key, device, dtype), the 256 most recent kept.
+    A copy from pageable host memory returns only when the stream has
+    reached it, so a constant uploaded per call would hold the host to the
+    device's pace."""
+    full = (key, torch.device(device), dtype)
+    t = _DEVICE_CONSTANTS.get(full)
+    if t is None:
+        t = torch.from_numpy(np.asarray(make())).to(device=device,
+                                                     dtype=dtype)
+        _DEVICE_CONSTANTS[full] = t
+        if len(_DEVICE_CONSTANTS) > _MAX_DEVICE_CONSTANTS:
+            _DEVICE_CONSTANTS.popitem(last=False)
+    else:
+        _DEVICE_CONSTANTS.move_to_end(full)
+    return t
 
 
 def _source_coords(out_size, in_size, align_corners):
@@ -83,10 +107,12 @@ def _axis_weights(out_size, in_size, mode, align_corners, dtype_name):
 
 
 def axis_weights(out_size, in_size, mode, align_corners, device):
-    """float32 (out, in) weight matrix as a tensor on ``device``."""
-    return torch.from_numpy(_axis_weights(
-        int(out_size), int(in_size), mode, bool(align_corners),
-        'float32')).to(device)
+    """float32 (out, in) weight matrix as a tensor on ``device`` (uploaded
+    once, ``device_constant``: callers must not write into it)."""
+    args = (int(out_size), int(in_size), mode, bool(align_corners),
+            'float32')
+    return device_constant(('axis_weights',) + args,
+                           lambda: _axis_weights(*args), device)
 
 
 def resize_hw(x, out_hw, mode='bilinear', align_corners=False):

@@ -190,7 +190,7 @@ def banded_calls(fd, fdb, acts, params, g):
             + [head['weight'], head['bias']])
     # fdb's own autograd route (fused_vlg_decoder would import this
     # checkout's banded module for either build)
-    out = fdb.BandedDecoder.apply(*xs, *prms)
+    out = fdb.BandedDecoder.apply(*xs, (16, 16), *prms)
 
     def whole():
         return torch.autograd.grad(out, xs + prms, g, retain_graph=True)

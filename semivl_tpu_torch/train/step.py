@@ -87,8 +87,11 @@ class SemiVLStep:
     updates made (the JAX ``TrainState.step``)."""
 
     def __init__(self, bundle, cfg, optimizer, total_iters, device=None):
-        if _criterion_name(cfg) != 'CELoss' or cfg['criterion_u'] != 'CELoss':
-            raise NotImplementedError('only the CELoss criteria are ported')
+        crits = (_criterion_name(cfg), cfg['criterion_u'])
+        if crits != ('CELoss', 'CELoss'):
+            raise NotImplementedError(
+                f'criterion {crits[0]!r}, criterion_u {crits[1]!r}: only the '
+                'CELoss criteria are ported')
         if not cfg.get('use_fp', True):
             raise ValueError('the reference asserts use_fp (semivl.py:114)')
         for key in UNPORTED_KEYS:

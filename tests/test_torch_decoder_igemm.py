@@ -257,13 +257,13 @@ def _stage64(x, skip, p, n, raw=False):
     w1 = p['conv1_weight']
     raw1 = (F.conv2d(up, w1[:, :cu], padding=1)
             + F.conv2d(skip, w1[:, cu:], padding=1).repeat_interleave(n, 0))
-    a1 = F.relu(F.group_norm(raw1, raw1.shape[1] // 16, p['gn1_weight'],
-                             p['gn1_bias']))
+    a1 = F.relu(F.group_norm(raw1, fd.gn_groups(raw1.shape[1]),
+                             p['gn1_weight'], p['gn1_bias']))
     raw2 = F.conv2d(a1, p['conv2_weight'], padding=1)
     if raw:
         return raw2
-    return F.relu(F.group_norm(raw2, raw2.shape[1] // 16, p['gn2_weight'],
-                               p['gn2_bias']))
+    return F.relu(F.group_norm(raw2, fd.gn_groups(raw2.shape[1]),
+                               p['gn2_weight'], p['gn2_bias']))
 
 
 @pytest.mark.parametrize('head', [False, True])
@@ -342,15 +342,17 @@ def _tile_partials(raw):
                        -1).reshape(p, c // 16, ty * tx, 2)
 
 
-def _gn_relu_from(raw, part, gamma, beta):
-    """GN+ReLU of raw with the statistics its partials give, in float64."""
+def _gn_relu_from(raw, part, gamma, beta, gs=16):
+    """GN+ReLU of raw with the statistics its partials give (groups of
+    ``gs`` channels on whole chunks of 16), in float64."""
     p, c, h, w = raw.shape
-    n = 16 * h * w
-    s = part.double().sum(2)
+    n = gs * h * w
+    k = -(-gs // 16)
+    s = part.double().sum(2).reshape(p, c // (16 * k), k, 2).sum(2)
     mean = s[..., 0] / n
     rstd = 1 / torch.sqrt((s[..., 1] / n - mean * mean).clamp(min=0) + 1e-5)
-    y = (raw - mean.repeat_interleave(16, 1)[..., None, None]) \
-        * rstd.repeat_interleave(16, 1)[..., None, None]
+    y = (raw - mean.repeat_interleave(16 * k, 1)[..., None, None]) \
+        * rstd.repeat_interleave(16 * k, 1)[..., None, None]
     return F.relu(y * gamma.double()[:, None, None]
                   + beta.double()[:, None, None])
 
@@ -363,11 +365,12 @@ def _decoder_stage_fwd(t, dims):
     partials of raw conv1 and raw conv2 written into their slots (whose
     shape must be the kernel's), GN1+ReLU, conv2, and the head's
     CUDA-core conv, or GN2+ReLU into ``out`` without it."""
-    pl, cin, h, w, nparts, b, cs, cu, cout, skip_half = dims
+    pl, cin, h, w, nparts, b, cs, cu, cout, skip_half, gs, gs_in = dims
     x = t['x'].double()
     if t.get('gn_part') is not None:
         assert t['gn_part'].shape[2] == nparts
-        x = _gn_relu_from(x, t['gn_part'], t['gn_gamma'], t['gn_beta'])
+        x = _gn_relu_from(x, t['gn_part'], t['gn_gamma'], t['gn_beta'],
+                          gs_in)
     wf = t['up_wf'].double().flatten()
     up = torch.empty(pl, cu, 2 * h, 2 * w, dtype=torch.float64)
     n0 = 0
@@ -383,14 +386,14 @@ def _decoder_stage_fwd(t, dims):
         raw1 = raw1 + _igemm_conv(t['skip'].double(), t['w1s'].double()) \
             .repeat_interleave(pl // b, 0)
     part1 = _tile_partials(raw1)
-    a1 = _gn_relu_from(raw1, part1, t['g1w'], t['g1b'])
+    a1 = _gn_relu_from(raw1, part1, t['g1w'], t['g1b'], gs)
     raw2 = _igemm_conv(a1, t['w2'].double())
     part2 = _tile_partials(raw2)
     for k, v in (('c1', raw1), ('part1', part1), ('c2', raw2),
                  ('part2', part2)):
         assert t[k].shape == v.shape, k
         t[k].copy_(v)
-    a2 = _gn_relu_from(raw2, part2, t['g2w'], t['g2b'])
+    a2 = _gn_relu_from(raw2, part2, t['g2w'], t['g2b'], gs)
     if t.get('head_w') is not None:
         t['out'].copy_(_igemm_conv(a2, t['head_w'].double().reshape(
             cout, 9, 1).permute(1, 2, 0)) + t['head_b'].double()[:, None,
@@ -590,13 +593,139 @@ def test_padded_stage_gradients_match_unpadded():
 
 
 def test_stage_checks_refuse_by_name():
-    """What the stage kernels refuse, by name, before any launch: an output
-    width (Cout) outside ``CONV_N``, and an input still to be normalised
-    (``gn_in``) whose channels do not fill GroupNorm's groups of 16."""
-    for ci, co, gn_in, match in ((32, 128, False, 'takes Cout in'),
-                                 (32, 24, False, 'takes Cout in'),
-                                 (24, 32, True, 'groups of 16')):
+    """What the stage kernels refuse, by name, before any launch: what
+    JAX's decoder refuses, an output width (Cout) or an input still to be
+    normalised (``gn_in``) that GroupNorm's groups do not split (JAX's
+    assert), and a normalised width wider than ``MAX_GN_WIDTH`` in the
+    kernels' layout. Every other width passes, Cout 8 to 160 included."""
+    for ci, co, gn_in, match in ((32, 33, False, r'\(33, 2\)'),
+                                 (33, 32, True, r'\(33, 2\)'),
+                                 (32, 1024, False, 'at most 512')):
         with pytest.raises(ValueError, match=match):
             fd._check_widths(ci, co, gn_in)
-    for co in fd.CONV_N:
+    for co in fd.CONV_N + (8, 24, 40, 112, 128, 160):
         fd._check_widths(24, co)
+        fd._check_widths(co, 32, True)
+
+
+@pytest.mark.parametrize('co', [8, 24, 40, 112, 128, 160])
+def test_gn_layout_places_every_group(co):
+    """GroupNorm's kernel layout (``gn_layout``) of an output width: JAX's
+    ``max(C // 16, 1)`` groups, each on whole chunks of 16 channels, its
+    own channels first; the padding is zero channels only, and a multiple
+    of 16 lies as it is."""
+    gs, width, index = fd.gn_layout(co)
+    g = fd.gn_groups(co)
+    assert gs * g == co and width == g * -(-gs // 16) * 16
+    assert index.unique().numel() == co and int(index.max()) < width
+    chunk = index // 16
+    for k in range(g):
+        own = chunk[k * gs:(k + 1) * gs]
+        assert own.min() == k * -(-gs // 16) and own.max() < (k + 1) * -(
+            -gs // 16)
+    if co % 16 == 0:
+        assert width == co and torch.equal(index, torch.arange(co))
+
+
+@pytest.mark.parametrize('gn_in,head', [(False, False), (True, True)],
+                         ids=['stage 1', 'stage 2 + head'])
+@pytest.mark.parametrize('co', [8, 24, 40])
+def test_decoder_fwd_padded_groups(co, gn_in, head):
+    """The decoder forward's wrapper at an output width whose GroupNorm
+    groups are not whole chunks of 16 (Cout 8: one group of 8; 24: one of
+    24; 40: two of 20): ``pad_outputs`` lays the stage out with zero
+    channels after each group's own, ``_stage`` hands the kernel that
+    layout and the group size (``D_GS``; a normalised input's in
+    ``D_GS_IN``), and the C call run in float64 (``_decoder_stage_fwd``,
+    sums over each group's chunks divided by its true count) gives the
+    raw conv2 or the logits of the stage at its true widths, to 1e-12 of
+    the scale."""
+    ci, cu, cs, b, n, h, w = 40, 32, 16, 2, 2, 3, 36
+    p = {k: v.double() for k, v in _stage(ci, cu, cs, co, 140).items()}
+    p.update(gn1_weight=(1 + 0.1 * _rand(co, seed=146)).float().double(),
+             gn2_bias=(0.1 * _rand(co, seed=147)).float().double())
+    x = _rand(b * n, ci, h, w, seed=141)
+    skip = _rand(b, cs, 2 * h, 2 * w, seed=142)
+    xin, gn, cin_layout = x, None, None
+    if gn_in:   # x raw (Cin 40: two groups of 20), laid out as the kernel
+        gs_in, width, index = fd.gn_layout(ci)
+        g_w = 1 + 0.1 * _rand(ci, seed=144)
+        g_b = 0.1 * _rand(ci, seed=145)
+        xin = F.relu(F.group_norm(x, fd.gn_groups(ci), g_w, g_b))
+        x = fd._scatter(x, 1, index, width)
+        gn = (_tile_partials(x), fd._scatter(g_w, 0, index, width),
+              fd._scatter(g_b, 0, index, width), gs_in)
+        cin_layout = (index, width)
+    hd = None
+    if head:
+        hd = dict(weight=_rand(1, co, 3, 3, seed=148).bfloat16().double(),
+                  bias=_rand(1, seed=149))
+    pp, hp, gs, layout = fd.pad_outputs(p, hd, cin_layout)
+    assert layout is not None and gs == co // fd.gn_groups(co)
+    dims = []
+
+    def c_call(fn_name, slots, t, d, x, lib):
+        dims.append(d)
+        _decoder_stage_fwd(t, d)
+
+    with mock.patch.object(fd, '_check', lambda *a: None), \
+            mock.patch.object(fd, '_call', c_call):
+        got = fd._stage(x, skip, pp, gn_in=gn, head=hp, gs=gs)
+    assert dims[0][8] == layout[1] and dims[0][10:] == (
+        gs, gn[3] if gn_in else 16)
+    want = _stage64(xin, skip, p, n, raw=not head)
+    if head:
+        want = F.conv2d(want, hd['weight'], hd['bias'].float().double(),
+                        padding=1)
+    else:
+        got, _ = got
+        assert not got[:, ~torch.isin(torch.arange(layout[1]),
+                                       layout[0])].any()
+        got = got[:, layout[0]]
+    assert got.shape == want.shape and _close(got, want)
+
+
+@pytest.mark.parametrize('co1,co2', [(32, 16), (8, 16), (40, 24),
+                                     (112, 8), (160, 40)])
+def test_padded_groups_match_unpadded(co1, co2):
+    """The decoder at output widths JAX takes beyond the shipped ones, in
+    GroupNorm's kernel layout (``pad_decoder``) on the banded route's
+    plain passes (the kernels' arithmetic: statistics over each group's
+    chunks divided by its true count, ``gn_stats_plain``; the closed
+    GroupNorm sums, ``close_gn``), against the chain at the true widths in
+    float64 (``_stage64`` twice, then the head) and its autograd: the
+    logits and, gathered back through the padding, every gradient, to 1e-5
+    of the scale (the plain passes' statistics and weights are float32:
+    the unpadded control, Cout 32 and 16, reads 6e-7 and 9e-7).""" 
+    b, n, h, w, ci, cs1, cs2 = 1, 2, 3, 4, 24, 16, 8
+    p1 = {k: v.double() for k, v in _stage(ci, 32, cs1, co1, 150).items()}
+    p2 = {k: v.double() for k, v in _stage(co1, 16, cs2, co2, 160).items()}
+    for p, c, seed in ((p1, co1, 170), (p2, co2, 171)):
+        p.update(gn1_weight=1 + 0.1 * _rand(c, seed=seed),
+                 gn2_bias=0.1 * _rand(c, seed=seed + 10))
+    hd = dict(weight=_rand(1, co2, 3, 3, seed=172), bias=_rand(1, seed=173))
+    x = _rand(b * n, ci, h, w, seed=174)
+    s1 = _rand(b, cs1, 2 * h, 2 * w, seed=175)
+    s2 = _rand(b, cs2, 4 * h, 4 * w, seed=176)
+    g = _rand(b * n, 1, 4 * h, 4 * w, seed=177)
+
+    def run(route):
+        leaves = [x, s1, s2, *p1.values(), *p2.values(), *hd.values()]
+        leaves = [t.clone().requires_grad_(True) for t in leaves]
+        xx, a, c = leaves[:3]
+        q1 = dict(zip(p1, leaves[3:11]))
+        q2 = dict(zip(p2, leaves[11:19]))
+        qh = dict(zip(hd, leaves[19:]))
+        if route == 'plain':
+            out = F.conv2d(_stage64(_stage64(xx, a, q1, n), c, q2, n),
+                           qh['weight'], qh['bias'], padding=1)
+        else:
+            out = fd.fused_vlg_decoder(xx, a, c, q1, q2, qh, bwd='banded')
+        return out, torch.autograd.grad(out, leaves, g)
+
+    want, gwant = run('plain')
+    got, ggot = run('banded')
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    for i, (a, r) in enumerate(zip(ggot, gwant)):
+        assert a.shape == r.shape, i
+        assert (a - r).abs().max() <= 1e-5 * max(r.abs().max(), 1), i

@@ -4,6 +4,8 @@ Predictions must be identical except at pixels whose top two JAX logits lie
 within 1e-4 (float32 sums in another order may swap a near tie there), and
 the IoU histograms must follow."""
 
+from unittest import mock
+
 import numpy as np
 import pytest
 import torch
@@ -114,3 +116,91 @@ def test_float_input_passes_through(evaluators):
         [0.229, 0.224, 0.225])
     np.testing.assert_allclose(ev._to_model_input(u)[0, 0, 0].numpy(), want,
                                rtol=1e-6)
+
+
+class _SplitDS:
+    """Five images and label maps: 80x112 and 64x64 (device route), 48x100
+    (shorter than the crop: the host route), 96x64 and 64x80; labels with
+    ignored (255) rows and one value past the classes (27, counted
+    nowhere)."""
+
+    def __init__(self):
+        self.hw = [(80, 112), (64, 64), (48, 100), (96, 64), (64, 80)]
+
+    def __len__(self):
+        return len(self.hw)
+
+    def get(self, i):
+        rs = np.random.RandomState(40 + i)
+        mask = rs.randint(0, 21, self.hw[i])
+        mask[:3] = 255
+        mask[5, :7] = 27
+        return {'img': _image(*self.hw[i], 30 + i)[0], 'mask': mask}
+
+
+@pytest.mark.parametrize('prefetch,device_metrics,flush_every', [
+    (True, True, 2), (True, True, 256), (False, True, 1), (True, False, 2)])
+def test_evaluate_histograms_match_serial_and_jax(evaluators, prefetch,
+                                                  device_metrics,
+                                                  flush_every):
+    """``evaluate_histograms`` with the prefetch thread, the device
+    histograms and a flush inside the set (every 2 images: after the 2nd
+    and 4th device image; one image, 48x100, takes the host route) gives
+    integer histograms equal to the serial host route's (no prefetch, no
+    device histograms) and to those JAX's ``evaluate`` sums on the same
+    tiny weights; JAX's are read where it hands them to
+    ``miou_from_histograms``. The host-route image is counted in the
+    warning."""
+    from semivl_tpu.evaluation import predict as jax_predict
+    from semivl_tpu_torch.evaluation.predict import evaluate_histograms
+    jev, ev = evaluators
+    cfg = dict(CFG, eval_prefetch=prefetch,
+               eval_device_metrics=device_metrics,
+               eval_hist_flush_every=flush_every)
+    serial = dict(CFG, eval_prefetch=False, eval_device_metrics=False)
+    hists, accs = [], []
+    real_hist, real_zero = ev._hist, ev.zero_hist
+
+    def hist(pred, mask):
+        hists.append(pred.shape)
+        return real_hist(pred, mask)
+
+    def zero_hist():   # a fresh accumulator: the first, then one a flush
+        accs.append(1)
+        return real_zero()
+
+    with mock.patch.object(ev, '_hist', hist), \
+            mock.patch.object(ev, 'zero_hist', zero_hist), \
+            mock.patch('logging.Logger.warning') as warn:
+        got = evaluate_histograms(ev, _SplitDS(), 'zegclip_sliding_window',
+                                  cfg)
+    assert len(hists) == (4 if device_metrics else 0)
+    assert len(accs) == (-(-4 // flush_every) if device_metrics else 0)
+    assert warn.call_args[0][1] == 1   # one image on the host route
+    want = evaluate_histograms(ev, _SplitDS(), 'zegclip_sliding_window',
+                               serial)
+    seen = []
+    real = jax_metrics.miou_from_histograms
+
+    def capture(inter, union):
+        seen.append((np.asarray(inter), np.asarray(union)))
+        return real(inter, union)
+
+    with mock.patch.object(jax_metrics, 'miou_from_histograms', capture):
+        jax_predict.evaluate(jev, _SplitDS(), 'zegclip_sliding_window', CFG)
+    for a, b, j in zip(got, want, seen[0]):
+        assert a.dtype == np.int64 and np.array_equal(a, b)
+        assert np.array_equal(a, j.astype(np.int64))
+    assert got[1].sum() > 0
+
+
+def test_evaluate_on_a_subset(evaluators):
+    """``indices`` restricts the set (JAX ``evaluate(indices=)``)."""
+    from semivl_tpu_torch.evaluation.predict import evaluate_histograms
+    _, ev = evaluators
+    sub = evaluate_histograms(ev, _SplitDS(), 'zegclip_sliding_window', CFG,
+                              indices=[0, 3])
+    one = [evaluate_histograms(ev, _SplitDS(), 'zegclip_sliding_window', CFG,
+                               indices=[i]) for i in (0, 3)]
+    for k in range(2):
+        assert np.array_equal(sub[k], one[0][k] + one[1][k])

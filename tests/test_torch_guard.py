@@ -206,3 +206,57 @@ def test_kernel_sources_and_build_keys():
         assert _build.library_path(n) == p
     with open(os.path.join(ROOT, '.gitignore')) as f:
         assert 'semivl_tpu_torch/_build/' in f.read().split()
+
+
+# the trainer entry point's modules (data pipeline, configs, loop, CLI)
+TRAINER_MODULES = (
+    'semivl_tpu_torch.configs.experiments', 'semivl_tpu_torch.data.dataset',
+    'semivl_tpu_torch.data.loader', 'semivl_tpu_torch.data.transforms',
+    'semivl_tpu_torch.datasets.classes', 'semivl_tpu_torch.datasets.palettes',
+    'semivl_tpu_torch.native.build', 'semivl_tpu_torch.native.loader',
+    'semivl_tpu_torch.tools.experiments', 'semivl_tpu_torch.tools.train',
+    'semivl_tpu_torch.train.checkpoint', 'semivl_tpu_torch.train.loop',
+    'semivl_tpu_torch.utils.code_archive',
+    'semivl_tpu_torch.utils.logging_utils', 'semivl_tpu_torch.utils.plotting')
+
+
+@pytest.mark.parametrize('module', TRAINER_MODULES)
+def test_trainer_modules_import_no_jax(module):
+    """Each module of the trainer entry point, imported alone in a fresh
+    interpreter, loads neither jax nor semivl_tpu."""
+    code = (f'import importlib, sys\nimportlib.import_module({module!r})\n'
+            'print("\\n".join(sorted(sys.modules)))\n')
+    out = subprocess.run([sys.executable, '-c', code], cwd=ROOT, check=True,
+                         capture_output=True, text=True,
+                         env={**os.environ, 'PYTHONPATH': ROOT}).stdout
+    assert module in out.split()
+    assert [m for m in out.split() if _forbidden(m)] == []
+
+
+def test_trainer_entry_points_need_a_device(tmp_path, monkeypatch):
+    """Without a card the trainer (``train.loop.train``), its CLI
+    (``tools.train``, no ``--device``) and ``evaluate``'s evaluator raise
+    before they write anything; ``--device cpu`` is the way to the plain
+    path."""
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: the default device exists')
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    from semivl_tpu_torch.evaluation.predict import Evaluator
+    from semivl_tpu_torch.tools import train as cli
+    from semivl_tpu_torch.train.loop import train
+    import yaml
+    monkeypatch.chdir(tmp_path)
+    cfg = generate_experiment_cfgs(40)[0]
+    with open('cfg.yaml', 'w') as f:
+        yaml.dump(cfg, f)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        train(cfg)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        cli.main(['--config', 'cfg.yaml'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        Evaluator(torch.nn.Identity(), np.zeros((21, 512)), cfg)
+    out = subprocess.run([sys.executable, '-m', 'semivl_tpu_torch.tools.train',
+                          '--config', 'cfg.yaml'], capture_output=True,
+                         text=True, env={**os.environ, 'PYTHONPATH': ROOT})
+    assert out.returncode != 0 and 'no CUDA device' in out.stderr
+    assert not os.path.exists('exp')

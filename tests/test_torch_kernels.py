@@ -202,12 +202,17 @@ def test_decoder_forward_saved_stats(card, b, n, h, w):
 
 @pytest.mark.parametrize('cin,c1,c2,cs1,cs2,cu1', [
     (64, 48, 16, 16, 16, None),      # Cout 48; stage 2 Cin 48
-    (224, 96, 32, 112, 24, 112)])    # Cin 224, Cu and Cs 112, Cout 96
+    (224, 96, 32, 112, 24, 112),     # Cin 224, Cu and Cs 112, Cout 96
+    (64, 8, 40, 16, 4, None),        # one group of 8; two groups of 20
+    (64, 112, 128, 16, 16, None),    # Cout 112 (96 + 16), 128 (96 + 32)
+    (64, 160, 24, 32, 16, None)])    # Cout 160 (96 + 64); one group of 24
 def test_wide_widths_run_on_the_kernels(card, cin, c1, c2, cs1, cs2, cu1):
     """Widths beyond the shipped models' run on the kernels, forward and
     on both backward routes (launches counted): output widths 48 and 96,
     Cin above 128 and Cu and Cs above the backward's widest product (96),
-    in column groups. The logits within 1e-2 relative L2 of
+    in column groups; every Cout JAX takes (8, 24, 40, 112, 128, 160),
+    in GroupNorm's kernel layout (``pad_decoder``) and column groups of
+    the products. The logits within 1e-2 relative L2 of
     ``fused_vlg_decoder_rounded``; every gradient leaf within 2e-2 of
     ``rounded_at`` and, composed, within 6e-2 of ``composed_ref``."""
     from semivl_tpu_torch.ops import fused_decoder_banded as fdb
@@ -317,9 +322,10 @@ def rounded_at(x, s1, p1):
     lie 1.3e-2 to 3.4e-2, worst leaf, from its float64 ones at the ragged
     and flagship cases, as far as the limit: tools/decoder_precision.py),
     at the point the kernels' forward reached: stage 1's raw conv2 as
-    ``_stage`` stores it, the input the backward reads (``raw2_1``)."""
+    ``_stage`` stores it, the input the backward reads (``raw2_1``;
+    ``stored_raw2`` at the stage's true width)."""
     with torch.no_grad():
-        raw2_1 = fused_decoder._stage(x, s1, p1)[0]
+        raw2_1 = fused_decoder.stored_raw2(x, s1, p1)
     return functools.partial(fused_decoder.fused_vlg_decoder_rounded,
                              dtype=torch.float64, raw2_1=raw2_1)
 
@@ -550,8 +556,8 @@ def test_decoder_kernels_take_padded_widths(card):
     logit scale) and both backward routes (every gradient leaf, at its
     true shape, within 2e-2 relative L2 of autograd through
     ``fused_vlg_decoder_rounded`` with float64 sums, ``rounded_at``, and
-    within 6e-2 of ``composed_ref``); an output width outside ``CONV_N``
-    is refused by name."""
+    within 6e-2 of ``composed_ref``); an output width that GroupNorm's
+    groups do not split (Cout 33) is refused by name, as JAX refuses it."""
     from semivl_tpu_torch.ops import fused_decoder_banded as fdb
     b, n, h = 2, 3, 12
     p1 = _stage_params(card, 128, 24, 32, cu=80)
@@ -587,11 +593,9 @@ def test_decoder_kernels_take_padded_widths(card):
             assert rel_l2(a, c.float()) < 6e-2, route
     assert (fused_decoder.bwd_tail_launches, fdb.pass_b_launches) == tuple(
         c + 2 for c in counts)
-    wide = _stage_params(card, 128, 32, 128)
-    with pytest.raises(ValueError, match='takes Cout in'):
-        fused_decoder._stage_bwd_tail(acts[0], torch.zeros(
-            b, 32, 2 * h, 2 * h, device='cuda', dtype=torch.bfloat16), wide,
-            g=torch.zeros(b * n, 128, 2 * h, 2 * h, device='cuda'))
+    odd = _stage_params(card, 128, 24, 33)
+    with pytest.raises(ValueError, match=r'\(33, 2\)'):
+        fused_decoder.fused_vlg_decoder(*acts, odd, p2, head)
 
 
 def test_banded_passes_refuse_what_they_cannot_read(card):
@@ -879,12 +883,24 @@ def test_fused_up_kernel_matches_plain(card, b, n, h, w, cin, cs, cout,
 
 
 def test_fused_up_kernel_refuses(card):
+    """The fused Up stage refuses by name what JAX refuses (Cout 33: JAX's
+    GroupNorm assert) and a call that asks for a gradient; Cout 24 (one
+    GroupNorm group of 24) runs on the kernel, cut back from GroupNorm's
+    kernel layout, within 1e-2 relative L2 of its rounded reference."""
     from semivl_tpu_torch.ops import fused_up
-    p = _stage_params(card, 64, 16, 24)
+    p = _stage_params(card, 64, 16, 33)
     x = torch.zeros(2, 64, 4, 4, device='cuda', dtype=torch.bfloat16)
     skip = torch.zeros(1, 16, 8, 8, device='cuda', dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match='Cout'):
+    with pytest.raises(ValueError, match=r'\(33, 2\)'):
         fused_up.fused_up_stage(x, skip, p)
+    p = _stage_params(card, 64, 16, 24)
+    xr = torch.randn(2, 64, 4, 4, generator=card, device='cuda').bfloat16()
+    sr = torch.randn(1, 16, 8, 8, generator=card, device='cuda').bfloat16()
+    before = fused_up.launches
+    got = fused_up.fused_up_stage(xr, sr, p)
+    assert fused_up.launches == before + 1 and got.shape == (2, 24, 8, 8)
+    ref = fused_up.fused_up_stage_rounded(xr, sr, p)
+    assert rel_l2(got, ref.float()) < 1e-2
     p = _stage_params(card, 64, 16, 32)
     p['conv1_weight'].requires_grad_(True)
     with pytest.raises(ValueError, match='forward only'):

@@ -176,3 +176,37 @@ def test_bridge_consumes_every_leaf():
     with pytest.raises(RuntimeError, match='Missing key'):
         VLM(BACKBONE, HEAD).load_state_dict(
             {k: torch.from_numpy(v) for k, v in broken.items()}, strict=True)
+
+
+@pytest.mark.parametrize('src_img', [48, 64], ids=['resized', 'same grid'])
+def test_pretrained_tree_loads_as_jax_loads_it(tmp_path, src_img):
+    """A converted CLIP backbone tree written by the test (the npz of
+    ``convert_clip_weights.save_flax_npz``, random leaves; its position
+    embedding on a 3x3 grid, resized to the model's 4x4, or on the model's
+    own) loads into the port model's ``backbone`` and frozen
+    ``clip_encoder`` equal to JAX's ``load_pretrained_into``: every leaf
+    bit-equal but the resized position embedding, within 1e-6; the other
+    weights stay as they were."""
+    from semivl_tpu.tools.convert_clip_weights import (
+        load_pretrained_into as jax_load, save_flax_npz)
+    from semivl_tpu_torch.convert import load_pretrained_into, vlm_state_dict
+    from torch_parity import tiny_train_vlm
+    _, params, pm, _ = tiny_train_vlm(seed=3)
+    cfg = {k: v for k, v in BACKBONE.items() if k != 'type'}
+    tree = init_params(JaxViT(**{**cfg, 'img_size': (src_img, src_img)}), 8,
+                       jnp.zeros((1, src_img, src_img, 3)))
+    path = str(tmp_path / 'clip.npz')
+    save_flax_npz(path, tree)
+    want = vlm_state_dict(jax_load({'params': params}, path)['params'])
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    load_pretrained_into(pm, path)
+    got = pm.state_dict()
+    assert got.keys() == want.keys()
+    for k, v in got.items():
+        ref = torch.from_numpy(np.array(want[k], np.float32))
+        if k.endswith('pos_embed') and src_img != 64:
+            assert (v - ref).abs().max() <= 1e-6, k
+        else:
+            assert torch.equal(v, ref), k
+        if not k.startswith(('backbone.', 'clip_encoder.')):
+            assert torch.equal(v, before[k]), k

@@ -229,10 +229,11 @@ def test_decoder_bwd_plain_matches_jax_kernel_and_reference():
 
 
 # ------------------------------------------------------------ stage widths
-# The stage kernels take every width but an output width (Cout) outside
-# ``CONV_N`` and a normalised input whose channels do not fill GroupNorm's
-# groups of 16; ``fused_decoder._check_widths`` refuses those by name before
-# any launch, and ``stage_plan`` pads the rest to the products' widths.
+# The stage kernels take every width JAX's decoder takes: an output (and a
+# normalised input) in GroupNorm's kernel layout (``fused_decoder.gn_layout``,
+# ``pad_outputs``), the other widths padded to the products' widths
+# (``stage_plan``); ``fused_decoder._check_widths`` refuses by name before
+# any launch only what JAX refuses (GroupNorm's groups do not split Cout).
 
 def _chain_widths(cin, ups, skips):
     """((Cin, Cu, Cs, Cout, gn_in) of stage 1, of stage 2) of a decoder
@@ -278,25 +279,48 @@ WIDTHS = {
     'Cs 112': ((128, (64, 32), (112, 16)), None),
     'Cu 112': ((128, (64, 32), (16, 16)), None),
     'Cin 160, Cu 144': ((160, (64, 32), (16, 16)), None),
-    'Cout 128 (stage 2)': ((128, (64, 128), (32, 16)), 'takes Cout in'),
-    'Cout 24': ((128, (24, 16), (32, 16)), 'takes Cout in'),
+    'Cout 128 (stage 2)': ((128, (64, 128), (32, 16)), None),
+    'Cout 24': ((128, (24, 16), (32, 16)), None),
+    'Cout 40, 8': ((128, (40, 8), (32, 16)), None),
+    'Cout 160, 112': ((128, (160, 112), (32, 16)), None),
+    'Cout 33': ((128, (33, 16), (32, 16)), r'\(33, 2\)'),
 }
 
 
 @pytest.mark.parametrize('bwd', [False, True], ids=['forward', 'backward'])
 @pytest.mark.parametrize('case', list(WIDTHS))
 def test_stage_checks_take_wide_widths(case, bwd):
-    """Widths beyond the shipped ones: Cout 48 and 96, any Cin (padded to
-    16), Cu and Cs above the backward's widest product (column groups) run
-    on the kernels in both directions; an output width outside ``CONV_N``
-    is refused by name."""
+    """Widths beyond the shipped ones: any Cout JAX takes (8 to 160 here),
+    any Cin (padded to 16), Cu and Cs above the backward's widest product
+    (column groups) run on the kernels in both directions; a Cout that
+    GroupNorm's groups do not split (33) is refused by name, as JAX's
+    assert refuses it."""
     (cin, ups, skips), refusal = WIDTHS[case]
-    widths = _chain_widths(cin, ups, skips)
     if refusal is None:
-        _takes(widths, bwd)
-    else:
+        _takes(_chain_widths(cin, ups, skips), bwd)
+    else:   # the model's Up refuses it as it is built, as the kernels do
         with pytest.raises(ValueError, match=refusal):
-            _takes(widths, bwd)
+            _takes(_chain_widths(cin, ups, skips), bwd)
+        with pytest.raises(ValueError, match=refusal):
+            fused_decoder._check_widths(cin, ups[0])
+
+
+def test_gn_layout_takes_what_jax_takes():
+    """Every output width from 8 to 256: ``fused_decoder.gn_layout`` maps
+    it exactly where JAX's fused decoder takes it (its group matrix,
+    ``_group_mat``, asserts that GroupNorm's groups split Cout), to JAX's
+    group size, and refuses the rest by name with JAX's (Cout, groups)."""
+    from semivl_tpu.ops.fused_decoder import _group_mat
+    for c in range(8, 257):
+        try:
+            gm = np.asarray(_group_mat(c, 1))
+        except AssertionError:
+            with pytest.raises(ValueError, match=rf'\({c}, {max(c // 16, 1)}\)'):
+                fused_decoder.gn_layout(c)
+            continue
+        gs, width, index = fused_decoder.gn_layout(c)
+        assert (gm[0] > 0).sum() == gs and width % 16 == 0 and width < 2 * c + 16
+        assert index.unique().numel() == c
 
 
 def _jax_xla_chain(x, s1, s2, p1, p2, head, cout1, cs1, cout2, cs2):
