@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``semivl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py             # one card: phases 1-15
+    python3 chip_smoke.py --cards N   # N cards: phase 14 across them
 
 Phases, each of which fails the run (non-zero exit, no result line):
 
@@ -115,8 +116,51 @@ Phases, each of which fails the run (non-zero exit, no result line):
    preempted after its first step (``preempt_at_step=0``) and resumed
    (``--resume-from``) to the same iteration, its distance from the
    uninterrupted run logged; whether the native decode built;
-14. a ``kernels`` JSON line (all eleven kernels), and last ``{"ok": true,
-   "device": ...}``.
+14. data-parallel training: ranks are processes of this script
+   (``--rank-worker``) started with torchrun's environment, each killed
+   if it outlives its timeout; a rank that fails fails the phase. (a)
+   The trainer CLI at ``WORLD_SIZE=1``: a real NCCL group, gradients and
+   metrics through NCCL (one rank's histograms need no sum); its
+   parameters ``torch.equal``
+   to phase 13's uninterrupted run and its launches equal to phase 13's.
+   (b) Two gloo ranks sharing card 0 (NCCL takes one rank a card; each
+   rank makes its gloo group, which the trainer joins), on
+   phase 13's dataset with 8 unlabeled images (2 steps of 2 + 2 crops a
+   rank) and 2 val images (one a rank): a straight run, a run whose rank
+   0 alone is preempted after step 0, and its resume; the ranks'
+   trainable parameters and buffers ``torch.equal`` after every run,
+   both ranks stopped after step 0, the resume ``torch.equal`` to the
+   straight run, each rank's launches 2 x phase 6's per step plus its
+   share of the evaluation, the global histograms integer-equal to one
+   process's evaluation of the same weights, and step 0 bit-equal to
+   one process that averages the two halves' gradients ((g0 + g1) / 2,
+   as the all-reduce sums and divides) and takes the same AdamW step.
+   (c) Exp 44's step on two gloo ranks (1 + 1 801^2 crops each, the
+   banded backward): each rank's launches those of phase 8's step,
+   trainable parameters and BatchNorm running statistics bit-equal on
+   both ranks, the statistics within
+   ``MULTI_RANK_STATS_TOL`` of one process's train-mode BatchNorm over
+   both ranks' images batched together (and 10x farther from rank 0's
+   images alone); each rank's ms per step and rank 0's idle share (the
+   two ranks share the card: this measures the code path, not
+   multi-card scaling);
+15. a ``kernels`` JSON line (all eleven kernels, with the launches of
+   phase 14's runs by path), and last ``{"ok": true, "device": ...}``.
+
+``--cards N`` runs phase 14's full-width paths on N cards, one NCCL rank a
+card, and nothing else: the kernels' build, then (i) exp 40's trainer CLI
+on a dataset as phase 13's (4N unlabeled images: 2 steps of 2 + 2 crops a
+rank; N + 1 val images) from seeded weights, every rank's parameters and
+buffers ``torch.equal`` after it, each rank's launches 2 x the step's plus
+its share of the evaluation, the global histograms equal on every rank
+and to one process's evaluation of the same weights; (ii) exp 44's step
+(1 + 1 801^2 crops a rank, the banded backward, cross-rank BatchNorm):
+each rank's launches those of phase 8's step, parameters and BatchNorm
+statistics bit-equal to rank 0's, the statistics within
+``MULTI_RANK_STATS_TOL`` of one process's train-mode BatchNorm over every
+rank's images, each rank's ms per step and gradient mean, rank 0's idle
+share. It ends with the card's line and the ``ok`` line as the one-card
+run does.
 
 Phase 9 runs right after phase 3 and phase 10 right after phase 4: once
 the step and image profiles of phases 5-8 have run, the profiler on the
@@ -2675,11 +2719,15 @@ VOC_HW = (375, 500)   # a Pascal VOC image's usual geometry
 
 
 def write_voc_dataset(root, seed=0, counts=(('labeled', 2),
-                                            ('unlabeled', 4), ('val', 2))):
+                                            ('unlabeled', 4), ('val', 2),
+                                            ('unlabeled_8', 8))):
     """A synthetic dataset at Pascal VOC's geometry under ``root``: 500x375
     JPEG images (``JPEGImages/``) and palette PNG label maps
     (``SegmentationClass/``, 21 classes, a 255 border), with a split list
-    per kind; returns {kind: list path}."""
+    per kind; returns {kind: list path}. Phase 13 trains on 4 unlabeled
+    images (2 steps of 2 on one card), phase 14's two ranks on 8 (2 steps
+    of 2 a rank); the kinds are written in order, so the first three
+    are the same with or without the last."""
     from PIL import Image
     from semivl_tpu_torch.datasets.palettes import get_palette
     rs = np.random.RandomState(seed)
@@ -2723,41 +2771,64 @@ def _ckpt(run, name='latest'):
                       weights_only=True)
 
 
-def run_trainer(overrides, step_launches, tmp):
-    """Phase 13: the trainer CLI on the card (see the module's docstring).
-    Returns the launches read around the two-step run, the throughput the
-    loop logged and the resumed run's distance from the uninterrupted one."""
+def trainer_cfg(tmp, paths, overrides, unlabeled='unlabeled', **extra):
+    """Exp 40's generated split-92 config on the dataset under
+    ``tmp/voc``, for one epoch from phase 6's weights, written to
+    ``tmp/<name>.yaml``: (config, path). The counted runs leave the
+    per-epoch debug grid out: its forwards would add launches that are not
+    the step's nor the evaluation's."""
     import yaml
-    from semivl_tpu_torch import native
     from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    cfg = generate_experiment_cfgs(40)[0]
+    assert cfg['split'] == '92' and cfg['batch_size'] == 2
+    cfg.update(data_root=os.path.join(tmp, 'voc'),
+               labeled_id_path=paths['labeled'],
+               unlabeled_id_path=paths[unlabeled],
+               val_id_path=paths['val'], epochs=1, debug_images=False,
+               init_param_overrides=overrides, **extra)
+    name = '_'.join(['exp40', unlabeled] + sorted(extra))
+    path = os.path.join(tmp, name + '.yaml')
+    with open(path, 'w') as f:
+        yaml.dump(cfg, f)
+    return cfg, path
+
+
+def eval_batches(cfg, indices):
+    """The crop batches the evaluation of val images ``indices`` runs."""
     from semivl_tpu_torch.data.dataset import SemiDataset
     from semivl_tpu_torch.evaluation.predict import Evaluator, _chunk_sizes
+    valset = SemiDataset(cfg, 'val', id_path=cfg['val_id_path'])
+    coords = Evaluator(torch.nn.Identity(), np.zeros((21, 512)), cfg,
+                       'cuda')._zegclip_coords
+    return sum(len(_chunk_sizes(len(coords(*valset.get(i)['img']
+                                           .shape[:2]))))
+               for i in indices)
+
+
+def with_eval(step_launches, steps, batches):
+    """Launches of ``steps`` training steps and an evaluation of
+    ``batches`` crop batches (each a forward: 14 attention, 2 decoder)."""
+    expected = {k: steps * v for k, v in step_launches.items()}
+    expected['attention_fwd'] += 14 * batches
+    expected['decoder_fwd'] += 2 * batches
+    return expected
+
+
+def run_trainer(overrides, step_launches, tmp, paths):
+    """Phase 13: the trainer CLI on the card (see the module's docstring).
+    Returns the launches read around the two-step run, the throughput the
+    loop logged, the resumed run's distance from the uninterrupted one and
+    the uninterrupted run's final state."""
+    from semivl_tpu_torch import native
+    from semivl_tpu_torch.data.dataset import SemiDataset
     from semivl_tpu_torch.tools import train as cli
     built = native.native_available()
     log('trainer: native decode ' + ('built' if built else 'not built (g++ '
         'with the libjpeg and libpng headers is needed); PIL decodes'))
-    paths = write_voc_dataset(os.path.join(tmp, 'voc'))
-    cfg = generate_experiment_cfgs(40)[0]
-    assert cfg['split'] == '92' and cfg['batch_size'] == 2
-    # the counted run leaves the per-epoch debug grid out: its forwards
-    # would add launches that are not the step's nor the evaluation's
-    cfg.update(data_root=os.path.join(tmp, 'voc'),
-               labeled_id_path=paths['labeled'],
-               unlabeled_id_path=paths['unlabeled'],
-               val_id_path=paths['val'], epochs=1, debug_images=False,
-               init_param_overrides=overrides)
-    cfg_path = os.path.join(tmp, 'exp40.yaml')
-    with open(cfg_path, 'w') as f:
-        yaml.dump(cfg, f)
+    cfg, cfg_path = trainer_cfg(tmp, paths, overrides)
     valset = SemiDataset(cfg, 'val', id_path=paths['val'])
-    coords = Evaluator(torch.nn.Identity(), np.zeros((21, 512)), cfg,
-                       'cuda')._zegclip_coords
-    batches = sum(len(_chunk_sizes(len(coords(*valset.get(i)['img']
-                                              .shape[:2]))))
-                  for i in range(len(valset)))
-    expected = {k: 2 * v for k, v in step_launches.items()}
-    expected['attention_fwd'] += 14 * batches
-    expected['decoder_fwd'] += 2 * batches
+    batches = eval_batches(cfg, range(len(valset)))
+    expected = with_eval(step_launches, 2, batches)
     cwd = os.getcwd()
     os.chdir(tmp)   # the run dirs go under exp/ there
     try:
@@ -2793,9 +2864,7 @@ def run_trainer(overrides, step_launches, tmp):
         assert state['iteration'] == 2
         assert all(torch.isfinite(v).all() for v in state['model'].values())
 
-        cut = os.path.join(tmp, 'exp40_preempt.yaml')
-        with open(cut, 'w') as f:
-            yaml.dump(dict(cfg, preempt_at_step=0), f)
+        _, cut = trainer_cfg(tmp, paths, overrides, preempt_at_step=0)
         _, run_b = cli.main(['--config', cut, '--seed', '0'])
         with open(os.path.join(run_b, 'ckpt', 'latest.extra.json')) as f:
             extra = json.load(f)
@@ -2817,13 +2886,510 @@ def run_trainer(overrides, step_launches, tmp):
     return launches, dict(wall_s=wall, native_decode=built,
                           imgs_per_sec_per_chip=metrics[
                               'train/imgs_per_sec_per_chip'],
-                          resumed_rel_l2=dist, resumed_bit_equal=equal)
+                          resumed_rel_l2=dist, resumed_bit_equal=equal), \
+        state['model']
+
+
+# ------------------------------------------------------------ phase 14
+
+RANK_TIMEOUT_S = 480   # a launch of ranks, model builds and nvcc-free
+
+
+class Ranks:
+    """``world`` processes of this script in its rank-worker mode, started
+    with torchrun's environment (``parallel.dist.RankProcesses``);
+    ``join()`` gives each rank's result as it saved it. A rank that exits
+    non-zero or outlives ``RANK_TIMEOUT_S`` fails the phase; ``join``
+    kills every rank on its way out, ``kill_all`` any still running when
+    the phase fails."""
+
+    running = []
+
+    def __init__(self, task, spec, world, tmp, what):
+        from semivl_tpu_torch.parallel import dist
+        self.what, self.world = what, world
+        self.out = tempfile.mkdtemp(prefix=f'{task}_', dir=tmp)
+        spec_path = os.path.join(self.out, 'spec.json')
+        with open(spec_path, 'w') as f:
+            json.dump(spec, f)
+        self.t0 = time.perf_counter()
+        self.ranks = dist.RankProcesses(
+            [sys.executable, os.path.abspath(__file__), '--rank-worker',
+             task, spec_path, self.out], world, stdout=sys.stderr)
+        Ranks.running.append(self.ranks)
+
+    @classmethod
+    def kill_all(cls):
+        for ranks in cls.running:
+            ranks.kill()
+
+    def join(self):
+        rcs = self.ranks.wait(max(1.0, RANK_TIMEOUT_S - (
+            time.perf_counter() - self.t0)))
+        assert rcs == [0] * self.world, f'{self.what}: ranks exited {rcs}'
+        log(f'ranks: {self.what}: {self.world} rank(s) in '
+            f'{time.perf_counter() - self.t0:.1f} s')
+        return [torch.load(os.path.join(self.out, f'rank{r}.pt'),
+                           weights_only=False) for r in range(self.world)]
+
+
+def _rank_state(model):
+    """A rank's trainable parameters and buffers, on the host."""
+    return {**{n: p.detach().cpu() for n, p in model.named_parameters()
+               if p.requires_grad},
+            **{n: b.detach().cpu() for n, b in model.named_buffers()}}
+
+
+def _worker_trainer(spec):
+    """The trainer CLI as this rank (``spec['argv'][rank]``), its step and
+    the evaluation's global histograms recorded. With ``spec['gloo']`` the
+    rank first makes a gloo group on card 0 (ranks sharing one card, which
+    NCCL refuses), which the trainer joins; else the trainer makes its
+    NCCL group on ``cuda:LOCAL_RANK``."""
+    from semivl_tpu_torch.evaluation import predict
+    from semivl_tpu_torch.evaluation.metrics import miou_from_histograms
+    from semivl_tpu_torch.parallel import dist
+    from semivl_tpu_torch.tools import train as cli
+    from semivl_tpu_torch.train import loop
+    rank = int(os.environ['RANK'])
+    steps, hists, worlds = [], [], []
+    make = loop.make_semivl_train_step
+
+    def make_step(*a, **k):
+        steps.append(make(*a, **k))
+        worlds.append((dist.world_size(), dist.dist.get_backend()))
+        return steps[-1]
+
+    def recording_evaluate(*a, **k):
+        inter, union = predict.evaluate_histograms(*a, **k)
+        hists.append((inter, union))
+        return miou_from_histograms(inter, union)
+
+    os.chdir(spec['cwd'])
+    if spec.get('gloo'):
+        dist.setup_distributed(device='cuda:0', backend='gloo')
+    with mock.patch.object(loop, 'make_semivl_train_step', make_step), \
+            mock.patch.object(loop, 'evaluate', recording_evaluate):
+        _, run = cli.main(spec['argv'][rank])
+    return dict(run=run, iteration=steps[0].iteration, world=worlds[0],
+                hists=hists, state=_rank_state(steps[0].model))
+
+
+def _same_as_rank_0(tensors):
+    """True on every rank whose ``tensors`` are bit-equal to rank 0's
+    (each broadcast from rank 0 and compared)."""
+    from semivl_tpu_torch.parallel import dist
+    same = True
+    for t in tensors:
+        t0 = t.detach().clone()
+        dist.dist.broadcast(t0, src=0)
+        same = same and torch.equal(t0, t)
+    return same
+
+
+def _worker_cityscapes(spec):
+    """Exp 44's step as this rank (``spec['gloo']``: gloo on card 0; else
+    NCCL on ``cuda:LOCAL_RANK``): one step on the rank's synthetic crops,
+    its launches, the BatchNorm running statistics and whether its
+    trainable parameters and buffers are bit-equal to rank 0's, then
+    timed steps and, on rank 0, a profile of one."""
+    from semivl_tpu_torch.configs import cityscapes_train_cfg
+    from semivl_tpu_torch.parallel import dist
+    from semivl_tpu_torch.train.loop import step_generator
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    if spec.get('gloo'):
+        rank, world, device = dist.setup_distributed(device='cuda:0',
+                                                     backend='gloo')
+    else:
+        rank, world, device = dist.setup_distributed()
+    cfg = cityscapes_train_cfg()
+    bundle = cityscapes_bundle(cfg)
+    opt, _ = build_optimizer(cfg, bundle.model, TOTAL_ITERS)
+    step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    batch = cityscapes_rank_batch(rank)
+    gen = step_generator(0, 0, device, rank)
+    _reset_counters()
+    metrics = step(batch, gen)
+    torch.cuda.synchronize()
+    launches = _counters()
+    stats = {n: b.detach().cpu() for n, b in bundle.model.named_buffers()}
+    same = _same_as_rank_0([p for p in bundle.model.parameters()
+                            if p.requires_grad]
+                           + list(bundle.model.buffers()))
+    metrics = {k: float(v) for k, v in metrics.items()}
+
+    def run():
+        step(batch, gen)
+        torch.cuda.synchronize()
+
+    run()
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        run()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / 3
+    # the step's gradient mean alone, on this step's gradients
+    grads = [p.grad for g in opt.param_groups for p in g['params']
+             if p.grad is not None]
+    dist.barrier()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        dist.mean_over_ranks_([g.clone() for g in grads])
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3 / 3
+    grad_mib = sum(g.numel() * g.element_size() for g in grads) / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    # two profiled windows on rank 0 (``windows=2`` always runs two), two
+    # plain steps on rank 1: the ranks' collectives pair up
+    if rank == 0:
+        prof = _profile(run, wall_ms, f'exp 44 step, rank 0 of {world} '
+                        f'({dist.dist.get_backend()})', 10, windows=2)
+    else:
+        run()
+        run()
+        prof = None
+    peak = torch.cuda.max_memory_allocated()
+    dist.barrier()
+    dist.shutdown()
+    return dict(launches=launches, stats=stats, same_as_rank_0=same,
+                metrics=metrics, ms_per_step=wall_ms, profile=prof, peak_mib=peak / 2**20,
+                grad_mean_ms=reduce_ms, grad_mib=grad_mib)
+
+
+def rank_worker(task, spec_path, out_dir):
+    """One rank of phase 14 (``--rank-worker``), its result saved to
+    ``out_dir/rank<RANK>.pt``."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(spec_path) as f:
+        spec = json.load(f)
+    _reset_counters()
+    result = dict(trainer=_worker_trainer,
+                  cityscapes_step=_worker_cityscapes)[task](spec)
+    if task == 'trainer':
+        result['launches'] = _counters()
+    torch.save(result, os.path.join(out_dir,
+                                    f'rank{os.environ["RANK"]}.pt'))
+    return 0
+
+
+def cityscapes_rank_batch(rank):
+    """Rank ``rank``'s exp-44 batch (1 + 1 801^2 crops), seeded by rank."""
+    return train_batch(torch.Generator(device='cuda').manual_seed(20 + rank),
+                       b=1, size=801, nclass=19)
+
+
+def _states_equal(a, b):
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _worst_rel(a, b):
+    return max(((a[k].double() - b[k].double()).abs().max()
+                / b[k].double().abs().max().clamp(min=1e-30)).item()
+               for k in b)
+
+
+def averaged_step(cfg, total_iters):
+    """One process's counterpart of the two-rank step 0: each rank's batch
+    and generator through the step's backward on the kernels, the two
+    gradients averaged as the ranks' all-reduce does ((g0 + g1) / 2), and
+    the same AdamW update; returns the trainable parameters and buffers."""
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    from semivl_tpu_torch.data.loader import ShardedLoader
+    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.train import loop
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    device = torch.device('cuda')
+    bundle = build_model(cfg, dtype=loop.model_dtype(cfg, device),
+                         device=device, seed=0)
+    optimizer, _ = loop.init_state(bundle, cfg, total_iters)
+    step = make_semivl_train_step(bundle, cfg, optimizer, total_iters)
+    trainset_u = SemiDataset(cfg, 'train_u', id_path=cfg['unlabeled_id_path'],
+                             seed=0)
+    trainset_l = SemiDataset(cfg, 'train_l', id_path=cfg['labeled_id_path'],
+                             nsample=len(trainset_u.ids), seed=1)
+    bs = cfg['batch_size']
+    params = [p for g in optimizer.param_groups for p in g['params']]
+    grads = []
+    for r in (0, 1):
+        bl = next(ShardedLoader(trainset_l, bs, 2, seed=0, process_index=r,
+                                process_count=2).epoch(0))
+        bu = next(ShardedLoader(trainset_u, bs, 2, seed=0, pair=True,
+                                process_index=r,
+                                process_count=2).epoch(0))
+        batch = {k: torch.from_numpy(np.require(v, requirements=('C', 'W')))
+                 .to(device) for k, v in loop.step_batch(bl, bu).items()}
+        metrics = step.backward(batch, loop.step_generator(0, 0, device, r))
+        grads.append([None if p.grad is None else p.grad.clone()
+                      for p in params])
+    for p, g0, g1 in zip(params, *grads):
+        p.grad = None if g0 is None else (g0 + g1) / 2
+    step.update(metrics)
+    return _rank_state(bundle.model)
+
+
+def one_rank_histograms(cfg, run):
+    """One process's evaluation histograms over the whole val set of the
+    weights in ``run``'s ``latest`` checkpoint."""
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    from semivl_tpu_torch.evaluation.predict import (Evaluator,
+                                                     evaluate_histograms)
+    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.train.loop import model_dtype
+    device = torch.device('cuda')
+    bundle = build_model(cfg, dtype=model_dtype(cfg, device), device=device,
+                         seed=0)
+    bundle.model.load_state_dict(_ckpt(run)['model'])
+    ev = Evaluator(bundle.model, bundle.text_feats, cfg, device)
+    return evaluate_histograms(ev, SemiDataset(cfg, 'val',
+                                               id_path=cfg['val_id_path']),
+                               cfg['eval_mode'], cfg)
+
+
+def check_cityscapes_stats(ranks):
+    """The ranks' BatchNorm running statistics after exp 44's step
+    against one process's train-mode BatchNorm over every rank's images
+    batched together (pass 1 [x | w], then pass 2 [s1 | s2] with CutMix,
+    as the step's student passes), and against rank 0's images alone
+    (what a rank without cross-rank statistics would hold)."""
+    from semivl_tpu_torch.configs import cityscapes_train_cfg
+    from semivl_tpu_torch.train.step import (cutmix_box_from_coords,
+                                             cutmix_image)
+    enc = cityscapes_bundle(cityscapes_train_cfg()).model.conv_encoder
+    init = {n: b.clone() for n, b in enc.named_buffers()}
+
+    def passes(batches):
+        enc.load_state_dict({**enc.state_dict(), **init})
+        with torch.no_grad():
+            enc(torch.cat([torch.cat([b['img_x'], b['img_w']])
+                           for b in batches]), train=True)
+            mixed = []
+            for b in batches:
+                for v, box in (('s1', 'cutmix_box1'), ('s2', 'cutmix_box2')):
+                    mask = cutmix_box_from_coords(b[box], 801)
+                    mixed.append(cutmix_image(b[f'img_{v}'],
+                                              b[f'img_{v}_other'], mask))
+            enc(torch.cat(mixed), train=True)
+        return {f'conv_encoder.{n}': b.cpu()
+                for n, b in enc.named_buffers()}
+
+    batches = [cityscapes_rank_batch(r) for r in range(len(ranks))]
+    together, alone = passes(batches), passes(batches[:1])
+    assert all(_states_equal(ranks[0]['stats'], r['stats']) for r in ranks)
+    got = {k: ranks[0]['stats'][k] for k in together}
+    assert len(got) == 26
+    return _worst_rel(got, together), _worst_rel(alone, together)
+
+
+MULTI_RANK_STATS_TOL = 1e-3   # of each statistic's scale: bf16 convs of
+# batch 2 (a rank) against batch 4 (together) may round differently
+
+
+def run_multi_rank(*args):
+    """Phase 14 (see the module's docstring): returns each run's launches
+    by path and the readings. No rank outlives it."""
+    try:
+        return _run_multi_rank(*args)
+    finally:
+        Ranks.kill_all()
+
+
+def _run_multi_rank(overrides, step_launches, trainer_launches,
+                    trainer_state, tmp, paths):
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    t_phase = time.perf_counter()
+    readings = {}
+    # (a) the trainer CLI at WORLD_SIZE=1, a real NCCL group of one, beside
+    # (b)'s straight run: two gloo ranks on card 0, 8 unlabeled images
+    _, path1 = trainer_cfg(tmp, paths, overrides)
+    cfg2, path2 = trainer_cfg(tmp, paths, overrides, 'unlabeled_8')
+    _, cut2 = trainer_cfg(tmp, paths, overrides, 'unlabeled_8',
+                          preempt_at_step=0)
+    gloo = ['--seed', '0', '--device', 'cuda:0']
+    world1 = Ranks('trainer', dict(cwd=tmp, argv=[[
+        '--config', path1, '--seed', '0']]), 1, tmp, '(a) NCCL, world 1')
+    straight = Ranks('trainer', dict(cwd=tmp, gloo=True, argv=[
+        ['--config', path2] + gloo] * 2), 2, tmp, '(b) gloo, straight')
+    [one], straight = world1.join(), straight.join()
+    straight_s = time.perf_counter() - t_phase
+    assert one['world'] == (1, 'nccl'), one['world']
+    final = _ckpt(os.path.join(tmp, one['run']))['model']
+    assert one['launches'] == trainer_launches, (one['launches'],
+                                                 trainer_launches)
+    assert _states_equal(final, trainer_state), 'world 1 != phase 13'
+    log('ranks: (a) NCCL world 1: parameters torch.equal to phase 13\'s '
+        f'uninterrupted run; launches {one["launches"]} == phase 13\'s')
+
+    # (b): rank 0 alone preempted after step 0, then resumed; meanwhile
+    # this process takes step 0 as one process and evaluates the straight
+    # run's weights
+    cut = Ranks('trainer', dict(cwd=tmp, gloo=True, argv=[
+        ['--config', cut2] + gloo, ['--config', path2] + gloo]), 2, tmp,
+        '(b) gloo, rank 0 preempted after step 0').join()
+    resumed = Ranks('trainer', dict(cwd=tmp, gloo=True, argv=[
+        ['--config', path2, '--resume-from', cut[0]['run']] + gloo] * 2), 2,
+        tmp, '(b) gloo, resumed')
+    ref = averaged_step(cfg2, 2)
+    alone = one_rank_histograms(cfg2, os.path.join(tmp, straight[0]['run']))
+    resumed = resumed.join()
+    for name, runs in (('straight', straight), ('preempted', cut),
+                       ('resumed', resumed)):
+        assert runs[0]['world'] == runs[1]['world'] == (2, 'gloo')
+        assert runs[0]['run'] == runs[1]['run']
+        assert _states_equal(runs[0]['state'], runs[1]['state']), name
+    assert [r['iteration'] for r in straight] == [2, 2]
+    assert [r['iteration'] for r in cut] == [1, 1], 'ranks stopped apart'
+    assert [r['iteration'] for r in resumed] == [2, 2]
+    assert _states_equal(resumed[0]['state'], straight[0]['state']), \
+        'resumed != uninterrupted'
+    n_val = len(SemiDataset(cfg2, 'val', id_path=paths['val']))
+    for r, run in enumerate(straight):
+        want = with_eval(step_launches, 2,
+                         eval_batches(cfg2, range(r, n_val, 2)))
+        assert run['launches'] == want, (r, run['launches'], want)
+    # the two-rank step 0 against one process averaging the halves
+    step0 = cut[0]['state']
+    step0_equal = _states_equal(step0, ref)
+    step0_rel = _worst_rel(step0, ref)
+    log(f'ranks: (b) step 0 of two ranks against one process averaging '
+        f'the two halves\' gradients: bit-equal {step0_equal}, worst leaf '
+        f'{step0_rel:.3e}')
+    assert step0_equal, step0_rel
+    # the evaluation's global histograms against one rank's, same weights
+    hist = straight[0]['hists'][-1]
+    assert all(np.array_equal(a, b) for a, b in zip(
+        hist, straight[1]['hists'][-1]))
+    assert all(np.array_equal(a, b) for a, b in zip(hist, alone)), \
+        (hist, alone)
+    torch.cuda.empty_cache()
+    log(f'ranks: (b) two gloo ranks on one card: ranks torch.equal after '
+        f'each run; preempted on rank 0 alone, both stopped after step 0; '
+        f'resumed torch.equal to the straight run; histograms equal to one '
+        f'rank\'s ({int(hist[1].sum())} union pixels); straight run '
+        f'{straight_s:.1f} s')
+    readings['two_rank_voc'] = dict(
+        step0_bit_equal=step0_equal, step0_worst_rel=step0_rel,
+        straight_run_s=straight_s)
+
+    # (c) exp 44's step on two gloo ranks: cross-rank BatchNorm
+    cs = Ranks('cityscapes_step', dict(gloo=True), 2, tmp,
+               '(c) exp 44 step, two gloo ranks').join()
+    for r, run in enumerate(cs):
+        assert run['launches'] == EXPECTED_CITYSCAPES, (r, run['launches'])
+        assert run['same_as_rank_0'], r
+        assert all(np.isfinite(v) for v in run['metrics'].values())
+    stats_rel, alone_rel = check_cityscapes_stats(cs)
+    log(f'ranks: (c) BatchNorm running statistics equal on both ranks; '
+        f'against one process over both ranks\' images {stats_rel:.3e} '
+        f'(limit {MULTI_RANK_STATS_TOL}), rank 0\'s images alone '
+        f'{alone_rel:.3e}; per rank {cs[0]["ms_per_step"]:.1f} and '
+        f'{cs[1]["ms_per_step"]:.1f} ms/step, of which the gradient mean '
+        f'({cs[0]["grad_mib"]:.1f} MiB, gloo through the host) '
+        f'{cs[0]["grad_mean_ms"]:.1f} ms alone; peak '
+        f'{cs[0]["peak_mib"]:.0f} MiB (two ranks share the card: the code '
+        'path, not multi-card scaling)')
+    assert stats_rel < MULTI_RANK_STATS_TOL < alone_rel / 10
+    prof = cs[0]['profile']
+    readings['two_rank_cityscapes'] = dict(
+        stats_rel=stats_rel, alone_rel=alone_rel,
+        ms_per_step=[r['ms_per_step'] for r in cs],
+        grad_mean_ms=[r['grad_mean_ms'] for r in cs],
+        grad_mib=cs[0]['grad_mib'],
+        rank0_busy_ms=prof['busy_ms'], rank0_idle_share=prof['idle_share'],
+        rank0_whole_window=prof['whole_window'], peak_mib=cs[0]['peak_mib'])
+    readings['phase_s'] = time.perf_counter() - t_phase
+    log(f'ranks: phase 14 in {readings["phase_s"]:.1f} s')
+    return dict(nccl_world1=one['launches'],
+                gloo_two_ranks_voc=[r['launches'] for r in straight],
+                gloo_two_ranks_cityscapes=[r['launches'] for r in cs]), \
+        readings
+
+
+def run_across_cards(world):
+    """``--cards N``: phase 14's full-width paths on N cards, one NCCL rank
+    a card (see the module's docstring). Returns the readings."""
+    from semivl_tpu_torch.ops import _build
+    assert torch.cuda.device_count() >= world >= 2, torch.cuda.device_count()
+    log(f'build: kernels built in {_build.build_all():.1f} s')
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        n_u, n_val = 4 * world, world + 1
+        paths = write_voc_dataset(os.path.join(tmp, 'voc'), counts=(
+            ('labeled', 2), (f'unlabeled_{n_u}', n_u), ('val', n_val)))
+        # exp 40's CLI: 2 steps of 2 + 2 crops a rank, seeded weights
+        cfg, path = trainer_cfg(tmp, paths, None, f'unlabeled_{n_u}')
+        runs = Ranks('trainer', dict(cwd=tmp, argv=[
+            ['--config', path, '--seed', '0']] * world), world, tmp,
+            f'exp 40 trainer, {world} NCCL ranks').join()
+        for r, run in enumerate(runs):
+            assert run['world'] == (world, 'nccl'), run['world']
+            assert run['run'] == runs[0]['run'] and run['iteration'] == 2
+            assert _states_equal(run['state'], runs[0]['state']), r
+            want = with_eval(EXPECTED_PER_STEP, 2,
+                             eval_batches(cfg, range(r, n_val, world)))
+            assert run['launches'] == want, (r, run['launches'], want)
+            assert all(np.array_equal(a, b) for a, b in zip(
+                run['hists'][-1], runs[0]['hists'][-1])), r
+        alone = one_rank_histograms(cfg, os.path.join(tmp, runs[0]['run']))
+        hist = runs[0]['hists'][-1]
+        assert all(np.array_equal(a, b) for a, b in zip(hist, alone)), \
+            (hist, alone)
+        log(f'cards: exp 40 CLI on {world} NCCL ranks: parameters and '
+            f'buffers torch.equal on every rank, launches 2 x the step\'s '
+            f'plus each rank\'s share of {n_val} val images, histograms '
+            f'equal to one process\'s ({int(hist[1].sum())} union pixels)')
+        torch.cuda.empty_cache()
+
+        cs = Ranks('cityscapes_step', {}, world, tmp,
+                   f'exp 44 step, {world} NCCL ranks').join()
+        for r, run in enumerate(cs):
+            assert run['launches'] == EXPECTED_CITYSCAPES, (r,
+                                                            run['launches'])
+            assert run['same_as_rank_0'], r
+            assert all(np.isfinite(v) for v in run['metrics'].values())
+        stats_rel, alone_rel = check_cityscapes_stats(cs)
+        prof = cs[0]['profile']
+        log(f'cards: exp 44 step on {world} NCCL ranks: parameters and '
+            f'BatchNorm statistics bit-equal on every rank; statistics '
+            f'against one process over every rank\'s images {stats_rel:.3e} '
+            f'(limit {MULTI_RANK_STATS_TOL}), rank 0\'s images alone '
+            f'{alone_rel:.3e}; ms/step by rank '
+            f'{[round(r["ms_per_step"], 2) for r in cs]}, the gradient mean '
+            f'({cs[0]["grad_mib"]:.1f} MiB, NCCL) '
+            f'{[round(r["grad_mean_ms"], 3) for r in cs]} ms alone')
+        assert stats_rel < MULTI_RANK_STATS_TOL < alone_rel / 10
+        readings['cityscapes'] = dict(
+            stats_rel=stats_rel, alone_rel=alone_rel,
+            ms_per_step=[r['ms_per_step'] for r in cs],
+            grad_mean_ms=[r['grad_mean_ms'] for r in cs],
+            grad_mib=cs[0]['grad_mib'], rank0_busy_ms=prof['busy_ms'],
+            rank0_idle_share=prof['idle_share'],
+            rank0_whole_window=prof['whole_window'],
+            peak_mib=[r['peak_mib'] for r in cs])
+    return readings
 
 
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ['--rank-worker']:   # one rank of phase 14
+        return rank_worker(*sys.argv[2:5])
+    if sys.argv[1:2] == ['--cards']:   # phase 14 across N cards
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        card = card_line()
+        try:
+            readings = run_across_cards(int(sys.argv[2]))
+        finally:
+            Ranks.kill_all()
+        log(f'cards: {json.dumps(readings)}')
+        log(card)
+        log(json.dumps({'ok': True, 'device': {
+            'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+            'count': torch.cuda.device_count()}}))
+        return 0
     from semivl_tpu_torch.ops import _build
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2883,8 +3449,16 @@ def main():
     torch.cuda.empty_cache()
 
     with tmp:
-        trainer_launches, trainer = run_trainer(overrides, launches, tmp.name)
-    log(f'trainer: {json.dumps(trainer)}')
+        paths = write_voc_dataset(os.path.join(tmp.name, 'voc'))
+        trainer_launches, trainer, trainer_state = run_trainer(
+            overrides, launches, tmp.name, paths)
+        log(f'trainer: {json.dumps(trainer)}')
+        torch.cuda.empty_cache()
+        multi_launches, multi = run_multi_rank(
+            overrides, launches, trainer_launches, trainer_state, tmp.name,
+            paths)
+        del trainer_state
+    log(f'ranks: {json.dumps(multi)}')
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -2907,7 +3481,12 @@ def main():
             cityscapes_eval_image=cityscapes_eval,
             cityscapes_train_step=cs_launches[key], tiny_eval=tiny_eval,
             tiny_train_step=tiny_launches[key],
-            trainer_cli_two_steps_and_eval=trainer_launches[key]))
+            trainer_cli_two_steps_and_eval=trainer_launches[key],
+            trainer_cli_nccl_world1=multi_launches['nccl_world1'][key],
+            trainer_cli_two_gloo_ranks_per_rank=[
+                r[key] for r in multi_launches['gloo_two_ranks_voc']],
+            cityscapes_step_two_gloo_ranks_per_rank=[
+                r[key] for r in multi_launches['gloo_two_ranks_cityscapes']]))
 
     def worst(key):
         return max(step_err[key][0], cs_err[key][0])

@@ -22,8 +22,12 @@ Layout:
 - ``data/``, ``datasets/``, ``native/``, ``utils/``: the host data
   pipeline, class names and palettes, the native image decode, logging.
 - ``train/``: the optimizer, the SemiVL step, the loop and checkpoints.
-- ``tools/``: the trainer CLI (``train``), the config CLI
-  (``experiments``) and the kernel and evaluation benches.
+- ``parallel/``: data parallelism over processes, one a card
+  (``dist``: the process group and the step's, BatchNorm's and the
+  evaluation's collectives).
+- ``tools/``: the trainer CLI (``train``, one rank under torchrun), the
+  config CLI (``experiments``), the multi-rank dry run
+  (``dryrun_multichip``) and the kernel and evaluation benches.
 - ``convert.py``: JAX parameter tree -> this package's ``state_dict``; a
   converted CLIP tree into the model.
 

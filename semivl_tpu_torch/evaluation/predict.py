@@ -26,7 +26,9 @@ its label map (``preupload``, ``preupload_mask``: pinned memory, a side
 stream) while image i's windows run, and on the device routes the
 intersection/union histograms are counted on the device (``_hist``) into a
 (3, C) int32 buffer (``zero_hist``, ``predict_hist_into``) that is fetched
-once every ``eval_hist_flush_every`` images.
+once every ``eval_hist_flush_every`` images. Given ``process_count`` > 1,
+each rank evaluates its stride of the set and the ranks' integer histograms
+are summed by one ``all_reduce`` (JAX's ``process_allgather``, :909-916).
 """
 
 import logging
@@ -44,6 +46,7 @@ from semivl_tpu_torch.evaluation.metrics import (
 from semivl_tpu_torch.models.vlm import IMAGENET_MEAN, IMAGENET_STD
 from semivl_tpu_torch.ops.resize import (_axis_weights, axis_weights,
                                          device_constant)
+from semivl_tpu_torch.parallel import dist
 
 
 def _np_resize_bilinear(x, out_hw, align_corners):
@@ -307,12 +310,17 @@ class Evaluator:
 
 
 def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
-                        progress=None):
+                        progress=None, process_index=0, process_count=1):
     """The summed intersection and union histograms, each (C,) int64,
     over ``dataset`` (``len`` and ``get(i)`` giving ``{'img': (H, W, 3),
     'mask': (H, W)}``) or its ``indices``, pipelined as JAX's ``evaluate``
     (``semivl_tpu/evaluation/predict.py:788-924``):
 
+    - with ``process_count`` > 1 (ranks of a process group), this rank
+      (``process_index``) takes ``range(process_index, len(dataset),
+      process_count)`` and the histograms returned are every rank's summed
+      (one ``all_reduce`` on the evaluator's device); ``indices`` are then
+      refused, since every rank would count them;
     - with ``cfg['eval_prefetch']`` (default on) a thread loads image i+1
       and uploads it and its label map while image i runs;
     - with ``cfg['eval_device_metrics']`` (default on) the device routes
@@ -327,7 +335,13 @@ def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
     nclass = cfg['nclass']
     inter_sum = np.zeros(nclass, np.int64)
     union_sum = np.zeros(nclass, np.int64)
-    idxs = list(range(len(dataset)) if indices is None else indices)
+    if indices is None:
+        idxs = list(range(process_index, len(dataset), process_count))
+    elif process_count > 1:
+        raise ValueError('indices with process_count > 1: every rank would '
+                         'count them; the ranks stride the set themselves')
+    else:
+        idxs = list(indices)
     dev_metrics = bool(cfg.get('eval_device_metrics', True))
     use_prefetch = bool(cfg.get('eval_prefetch', True)) and len(idxs) > 1
     flush_every = max(1, int(cfg.get('eval_hist_flush_every', 256)))
@@ -389,12 +403,19 @@ def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
             'evaluate: %d/%d images routed to the slow host predict path '
             '(image min side < crop_size=%s) - check img_scale/val resize if '
             'this is unexpected', n_host, len(idxs), cfg.get('crop_size'))
+    if process_count > 1:
+        both = dist.all_reduce_sum_(torch.from_numpy(
+            np.stack([inter_sum, union_sum])).to(evaluator.device))
+        inter_sum, union_sum = both.cpu().numpy()
     return inter_sum, union_sum
 
 
-def evaluate(evaluator, dataset, mode, cfg, indices=None, progress=None):
+def evaluate(evaluator, dataset, mode, cfg, indices=None, progress=None,
+             process_index=0, process_count=1):
     """mIoU and per-class IoU over ``dataset`` from its summed
     intersection/union histograms (reference supervised.py:135-164;
-    ``evaluate_histograms``)."""
+    ``evaluate_histograms``, whose rank's stride and cross-rank sum the
+    last two arguments set), the same on every rank."""
     return miou_from_histograms(*evaluate_histograms(
-        evaluator, dataset, mode, cfg, indices, progress))
+        evaluator, dataset, mode, cfg, indices, progress, process_index,
+        process_count))

@@ -15,11 +15,21 @@ clamped at 0) and updates the running statistics with that same biased
 variance, ``r <- 0.9 r + 0.1 batch`` (torch's module would store the
 unbiased variance); in eval mode it uses the running statistics.
 Convolutions run in the module's ``dtype``, BatchNorm in float32.
+
+Inside a process group, train mode takes E[x] and E[x^2] over every rank's
+batch (the reference's SyncBN; flax ``BatchNorm(axis_name='data' if
+train)``, ``semivl_tpu/models/resnet.py:47-49``): the mean over ranks of
+each rank's two statistics, in one differentiable all-reduce whose
+backward averages their cotangents over the ranks, as JAX's transpose of
+``pmean`` does. The running statistics then come out equal on every rank.
+Eval mode issues no collective.
 """
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from semivl_tpu_torch.parallel import dist
 
 BN_MOMENTUM = 0.9   # flax convention: weight of the old running statistic
 BN_EPS = 1e-5
@@ -42,7 +52,11 @@ class BatchNorm(nn.Module):
         x32 = x.float()
         if train:
             mean = x32.mean(dim=(0, 2, 3))
-            var = ((x32 * x32).mean(dim=(0, 2, 3)) - mean * mean).clamp(min=0)
+            mean2 = (x32 * x32).mean(dim=(0, 2, 3))
+            if dist.active():
+                mean, mean2 = dist.mean_over_ranks(
+                    torch.cat([mean, mean2])).chunk(2)
+            var = (mean2 - mean * mean).clamp(min=0)
             with torch.no_grad():
                 self.running_mean.mul_(BN_MOMENTUM).add_(
                     (1 - BN_MOMENTUM) * mean)

@@ -1,5 +1,6 @@
-"""Training orchestration on one card (the counterpart of
-``semivl_tpu/train/loop.py::train``).
+"""Training orchestration (the counterpart of
+``semivl_tpu/train/loop.py::train``), on one card or data-parallel over
+the ranks of a process group.
 
 Equivalent of the reference trainer entry points (semivl.py:61-433): read
 the labeled and unlabeled splits through ``data.SemiDataset`` and
@@ -10,13 +11,26 @@ and keep ``best`` and ``latest`` checkpoints with exact mid-epoch resume
 ``all_args.yaml``, ``config.yaml``, ``debug.log``, ``metrics.jsonl`` and the
 windowed metrics follow the JAX loop.
 
+Launched by torchrun (``parallel.dist.setup_distributed``), every rank runs
+this loop as JAX's processes run theirs (loop.py:240-632): rank 0's run
+name; the run dir's files, the metric stream, the debug grid and the
+checkpoints written by rank 0 alone, every rank waiting at a barrier after
+each save; each rank's own rows of every global batch
+(``ShardedLoader(..., world, process_index=rank, process_count=world)``);
+the step's reductions (``train.step``); each rank evaluating its stride of
+the val set, the histograms summed over the ranks. A preemption (a signal,
+or ``preempt_at_step`` on the rank that sets it) is agreed on: each step
+sums the ranks' flags, read every ``preempt_check_every`` steps (10), so
+every rank stops after the same step; with one rank the flag acts at once.
+
 The step's randomness is a pure function of the global step: each step's
-feature-perturbation generator is seeded from (seed + 1234, iteration)
-(``step_generator``), as the JAX step folds its base key
-``PRNGKey(seed + 1234)`` with ``state.step`` (loop.py:357-363, step.py:453).
-The loaders' permutation depends only on (seed, epoch) and a resumed epoch
-skips the batches already taken (``start_step``), so a run preempted and
-resumed ends where an uninterrupted one does.
+feature-perturbation generator is seeded from (seed + 1234, iteration,
+rank) (``step_generator``), as the JAX step folds its base key
+``PRNGKey(seed + 1234)`` with ``state.step`` and ``axis_index('data')``
+(loop.py:357-363, step.py:231, :453); rank 0's stream is the one-process
+run's. The loaders' permutation depends only on (seed, epoch) and a resumed
+epoch skips the batches already taken (``start_step``), so a run preempted
+and resumed ends where an uninterrupted one does.
 """
 
 import math
@@ -36,9 +50,9 @@ from semivl_tpu_torch.data.dataset import SemiDataset, split_path
 from semivl_tpu_torch.data.loader import ShardedLoader
 from semivl_tpu_torch.datasets.classes import CLASSES
 from semivl_tpu_torch.datasets.palettes import get_palette
-from semivl_tpu_torch.device import resolve_device
 from semivl_tpu_torch.evaluation.predict import Evaluator, evaluate
 from semivl_tpu_torch.models.builder import build_model
+from semivl_tpu_torch.parallel import dist
 from semivl_tpu_torch.train.checkpoint import CheckpointManager
 from semivl_tpu_torch.train.optim import build_optimizer
 from semivl_tpu_torch.train.step import make_semivl_train_step
@@ -60,8 +74,7 @@ def _refuse_unported(cfg):
     """What the port's loop does not run yet, refused by name: a method
     other than 'semivl' (``supervised``, ``unimatch``), the COCO and ADE
     datasets (their split lists and text embeddings wait with their
-    flagships), a multi-process or multi-card run, and the parameter EMA
-    (the step refuses it too)."""
+    flagships) and the parameter EMA (the step refuses it too)."""
     if cfg['dataset'] not in PORTED_DATASETS:
         raise NotImplementedError(f'dataset {cfg["dataset"]!r} is not ported '
                                   f'to the PyTorch trainer ({PORTED_DATASETS})')
@@ -69,14 +82,6 @@ def _refuse_unported(cfg):
     if method != 'semivl':
         raise NotImplementedError(f'method {method!r} is not ported to the '
                                   'PyTorch trainer (only semivl)')
-    if int(os.environ.get('WORLD_SIZE', 1)) > 1:
-        raise NotImplementedError('a multi-process run is not ported to the '
-                                  'PyTorch trainer (WORLD_SIZE > 1)')
-    if cfg.get('respect_n_gpus') and \
-            cfg.get('n_gpus', 1) * cfg.get('n_nodes', 1) > 1:
-        raise NotImplementedError('a multi-card run is not ported to the '
-                                  'PyTorch trainer (respect_n_gpus with '
-                                  'n_gpus * n_nodes > 1)')
     if cfg.get('ema_decay'):
         raise NotImplementedError('ema_decay is not ported to the PyTorch '
                                   'trainer')
@@ -88,18 +93,22 @@ def _make_run_name(cfg):
     return f'{timestr}_{cfg["name"]}_v{__version__}_{uid}'.replace('.', '-')
 
 
-def setup_run_dir(cfg, args_dict, logger, device, run_name=None):
+def setup_run_dir(cfg, args_dict, logger, device, run_name=None,
+                  is_main=True, world=1):
     """``exp/exp-<exp>/<run name>/`` with ``debug.log``, ``all_args.yaml``,
-    ``config.yaml`` and the code archive, as the JAX loop writes them;
+    ``config.yaml`` and the code archive, as the JAX loop writes them
+    (every rank logs to ``debug.log``, only the main one writes the rest);
     returns (run name, path)."""
     if run_name is None:
         run_name = _make_run_name(cfg)
     save_path = os.path.join('exp', f'exp-{cfg["exp"]}', run_name)
     os.makedirs(save_path, exist_ok=True)
     add_file_handler(logger, os.path.join(save_path, 'debug.log'))
+    if not is_main:
+        return run_name, save_path
     all_args = {**cfg, **args_dict, 'run_name': run_name,
                 'save_path': save_path, 'exec_version': __version__,
-                'n_devices': 1, 'device': str(device)}
+                'n_devices': world, 'device': str(device)}
     logger.info('%s\n', pprint.pformat(all_args))
     with open(os.path.join(save_path, 'all_args.yaml'), 'w') as f:
         yaml.dump(all_args, f, default_flow_style=None, sort_keys=False,
@@ -138,20 +147,22 @@ def init_state(bundle, cfg, total_iters, pretrained=None):
     return build_optimizer(cfg, bundle.model, total_iters)
 
 
-def step_generator(seed, iteration, device):
-    """The feature-perturbation generator of global step ``iteration``: a
-    pure function of (seed + 1234, iteration)."""
+def step_generator(seed, iteration, device, rank=0):
+    """The feature-perturbation generator of global step ``iteration`` on
+    ``rank``: a pure function of (seed + 1234, iteration, rank), rank 0's
+    that of the one-process run."""
     g = torch.Generator(device=device)
-    g.manual_seed((seed + 1234) * 1_000_003 + int(iteration))
+    g.manual_seed(((seed + 1234) * 1_000_003 + int(iteration)
+                   + (int(rank) << 40)) % (1 << 63))
     return g
 
 
 def step_batch(bl, bu):
     """The step's batch from a labeled and an unlabeled (paired) host batch,
     as JAX's ``to_device`` maps them (loop.py:406-418) without its
-    ``preempt`` entry (the multi-process consensus flag; one process acts on
-    its own flag): ``img_x`` and ``mask_x`` from the labeled batch, every
-    unlabeled array but the other view's CutMix boxes."""
+    ``preempt`` entry (the step takes the flag as an argument): ``img_x``
+    and ``mask_x`` from the labeled batch, every unlabeled array but the
+    other view's CutMix boxes."""
     return {'img_x': bl.get('img', bl.get('img_u8')), 'mask_x': bl['mask'],
             **{k: v for k, v in bu.items()
                if not (k.startswith('cutmix_box') and k.endswith('_other'))}}
@@ -263,8 +274,9 @@ def _log_window(keys, pending, iter_times, window_t0, bs, log_avg, writer,
         2 * bs * len(iter_times) / max(time.time() - window_t0, 1e-9))
     log_avg.update(stacked)
     logger.info('Iters: %d %s', i, str(log_avg))
-    for k, v in log_avg.avgs.items():
-        writer.add_scalar(k, v, iters)
+    if writer is not None:
+        for k, v in log_avg.avgs.items():
+            writer.add_scalar(k, v, iters)
     log_avg.reset()
     return stacked
 
@@ -272,12 +284,18 @@ def _log_window(keys, pending, iter_times, window_t0, bs, log_avg, writer,
 def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
           seed=0, resume_from=None, device=None):
     """Run a training job on one card (``device='cpu'`` for the plain path;
-    without a card and without it, raises). Returns (best mIoU, run dir).
+    without a card and without it, raises) or, under torchrun's
+    environment, as one rank of a process group (NCCL on the card, gloo
+    on the CPU; a group that exists already is joined as it is:
+    ``parallel.dist.setup_distributed``).
+    Returns (best mIoU, run dir).
 
     ``resume_from``: an existing run dir, whose ``latest`` checkpoint is
     restored (a save made mid-epoch resumes at the same batch)."""
-    device = resolve_device(device)
     _refuse_unported(cfg)
+    rank, world, device = dist.setup_distributed(cfg, device)
+    is_main = rank == 0
+    grouped = dist.active()
     logger = init_log('global')
     if resume_from:
         save_path = resume_from
@@ -286,10 +304,15 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
         add_file_handler(logger, os.path.join(save_path, 'debug.log'))
         logger.info('Resuming run dir %s', save_path)
     else:
+        run_name = _make_run_name(cfg)
+        if grouped:
+            run_name = dist.broadcast_run_name(run_name)
         run_name, save_path = setup_run_dir(cfg, args_dict or {}, logger,
-                                            device)
-    writer = MetricWriter(save_path)
-    logger.info('Device: %s', device)
+                                            device, run_name, is_main, world)
+    writer = MetricWriter(save_path) if is_main else None
+    logger.info('Device: %s, rank %d of %d', device, rank, world)
+    if grouped:
+        dist.barrier()   # every rank at one point before the build (:268)
 
     bundle = build_model(cfg, dtype=model_dtype(cfg, device), device=device,
                          seed=seed)
@@ -303,8 +326,10 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                              nsample=len(trainset_u.ids), seed=seed + 1)
     valset = SemiDataset(cfg, 'val', id_path=cfg.get('val_id_path'))
     bs = cfg['batch_size']
-    loader_l = ShardedLoader(trainset_l, bs, 1, seed=seed)
-    loader_u = ShardedLoader(trainset_u, bs, 1, seed=seed, pair=True)
+    loader_l = ShardedLoader(trainset_l, bs, world, seed=seed,
+                             process_index=rank, process_count=world)
+    loader_u = ShardedLoader(trainset_u, bs, world, seed=seed, pair=True,
+                             process_index=rank, process_count=world)
     steps_per_epoch = len(loader_u)
     if cfg.get('iters') is not None:
         assert cfg.get('epochs') is None
@@ -332,6 +357,15 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                     start_epoch, resume_skip, previous_best)
     evaluator = Evaluator(bundle.model, bundle.text_feats, cfg, device)
 
+    def save(names, extra):
+        """Rank 0 writes the slots, every rank waits for it (:546-560)."""
+        if is_main:
+            for name in names:
+                ckpt.save(name, bundle.model, optimizer, step_fn.iteration,
+                          extra)
+        if grouped:
+            dist.barrier()
+
     # SIGTERM/SIGINT ask for a 'latest' checkpoint at the next step
     # boundary, then a clean exit; resume picks it up
     preempted = {'flag': False}
@@ -348,10 +382,12 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
             pass  # not the main thread
 
     def restore_handlers():
-        writer.close()
+        if writer is not None:
+            writer.close()
         for sig, h in prev_handlers.items():
             signal.signal(sig, h)
 
+    check_every = int(cfg.get('preempt_check_every', 10))
     log_avg = DictAverageMeter()
     metric_keys = None   # the metrics' order in the window's matrix
     profiler = None
@@ -372,11 +408,20 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
             t0 = time.time()
             cur_step = epoch_start_step + i
             if cfg.get('profile_dir'):
-                profiler = _profile_window(cfg, cur_step, profiler, device)
-            metrics = step_fn(batch, step_generator(seed, cur_step, device))
+                profiler = _profile_window(cfg, cur_step, profiler, device,
+                                           rank if world > 1 else None)
+            # fault injection: a preemption right after this global step,
+            # raised before it so that its reduction carries the flag
+            if cfg.get('preempt_at_step') is not None \
+                    and cur_step == int(cfg['preempt_at_step']):
+                preempted['flag'] = True
+            metrics = step_fn(batch,
+                              step_generator(seed, cur_step, device, rank),
+                              preempt=preempted['flag'])
             iters = cur_step
             if metric_keys is None:
-                metric_keys = sorted(metrics)
+                metric_keys = sorted(k for k in metrics
+                                     if k != 'preempt_count')
             pending.append(torch.stack(
                 [metrics[k].float() for k in metric_keys]))
             iter_times.append(time.time() - t0)
@@ -386,21 +431,22 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                 window_t0 = time.time()
                 pending.clear()
                 iter_times.clear()
-            if i == 0 and cfg.get('debug_images', True):
+            if i == 0 and is_main and cfg.get('debug_images', True):
                 try:
                     save_debug_grid_for_batch(cfg, bundle, bl, bu,
                                               save_path, iters, device)
                 except Exception as exc:
                     logger.warning('debug images failed: %s', exc)
-            # fault injection: a preemption right after this global step
-            if cfg.get('preempt_at_step') is not None \
-                    and cur_step == int(cfg['preempt_at_step']):
-                preempted['flag'] = True
-            if preempted['flag']:
-                ckpt.save('latest', bundle.model, optimizer,
-                          step_fn.iteration,
-                          extra={'epoch': epoch, 'epoch_step': skip + i + 1,
-                                 'previous_best': previous_best})
+            # one rank acts on its own flag at once; ranks read the summed
+            # flags at the same steps, so all stop after the same step
+            if world == 1:
+                stop = preempted['flag']
+            else:
+                stop = (cur_step % check_every == 0
+                        and float(metrics['preempt_count']) > 0)
+            if stop:
+                save(['latest'], {'epoch': epoch, 'epoch_step': skip + i + 1,
+                                  'previous_best': previous_best})
                 logger.info('Preemption signal: saved latest checkpoint at '
                             'step %d (epoch %d, epoch step %d), exiting.',
                             cur_step + 1, epoch, skip + i + 1)
@@ -414,7 +460,9 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                 or epoch == cfg['epochs'] - 1 or done):
             eval_mode = cfg['eval_mode']
             eval_t0 = time.time()
-            miou, iou_class = evaluate(evaluator, valset, eval_mode, cfg)
+            miou, iou_class = evaluate(evaluator, valset, eval_mode, cfg,
+                                       process_index=rank,
+                                       process_count=world)
             eval_dt = time.time() - eval_t0
             eval_fps = len(valset) / max(eval_dt, 1e-9)
             logger.info('***** Evaluation timing: %d images in %.1fs '
@@ -426,30 +474,28 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                             CLASSES[cfg['dataset']][cls_idx], iou)
             logger.info('***** Evaluation %s ***** >>>> MeanIoU: %.2f\n',
                         eval_mode, miou)
-            writer.add_scalar('eval/fps', eval_fps, epoch)
-            writer.add_scalar('eval/mIoU', miou, epoch)
-            for idx, iou in enumerate(iou_class):
-                writer.add_scalar(
-                    f'eval/{CLASSES[cfg["dataset"]][idx]}_IoU', iou, epoch)
+            if writer is not None:
+                writer.add_scalar('eval/fps', eval_fps, epoch)
+                writer.add_scalar('eval/mIoU', miou, epoch)
+                for idx, iou in enumerate(iou_class):
+                    writer.add_scalar(
+                        f'eval/{CLASSES[cfg["dataset"]][idx]}_IoU', iou,
+                        epoch)
             is_best = miou > previous_best
             previous_best = max(miou, previous_best)
-            extra = {'epoch': epoch, 'previous_best': previous_best}
-            ckpt.save('latest', bundle.model, optimizer, step_fn.iteration,
-                      extra)
-            if is_best:
-                ckpt.save('best', bundle.model, optimizer,
-                          step_fn.iteration, extra)
+            save(['latest', 'best'] if is_best else ['latest'],
+                 {'epoch': epoch, 'previous_best': previous_best})
     if profiler is not None:
         profiler.stop()
     restore_handlers()
     return previous_best, save_path
 
 
-def _profile_window(cfg, cur_step, profiler, device):
+def _profile_window(cfg, cur_step, profiler, device, rank=None):
     """The ``profile_dir`` window (JAX's ``jax.profiler`` trace): a
     ``torch.profiler`` trace from step ``profile_start_step`` (10) for
     ``profile_steps`` (5) steps, exported as a Chrome trace into
-    ``profile_dir``."""
+    ``profile_dir`` (one file per rank of a multi-rank run)."""
     start = cfg.get('profile_start_step', 10)
     if cur_step == start and profiler is None:
         acts = [torch.profiler.ProfilerActivity.CPU]
@@ -461,7 +507,8 @@ def _profile_window(cfg, cur_step, profiler, device):
             profiler is not None:
         profiler.stop()
         os.makedirs(cfg['profile_dir'], exist_ok=True)
+        suffix = '' if rank is None else f'_rank{rank}'
         profiler.export_chrome_trace(os.path.join(
-            cfg['profile_dir'], f'trace_{start}-{cur_step}.json'))
+            cfg['profile_dir'], f'trace_{start}-{cur_step}{suffix}.json'))
         profiler = None
     return profiler

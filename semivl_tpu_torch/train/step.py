@@ -1,16 +1,26 @@
 """The SemiVL train step (counterpart of
-``semivl_tpu/train/step.py::make_semivl_train_step``) on one device.
+``semivl_tpu/train/step.py::make_semivl_train_step``) on one card or on
+each rank of a process group.
 
 One iteration (reference semivl.py:203-328): CutMix of the strong views,
 teacher pseudo-labels for the mixed-in images, MaskCLIP guidance labels from
 the frozen encoder, student pass 1 on ``[img_x | img_w]`` with feature
 perturbation of the w half, student pass 2 on ``[s1 | s2]``, the weighted
 loss mix, one backward and one AdamW update of the trainable parameters.
-Per-device loss normalisation is the JAX step's; with one device there is
-no gradient all-reduce. A model with BatchNorm (the Cityscapes conv
-encoder) runs it in eval mode in the teacher pass and in train mode in both
-student passes, whose running-statistic updates chain (pass 2 starts from
-pass 1's), as the JAX step threads ``batch_stats`` (step.py:293-323).
+A model with BatchNorm (the Cityscapes conv encoder) runs it in eval mode
+in the teacher pass and in train mode in both student passes, whose
+running-statistic updates chain (pass 2 starts from pass 1's), as the JAX
+step threads ``batch_stats`` (step.py:293-323).
+
+Inside a process group (``parallel.dist``) each rank takes its own rows of
+the global batch, as the JAX step does under ``shard_map`` over ``data``:
+each rank normalises its loss by its own valid-pixel counts, then, after
+the one backward, the trainable gradients alone are averaged over the
+ranks in one ``all_reduce`` (``_pmean_trainable``, step.py:146; frozen
+leaves carry no gradient), the metrics are averaged and the ranks'
+preemption flags summed in one more (step.py:238, :369), ``grad_norm`` is
+taken after the mean (:373), and every rank applies the same AdamW
+update. Without a process group no collective is issued.
 """
 
 import torch
@@ -18,6 +28,7 @@ import torch
 from semivl_tpu_torch.device import resolve_device
 from semivl_tpu_torch.losses.ce import cross_entropy
 from semivl_tpu_torch.losses.conf_weight import confidence_weighted_loss
+from semivl_tpu_torch.parallel import dist
 from semivl_tpu_torch.train.optim import lr_schedule
 
 LOSS_KEYS = ('loss_x', 'loss_s1', 'loss_s2', 'loss_fp', 'loss_mc_s1',
@@ -127,7 +138,15 @@ class SemiVLStep:
                                         self.cfg['conf_mode'],
                                         self.cfg['conf_thresh'])
 
-    def __call__(self, batch, generator=None):
+    def __call__(self, batch, generator=None, preempt=False):
+        """One iteration: ``backward`` then ``update``; the metrics (with
+        ``preempt_count``, the ranks' ``preempt`` flags summed, inside a
+        process group)."""
+        return self.update(self.backward(batch, generator), preempt)
+
+    def backward(self, batch, generator=None):
+        """This rank's losses of ``batch`` and their gradients in the
+        trainable parameters' ``grad``; returns the detached metrics."""
         cfg, model, text = self.cfg, self.model, self.text
         batch = _unpack_compact(batch, self.device)
         b = batch['mask_x'].shape[0]
@@ -182,9 +201,25 @@ class SemiVLStep:
 
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        if cfg.get('log_grad_norm'):
-            grads = [p.grad for g in self.optimizer.param_groups
-                     for p in g['params'] if p.grad is not None]
+        return {k: v.detach() for k, v in m.items()}
+
+    def update(self, metrics, preempt=False):
+        """Average the gradients and metrics over the ranks (inside a
+        process group), then one AdamW step at this iteration's rate.
+        A trainable leaf that the loss does not reach has no gradient on
+        any rank and is neither reduced nor updated."""
+        grads = [p.grad for g in self.optimizer.param_groups
+                 for p in g['params'] if p.grad is not None]
+        m = dict(metrics)
+        if dist.active():
+            dist.mean_over_ranks_(grads)
+            keys = sorted(m)
+            means, count = dist.reduce_metrics(
+                torch.stack([m[k] for k in keys]),
+                torch.tensor(float(preempt)))
+            m = dict(zip(keys, means.unbind()))
+            m['preempt_count'] = count
+        if self.cfg.get('log_grad_norm'):
             m['grad_norm'] = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g.float())
                              for g in grads]))
@@ -193,7 +228,7 @@ class SemiVLStep:
             group['lr'] = lr * group['lr_mult']
         self.optimizer.step()
         self.iteration += 1
-        return {k: v.detach() for k, v in m.items()}
+        return m
 
 
 def make_semivl_train_step(bundle, cfg, optimizer, total_iters, device=None):
@@ -207,5 +242,6 @@ def make_semivl_train_step(bundle, cfg, optimizer, total_iters, device=None):
     ``ignore_mask_other`` (255 = ignore) and CutMix boxes ``cutmix_box1``,
     ``cutmix_box2`` as (B, 4) (y, x, h, w) coordinates or (B, H, W) masks.
     ``generator`` drives the feature-perturbation dropout. Runs on the card
-    unless ``device='cpu'`` is given."""
+    unless ``device='cpu'`` is given; inside a process group, ``batch`` is
+    this rank's rows and the update is the ranks' (module docstring)."""
     return SemiVLStep(bundle, cfg, optimizer, total_iters, device)

@@ -208,12 +208,15 @@ def test_kernel_sources_and_build_keys():
         assert 'semivl_tpu_torch/_build/' in f.read().split()
 
 
-# the trainer entry point's modules (data pipeline, configs, loop, CLI)
+# the trainer entry point's modules (data pipeline, configs, loop, CLI,
+# the process group and the multi-rank dry run)
 TRAINER_MODULES = (
     'semivl_tpu_torch.configs.experiments', 'semivl_tpu_torch.data.dataset',
     'semivl_tpu_torch.data.loader', 'semivl_tpu_torch.data.transforms',
     'semivl_tpu_torch.datasets.classes', 'semivl_tpu_torch.datasets.palettes',
     'semivl_tpu_torch.native.build', 'semivl_tpu_torch.native.loader',
+    'semivl_tpu_torch.parallel.dist',
+    'semivl_tpu_torch.tools.dryrun_multichip',
     'semivl_tpu_torch.tools.experiments', 'semivl_tpu_torch.tools.train',
     'semivl_tpu_torch.train.checkpoint', 'semivl_tpu_torch.train.loop',
     'semivl_tpu_torch.utils.code_archive',

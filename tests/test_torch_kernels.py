@@ -32,7 +32,8 @@ conv output, which GroupNorm amplifies, is the whole difference), with
 float64 sums and the forward's stored stage-1 conv2, and, forward and
 backward composed, within 6e-2 of it with float64 sums recomputing stage 1
 (``composed_ref``; the float32-sum reference itself lies up to 3.4e-2 from
-it: PERF.md).
+it: PERF.md). Two gloo ranks sharing the card end a tiny step with equal
+parameters.
 """
 
 import functools
@@ -905,3 +906,17 @@ def test_fused_up_kernel_refuses(card):
     p['conv1_weight'].requires_grad_(True)
     with pytest.raises(ValueError, match='forward only'):
         fused_up.fused_up_stage(x, skip, p)
+
+
+def test_two_gloo_ranks_on_one_card_stay_equal(card, tmp_path):
+    """Two ranks on card 0 (gloo: NCCL takes one rank a card) take one
+    SemiVL step of the tiny VLM at 64 px, every attention on the
+    head-split kernels: each rank launches them, and both ranks end with
+    ``torch.equal`` trainable parameters."""
+    import torch_dist_worker
+    got = torch_dist_worker.launch('card_step', {}, str(tmp_path))
+    for r in got:
+        assert min(r['launches']) > 0 and r['loss'] == r['loss']
+    assert got[0]['params'].keys() == got[1]['params'].keys()
+    for k, v in got[0]['params'].items():
+        assert torch.equal(v, got[1]['params'][k]), k

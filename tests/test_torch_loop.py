@@ -145,7 +145,7 @@ def test_loop_batches_match_jax(loop_cfg, tmp_path, monkeypatch):
     class Recorder:
         iteration = 0
 
-        def __call__(self, batch, generator):
+        def __call__(self, batch, generator, preempt=False):
             seen.append({k: v.numpy() for k, v in batch.items()})
             self.iteration += 1
             return {'loss_all': torch.zeros(())}
@@ -209,7 +209,6 @@ def test_step_generator_is_a_function_of_the_step():
 @pytest.mark.parametrize('change,words', [
     (dict(method='supervised'), 'supervised'),
     (dict(method='unimatch'), 'unimatch'),
-    (dict(respect_n_gpus=True, n_gpus=4), 'multi-card'),
     (dict(ema_decay=0.999), 'ema_decay')])
 def test_loop_refuses_unported(loop_cfg, tmp_path, monkeypatch, change,
                                words):
@@ -219,13 +218,6 @@ def test_loop_refuses_unported(loop_cfg, tmp_path, monkeypatch, change,
     with pytest.raises(NotImplementedError, match=words):
         loop.train(dict(loop_cfg, **change), device='cpu')
     assert not os.path.exists('exp')
-
-
-def test_loop_refuses_a_multi_process_run(loop_cfg, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-    monkeypatch.setenv('WORLD_SIZE', '2')
-    with pytest.raises(NotImplementedError, match='multi-process'):
-        loop.train(loop_cfg, device='cpu')
 
 
 def test_param_overrides_merge_after_init(loop_cfg, tmp_path):

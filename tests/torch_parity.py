@@ -146,6 +146,15 @@ class InjectedDropout:
         assert keep.shape[-1] == x.shape[-1]
         return jnp.where(keep, x / (1.0 - rate), jnp.zeros((), x.dtype))
 
+    def jax_rows(self, rng, x, rate):
+        """``jax`` under ``shard_map``: this device's rows of the keep
+        mask, picked by its index on the ``data`` axis."""
+        b = x.shape[0]
+        keep = jax.lax.dynamic_slice_in_dim(
+            jnp.asarray(self._next()), jax.lax.axis_index('data') * b, b)
+        assert keep.shape[-1] == x.shape[-1]
+        return jnp.where(keep, x / (1.0 - rate), jnp.zeros((), x.dtype))
+
     def torch(self, x, rate, generator=None):
         keep = torch.from_numpy(self._next())
         assert keep.shape[-1] == x.shape[-1]
@@ -244,51 +253,23 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     after."""
     from unittest import mock
 
-    from jax.sharding import Mesh
-
-    from semivl_tpu.models.builder import ModelBundle as JaxBundle
-    from semivl_tpu.train import optim as jax_optim
-    from semivl_tpu.train.step import (TrainState, replicate, shard_batch)
-    from semivl_tpu.train.step import make_semivl_train_step as jax_step
     from semivl_tpu_torch.train import optim
     from semivl_tpu_torch.train.step import make_semivl_train_step
+    out = jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total)
     fake = InjectedDropout(keeps)
-    b, img = batch['mask_x'].shape[:2]
-    bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
-                       num_classes=21, img_size=img, model_cfg={},
-                       freeze_backbone=True,
-                       exclude_keys=['attn', 'pos_embed'])
-    tx, _, mask = jax_optim.build_optimizer(
-        cfg, params, total, freeze_backbone=True,
-        exclude_keys=['attn', 'pos_embed'])
-    state = TrainState(params={'params': params},
-                       opt_state=tx.init(params), step=jnp.zeros((), jnp.int32))
-    mesh = Mesh(np.array(jax.devices()[:1]), ('data',))
-    with mock.patch('semivl_tpu.models.vlm.dropout2d', fake.jax):
-        fn = jax_step(bundle, cfg, tx, mesh, total, mask)
-        new_state, jmetrics = fn(replicate(state, mesh),
-                                 shard_batch(batch, mesh),
-                                 replicate(jax.random.PRNGKey(0), mesh))
-        jmetrics = {k: float(v) for k, v in jmetrics.items()}
-    assert fake.calls == len(keeps)
-    jax_new = convert.vlm_state_dict(jax.tree.map(
-        np.asarray, new_state.params['params']))
-    jax_grads = convert.vlm_state_dict(masked_grads(new_state.opt_state,
-                                                     params))
-
     before = {k: v.clone() for k, v in pm.state_dict().items()}
     opt, _ = optim.build_optimizer(cfg, pm, total)
     step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
                                   total, device='cpu')
-    fake.calls = 0
     with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch):
         pmetrics = {k: float(v) for k, v in step(batch).items()}
     assert fake.calls == len(keeps) and step.iteration == 1
     port_grads = {n: (p.grad.numpy() if p.grad is not None
                       else np.zeros(p.shape, np.float32))
                   for n, p in pm.named_parameters()}
-    return dict(jmetrics=jmetrics, pmetrics=pmetrics, jax_new=jax_new,
-                jax_grads=jax_grads, port_grads=port_grads, before=before,
+    return dict(jmetrics=out['jmetrics'], pmetrics=pmetrics,
+                jax_new=out['jax_new'], jax_grads=out['jax_grads'],
+                port_grads=port_grads, before=before,
                 after={k: v.numpy() for k, v in pm.state_dict().items()},
                 trainable={n: p.requires_grad
                            for n, p in pm.named_parameters()})
@@ -323,3 +304,76 @@ def step_mismatches(s, tol=1e-3):
         if np.array_equal(s['after'][name], s['before'][name].numpy()):
             bad.append((name, 'unchanged', 0.0))
     return bad, n_checked
+
+
+def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
+                     n_devices=1, stats=None, bn_batch_stats=None):
+    """One JAX SemiVL step over an ``n_devices`` data mesh: the global
+    ``batch`` split by rows over the devices, each device taking its rows
+    of the injected perturbation masks ``keeps`` (``jax_rows``); ``stats``
+    the BatchNorm running statistics, if the model has them. Returns the
+    metrics, the gradients averaged over the devices (from the first Adam
+    moment), the updated parameters and statistics, under the port's
+    names, and ``bn_batch_stats``: the (mean, variance) of each train-mode
+    BatchNorm call, in call order (over the mesh: after the ``pmean``).
+
+    Given ``bn_batch_stats``, each train-mode BatchNorm takes those
+    values for its statistics, their gradients still JAX's own (through
+    the ``pmean`` it computes): the step's gradients at another rounding
+    of the statistics."""
+    from unittest import mock
+
+    import flax.linen.normalization as flax_norm
+
+    from jax.sharding import Mesh
+
+    from semivl_tpu.models.builder import ModelBundle as JaxBundle
+    from semivl_tpu.train import optim as jax_optim
+    from semivl_tpu.train.step import (TrainState, replicate, shard_batch)
+    from semivl_tpu.train.step import make_semivl_train_step as jax_step
+    fake = InjectedDropout(keeps)
+    bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
+                       num_classes=text.shape[0],
+                       img_size=batch['mask_x'].shape[1], model_cfg={},
+                       freeze_backbone=True,
+                       exclude_keys=['attn', 'pos_embed'])
+    tx, _, mask = jax_optim.build_optimizer(
+        cfg, params, total, freeze_backbone=True,
+        exclude_keys=['attn', 'pos_embed'])
+    variables = {'params': params}
+    if stats is not None:
+        variables['batch_stats'] = stats
+    state = TrainState(params=variables, opt_state=tx.init(params),
+                       step=jnp.zeros((), jnp.int32))
+    mesh = Mesh(np.array(jax.devices()[:n_devices]), ('data',))
+    compute_stats = flax_norm._compute_stats
+    recorded, calls = {}, [0]
+
+    def batchnorm_stats(x, axes, dtype, axis_name=None, *a, **k):
+        if axis_name is None:   # GroupNorm, eval-mode BatchNorm
+            return compute_stats(x, axes, dtype, axis_name, *a, **k)
+        i = calls[0]
+        calls[0] += 1
+        out = compute_stats(x, axes, dtype, axis_name, *a, **k)
+        if bn_batch_stats is not None:
+            return tuple(jnp.asarray(held) + o - jax.lax.stop_gradient(o)
+                         for held, o in zip(bn_batch_stats[i], out))
+        jax.debug.callback(lambda m, v, i=i: recorded.__setitem__(
+            i, (np.asarray(m), np.asarray(v))), *out)
+        return out
+
+    with mock.patch('semivl_tpu.models.vlm.dropout2d', fake.jax_rows), \
+            mock.patch.object(flax_norm, '_compute_stats', batchnorm_stats):
+        fn = jax_step(bundle, cfg, tx, mesh, total, mask)
+        new_state, jmetrics = fn(replicate(state, mesh),
+                                 shard_batch(batch, mesh),
+                                 replicate(jax.random.PRNGKey(0), mesh))
+        jmetrics = {k: float(v) for k, v in jmetrics.items()}
+    assert fake.calls == len(keeps)
+    new = jax.tree.map(np.asarray, new_state.params)
+    return dict(jmetrics=jmetrics,
+                jax_new=convert.vlm_state_dict(new['params'],
+                                               new.get('batch_stats')),
+                jax_grads=convert.vlm_state_dict(
+                    masked_grads(new_state.opt_state, params)),
+                bn_batch_stats=[recorded[i] for i in sorted(recorded)])
