@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``semivl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # one card: phases 1-15
+    python3 chip_smoke.py             # one card: phases 1-16
     python3 chip_smoke.py --cards N   # N cards: phase 14 across them
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -16,19 +16,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
    passes A, B and C), no mma.sync;
 3. packed attention kernels, forward and backward, against their plain
    versions and their rounded references at the flagship shapes (encoder
-   and semantic transformer, and a ``valid_len`` case) and the Cityscapes
-   ones (the 801^2 encoder at L = 2602 and an edge crop at L = 869), with
+   and semantic transformer, and a ``valid_len`` case), the Cityscapes
+   ones (the 801^2 encoder at L = 2602 and an edge crop at L = 869), the
+   SemanticTransformer along COCO's 81 and ADE20K's 150 classes (192
+   sequences; L = 150 spans two key tiles) and the timm ViT's encoder on
+   2 + 2 crops, with
    SDPA's times beside (device-only too, from the profiler: windows whose
    records are whole), and
-   planted faults (the last key tile skipped, forward and backward) that
-   must fail;
+   planted faults (the last key tile skipped, forward and backward, at
+   the Cityscapes encoder and each of the new shapes) that must fail;
 4. fused VLG decoder kernels, forward and backward (tail and input), against
    their plain versions and their rounded references at the flagship
-   decoder shapes (the forward at P = 42 and at the VOC step's P = 126, at
-   the Cityscapes 51^2 and edge-crop grids, timed by events and
+   decoder shapes (the forward at P = 42, at the VOC step's P = 126 and
+   ADE20K's P = 3 x 150 = 450, at the Cityscapes 51^2 and edge-crop grids,
+   timed by events and
    device-only beside cuDNN's chain, with two planted faults that must
    fail: conv1's skip half left out inside the kernel's sequence, stage 2
-   reading its input without GN+ReLU; the whole-plane backward against the
+   reading its input without GN+ReLU; the whole-plane backward, at P = 126
+   and at ADE20K's P = 450, against the
    reference with its bf16 gradient roundings, float64 sums at the
    forward's stored stage-1 conv2, and, forward and backward composed,
    against that reference recomputing stage 1), with planted faults that
@@ -144,8 +149,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    images alone); each rank's ms per step and rank 0's idle share (the
    two ranks share the card: this measures the code path, not
    multi-card scaling);
-15. a ``kernels`` JSON line (all eleven kernels, with the launches of
-   phase 14's runs by path), and last ``{"ok": true, "device": ...}``.
+15. the paper's other benchmarks and exp 41's ablation models, at full
+   width, launch counts derived from each run config
+   (``launches_per_step``, ``launches_per_call``) and asserted: (a) exp
+   43's step (ADE20K: ViT-B/16 + VLG over 150 class planes a crop, the
+   guidance encoder with ``ade_single``, 1 + 1 512^2 crops, the
+   whole-plane backward): timed steps, peak memory, a profile, then one
+   step with every kernel call held to its rounded reference on its own
+   inputs and each decoder-backward call rerun with a planted fault that
+   must fail; (b) exp 43's ``zegclip_sliding_window`` evaluation of one
+   synthetic 512x2048 image (5 crops in batches of 4 + 1: 600 and 150
+   planes), one crop batch through the kernels and the plain versions, a
+   profile; (c) the CLI on exp 42's and exp 43's generated split configs
+   over synthetic datasets of each geometry (COCO: 640x480 JPEGs, masks
+   0-80 and 255, the val image shorter than the crop; ADE: short side
+   512, masks 0-150), 2 steps and an evaluation each from phase 6's
+   weights; (d) each of exp 41's three DeepLabV3+ models (MaskCLIP ViT
+   ``ftap`` and ``ft``, timm ViT ``ft``): one step of 2 + 2 crops with
+   every packed-attention call held to its rounded reference (no decoder
+   or head-split kernel called), a step with its launches, the head's
+   BatchNorm statistics changed, frozen leaves unchanged (``ftap``) or
+   every backbone leaf changed (``ft``), an evaluation of one
+   VOC-geometry image, and the CLI on the timm row's generated config for
+   2 steps; phase 15's seconds and the whole run's are logged;
+16. a ``kernels`` JSON line (all eleven kernels, with the launches of
+   phase 14's and 15's runs by path), and last ``{"ok": true, "device":
+   ...}``.
 
 ``--cards N`` runs phase 14's full-width paths on N cards, one NCCL rank a
 card, and nothing else: the kernels' build, then (i) exp 40's trainer CLI
@@ -260,7 +289,13 @@ PASS_TOL = 5e-3             # each banded pass vs its plain pass on the same
 ATTN_CASES = (('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
               ('encoder valid_len', 2, 1025, 12, 1000),
               ('cityscapes encoder', 2, 2602, 12, None),
-              ('cityscapes edge crop', 1, 869, 12, None))
+              ('cityscapes edge crop', 1, 869, 12, None),
+              # exps 42/43: the SemanticTransformer along 81 and 150
+              # classes at 3 x 64 pooled locations (1 + 1 crops, pass 1);
+              # exp 41: the timm ViT's encoder on 2 + 2 crops
+              ('semantic L=81', 192, 81, 4, None),
+              ('semantic L=150', 192, 150, 4, None),
+              ('timm encoder', 4, 1025, 12, None))
 # the head-split kernels (#1/#2): (name, B, L, heads, head_dim, valid_len);
 # the tiny VLM's shapes are those of its 1 + 1 step and its 2-crop batches;
 # then the widths whose products over D are split (48, 80, 96, 112) and
@@ -286,7 +321,17 @@ HEADS_VS_PACKED_TOL = 5e-3  # head-split against packed kernels, relative L2:
 ATTN_BWD_CASES = (('encoder', 4, 1025, 12, None),
                   ('semantic', 384, 21, 4, None),
                   ('encoder valid_len', 4, 1025, 12, 1000),
-                  ('cityscapes encoder', 2, 2602, 12, None))
+                  ('cityscapes encoder', 2, 2602, 12, None),
+                  ('semantic L=81', 192, 81, 4, None),
+                  ('semantic L=150', 192, 150, 4, None))
+# phase 3's planted fault, "the last key tile skipped", by case: the keys
+# it keeps (valid_len). L = 150 spans two 128-key tiles, the second
+# holding 22 keys; L = 81 has one tile, so its second half goes; the
+# backward's 'encoder' case is the timm ViT's (and the flagship's) shape.
+ATTN_FAULT_KEYS = {'cityscapes encoder': 2602 - 128, 'semantic L=81': 40,
+                   'semantic L=150': 128, 'timm encoder': 1025 - 128}
+ATTN_BWD_FAULT_KEYS = dict(ATTN_FAULT_KEYS, encoder=1025 - 128)
+del ATTN_BWD_FAULT_KEYS['timm encoder']
 
 
 def log(*a):
@@ -497,12 +542,13 @@ def check_attention(gen):
                          tol=ATTN_REL_TOL, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                          device_ms=dev_ms, library_device_ms=lib_dev_ms))
-        if name == 'cityscapes encoder':
+        if name in ATTN_FAULT_KEYS:
             # planted fault: the last key tile skipped
             bad = _rel_l2(fa._fwd_kernel(*qkv.split(c, dim=-1), heads,
-                                         length - fa._BK, False)[0], rounded)
-            log(f'attention planted fault: last key tile skipped rel-L2 '
-                f'{bad:.3e} (must exceed {ATTN_REL_TOL})')
+                                         ATTN_FAULT_KEYS[name], False)[0],
+                          rounded)
+            log(f'attention planted fault ({name}): last key tile skipped '
+                f'rel-L2 {bad:.3e} (must exceed {ATTN_REL_TOL})')
             assert bad > ATTN_REL_TOL, bad
             rows[-1]['planted_faults'] = dict(skipped_key_tile=bad)
     return rows
@@ -553,12 +599,12 @@ def check_attention_bwd(gen):
                          tol=ATTN_BWD_REL_TOL, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms, bound_by=by,
                          device_ms=dev_ms, library_device_ms=lib_dev_ms))
-        if name == 'cityscapes encoder':
+        if name in ATTN_BWD_FAULT_KEYS:
             # planted fault: the last key tile skipped through valid_len
             bad = _rel_l2(fa._bwd_kernel(qkv, out, lse, g, heads,
-                                         length - fa._BK), want)
-            log(f'attention bwd planted fault: last key tile skipped rel-L2 '
-                f'{bad:.3e} (must exceed {ATTN_BWD_REL_TOL})')
+                                         ATTN_BWD_FAULT_KEYS[name]), want)
+            log(f'attention bwd planted fault ({name}): last key tile '
+                f'skipped rel-L2 {bad:.3e} (must exceed {ATTN_BWD_REL_TOL})')
             assert bad > ATTN_BWD_REL_TOL, bad
             rows[-1]['planted_faults'] = dict(skipped_key_tile=bad)
     return rows
@@ -939,8 +985,9 @@ WHOLE_BWD_FAULTS = dict(DECODER_FAULTS, **{
     conv2_wgrad_without_last_plane})
 
 
-def check_decoder_bwd(gen):
-    """The decoder backward at the student pass-1 shape (P = 6 x 21 = 126):
+def check_decoder_bwd(gen, b=6, n=21):
+    """The decoder backward at a student pass-1 shape, P = b n planes (VOC's
+    6 x 21 = 126 by default; ADE's 3 x 150 = 450):
     gradients of every input and parameter through the kernels against
     autograd through ``fused_vlg_decoder_rounded`` with float64 sums at the
     point the kernels' forward reached (stage 1's raw conv2 as they stored
@@ -952,7 +999,7 @@ def check_decoder_bwd(gen):
     computation at lower precision: the control of the composed limit) is
     logged as data."""
     from semivl_tpu_torch.ops import fused_decoder as fd
-    b, n, c, h = 6, 21, 128, 32
+    c, h = 128, 32
     p = b * n
     up1, up2, head = _random_decoder(gen)
     params = [up1.stage_params(), up2.stage_params(),
@@ -1604,14 +1651,19 @@ def train_batch(gen, b=2, size=512, nclass=21):
                 cutmix_box2=boxes())
 
 
-def train_bundle(cfg):
+def scaled_bundle(cfg):
+    """The run config's model with seeded random weights, every matrix of
+    the ViTs x0.05 and of a VLG decoder x0.2 (12 layers stay finite); a
+    conv encoder and a DeepLabV3+ head keep their init (BatchNorm
+    normalises them)."""
     from semivl_tpu_torch.models.builder import build_model
     bundle = build_model(cfg, dtype=torch.bfloat16, device='cuda', seed=0)
-    with torch.no_grad():   # weight scales that keep 12 layers finite
-        m = bundle.model
+    m = bundle.model
+    vlg = hasattr(m.decode_head, 'up1')
+    with torch.no_grad():
         for mod, s in ((m.backbone, 0.05), (m.clip_encoder, 0.05),
-                       (m.decode_head, 0.2)):
-            for prm in mod.parameters():
+                       (m.decode_head if vlg else None, 0.2)):
+            for prm in (mod.parameters() if mod is not None else ()):
                 if prm.ndim >= 2:
                     prm.mul_(s)
     return bundle
@@ -1676,24 +1728,6 @@ def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP):
 
 # ---------------------------------------------------------- phases 7-8
 
-def cityscapes_bundle(cfg):
-    """The full-width exp-44 model with seeded random weights, scaled as
-    the flagship's (12 layers stay finite); the conv encoder keeps its
-    init (BatchNorm normalises it)."""
-    from semivl_tpu_torch.models.builder import build_model
-    bundle = build_model(cfg, dtype=torch.bfloat16, device='cuda', seed=0)
-    with torch.no_grad():
-        m = bundle.model
-        for mod, s in ((m.backbone, 0.05), (m.clip_encoder, 0.05),
-                       (m.decode_head, 0.2)):
-            if mod is None:
-                continue
-            for prm in mod.parameters():
-                if prm.ndim >= 2:
-                    prm.mul_(s)
-    return bundle
-
-
 def run_cityscapes_eval():
     """exp 44's evaluation: ``sliding_window`` over one synthetic 1024x2048
     image, launch counts read around ``evaluate``."""
@@ -1704,7 +1738,7 @@ def run_cityscapes_eval():
     from semivl_tpu_torch.ops import fused_decoder as fd
     cfg = cityscapes_cfg()
     t0 = time.perf_counter()
-    bundle = cityscapes_bundle(cfg)
+    bundle = scaled_bundle(cfg)
     model = bundle.model
     evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
     ds = SynthImages(seed=0, sizes=((1024, 2048),), nclass=19)
@@ -1777,7 +1811,7 @@ def run_cityscapes_train():
     from semivl_tpu_torch.train.step import make_semivl_train_step
     cfg = cityscapes_train_cfg()
     t0 = time.perf_counter()
-    bundle = cityscapes_bundle(cfg)
+    bundle = scaled_bundle(cfg)
     model = bundle.model
     prms = list(model.parameters())
     log(f'cityscapes train: built the exp-44 training bundle in '
@@ -1862,8 +1896,8 @@ class PerCallCheck:
     several per cent from its float64 ones, as far as the limits, and a
     flipped bf16 rounding of the stored raw conv2, which GroupNorm
     amplifies, moves the whole backward of stage 2. ``faults``: each call is
-    rerun under DECODER_FAULTS, which must exceed the decoder's limit
-    (TINY_DEC_BWD_TOL, the tiny VLM's)."""
+    rerun under DECODER_FAULTS (or the given dict of them), which must
+    exceed the decoder's limit."""
 
     def __init__(self, bwd='whole', faults=False):
         from semivl_tpu_torch.ops import flash_attention as fa
@@ -1874,7 +1908,9 @@ class PerCallCheck:
                                             'heads_fwd', 'heads_bwd',
                                             'decoder_fwd', self.bwd_key)}
         self.decoder_calls = []
-        self.faults, self.fault_reads = faults, []
+        # True: every DECODER_FAULTS entry; a dict: those faults
+        self.faults = DECODER_FAULTS if faults is True else (faults or {})
+        self.fault_reads = []
 
     def note(self, key, err):
         w = self.worst[key]
@@ -1978,7 +2014,7 @@ class PerCallCheck:
                    f'leaf {max(noise.values()):.3e}; kernels vs the '
                    f'float32-sum reference (data): {fmt(rel(got, ref32))}')
             if self.faults:
-                for what, fault in DECODER_FAULTS.items():
+                for what, fault in self.faults.items():
                     with fault():
                         bad = max(rel(decoder_grads(kernels, inputs, params,
                                                     g), ref).values())
@@ -2755,14 +2791,12 @@ def write_voc_dataset(root, seed=0, counts=(('labeled', 2),
 
 
 def save_trained_weights(bundle, path):
-    """The weights phase 6 scaled (every matrix of the backbone, the
-    guidance encoder and the decoder) as an npz of state-dict names, the
-    trainer's ``init_param_overrides``."""
-    m = bundle.model
-    arrays = {f'{scope}.{n}': p.detach().float().cpu().numpy()
-              for scope in ('backbone', 'clip_encoder', 'decode_head')
-              for n, p in getattr(m, scope).named_parameters() if p.ndim >= 2}
-    np.savez(path, **arrays)
+    """Every matrix of the model's parameters (those ``scaled_bundle``
+    scales) as an npz of state-dict names, the trainer's
+    ``init_param_overrides``."""
+    np.savez(path, **{n: p.detach().float().cpu().numpy()
+                      for n, p in bundle.model.named_parameters()
+                      if p.ndim >= 2})
     return path
 
 
@@ -2805,12 +2839,14 @@ def eval_batches(cfg, indices):
                for i in indices)
 
 
-def with_eval(step_launches, steps, batches):
+def with_eval(step_launches, steps, batches, per_call=None):
     """Launches of ``steps`` training steps and an evaluation of
-    ``batches`` crop batches (each a forward: 14 attention, 2 decoder)."""
+    ``batches`` crop batches, each a forward (``per_call``: the flagship's
+    14 attention and 2 decoder launches by default)."""
+    per_call = per_call or dict(attention=14, decoder=2)
     expected = {k: steps * v for k, v in step_launches.items()}
-    expected['attention_fwd'] += 14 * batches
-    expected['decoder_fwd'] += 2 * batches
+    expected['attention_fwd'] += per_call['attention'] * batches
+    expected['decoder_fwd'] += per_call['decoder'] * batches
     return expected
 
 
@@ -3004,7 +3040,7 @@ def _worker_cityscapes(spec):
     else:
         rank, world, device = dist.setup_distributed()
     cfg = cityscapes_train_cfg()
-    bundle = cityscapes_bundle(cfg)
+    bundle = scaled_bundle(cfg)
     opt, _ = build_optimizer(cfg, bundle.model, TOTAL_ITERS)
     step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
     batch = cityscapes_rank_batch(rank)
@@ -3156,7 +3192,7 @@ def check_cityscapes_stats(ranks):
     from semivl_tpu_torch.configs import cityscapes_train_cfg
     from semivl_tpu_torch.train.step import (cutmix_box_from_coords,
                                              cutmix_image)
-    enc = cityscapes_bundle(cityscapes_train_cfg()).model.conv_encoder
+    enc = scaled_bundle(cityscapes_train_cfg()).model.conv_encoder
     init = {n: b.clone() for n, b in enc.named_buffers()}
 
     def passes(batches):
@@ -3370,6 +3406,386 @@ def run_across_cards(world):
     return readings
 
 
+# ------------------------------------------------------------ phase 15
+
+def launches_per_call(cfg):
+    """The kernel launches of one model call under the run config's model
+    (a launch serves the whole batch): the packed attention forward once
+    per ViT block and SemanticTransformer layer, the decoder forward twice
+    (a VLG head's two Up stages; a DeepLabV3+ head has none)."""
+    from semivl_tpu_torch.configs.models import get_model_config
+    model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
+    head = model['decode_head']
+    vlg = head['type'] == 'VLGHead'
+    return dict(attention=model['backbone'].get('num_layers', 12)
+                + (head.get('num_layers', 2) if vlg else 0),
+                decoder=2 if vlg else 0)
+
+
+def launches_per_step(cfg):
+    """A SemiVL step's launches derived from the run config: the forward
+    of the teacher pass and both student passes (``launches_per_call``), the
+    guidance encoder's blocks when the consistency loss is on; the
+    attention backward once per layer the loss reaches in each student
+    pass (a MaskCLIP ViT's last block feeds its attention output only to
+    the cls embedding, which no head reads; the timm ViT's last block feeds
+    the final maps); the decoder backward twice per student pass, on the
+    config's route (whole plane: tail and input; banded: passes A, B, C)."""
+    from semivl_tpu_torch.configs.models import get_model_config
+    model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
+    vit, head = model['backbone'], model['decode_head']
+    fwd = launches_per_call(cfg)
+    sem = fwd['attention'] - vit.get('num_layers', 12)
+    clip = 0
+    if cfg.get('clip_encoder') and cfg.get('maskclip_consistency_lambda'):
+        clip = get_model_config(cfg['clip_encoder'])['backbone'].get(
+            'num_layers', 12)
+    unread = vit['type'] == 'MaskClipVisionTransformer'
+    out = dict.fromkeys(EXPECTED_PER_STEP, 0)
+    out.update(attention_fwd=3 * fwd['attention'] + clip,
+               attention_bwd=2 * (vit.get('num_layers', 12) - unread + sem),
+               decoder_fwd=3 * fwd['decoder'])
+    if fwd['decoder']:
+        route = cfg.get('decoder_bwd', head.get('decoder_bwd', 'whole'))
+        for k in (('decoder_bwd_tail', 'decoder_bwd_input')
+                  if route == 'whole' else
+                  ('banded_pass_a', 'banded_pass_b', 'banded_pass_c')):
+            out[k] = 4
+    return out
+
+
+def run_ade_train():
+    """Phase 15 (a): exp 43's step at full width (ViT-B/16 + VLG over 150
+    class planes a crop, the guidance encoder with ``ade_single``, 1 + 1
+    512^2 crops, the whole-plane decoder backward): timed steps with the
+    launches ``launches_per_step`` derives, peak memory and a profile; then,
+    from the model as built, one step with every kernel call held to its
+    rounded reference on its own inputs, and each decoder-backward call
+    rerun with a planted fault that must fail its limit."""
+    from semivl_tpu_torch.configs import ade_train_cfg
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    cfg = ade_train_cfg()
+    expected = launches_per_step(cfg)
+    t0 = time.perf_counter()
+    bundle = scaled_bundle(cfg)
+    model = bundle.model
+    assert bundle.text_feats.shape == bundle.mcc_text_feats.shape == (150,
+                                                                      512)
+    log(f'ade train: built the exp-43 training bundle in '
+        f'{time.perf_counter() - t0:.1f} s; launches per step from the '
+        f'config {expected}')
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(8), b=1,
+                        size=512, nclass=150)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    step, launches, perf = run_train(cfg, bundle, batch, expected=expected)
+    prof = profile_step(step, batch)
+    del step
+    model.load_state_dict(state)
+    per_call = PerCallCheck(faults={
+        'conv1 dgrad without its top-left tap': conv1_dgrad_without_a_tap})
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in check_step(
+            batch, torch.Generator(device='cuda').manual_seed(9)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    tols = dict(PER_CALL_TOLS, decoder_bwd=STEP_DEC_BWD_TOL)
+    log('ade compare: per call, kernels vs rounded on the step\'s own '
+        'inputs (worst rel-L2, calls, tol): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), n, tols[k]] for k, (e, n) in
+             worst.items()}) + f'; planted fault reads '
+        f'{[(p, f"{bad:.3e}") for p, _, bad in per_call.fault_reads]}; '
+        f'loss terms {json.dumps(metrics)}')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert len(per_call.fault_reads) == 2   # both student passes
+    per_call.check(tols, absent=('heads_fwd', 'heads_bwd'))
+    return worst, launches, dict(perf, **prof)
+
+
+def run_ade_eval():
+    """Phase 15 (b): exp 43's evaluation of one synthetic 512x2048 image
+    (``zegclip_sliding_window``: 5 crops in batches of 4 + 1, 600 and 150
+    class planes), launches read around ``evaluate``; one crop batch
+    through the kernels and the plain versions; a profile of the image."""
+    from semivl_tpu_torch.configs import ade_cfg
+    from semivl_tpu_torch.evaluation.predict import (
+        Evaluator, _chunk_sizes, evaluate)
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    cfg = ade_cfg()
+    bundle = scaled_bundle(cfg)
+    model = bundle.model
+    evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
+    ds = SynthImages(seed=2, sizes=((512, 2048),), nclass=150)
+    s = ds.get(0)
+    coords = evaluator._zegclip_coords(512, 2048)
+    chunks = _chunk_sizes(len(coords))
+    assert len(coords) == 5 and chunks == [4, 1], (coords, chunks)
+    per_call = launches_per_call(cfg)
+    expected = {'attention': per_call['attention'] * len(chunks),
+                'heads': 0, 'decoder': per_call['decoder'] * len(chunks)}
+    evaluator.predict(s['img'][None], s['mask'].shape, cfg['eval_mode'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.heads_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    miou, iou = evaluate(evaluator, ds, cfg['eval_mode'], cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {'attention': fa.launches, 'heads': fa.heads_launches,
+                'decoder': fd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'ade eval: 1 image 512x2048, 5 crops in batches {chunks} (planes '
+        f'{[c * 150 for c in chunks]}): mIoU {miou:.4f} in {dt * 1e3:.1f} ms, '
+        f'peak memory {peak / 2**20:.1f} MiB; launches {launches} (expected '
+        f'{expected})')
+    assert np.isfinite(miou) and iou.shape == (150,)
+    assert launches == expected, (launches, expected)
+    img = torch.from_numpy(s['img']).cuda()
+    crops = torch.stack([img[y:y + 512, x:x + 512] for y, x in coords[:4]])
+    with torch.no_grad():
+        inp = evaluator._to_model_input(crops)
+        k_logits = model(inp, evaluator.text)
+        with mock.patch.object(fa, 'packed_attention',
+                               fa.packed_attention_plain), \
+                mock.patch.object(fd, 'fused_vlg_decoder',
+                                  _route_blind(fd.fused_vlg_decoder_plain)):
+            p_logits = model(inp, evaluator.text)
+    torch.cuda.synchronize()
+    assert k_logits.shape == (4, 150, 512, 512)
+    assert torch.isfinite(k_logits).all()
+    diff = (k_logits - p_logits).abs()
+    scale = p_logits.abs().max().item()
+    agree = (k_logits.argmax(1) == p_logits.argmax(1)).float().mean().item()
+    log(f'ade eval: crop batch {tuple(crops.shape)} (600 planes) kernels vs '
+        f'plain: max_abs_err {diff.max().item():.3e} mean_abs_err '
+        f'{diff.mean().item():.3e} logit scale {scale:.3f} argmax agreement '
+        f'{agree:.5f}')
+    assert diff.max().item() <= DEC_TOL * scale
+    prof = profile_image(evaluator, s, cfg)
+    return launches, dict(ms_per_image=dt * 1e3, peak_mib=peak / 2**20,
+                          **prof)
+
+
+COCO_HW, ADE_HW = (480, 640), (512, 683)
+
+
+def write_geometry_dataset(root, dataset, seed=0,
+                           counts=(('labeled', 1), ('unlabeled', 2),
+                                   ('val', 1))):
+    """A synthetic dataset at COCO's or ADE20K's geometry under ``root``:
+    JPEG images (COCO 640x480, its val image shorter than the crop; ADE
+    short side 512) and PNG label maps (COCO 0-80 with a 255 border; ADE
+    0-150, 0 being "other"); returns {kind: list path}."""
+    from PIL import Image
+    rs = np.random.RandomState(seed)
+    hw, top = (COCO_HW, 81) if dataset == 'coco' else (ADE_HW, 151)
+    for d in ('images', 'masks'):
+        os.makedirs(os.path.join(root, d), exist_ok=True)
+    paths = {}
+    for kind, n in counts:
+        lines = []
+        for i in range(n):
+            name = f'{kind}_{i}'
+            Image.fromarray(rs.randint(0, 256, hw + (3,), np.uint8)).save(
+                os.path.join(root, 'images', name + '.jpg'), quality=90)
+            mask = rs.randint(0, top, hw).astype(np.uint8)
+            if dataset == 'coco':
+                mask[:, :5] = 255
+            Image.fromarray(mask).save(os.path.join(root, 'masks',
+                                                    name + '.png'))
+            lines.append(f'images/{name}.jpg masks/{name}.png')
+        paths[kind] = os.path.join(root, f'{kind}.txt')
+        with open(paths[kind], 'w') as f:
+            f.write('\n'.join(lines) + '\n')
+    return paths
+
+
+def run_generated_cli(what, cfg, tmp, paths, overrides):
+    """The trainer CLI on a generated config pointed at ``paths``, for one
+    epoch from ``overrides``' weights: its launches must be 2 x
+    ``launches_per_step`` (two steps) plus its evaluation's (each crop
+    batch a ``launches_per_call``). Returns the launches and the wall."""
+    import yaml
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    from semivl_tpu_torch.tools import train as cli
+    cfg = dict(cfg, data_root=os.path.dirname(paths['val']),
+               labeled_id_path=paths['labeled'],
+               unlabeled_id_path=paths['unlabeled'],
+               val_id_path=paths['val'], epochs=1, debug_images=False,
+               init_param_overrides=overrides)
+    path = os.path.join(tmp, f'{what}.yaml')
+    with open(path, 'w') as f:
+        yaml.dump(cfg, f)
+    valset = SemiDataset(cfg, 'val', id_path=paths['val'])
+    batches = eval_batches(cfg, range(len(valset)))
+    expected = with_eval(launches_per_step(cfg), 2, batches,
+                         launches_per_call(cfg))
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        best, run = cli.main(['--config', path, '--seed', '0'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters()
+    finally:
+        os.chdir(cwd)
+    run = os.path.join(tmp, run)   # the run dir is under tmp's exp/
+    with open(os.path.join(run, 'metrics.jsonl')) as f:
+        metrics = {}
+        for line in f:
+            metrics.update(json.loads(line))
+    state = _ckpt(run)
+    shapes = [tuple(valset.get(i)['img'].shape[:2])
+              for i in range(len(valset))]
+    log(f'{what}: {cfg["name"]} for 2 steps and an evaluation of val images '
+        f'{shapes} ({batches} crop batches) in {wall:.1f} s; best mIoU '
+        f'{best:.4f}, loss_all {metrics["train/loss_all"]:.4f}; launches '
+        f'{launches} (expected {expected})')
+    assert launches == expected, (launches, expected)
+    assert state['iteration'] == 2
+    assert all(np.isfinite(v) for k, v in metrics.items()
+               if k.startswith('train/loss')), metrics
+    assert all(torch.isfinite(v).all() for v in state['model'].values())
+    return launches, wall
+
+
+DLV3P_MODELS = ('vlm-dlv3p-bn12-sk4-ftap-mcvitb',
+                'vlm-dlv3p-bn12-sk4-ft-mcvitb',
+                'vlm-dlv3p-bn11-sk4-ft-tvit-in1k')
+
+
+def run_dlv3p(name, tmp, voc_paths):
+    """Phase 15 (d) for one of exp 41's DeepLabV3+ models at full width: one
+    SemiVL step of 2 + 2 512^2 crops with every packed-attention call held
+    to its rounded reference on its own inputs (no decoder kernel and no
+    head-split kernel called), then ``run_train``'s step with the launches
+    ``launches_per_step`` derives (attention only), the head's BatchNorm
+    statistics changed, frozen leaves unchanged (``ftap``) or every
+    backbone leaf changed (``ft``); an evaluation of one VOC-geometry
+    image; for the timm row, the trainer CLI on its generated config for 2
+    steps from these weights."""
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    from semivl_tpu_torch.evaluation.predict import (
+        Evaluator, _chunk_sizes, evaluate)
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    cfg = next(c for c in generate_experiment_cfgs(41)
+               if c['model'] == 'mmseg.' + name and c['split'] == '92')
+    expected = launches_per_step(cfg)
+    t0 = time.perf_counter()
+    bundle = scaled_bundle(cfg)
+    model = bundle.model
+    frozen = [n for n, p in model.named_parameters() if not p.requires_grad]
+    assert bool(frozen) == ('ftap' in name), frozen[:3]
+    assert all(p.requires_grad for n, p in model.named_parameters()
+               if n.startswith('backbone.')) == ('ftap' not in name)
+    log(f'{name}: built in {time.perf_counter() - t0:.1f} s, '
+        f'{sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params, '
+        f'{len(frozen)} frozen leaves; launches per step from the config '
+        f'{expected}')
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(10))
+    per_call = PerCallCheck()
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in check_step(
+            batch, torch.Generator(device='cuda').manual_seed(11)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    del check_step, opt
+    log(f'{name}: per call, kernels vs rounded (worst rel-L2, calls): '
+        + json.dumps({k: [float(f'{e:.3e}'), n] for k, (e, n) in
+                      worst.items()}) + f'; loss terms {json.dumps(metrics)}')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    per_call.check(PER_CALL_TOLS, absent=('heads_fwd', 'heads_bwd',
+                                          'decoder_fwd', 'decoder_bwd'))
+    step, launches, perf = run_train(cfg, bundle, batch, steps=1,
+                                     expected=expected)
+    del step
+    n_stats = sum(1 for n, _ in model.named_buffers()
+                  if n.startswith('decode_head.'))
+    assert n_stats == 18, n_stats
+
+    evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
+    ds = SynthImages(seed=3, sizes=((512, 683),))
+    calls = len(_chunk_sizes(len(evaluator._zegclip_coords(512, 683))))
+    fwd = launches_per_call(cfg)
+    torch.cuda.synchronize()
+    fa.launches = fa.heads_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    miou, iou = evaluate(evaluator, ds, cfg['eval_mode'], cfg)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    ev = {'attention': fa.launches, 'heads': fa.heads_launches,
+          'decoder': fd.launches}
+    log(f'{name}: evaluation of one 512x683 image ({calls} crop batch): '
+        f'mIoU {miou:.4f} in {eval_ms:.1f} ms, launches {ev}')
+    assert np.isfinite(miou) and iou.shape == (21,)
+    assert ev == {'attention': fwd['attention'] * calls, 'heads': 0,
+                  'decoder': 0}, ev
+    out = dict(step=launches, eval=ev, perf=perf, per_call=worst)
+    if 'tvit' in name:
+        overrides = save_trained_weights(bundle,
+                                         os.path.join(tmp, 'tvit.npz'))
+        del bundle, model, evaluator
+        torch.cuda.empty_cache()
+        out['cli'], out['cli_wall_s'] = run_generated_cli(
+            'tvit cli', cfg, tmp, voc_paths, overrides)
+    return out
+
+
+def run_phase15(tmp, voc_paths, overrides):
+    """Phase 15 (see the module's docstring): exp 43's step and evaluation,
+    the CLI on exp 42's and 43's generated configs, exp 41's three
+    DeepLabV3+ models. Returns the launches by path and the readings."""
+    from semivl_tpu_torch.configs import (cityscapes_train_cfg,
+                                          flagship_train_cfg)
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    # the derivation reproduces the constants phases 6 and 8 assert
+    assert launches_per_step(flagship_train_cfg()) == EXPECTED_PER_STEP
+    assert launches_per_step(cityscapes_train_cfg()) == EXPECTED_CITYSCAPES
+    t_phase = time.perf_counter()
+    launches, readings = {}, {}
+    ade_err, launches['ade_train_step'], readings['ade_train'] = \
+        run_ade_train()
+    torch.cuda.empty_cache()
+    launches['ade_eval_image'], readings['ade_eval'] = run_ade_eval()
+    torch.cuda.empty_cache()
+    for exp, dataset in ((42, 'coco'), (43, 'ade')):
+        paths = write_geometry_dataset(os.path.join(tmp, dataset), dataset)
+        cfg = generate_experiment_cfgs(exp)[0]
+        key = f'{dataset}_cli_two_steps_and_eval'
+        launches[key], readings[f'{dataset}_cli_wall_s'] = \
+            run_generated_cli(f'{dataset} cli', cfg, tmp, paths, overrides)
+        torch.cuda.empty_cache()
+    for name in DLV3P_MODELS:
+        out = run_dlv3p(name, tmp, voc_paths)
+        short = name.replace('vlm-dlv3p-', '')
+        launches[f'dlv3p_{short}_step'] = out['step']
+        launches[f'dlv3p_{short}_eval_image'] = out['eval']
+        readings[f'dlv3p_{short}'] = out['perf']
+        if 'cli' in out:
+            launches['tvit_cli_two_steps_and_eval'] = out['cli']
+            readings['tvit_cli_wall_s'] = out['cli_wall_s']
+        torch.cuda.empty_cache()
+    readings['phase_s'] = time.perf_counter() - t_phase
+    log(f'phase 15: {readings["phase_s"]:.1f} s')
+    return ade_err, launches, readings
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -3391,6 +3807,7 @@ def main():
             'count': torch.cuda.device_count()}}))
         return 0
     from semivl_tpu_torch.ops import _build
+    t_run = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3410,7 +3827,10 @@ def main():
                            w=51, skips=(32, 32))
     dec_edge = check_decoder(torch.Generator().manual_seed(4), b=1, n=19,
                              h=31, w=28, skips=(32, 32))
+    dec_ade = check_decoder(torch.Generator().manual_seed(7), b=3, n=150)
     dec_tail, dec_input = check_decoder_bwd(torch.Generator().manual_seed(2))
+    ade_tail, ade_input = check_decoder_bwd(torch.Generator().manual_seed(8),
+                                            b=3, n=150)
     banded = check_banded_bwd(torch.Generator().manual_seed(5))
     torch.cuda.empty_cache()
     up_rows, up_launches, bench_rows = check_fused_up()   # phase 10
@@ -3421,7 +3841,7 @@ def main():
     from semivl_tpu_torch.configs import flagship_train_cfg
     cfg = flagship_train_cfg(512)
     t0 = time.perf_counter()
-    bundle = train_bundle(cfg)
+    bundle = scaled_bundle(cfg)
     batch = train_batch(torch.Generator(device='cuda').manual_seed(2))
     prms = list(bundle.model.parameters())
     log(f'train: built the training bundle in {time.perf_counter() - t0:.1f}'
@@ -3458,7 +3878,11 @@ def main():
             overrides, launches, trainer_launches, trainer_state, tmp.name,
             paths)
         del trainer_state
-    log(f'ranks: {json.dumps(multi)}')
+        log(f'ranks: {json.dumps(multi)}')
+        torch.cuda.empty_cache()
+        ade_err, new_launches, new_paths = run_phase15(tmp.name, paths,
+                                                       overrides)
+    log(f'phase 15: {json.dumps(new_paths)}')
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -3475,7 +3899,15 @@ def main():
                     replaces=replaces, launches=count, shape=shape,
                     step_rel_err=step_rel_err, **times(meas), **extra)
 
+    eval_keys = {'attention_fwd': 'attention', 'heads_fwd': 'heads',
+                 'decoder_fwd': 'decoder'}
+
     def paths(key, flagship_eval=None, cityscapes_eval=None, tiny_eval=None):
+        # phase 15's paths: steps and CLIs count every kernel, evaluations
+        # the forward ones
+        new = {name: (counts.get(eval_keys.get(key)) if 'eval_image' in name
+                      else counts[key])
+               for name, counts in new_launches.items()}
         return dict(launches_by_path=dict(
             flagship_eval=flagship_eval, flagship_train_step=launches[key],
             cityscapes_eval_image=cityscapes_eval,
@@ -3486,10 +3918,11 @@ def main():
             trainer_cli_two_gloo_ranks_per_rank=[
                 r[key] for r in multi_launches['gloo_two_ranks_voc']],
             cityscapes_step_two_gloo_ranks_per_rank=[
-                r[key] for r in multi_launches['gloo_two_ranks_cityscapes']]))
+                r[key] for r in multi_launches['gloo_two_ranks_cityscapes']],
+            **new))
 
     def worst(key):
-        return max(step_err[key][0], cs_err[key][0])
+        return max(step_err[key][0], cs_err[key][0], ade_err[key][0])
 
     kernels = [
         row('packed_attention_fwd', 'flash_attention.cu',
@@ -3499,6 +3932,9 @@ def main():
             'training step', worst('attention_fwd'),
             flagship_1025=times(attn['encoder']),
             cityscapes_edge_869=times(attn['cityscapes edge crop']),
+            semantic_l81=times(attn['semantic L=81']),
+            semantic_l150=times(attn['semantic L=150']),
+            timm_encoder_4x1025=times(attn['timm encoder']),
             **paths('attention_fwd', eval_launches['attention'],
                     cs_eval_launches['attention'])),
         row('packed_attention_bwd', 'flash_attention_heads.cu',
@@ -3506,6 +3942,8 @@ def main():
             cs_launches['attention_bwd'], attn_bwd['cityscapes encoder'],
             '(2, 2602, 768) 12 heads; launches per Cityscapes training step',
             worst('attention_bwd'), flagship_1025=times(attn_bwd['encoder']),
+            semantic_l81=times(attn_bwd['semantic L=81']),
+            semantic_l150=times(attn_bwd['semantic L=150']),
             **paths('attention_bwd')),
         row('decoder_stage_fwd', 'fused_decoder.cu',
             'semivl_tpu/ops/fused_decoder.py:459', cs_launches['decoder_fwd'],
@@ -3516,6 +3954,7 @@ def main():
             planted_faults=dec_cs['planted_faults'],
             flagship_p42_32x32=times(dec), voc_step_p126_32x32=times(dec_voc),
             cityscapes_edge_p19_31x28=times(dec_edge),
+            ade_step_p450_32x32=times(dec_ade),
             wide_widths=wide,
             **paths('decoder_fwd', eval_launches['decoder'],
                     cs_eval_launches['decoder'])),
@@ -3524,20 +3963,24 @@ def main():
             launches['decoder_bwd_tail'], dec_tail,
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
-            'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            'the Cityscapes banded route)', max(step_err['decoder_bwd'][0],
+                                               ade_err['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_tail['whole_bwd_ms'],
             whole_bwd_device_ms=dec_tail['whole_bwd_device_ms'],
+            ade_p450=times(ade_tail),
             **paths('decoder_bwd_tail')),
         row('decoder_stage_bwd_input', 'fused_decoder_bwd.cu',
             'semivl_tpu/ops/fused_decoder.py:728',
             launches['decoder_bwd_input'], dec_input,
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
-            'the Cityscapes banded route)', step_err['decoder_bwd'][0],
+            'the Cityscapes banded route)', max(step_err['decoder_bwd'][0],
+                                               ade_err['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_input['whole_bwd_ms'],
             whole_bwd_device_ms=dec_input['whole_bwd_device_ms'],
+            ade_p450=times(ade_input),
             **paths('decoder_bwd_input')),
     ]
     for k, line in (('A', 168), ('B', 318), ('C', 414)):
@@ -3576,6 +4019,7 @@ def main():
         products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
         cases={name: times(r) for name, r in up_rows.items()},
         bench=bench_rows, launches_by_path=dict(fused_up_bench=up_launches)))
+    log(f'run: phases 1-15 in {time.perf_counter() - t_run:.1f} s')
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

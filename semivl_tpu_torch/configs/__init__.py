@@ -1,12 +1,14 @@
 """Run configs: the values of the flagship evaluation and training step
-(reference exp 40, Pascal VOC), of the Cityscapes model (exp 44) and of the
-tiny VLM the JAX package's demo trains."""
+(reference exp 40, Pascal VOC; exp 42, COCO; exp 43, ADE20K), of the
+Cityscapes model (exp 44) and of the tiny VLM the JAX package's demo
+trains."""
 
 from semivl_tpu_torch.configs.models import get_model_config
 
-__all__ = ['cityscapes_cfg', 'cityscapes_train_cfg', 'flagship_cfg',
-           'flagship_train_cfg', 'get_model_config', 'tiny_cfg',
-           'tiny_train_cfg']
+__all__ = ['ade_cfg', 'ade_train_cfg', 'cityscapes_cfg',
+           'cityscapes_train_cfg', 'coco_cfg', 'coco_train_cfg',
+           'flagship_cfg', 'flagship_train_cfg', 'get_model_config',
+           'tiny_cfg', 'tiny_train_cfg']
 
 
 def flagship_cfg(crop_size=512):
@@ -66,6 +68,50 @@ def flagship_train_cfg(crop_size=512):
         warmup_ratio=1e-6,
     )
     return cfg
+
+
+def coco_cfg(crop_size=512):
+    """The reference exp-42 run config, as far as inference reads it: the
+    flagship model on COCO's 81 classes with the ``single`` text and
+    ``zegclip_sliding_window`` at stride 426; exp 42 sets ``img_scale``
+    None, so val images keep their size and those smaller than the crop
+    take the evaluator's host route (JAX
+    ``semivl_tpu/configs/experiments.py:362-376``)."""
+    return dict(flagship_cfg(crop_size), exp=42, dataset='coco', nclass=81)
+
+
+def ade_cfg(crop_size=512):
+    """The reference exp-43 run config, as far as inference reads it: the
+    flagship model on ADE20K's 150 classes (label 0 is "other", remapped to
+    ignore by ``reduce_zero_label``) with the ``single`` text and
+    ``zegclip_sliding_window`` at stride 426 (JAX
+    ``semivl_tpu/configs/experiments.py:378-391``)."""
+    return dict(flagship_cfg(crop_size), exp=43, dataset='ade', nclass=150,
+                reduce_zero_label=True)
+
+
+def _large_vocab_train_cfg(cfg):
+    """Exp 42's and 43's SemiVL step on top of their inference config: the
+    flagship's training values with a per-GPU batch of 1 labeled + 1
+    unlabeled crop (the reference runs 8 GPUs x 1), AdamW lr 4e-4 with the
+    backbone at x0.001, and the guidance encoder's text the decoder's
+    (``single``); the decoder's backward on the whole-plane kernels."""
+    train = flagship_train_cfg(cfg['crop_size'])
+    train['optimizer']['lr'] = 4e-4
+    train['optimizer']['paramwise_cfg']['custom_keys']['backbone'] = dict(
+        lr_mult=0.001)
+    return dict(train, **cfg, batch_size=1, mcc_text='single',
+                decoder_bwd='whole')
+
+
+def coco_train_cfg(crop_size=512):
+    """The exp-42 run config as the SemiVL training step reads it."""
+    return _large_vocab_train_cfg(coco_cfg(crop_size))
+
+
+def ade_train_cfg(crop_size=512):
+    """The exp-43 run config as the SemiVL training step reads it."""
+    return _large_vocab_train_cfg(ade_cfg(crop_size))
 
 
 def cityscapes_cfg(crop_size=801):

@@ -2,11 +2,11 @@
 ``semivl_tpu/configs/models.py``).
 
 Plain dicts mirroring the reference's mmseg config files; carried here are
-the flagship SemiVL model (VOC), its Cityscapes variant with the ResNet skip
-encoder, the frozen MaskCLIP guidance encoder of both, and the JAX
-package's tiny VLM family (``tiny-vlm-test`` and its guidance encoder
-``tiny-mcvit-test``), whose heads of 16 and 32 take the head-split
-attention kernels.
+the flagship SemiVL model (VOC, COCO, ADE20K), its Cityscapes variant with
+the ResNet skip encoder, exp 41's three DeepLabV3+ ablation models, the
+frozen MaskCLIP guidance encoder, and the JAX package's tiny VLM family
+(``tiny-vlm-test`` and its guidance encoder ``tiny-mcvit-test``), whose
+heads of 16 and 32 take the head-split attention kernels.
 """
 
 import copy
@@ -96,6 +96,51 @@ def _vlm_vlg_skr04(img_size=512):
     )
 
 
+def _vlm_dlv3p(img_size=512, freeze=True, timm=False):
+    """The DeepLabV3+ head ablations of exp 41 (reference
+    configs/_base_/models/vlm-dlv3p-bn12-sk4-ft{ap}-mcvitb.py and
+    vlm-dlv3p-bn11-sk4-ft-tvit-in1k.py; JAX
+    ``semivl_tpu/configs/models.py:104-141``): the head on the MaskCLIP
+    ViT's layer-4 map and dense CLIP embedding (``ftap``: only attention and
+    positional embedding train; ``ft``: the whole backbone) or on a timm
+    ViT-B/16's layer-4 and layer-11 maps."""
+    if timm:
+        backbone = dict(
+            type='TIMMVisionTransformer',
+            variant='vit_base_patch16_224',
+            timm_load_pretrained=True,
+            drop_path_rate=0.1,
+            img_size=img_size,
+            out_indices=[4, 11],
+            pretrained='pretrained/timm_vitb16_in21k',
+        )
+        in_channels = 768
+    else:
+        backbone = _maskclip_vitb16(img_size, out_indices=[4, 12])
+        in_channels = 512
+    return dict(
+        img_size=img_size,
+        model=dict(
+            type='VLM',
+            pretrained=None if timm else 'pretrained/clip_vitb16_backbone',
+            backbone=backbone,
+            decode_head=dict(
+                type='DLV3PHead',
+                img_size=img_size,
+                in_channels=in_channels,
+                channels=256,
+                c1_in_channels=768,
+                c1_channels=48,
+                dilations=(6, 12, 18),
+                num_classes=21,
+                align_corners=False,
+            ),
+            freeze_backbone=freeze,
+            exclude_keys=['attn', 'pos_embed'] if freeze else None,
+        ),
+    )
+
+
 def _mcvit16(img_size=512):
     """Frozen MaskCLIP guidance encoder (reference
     configs/_base_/models/mcvit16.py): out_indices None -> only the dense
@@ -144,6 +189,12 @@ _MODEL_CONFIGS = {
         img_size=img_size, backbone=_tiny_vit(img_size, out_indices=None)),
     'vlm-vlg-aspp-s2p4-sk04-ftap-mcvitb': _vlm_vlg_sk04,
     'vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb': _vlm_vlg_skr04,
+    'vlm-dlv3p-bn12-sk4-ftap-mcvitb':
+        lambda img_size=512: _vlm_dlv3p(img_size, freeze=True),
+    'vlm-dlv3p-bn12-sk4-ft-mcvitb':
+        lambda img_size=512: _vlm_dlv3p(img_size, freeze=False),
+    'vlm-dlv3p-bn11-sk4-ft-tvit-in1k':
+        lambda img_size=512: _vlm_dlv3p(img_size, freeze=False, timm=True),
     'mcvit16': _mcvit16,
 }
 

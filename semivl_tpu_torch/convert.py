@@ -9,8 +9,13 @@ exporter (reference tools/convert_to_torch.py):
 - conv kernels (H, W, I, O) become (O, I, H, W);
 - transpose-conv kernels (kH, kW, I, O) become (I, O, kH, kW);
 - norm ``scale``/``bias`` become ``weight``/``bias``;
-- the conv encoder's BatchNorm statistics (the JAX ``batch_stats``
-  collection, ``mean``/``var``) become ``running_mean``/``running_var``.
+- BatchNorm statistics (the JAX ``batch_stats`` collection of the conv
+  encoder and of the DeepLabV3+ head, ``mean``/``var``) become
+  ``running_mean``/``running_var``.
+
+The MaskCLIP and timm ViTs, the VLG and DeepLabV3+ heads and the ResNetV1c
+conv encoder are covered; the DeepLabV3+ head and the timm ViT keep the
+flax scope names (``aspp.b0.conv``, ``layers.3.ln1``, ``norm``).
 
 Only numpy is needed to build the state dict. ``load_pretrained_into``
 loads a converted CLIP backbone tree (``load_flax_npz``: the npz that
@@ -70,6 +75,18 @@ def export_maskclip_vit(out, p, prefix='backbone.'):
         # CLIP's visual projection, stored as a 1x1 conv by the reference
         out[prefix + 'proj.weight'] = _f(
             p['proj']['kernel']).T[:, :, None, None]
+    i = 0
+    while f'layers_{i}' in p:
+        _block(out, f'{prefix}layers.{i}.', p[f'layers_{i}'])
+        i += 1
+
+
+def export_timm_vit(out, p, prefix='backbone.'):
+    """JAX ``TIMMVisionTransformer`` params -> ``models.timm_vit`` names."""
+    out[prefix + 'cls_token'] = _f(p['cls_token'])
+    out[prefix + 'pos_embed'] = _f(p['pos_embed'])
+    _conv(out, prefix + 'patch_embed', p['patch_embed'])
+    _norm(out, prefix + 'norm', p['norm'])
     i = 0
     while f'layers_{i}' in p:
         _block(out, f'{prefix}layers.{i}.', p[f'layers_{i}'])
@@ -168,13 +185,41 @@ def export_resnet_v1c(out, p, s=None, prefix='conv_encoder.'):
                      p[key]['downsample'], stats(key, 'downsample'))
 
 
+def export_dlv3p_head(out, p, s=None, prefix='decode_head.'):
+    """JAX ``DLV3PHead`` params ``p`` and batch statistics ``s`` (None: the
+    parameters only) -> ``models.dlv3p_head`` names: every ``ConvBNReLU``
+    as ``<scope>.conv`` / ``<scope>.bn``, the ``classifier`` conv."""
+    def unit(key, *path):
+        node, stats = p, s
+        for k in path:
+            node = node[k]
+            stats = None if stats is None else stats[k]
+        _conv_bn(out, f'{prefix}{key}.conv', f'{prefix}{key}.bn', node,
+                 stats)
+
+    for name in sorted(p['aspp']):
+        unit(f'aspp.{name}', 'aspp', name)
+    for name in ('c1_proj', 'fuse1', 'fuse2'):
+        unit(name, name)
+    _conv(out, prefix + 'classifier', p['classifier'])
+
+
 def vlm_state_dict(params, batch_stats=None):
     """JAX VLM params ({'backbone', 'decode_head'} and, in a training tree,
     'clip_encoder'; in the Cityscapes model 'conv_encoder') and the
-    ``batch_stats`` collection -> numpy state dict."""
+    ``batch_stats`` collection -> numpy state dict. The backbone is the
+    timm ViT when it has a ``norm`` scope, the head the DeepLabV3+ one when
+    it has no ``conv1``."""
     out = {}
-    export_maskclip_vit(out, params['backbone'])
-    export_vlg_head(out, params['decode_head'])
+    if 'norm' in params['backbone']:
+        export_timm_vit(out, params['backbone'])
+    else:
+        export_maskclip_vit(out, params['backbone'])
+    if 'conv1' in params['decode_head']:
+        export_vlg_head(out, params['decode_head'])
+    else:
+        export_dlv3p_head(out, params['decode_head'],
+                          (batch_stats or {}).get('decode_head'))
     if 'conv_encoder' in params:
         export_resnet_v1c(out, params['conv_encoder'],
                           None if batch_stats is None
@@ -186,7 +231,7 @@ def vlm_state_dict(params, batch_stats=None):
 
 
 def load_jax_params(model, params, batch_stats=None):
-    """Load JAX VLM params (and the conv encoder's ``batch_stats``) into
+    """Load JAX VLM params (and the BatchNorm ``batch_stats``) into
     ``model`` (a ``models.vlm.VLM``) with ``strict=True``: every key of the
     model must be given, and no other."""
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))

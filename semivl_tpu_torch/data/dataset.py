@@ -11,9 +11,10 @@ Equivalent of the reference ``SemiDataset``
 
 Randomness is an explicit per-sample RandomState derived from
 (seed, epoch, index) so multi-host sharding stays deterministic. A copy of
-``semivl_tpu/data/dataset.py`` (with its own copy of the Pascal and
-Cityscapes split lists under ``assets/splits/``): the same samples, bit
-for bit.
+``semivl_tpu/data/dataset.py`` (with its own copy of the Pascal,
+Cityscapes, COCO and ADE20K split lists under ``assets/splits/``; COCO's
+carry only the labeled lists, as JAX's do, so a COCO run names its
+``unlabeled_id_path``): the same samples, bit for bit.
 """
 
 import math

@@ -1,7 +1,11 @@
 """Model factory (counterpart of ``semivl_tpu/models/builder.py``), for the
-VLGHead / MaskClipViT family (the VOC flagship, the Cityscapes model with
-its ResNetV1c skip encoder and the tiny test VLM) and its frozen guidance
-encoder."""
+VLGHead / MaskClipViT family (the flagship on VOC, COCO and ADE20K, the
+Cityscapes model with its ResNetV1c skip encoder and the tiny test VLM),
+exp 41's DeepLabV3+ models (on the MaskCLIP ViT or a timm ViT) and the
+frozen guidance encoder. JAX's builder also clones a VLG model into a
+forward-only variant for its fused Pallas decoder (builder.py:240-259);
+the port's kernels serve both directions from one module, so it builds one
+model for every head."""
 
 import dataclasses
 import math
@@ -33,8 +37,9 @@ class ModelBundle:
 def is_trainable(name, freeze_backbone, exclude_keys):
     """The freeze rule of JAX ``train/optim.py::trainable_mask`` on a
     parameter name: ``clip_encoder.*`` is always frozen; with
-    ``freeze_backbone``, ``backbone.*`` is frozen unless one of
-    ``exclude_keys`` occurs in the name (reference vlm.py:80-93)."""
+    ``freeze_backbone`` (the ``ftap`` models), ``backbone.*`` is frozen
+    unless one of ``exclude_keys`` occurs in the name (reference
+    vlm.py:80-93); without it (``ft``) everything else trains."""
     if name.startswith('clip_encoder'):
         return False
     if freeze_backbone and name.startswith('backbone'):
@@ -69,9 +74,10 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     training configs) it adds the frozen guidance encoder and its text.
     The weights are random from ``seed`` (load trained ones with
     ``convert.load_jax_params``); parameters are float32, computation runs
-    in ``dtype``; frozen parameters have ``requires_grad=False``; the conv
-    encoder's BatchNorm running statistics are buffers (the JAX
-    ``batch_stats`` collection) and its parameters stay trainable.
+    in ``dtype``; frozen parameters have ``requires_grad=False``; the
+    BatchNorm running statistics of the conv encoder and of a DeepLabV3+
+    head are buffers (the JAX ``batch_stats`` collection) and their
+    parameters stay trainable.
     ``cfg['model_args']['renorm_clip_img']`` renormalises the ViT inputs to
     CLIP statistics, ``cfg['decoder_bwd']`` ('whole' or 'banded') routes
     the decoder backward and ``cfg['attention_impl']`` ('auto', 'xla' or

@@ -1,5 +1,6 @@
-"""ResNetV1c skip encoder of the Cityscapes model (counterpart of
-``semivl_tpu/models/resnet.py::ResNetV1c``).
+"""ResNetV1c skip encoder of the Cityscapes model and the conv + BatchNorm
++ ReLU unit it shares with the DeepLabV3+ head (counterparts of
+``semivl_tpu/models/resnet.py::ResNetV1c`` and ``::ConvBNReLU``).
 
 mmseg's ResNetV1c as the VLG ``conv_encoder`` (reference
 configs/_base_/models/vlm-vlg-aspp-s2p4-skr04-ftap-mcvitb.py:50-60): the
@@ -99,13 +100,30 @@ class Bottleneck(nn.Module):
         return F.relu(out + identity).to(dt)
 
 
-def _conv_bn(x, conv, bn, train, relu=False, stride=1):
-    """conv in x's dtype -> BatchNorm (float32) -> optional ReLU, in x's
-    dtype."""
-    pad = (conv.kernel_size[0] - 1) // 2
-    y = bn(F.conv2d(x, conv.weight.to(x.dtype), stride=stride, padding=pad),
-           train).to(x.dtype)
+def _conv_bn(x, conv, bn, train, relu=False, stride=1, dilation=1):
+    """conv in x's dtype (padding (k - 1) / 2 * dilation) -> BatchNorm
+    (float32) -> optional ReLU, in x's dtype."""
+    pad = (conv.kernel_size[0] - 1) // 2 * dilation
+    y = bn(F.conv2d(x, conv.weight.to(x.dtype), stride=stride, padding=pad,
+                    dilation=dilation), train).to(x.dtype)
     return F.relu(y) if relu else y
+
+
+class ConvBNReLU(nn.Module):
+    """A bias-free k x k convolution (stride, dilation) -> ``BatchNorm`` ->
+    ReLU (unless ``relu=False``) over NCHW, named ``conv`` and ``bn`` as the
+    flax module's scopes; the output is in the input's dtype."""
+
+    def __init__(self, cin, cout, kernel=3, stride=1, dilation=1,
+                 relu=True):
+        super().__init__()
+        self.stride, self.dilation, self.relu = stride, dilation, relu
+        self.conv = nn.Conv2d(cin, cout, kernel, bias=False)
+        self.bn = BatchNorm(cout)
+
+    def forward(self, x, train=False):
+        return _conv_bn(x, self.conv, self.bn, train, relu=self.relu,
+                        stride=self.stride, dilation=self.dilation)
 
 
 class ResNetV1c(nn.Module):

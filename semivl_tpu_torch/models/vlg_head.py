@@ -181,12 +181,15 @@ class VLGHead(nn.Module):
         self.up2 = Up(up_channels[0], up_channels[1], skip_channels[1])
         self.head = nn.Conv2d(up_channels[1], 1, 3, padding=1)
 
-    def forward(self, feats, text_feats, conv_feats=None, output_size=None):
+    def forward(self, feats, text_feats, conv_feats=None, output_size=None,
+                train=False):
         """feats: NHWC maps (pyramid..., dense CLIP embedding last);
         text_feats: (N, Ct) or (B, N, Ct); conv_feats: the conv encoder's
         NHWC maps, the later skips with ``skip_from_conv_feat`` (reference
-        vlg_head.py:202-206). Returns float32 (B, num_classes, out_h, out_w)
-        logits."""
+        vlg_head.py:202-206); ``train`` is taken and ignored, as JAX's head
+        does (GroupNorm has no train mode). Returns float32 (B, num_classes,
+        out_h, out_w) logits."""
+        del train
         dt = self.dtype
         img_feats = feats[-1]
         skip_feats = list(feats[:-1])[::-1]

@@ -2,10 +2,11 @@
 
 CLIP encoder + VLG decoder, plus the frozen MaskCLIP guidance encoder
 (``clip_encoder``) of training and, in the Cityscapes model, the ResNetV1c
-skip encoder (``conv_encoder``). Text embeddings are arguments. Feature
-perturbation (channel dropout on the encoder's feature maps) takes an
-explicit ``torch.Generator``; ``need_fp`` runs one decoder pass over the
-clean batch and the perturbed slice together (reference
+skip encoder (``conv_encoder``); exp 41's ablation models put a DeepLabV3+
+head (BatchNorm) on the MaskCLIP ViT or on a timm ViT. Text embeddings are
+arguments. Feature perturbation (channel dropout on the encoder's feature
+maps) takes an explicit ``torch.Generator``; ``need_fp`` runs one decoder
+pass over the clean batch and the perturbed slice together (reference
 model/builder.py:56-102). With ``renorm_clip_img`` the ViT and the guidance
 encoder see the image renormalised from ImageNet to CLIP statistics; the
 conv encoder sees it as given (reference vlm.py:69-78, 112-123).
@@ -16,7 +17,9 @@ import torch
 from torch import nn
 
 from semivl_tpu_torch.models.clip_vit import MaskClipViT
+from semivl_tpu_torch.models.dlv3p_head import DLV3PHead
 from semivl_tpu_torch.models.resnet import ResNetV1c
+from semivl_tpu_torch.models.timm_vit import TIMMVisionTransformer
 from semivl_tpu_torch.models.vlg_head import VLGHead
 from semivl_tpu_torch.ops.dropout import dropout2d
 from semivl_tpu_torch.ops.resize import device_constant, resize
@@ -49,6 +52,12 @@ def build_backbone(cfg, dtype):
                          num_stages=cfg.get('num_stages', 1),
                          out_indices=tuple(cfg.get('out_indices', (0,))),
                          dtype=dtype)
+    if cfg['type'] == 'TIMMVisionTransformer':
+        # drop_path_rate: JAX applies it only under stochastic=True, which
+        # the VLM never passes (models/timm_vit.py)
+        return TIMMVisionTransformer(
+            img_size=(cfg['img_size'], cfg['img_size']),
+            out_indices=tuple(cfg.get('out_indices', (4, 11))), dtype=dtype)
     if cfg['type'] != 'MaskClipVisionTransformer':
         raise ValueError(f'Unknown backbone type {cfg["type"]!r}')
     keys = ('patch_size', 'in_channels', 'embed_dims', 'num_layers',
@@ -60,6 +69,12 @@ def build_backbone(cfg, dtype):
 
 
 def build_head(cfg, dtype):
+    if cfg['type'] == 'DLV3PHead':
+        keys = ('in_channels', 'channels', 'c1_in_channels', 'c1_channels',
+                'dilations', 'align_corners')
+        return DLV3PHead(img_size=cfg['img_size'],
+                         num_classes=cfg['num_classes'], dtype=dtype,
+                         **{k: cfg[k] for k in keys if k in cfg})
     if cfg['type'] != 'VLGHead':
         raise ValueError(f'Unknown head type {cfg["type"]!r}')
     keys = ('text_in_channels', 'text_channels', 'up_channels',
@@ -113,7 +128,8 @@ class VLM(nn.Module):
     def extract_feat(self, img, train=False):
         """(feats tuple, global_emb, conv_feats) — reference
         vlm.py:112-123; ``train`` puts the conv encoder's BatchNorm in
-        train mode."""
+        train mode (the backbone has no train mode: JAX never passes it
+        ``stochastic``)."""
         out = self.backbone(self._renorm(img))
         conv_feats = None
         if self.conv_encoder is not None:
@@ -145,7 +161,8 @@ class VLM(nn.Module):
                     f[b // 2:], self.fp_rate, generator)])
                     for f in conv_feats]
         logits = self.decode_head(feats, text_feats, conv_feats,
-                                  output_size=tuple(img.shape[1:3]))
+                                  output_size=tuple(img.shape[1:3]),
+                                  train=train)
         if need_fp:
             return logits[:b], logits[b:]
         return logits

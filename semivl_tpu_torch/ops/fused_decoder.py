@@ -348,6 +348,21 @@ def _head_weight(head, dt):
             head['bias'].float().contiguous())
 
 
+# The stage kernels' per-plane passes (GroupNorm, its backward, the head
+# conv) put the plane on gridDim.y, which CUDA bounds at 65535; every
+# element index is 64-bit (P C H W at the largest plane count the port
+# hands them, ADE's 600-plane evaluation chunk, is 6.3e8 in stage 2).
+MAX_PLANES = 65535
+
+
+def check_planes(planes, what='fused_vlg_decoder kernel'):
+    """Refuse, by name and before any launch, a plane count the stage
+    kernels' grids cannot hold (``MAX_PLANES``)."""
+    if planes > MAX_PLANES:
+        raise ValueError(f'{what} takes at most {MAX_PLANES} planes (B x '
+                         f'classes; CUDA gridDim.y), got {planes}')
+
+
 def _check_widths(cin, cout, gn_in=False, what='fused_vlg_decoder kernel'):
     """What the stage kernels refuse of a stage's widths, by name: what
     JAX's decoder refuses, an output width (and with ``gn_in``, an input
@@ -392,6 +407,7 @@ def _check(x, skip, p, what='fused_vlg_decoder kernel', gn_in=None):
     if p['up_weight'].shape[0] != cin or \
             p['conv1_weight'].shape[1] != cu + cs:
         raise ValueError('stage weights do not match the input channels')
+    check_planes(pl, what)
     _check_widths(cin, cout, gn_in is not None, what)
     if cout % 16:
         raise ValueError(f'{what} runs Cout {cout} in GroupNorm\'s kernel '
@@ -942,6 +958,7 @@ def fused_vlg_decoder(x, skip1, skip2, params1, params2, head_params,
     if not x.is_cuda and not (grad and bwd == 'banded'):
         return fused_vlg_decoder_plain(x, skip1, skip2, params1, params2,
                                        head_params)
+    check_planes(x.shape[0])
     for p, cin in ((params1, x.shape[1]),
                    (params2, params1['conv2_weight'].shape[0])):
         _check_widths(cin, p['conv2_weight'].shape[0], p is params2)

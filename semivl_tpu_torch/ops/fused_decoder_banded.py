@@ -200,8 +200,10 @@ def _dims(pl, cin, h, w, b, cs, cu, cout, pitch=0, skip_half=True,
 
 
 def _check_stored(**tensors):
-    """The spilled planes a pass reads: bf16, contiguous, on the card."""
+    """The spilled planes a pass reads: bf16, contiguous, on the card, at
+    most ``fused_decoder.MAX_PLANES`` of them."""
     for name, t in tensors.items():
+        fd.check_planes(t.shape[0], f'banded pass ({name})')
         if not t.is_cuda or t.dtype != torch.bfloat16 or \
                 not t.is_contiguous():
             raise ValueError(f'{name} must be a contiguous bf16 CUDA '

@@ -10,7 +10,10 @@ the decoder's text) and ``voc12_wbg_concept4_single`` (98 concepts of the
 21 classes, the guidance labels' text, aggregated back to classes by a
 max); for Cityscapes exp 44 ``cityscapes_conceptavg3_single`` (19 rows,
 each the mean of a class's concept embeddings: the decoder's text) and
-``cityscapes_concept3_single`` (54 concepts, the guidance labels' text).
+``cityscapes_concept3_single`` (54 concepts, the guidance labels' text);
+for COCO exp 42 ``coco_single`` (81 rows) and for ADE20K exp 43
+``ade_single`` (150 rows), each the decoder's and the guidance labels'
+text.
 """
 
 import os
@@ -24,7 +27,8 @@ _ASSET_DIR = os.path.join(
     os.path.dirname(os.path.dirname(__file__)), 'assets', 'text_embedding')
 
 # Dataset key -> embedding asset prefix (reference model/builder.py:119-124).
-EMB_DATASET_PREFIX = {'pascal': 'voc12_wbg', 'cityscapes': 'cityscapes'}
+EMB_DATASET_PREFIX = {'pascal': 'voc12_wbg', 'cityscapes': 'cityscapes',
+                      'coco': 'coco', 'ade': 'ade'}
 
 
 def text_embedding_path(dataset, variant):

@@ -67,14 +67,14 @@ from semivl_tpu_torch.version import __version__
 METRIC_WINDOW = 100   # steps between metric fetches (JAX loop.py:488)
 
 
-PORTED_DATASETS = ('pascal', 'cityscapes')   # split lists and text here
+PORTED_DATASETS = ('pascal', 'cityscapes', 'coco', 'ade')   # lists, text
 
 
 def _refuse_unported(cfg):
-    """What the port's loop does not run yet, refused by name: a method
-    other than 'semivl' (``supervised``, ``unimatch``), the COCO and ADE
-    datasets (their split lists and text embeddings wait with their
-    flagships) and the parameter EMA (the step refuses it too)."""
+    """What the port's loop does not run yet, refused by name: a dataset
+    without split lists and text embeddings here, a method other than
+    'semivl' (``supervised``, ``unimatch``) and the parameter EMA (the step
+    refuses it too)."""
     if cfg['dataset'] not in PORTED_DATASETS:
         raise NotImplementedError(f'dataset {cfg["dataset"]!r} is not ported '
                                   f'to the PyTorch trainer ({PORTED_DATASETS})')

@@ -7,10 +7,12 @@ teacher pseudo-labels for the mixed-in images, MaskCLIP guidance labels from
 the frozen encoder, student pass 1 on ``[img_x | img_w]`` with feature
 perturbation of the w half, student pass 2 on ``[s1 | s2]``, the weighted
 loss mix, one backward and one AdamW update of the trainable parameters.
-A model with BatchNorm (the Cityscapes conv encoder) runs it in eval mode
-in the teacher pass and in train mode in both student passes, whose
+A model with BatchNorm (the Cityscapes conv encoder, exp 41's DeepLabV3+
+head) runs it in eval mode in the teacher pass (``pleval``: the running
+statistics) and in train mode in both student passes, whose
 running-statistic updates chain (pass 2 starts from pass 1's), as the JAX
-step threads ``batch_stats`` (step.py:293-323).
+step threads ``batch_stats`` (step.py:293-323): the head's statistics
+come from ``[x | w | perturbed w]`` in pass 1 and ``[s1 | s2]`` in pass 2.
 
 Inside a process group (``parallel.dist``) each rank takes its own rows of
 the global batch, as the JAX step does under ``shard_map`` over ``data``:

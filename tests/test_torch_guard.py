@@ -13,7 +13,8 @@ import pytest
 import torch
 
 import semivl_tpu_torch
-from semivl_tpu_torch.configs import (cityscapes_cfg, cityscapes_train_cfg,
+from semivl_tpu_torch.configs import (ade_train_cfg, cityscapes_cfg,
+                                      cityscapes_train_cfg, coco_train_cfg,
                                       flagship_cfg, flagship_train_cfg,
                                       tiny_cfg, tiny_train_cfg)
 from semivl_tpu_torch.ops import _build
@@ -48,7 +49,9 @@ def test_import_loads_no_jax():
                          env={**os.environ, 'PYTHONPATH': ROOT}).stdout
     loaded = out.split()
     for m in ('semivl_tpu_torch.evaluation.predict',
+              'semivl_tpu_torch.models.dlv3p_head',
               'semivl_tpu_torch.models.resnet',
+              'semivl_tpu_torch.models.timm_vit',
               'semivl_tpu_torch.ops.attention',
               'semivl_tpu_torch.ops.fused_decoder_banded',
               'semivl_tpu_torch.ops.fused_up',
@@ -193,6 +196,26 @@ def test_cityscapes_config_and_text_assets():
     assert sorted(i for v in idxs.values() for i in v) == list(range(54))
 
 
+@pytest.mark.parametrize('make,dataset,n', [(coco_train_cfg, 'coco', 81),
+                                            (ade_train_cfg, 'ade', 150)])
+def test_coco_ade_configs_and_text_assets(make, dataset, n):
+    """exps 42 and 43: the flagship model at 512 crops with 1 + 1 crops a
+    step, lr 4e-4 with the backbone at x0.001, the whole-plane decoder
+    backward, and the dataset's ``single`` text (one row per class, for the
+    decoder and the guidance labels) carried in the package."""
+    cfg = make()
+    assert (cfg['crop_size'], cfg['nclass'], cfg['eval_mode'],
+            cfg['decoder_bwd'], cfg['batch_size'], cfg['dataset']) == (
+                512, n, 'zegclip_sliding_window', 'whole', 1, dataset)
+    assert cfg['optimizer']['lr'] == 4e-4
+    keys = cfg['optimizer']['paramwise_cfg']['custom_keys']
+    assert keys['backbone'] == {'lr_mult': 0.001}
+    for variant in {cfg['text_embedding_variant'], cfg['mcc_text']}:
+        path = text_embedding_path(dataset, variant)
+        assert path.startswith(PKG)
+        assert load_text_embedding(path).shape == (n, 512)
+
+
 def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
     assert _build.sources() == ['flash_attention', 'flash_attention_heads',
@@ -209,9 +232,11 @@ def test_kernel_sources_and_build_keys():
 
 
 # the trainer entry point's modules (data pipeline, configs, loop, CLI,
-# the process group and the multi-rank dry run)
+# the process group and the multi-rank dry run) and the exp-41 models it
+# builds
 TRAINER_MODULES = (
     'semivl_tpu_torch.configs.experiments', 'semivl_tpu_torch.data.dataset',
+    'semivl_tpu_torch.models.dlv3p_head', 'semivl_tpu_torch.models.timm_vit',
     'semivl_tpu_torch.data.loader', 'semivl_tpu_torch.data.transforms',
     'semivl_tpu_torch.datasets.classes', 'semivl_tpu_torch.datasets.palettes',
     'semivl_tpu_torch.native.build', 'semivl_tpu_torch.native.loader',

@@ -244,10 +244,9 @@ def test_param_overrides_merge_after_init(loop_cfg, tmp_path):
 @pytest.mark.parametrize('exp_id', [40, 41, 42, 43, 44])
 def test_generated_configs_run_or_are_refused_by_name(exp_id):
     """Every generated config either passes what the port's loop, model
-    builder and step check before any work (exps 40 and 44; exp 41's VLG
-    ablation) or is refused, naming what the port lacks: the COCO and ADE
-    datasets (exps 42, 43), exp 41's models that are not ported, its
-    ``mmseg`` criteria."""
+    builder and step check before any work (exps 40, 42, 43 and 44; exp
+    41's VLG and DeepLabV3+ ablations) or is refused, naming what the port
+    lacks: exp 41's ZegCLIP model and its ``mmseg`` criteria."""
     from semivl_tpu_torch.configs.models import get_model_config
     from semivl_tpu_torch.models.builder import ModelBundle
     from semivl_tpu_torch.train.step import make_semivl_train_step
@@ -265,7 +264,7 @@ def test_generated_configs_run_or_are_refused_by_name(exp_id):
             named = (cfg['dataset'], cfg['model'].replace('mmseg.', ''),
                      repr(cfg['criterion_u']))
             assert any(n in str(exc) for n in named), (cfg['name'], exc)
-    assert ran == {40: 5, 41: 4, 42: 0, 43: 0, 44: 5}[exp_id]
+    assert ran == {40: 5, 41: 10, 42: 5, 43: 5, 44: 5}[exp_id]
 
 
 def test_profile_window_writes_a_trace(loop_cfg, tmp_path, monkeypatch):

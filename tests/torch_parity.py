@@ -79,28 +79,32 @@ def tiny_vlm(seed=0, img=IMG):
 
 
 def tiny_train_vlm(seed=0, img=IMG, logit_scale=1.0, backbone=BACKBONE,
-                   head=HEAD, clip=CLIP):
+                   head=HEAD, clip=CLIP,
+                   mcc_text=('pascal', 'concept4_single')):
     """(jax module, numpy params, port model, guidance text) of the small
     VLM (or of the given backbone / head / guidance-encoder configs) with
-    the guidance encoder and the real ``concept4`` text; the port's frozen
+    the guidance encoder and a real guidance text (``mcc_text``: dataset
+    and variant, the ``concept4`` text by default); the port's frozen
     leaves have ``requires_grad=False`` (flagship freeze rule).
     ``logit_scale`` multiplies the decoder head's weights, to give the
     random model confident pseudo-labels."""
+    import os
+
     from semivl_tpu_torch.models.builder import is_trainable
     from semivl_tpu_torch.text.embeddings import (
         load_text_embedding, text_embedding_path)
-    mcc = load_text_embedding(text_embedding_path('pascal',
-                                                  'concept4_single'))
+    path = text_embedding_path(*mcc_text)
+    mcc, name = load_text_embedding(path), os.path.basename(path)[:-4]
     jm = JaxVLM(backbone_cfg=backbone, decode_head_cfg=head,
-                clip_encoder_cfg=clip, mcc_text_embedding_name=MCC_TEXT)
+                clip_encoder_cfg=clip, mcc_text_embedding_name=name)
     params = init_params(jm, seed, jnp.zeros((1, img, img, 3)),
-                         jnp.zeros((21, 512)), jnp.asarray(mcc),
-                         method='init_variables')
+                         jnp.zeros((head['num_classes'], 512)),
+                         jnp.asarray(mcc), method='init_variables')
     hp = params['decode_head']['head']
     hp['kernel'] = hp['kernel'] * np.float32(logit_scale)
     hp['bias'] = hp['bias'] * np.float32(logit_scale)
     pm = load_jax_params(VLM(backbone, head, clip_encoder_cfg=clip,
-                             mcc_text_name=MCC_TEXT), params).eval()
+                             mcc_text_name=name), params).eval()
     for name, p in pm.named_parameters():
         p.requires_grad_(is_trainable(name, True, ['attn', 'pos_embed']))
     return jm, params, pm, mcc
@@ -161,6 +165,42 @@ class InjectedDropout:
         return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype))
 
 
+class SharedReluMasks:
+    """The VLG head's ReLUs through the JAX step and then the port's, with
+    the port passing gradient where JAX's did. The frameworks' float32
+    forwards differ by ~1e-6, so a ReLU input that close to zero can pass
+    gradient on one side only, which moves every gradient upstream of it
+    by ~1e-3 and more: at 150 classes a step has enough such inputs that
+    one flips at almost any seed. ``jax`` stands in for flax's ``relu`` in
+    ``semivl_tpu.models.vlg_head`` and records each call's input (in trace
+    order: the teacher pass, then both student passes); ``torch`` stands in
+    for the port's ``F.relu`` (the same calls, in the same order) and keeps
+    what JAX's input kept, recording every element where the port's own
+    sign differs (``flips``: its |x| over the call's largest |x|)."""
+
+    def __init__(self):
+        self.inputs, self.traced, self.calls, self.flips = {}, 0, 0, []
+
+    def jax(self, x):
+        i = self.traced
+        self.traced += 1
+        jax.debug.callback(
+            lambda v, i=i: self.inputs.__setitem__(i, np.asarray(v)), x)
+        return jax.nn.relu(x)
+
+    def torch(self, x, inplace=False):
+        ref = self.inputs[self.calls]
+        self.calls += 1
+        ref = ref.transpose(0, 3, 1, 2) if ref.ndim == 4 else ref
+        assert ref.shape == tuple(x.shape), (ref.shape, x.shape)
+        keep = torch.from_numpy(ref > 0)
+        flip = keep != (x.detach() > 0)
+        if flip.any():
+            mag = x.detach().abs()
+            self.flips += (mag[flip] / mag.max()).tolist()
+        return torch.where(keep, x, torch.zeros((), dtype=x.dtype))
+
+
 def masked_grads(opt_state, params):
     """JAX gradients from the first Adam moment after one update (mu =
     (1 - b1) g); frozen leaves (no moment) as zeros."""
@@ -195,9 +235,10 @@ def leaf_names(params):
 MARGIN = 1e-5   # cross-framework float32 differences stay far below this
 
 
-def semivl_batch(seed, b=2, img=IMG):
+def semivl_batch(seed, b=2, img=IMG, nclass=21):
     """A SemiVL batch of ``b`` labeled + ``b`` unlabeled ``img``-px crops
-    (numpy, normalised scale), ignore borders and CutMix boxes."""
+    (numpy, normalised scale) labeled with ``nclass`` classes, ignore
+    borders and CutMix boxes."""
     rs = np.random.RandomState(seed)
 
     def im():
@@ -207,7 +248,7 @@ def semivl_batch(seed, b=2, img=IMG):
     ign[:, :, :3] = 255
     ign_o = ign.copy()
     ign_o[:, -4:] = 255
-    mask = rs.randint(0, 21, (b, img, img)).astype(np.int32)
+    mask = rs.randint(0, nclass, (b, img, img)).astype(np.int32)
     mask[:, :2] = 255
     return dict(
         img_x=im(), mask_x=mask, img_w=im(), img_s1=im(), img_s2=im(),
@@ -245,25 +286,48 @@ def pseudo_label_thresholds(pm, text, mcc, batch):
 
 
 def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
-                     total=100):
+                     total=100, stats=None, freeze_backbone=True,
+                     exclude_keys=('attn', 'pos_embed'), relu_masks=None):
     """One SemiVL step in JAX (1-device mesh) and in the port (CPU), from
-    the same weights, batch, boxes and injected feature-perturbation masks
-    ``keeps``: the metrics, the JAX gradients and updated parameters under
-    the port's names, the port's gradients and its state before and
-    after."""
+    the same weights (and BatchNorm running statistics ``stats``), batch,
+    boxes and injected feature-perturbation masks ``keeps``, under the
+    freeze rule ``freeze_backbone``/``exclude_keys``: the metrics, the JAX
+    gradients and updated parameters and statistics under the port's
+    names, the port's gradients and its state before and after. Given
+    ``relu_masks`` (a ``SharedReluMasks``), the VLG head's ReLUs of both
+    steps go through it."""
+    import contextlib
     from unittest import mock
+
+    import semivl_tpu.models.vlg_head as jax_vlg
 
     from semivl_tpu_torch.train import optim
     from semivl_tpu_torch.train.step import make_semivl_train_step
-    out = jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total)
+
+    def shared(side):
+        if relu_masks is None:
+            return contextlib.nullcontext()
+        if side == 'jax':
+            return mock.patch.object(jax_vlg.nn, 'relu', relu_masks.jax)
+        return mock.patch.object(torch.nn.functional, 'relu',
+                                 relu_masks.torch)
+
+    with shared('jax'):
+        out = jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps,
+                               total, stats=stats,
+                               freeze_backbone=freeze_backbone,
+                               exclude_keys=exclude_keys)
     fake = InjectedDropout(keeps)
     before = {k: v.clone() for k, v in pm.state_dict().items()}
     opt, _ = optim.build_optimizer(cfg, pm, total)
     step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
                                   total, device='cpu')
-    with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch):
+    with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch), \
+            shared('torch'):
         pmetrics = {k: float(v) for k, v in step(batch).items()}
     assert fake.calls == len(keeps) and step.iteration == 1
+    if relu_masks is not None:
+        assert relu_masks.calls == len(relu_masks.inputs) > 0
     port_grads = {n: (p.grad.numpy() if p.grad is not None
                       else np.zeros(p.shape, np.float32))
                   for n, p in pm.named_parameters()}
@@ -306,8 +370,65 @@ def step_mismatches(s, tol=1e-3):
     return bad, n_checked
 
 
+def resolved_step_mismatches(s, cfg, tol=1e-3, stats_tol=1e-5):
+    """``step_mismatches`` for a first step whose gradient elements the
+    frameworks do not all resolve: every trainable leaf's gradient within
+    ``tol`` of its scale (a vanishing leaf held to 1e-6 of the largest on
+    both sides); its updated value within ``tol`` of its scale at every
+    element whose gradient is above ``tol`` of the leaf's largest (where
+    the gradients' agreement fixes its sign), and at the others (whose
+    sign is within the gradients' difference: AdamW's first step there is
+    lr x lr_mult times that sign, on either side) a step of at most
+    lr lr_mult (1 + wd |p|) plus the value's float32 rounding; trainable
+    leaves changed, frozen ones unchanged on both sides; BatchNorm running
+    statistics within ``stats_tol`` and changed. Returns the mismatches,
+    the trainable leaves checked and the running statistics checked."""
+    from semivl_tpu_torch.train import optim
+    opt = cfg['optimizer']
+    keys = opt['paramwise_cfg']['custom_keys']
+    assert set(s['jax_new']) == set(s['after'])
+    top = max(np.abs(g).max() for g in s['jax_grads'].values())
+    bad, n_checked = [], 0
+    for name, trainable in s['trainable'].items():
+        before = s['before'][name].numpy()
+        if not trainable:
+            np.testing.assert_array_equal(s['after'][name], before)
+            np.testing.assert_array_equal(s['jax_new'][name], before)
+            continue
+        n_checked += 1
+        want, got = s['jax_grads'][name], s['port_grads'][name]
+        if np.abs(want).max() <= 1e-6 * top:
+            if np.abs(got).max() > 1e-6 * top:
+                bad.append((name, 'vanishing', np.abs(got).max()))
+        elif rel_err(got, want) > tol:
+            bad.append((name, 'grad', rel_err(got, want)))
+        resolved = np.abs(want) > tol * np.abs(want).max()
+        diff = np.abs(s['after'][name] - s['jax_new'][name])[resolved]
+        if diff.max(initial=0) > tol * np.abs(s['jax_new'][name]).max():
+            bad.append((name, 'update', rel_err(s['after'][name],
+                                                s['jax_new'][name])))
+        lr = opt['lr'] * optim.custom_key_mults(keys, name)[0]
+        size = np.abs(before).max()
+        step = (lr * (1 + opt['weight_decay'] * size) * (1 + 1e-4)
+                + np.spacing(np.float32(size)))
+        for new in (s['after'][name], s['jax_new'][name]):
+            if np.abs(new - before)[~resolved].max(initial=0) > step:
+                bad.append((name, 'unresolved step', step))
+        if np.array_equal(s['after'][name], before):
+            bad.append((name, 'unchanged', 0.0))
+    running = [k for k in s['after'] if k.endswith(('running_mean',
+                                                    'running_var'))]
+    for k in running:
+        if rel_err(s['after'][k], s['jax_new'][k]) > stats_tol:
+            bad.append((k, 'stats', rel_err(s['after'][k], s['jax_new'][k])))
+        if np.array_equal(s['after'][k], s['before'][k].numpy()):
+            bad.append((k, 'stats unchanged', 0.0))
+    return bad, n_checked, len(running)
+
+
 def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
-                     n_devices=1, stats=None, bn_batch_stats=None):
+                     n_devices=1, stats=None, bn_batch_stats=None,
+                     freeze_backbone=True, exclude_keys=('attn', 'pos_embed')):
     """One JAX SemiVL step over an ``n_devices`` data mesh: the global
     ``batch`` split by rows over the devices, each device taking its rows
     of the injected perturbation masks ``keeps`` (``jax_rows``); ``stats``
@@ -332,14 +453,15 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
     from semivl_tpu.train.step import (TrainState, replicate, shard_batch)
     from semivl_tpu.train.step import make_semivl_train_step as jax_step
     fake = InjectedDropout(keeps)
+    exclude_keys = list(exclude_keys) if exclude_keys else None
     bundle = JaxBundle(module=jm, text_feats=text, mcc_text_feats=mcc,
                        num_classes=text.shape[0],
                        img_size=batch['mask_x'].shape[1], model_cfg={},
-                       freeze_backbone=True,
-                       exclude_keys=['attn', 'pos_embed'])
+                       freeze_backbone=freeze_backbone,
+                       exclude_keys=exclude_keys)
     tx, _, mask = jax_optim.build_optimizer(
-        cfg, params, total, freeze_backbone=True,
-        exclude_keys=['attn', 'pos_embed'])
+        cfg, params, total, freeze_backbone=freeze_backbone,
+        exclude_keys=exclude_keys)
     variables = {'params': params}
     if stats is not None:
         variables['batch_stats'] = stats
