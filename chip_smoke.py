@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``semivl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # one card: phases 1-16
+    python3 chip_smoke.py             # one card: phases 1-17
     python3 chip_smoke.py --cards N   # N cards: phase 14 across them
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -172,9 +172,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
    every backbone leaf changed (``ft``), an evaluation of one
    VOC-geometry image, and the CLI on the timm row's generated config for
    2 steps; phase 15's seconds and the whole run's are logged;
-16. a ``kernels`` JSON line (all eleven kernels, with the launches of
-   phase 14's and 15's runs by path), and last ``{"ok": true, "device":
-   ...}``.
+16. exp 41's ZegCLIP row (``vlm-zegclip-rd-pt-vitb``: the VPT CLIP
+   ViT-B/16 with 10 prompt tokens, so #3/#4 at L = 1 + 10 + 1024 = 1035,
+   the ATM head, SegLossPlus for both criteria) at full width and concept
+   aggregation, launch counts derived from each run config: (a) the step
+   of 2 + 2 512^2 crops, one step with every packed call held to its
+   rounded reference on its own inputs and rerun with the last key tile
+   skipped (which must fail), timed steps with #3 x 36 and #4 x 24 and
+   nothing else, peak memory, a profile, frozen leaves bit-identical and
+   every prompt and head leaf changed (but the leaves of the head's last
+   layer that no loss reaches and no weight decay moves: its LayerNorms,
+   whose decay the ``norm`` key turns off, and its zero biases); the
+   checked step runs at ``conf_thresh`` 0, so its unlabeled
+   SegLossPlus terms must be non-zero and finite (at the config's 0.95
+   the random model keeps no pseudo-label); (b) the evaluation of one 512x683
+   image, its crop batch through the kernels and the plain versions, a
+   profile; (c) the CLI on exp 41's generated ZegCLIP split-92 config over
+   phase 13's dataset, 2 steps and an evaluation from (a)'s weights; (d)
+   exp 40's config with ``text_embedding_variant = pl_text =
+   'concept4_single'``: every decoder call of one step over 98 planes a
+   crop and within phase 15's limits, a step with its launches and a
+   profile, the evaluation of one image; (e) #3 and #4 at (4, 1035, 768)/12 run with
+   phase 3's cases (timed by events and device-only beside SDPA, the
+   planted fault), before any profile;
+17. a ``kernels`` JSON line (all eleven kernels, with the launches of
+   phase 14's, 15's and 16's runs by path), and last ``{"ok": true,
+   "device": ...}``.
 
 ``--cards N`` runs phase 14's full-width paths on N cards, one NCCL rank a
 card, and nothing else: the kernels' build, then (i) exp 40's trainer CLI
@@ -295,7 +318,10 @@ ATTN_CASES = (('encoder', 2, 1025, 12, None), ('semantic', 128, 21, 4, None),
               # exp 41: the timm ViT's encoder on 2 + 2 crops
               ('semantic L=81', 192, 81, 4, None),
               ('semantic L=150', 192, 150, 4, None),
-              ('timm encoder', 4, 1025, 12, None))
+              ('timm encoder', 4, 1025, 12, None),
+              # phase 16 (e): exp 41's ZegCLIP ViT on 2 + 2 crops, the cls
+              # token, 10 prompts and 32 x 32 patches: 8 key tiles and 11
+              ('zegclip encoder', 4, 1035, 12, None))
 # the head-split kernels (#1/#2): (name, B, L, heads, head_dim, valid_len);
 # the tiny VLM's shapes are those of its 1 + 1 step and its 2-crop batches;
 # then the widths whose products over D are split (48, 80, 96, 112) and
@@ -323,13 +349,16 @@ ATTN_BWD_CASES = (('encoder', 4, 1025, 12, None),
                   ('encoder valid_len', 4, 1025, 12, 1000),
                   ('cityscapes encoder', 2, 2602, 12, None),
                   ('semantic L=81', 192, 81, 4, None),
-                  ('semantic L=150', 192, 150, 4, None))
+                  ('semantic L=150', 192, 150, 4, None),
+                  ('zegclip encoder', 4, 1035, 12, None))
 # phase 3's planted fault, "the last key tile skipped", by case: the keys
 # it keeps (valid_len). L = 150 spans two 128-key tiles, the second
-# holding 22 keys; L = 81 has one tile, so its second half goes; the
-# backward's 'encoder' case is the timm ViT's (and the flagship's) shape.
+# holding 22 keys; L = 81 has one tile, so its second half goes; L = 1035
+# keeps its 8 full tiles and loses the 11-key tail; the backward's
+# 'encoder' case is the timm ViT's (and the flagship's) shape.
 ATTN_FAULT_KEYS = {'cityscapes encoder': 2602 - 128, 'semantic L=81': 40,
-                   'semantic L=150': 128, 'timm encoder': 1025 - 128}
+                   'semantic L=150': 128, 'timm encoder': 1025 - 128,
+                   'zegclip encoder': 1024}
 ATTN_BWD_FAULT_KEYS = dict(ATTN_FAULT_KEYS, encoder=1025 - 128)
 del ATTN_BWD_FAULT_KEYS['timm encoder']
 
@@ -1669,11 +1698,13 @@ def scaled_bundle(cfg):
     return bundle
 
 
-def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP):
+def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP,
+              unmoved=()):
     """A training main path: a warm-up step, then ``steps`` timed steps
     with every kernel's launch count read around them (``expected`` per
     step); trainable leaves and BatchNorm running statistics must change,
-    frozen leaves must not."""
+    frozen leaves must not, nor the trainable leaves ``unmoved`` (which no
+    loss reaches and no weight decay moves)."""
     from semivl_tpu_torch.train.optim import build_optimizer
     from semivl_tpu_torch.train.step import make_semivl_train_step
     model = bundle.model
@@ -1714,14 +1745,15 @@ def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP):
         log(f'train: {len(buffers)} BatchNorm running statistics all changed')
     n_train = n_frozen = 0
     for n, p in model.named_parameters():
-        if p.requires_grad:
+        if p.requires_grad and n not in unmoved:
             n_train += 1
             assert not torch.equal(p.detach(), before[n]), f'{n} unchanged'
         else:
             n_frozen += 1
             assert torch.equal(p.detach(), before[n]), f'{n} changed'
     log(f'train: {n_train} trainable leaves all changed, {n_frozen} frozen '
-        f'leaves bit-identical')
+        f'leaves bit-identical ({len(unmoved)} of them trainable leaves '
+        f'that no loss reaches and no weight decay moves)')
     return step, {k: v // steps for k, v in launches.items()}, dict(
         ms_per_step=dt * 1e3, images_per_s=imgs / dt, peak_mib=peak / 2**20)
 
@@ -1897,9 +1929,11 @@ class PerCallCheck:
     flipped bf16 rounding of the stored raw conv2, which GroupNorm
     amplifies, moves the whole backward of stage 2. ``faults``: each call is
     rerun under DECODER_FAULTS (or the given dict of them), which must
-    exceed the decoder's limit."""
+    exceed the decoder's limit. ``attn_faults``: each packed attention call
+    (forward and backward) is rerun with phase 3's planted fault, its last
+    key tile skipped, which must exceed the attention's limits."""
 
-    def __init__(self, bwd='whole', faults=False):
+    def __init__(self, bwd='whole', faults=False, attn_faults=False):
         from semivl_tpu_torch.ops import flash_attention as fa
         from semivl_tpu_torch.ops import fused_decoder as fd
         self.fa, self.fd = fa, fd
@@ -1908,9 +1942,18 @@ class PerCallCheck:
                                             'heads_fwd', 'heads_bwd',
                                             'decoder_fwd', self.bwd_key)}
         self.decoder_calls = []
+        self.planes = []   # P of each decoder call, in call order
         # True: every DECODER_FAULTS entry; a dict: those faults
         self.faults = DECODER_FAULTS if faults is True else (faults or {})
         self.fault_reads = []
+        self.attn_faults = attn_faults
+        self.attn_fault_reads = []   # (direction, L, rel-L2)
+
+    @staticmethod
+    def _last_tile_skipped(length):
+        """The keys phase 3's planted fault keeps: all but the last
+        128-key tile (or its partial tail)."""
+        return length - (length % 128 or 128)
 
     def note(self, key, err):
         w = self.worst[key]
@@ -1924,14 +1967,26 @@ class PerCallCheck:
 
         def fwd(q, k, v, heads, valid_len, with_lse):
             out, lse = real_fwd(q, k, v, heads, valid_len, with_lse)
-            self.note('attention_fwd', _rel_l2(
-                out, fa._fwd_rounded(q, k, v, heads, valid_len)))
+            ref = fa._fwd_rounded(q, k, v, heads, valid_len)
+            self.note('attention_fwd', _rel_l2(out, ref))
+            if self.attn_faults and valid_len == q.shape[1]:
+                length = q.shape[1]
+                bad = real_fwd(q, k, v, heads,
+                               self._last_tile_skipped(length), False)[0]
+                self.attn_fault_reads.append(('fwd', length,
+                                              _rel_l2(bad, ref)))
             return out, lse
 
         def bwd(qkv, out, lse, g, heads, valid_len=None):
             got = real_bwd(qkv, out, lse, g, heads, valid_len)
-            self.note('attention_bwd', _rel_l2(got, fa.flash_mha_bwd_plain(
-                qkv, out, g, heads, valid_len)))
+            ref = fa.flash_mha_bwd_plain(qkv, out, g, heads, valid_len)
+            self.note('attention_bwd', _rel_l2(got, ref))
+            if self.attn_faults and valid_len in (None, qkv.shape[1]):
+                length = qkv.shape[1]
+                bad = fa._bwd_kernel(qkv, out, lse, g, heads,
+                                     self._last_tile_skipped(length))
+                self.attn_fault_reads.append(('bwd', length,
+                                              _rel_l2(bad, ref)))
             return got
 
         def hfwd(qkv, heads, valid_len=None, with_lse=False):
@@ -1947,6 +2002,7 @@ class PerCallCheck:
             return got
 
         def dec(x, skip1, skip2, p1, p2, head, bwd='whole'):
+            self.planes.append(x.shape[0])
             out = real_dec(x, skip1, skip2, p1, p2, head, bwd=bwd)
             with torch.no_grad():
                 ref = fd.fused_vlg_decoder_rounded(x, skip1, skip2, p1, p2,
@@ -1977,6 +2033,8 @@ class PerCallCheck:
                 assert n > 0 and err <= tols[k], (k, err, n)
         assert all(bad > tols[self.bwd_key] for _, _, bad in
                    self.fault_reads), self.fault_reads
+        assert all(bad > tols[f'attention_{d}'] for d, _, bad in
+                   self.attn_fault_reads), self.attn_fault_reads
 
     def finish(self):
         """The decoder backward of each recorded call, kernels against the
@@ -3408,16 +3466,24 @@ def run_across_cards(world):
 
 # ------------------------------------------------------------ phase 15
 
+def vit_blocks(vit):
+    """The block count of a ViT config (the VPT ViT's key is ``layers``)."""
+    return vit.get('layers' if vit['type'] == 'VPTCLIPVisionTransformer'
+                   else 'num_layers', 12)
+
+
 def launches_per_call(cfg):
     """The kernel launches of one model call under the run config's model
     (a launch serves the whole batch): the packed attention forward once
     per ViT block and SemanticTransformer layer, the decoder forward twice
-    (a VLG head's two Up stages; a DeepLabV3+ head has none)."""
+    (a VLG head's two Up stages, over all B x N planes: N classes or
+    concepts; a DeepLabV3+ or ATM head has none, the ATM head's
+    cross-attention being plain products)."""
     from semivl_tpu_torch.configs.models import get_model_config
     model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
     head = model['decode_head']
     vlg = head['type'] == 'VLGHead'
-    return dict(attention=model['backbone'].get('num_layers', 12)
+    return dict(attention=vit_blocks(model['backbone'])
                 + (head.get('num_layers', 2) if vlg else 0),
                 decoder=2 if vlg else 0)
 
@@ -3429,13 +3495,14 @@ def launches_per_step(cfg):
     attention backward once per layer the loss reaches in each student
     pass (a MaskCLIP ViT's last block feeds its attention output only to
     the cls embedding, which no head reads; the timm ViT's last block feeds
-    the final maps); the decoder backward twice per student pass, on the
-    config's route (whole plane: tail and input; banded: passes A, B, C)."""
+    the final maps; the VPT ViT's trained prompts enter every block); the
+    decoder backward twice per student pass, on the config's route (whole
+    plane: tail and input; banded: passes A, B, C)."""
     from semivl_tpu_torch.configs.models import get_model_config
     model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
     vit, head = model['backbone'], model['decode_head']
     fwd = launches_per_call(cfg)
-    sem = fwd['attention'] - vit.get('num_layers', 12)
+    sem = fwd['attention'] - vit_blocks(vit)
     clip = 0
     if cfg.get('clip_encoder') and cfg.get('maskclip_consistency_lambda'):
         clip = get_model_config(cfg['clip_encoder'])['backbone'].get(
@@ -3443,7 +3510,7 @@ def launches_per_step(cfg):
     unread = vit['type'] == 'MaskClipVisionTransformer'
     out = dict.fromkeys(EXPECTED_PER_STEP, 0)
     out.update(attention_fwd=3 * fwd['attention'] + clip,
-               attention_bwd=2 * (vit.get('num_layers', 12) - unread + sem),
+               attention_bwd=2 * (vit_blocks(vit) - unread + sem),
                decoder_fwd=3 * fwd['decoder'])
     if fwd['decoder']:
         route = cfg.get('decoder_bwd', head.get('decoder_bwd', 'whole'))
@@ -3786,6 +3853,273 @@ def run_phase15(tmp, voc_paths, overrides):
     return ade_err, launches, readings
 
 
+# ------------------------------------------------------------ phase 16
+
+ZEGCLIP_L = 1 + 10 + 32 * 32   # cls token, prompts, patches of a 512 crop
+ZEGCLIP_PROMPT_LEAVES = ['backbone.deep_prompt_embeddings',
+                         'backbone.prompt_embeddings',
+                         'backbone.prompt_norm.bias',
+                         'backbone.prompt_norm.weight',
+                         'backbone.prompt_proj.bias',
+                         'backbone.prompt_proj.weight']
+
+
+def zegclip_cfg(split='92'):
+    """Exp 41's generated ZegCLIP config (``vlm-zegclip-rd-pt-vitb``,
+    'mmseg' for both criteria) of ``split``."""
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    return next(c for c in generate_experiment_cfgs(41)
+                if 'zegclip' in c['model'] and c['split'] == split)
+
+
+def unreached_leaves(model):
+    """The ATM head's last layer after its attention logits (the masks are
+    that layer's pre-softmax logits): no loss reaches these leaves."""
+    pre = f'decode_head.decoder.{len(model.decode_head.decoder) - 1}.'
+    return {n for n, _ in model.named_parameters() if n.startswith(pre)
+            and not n.startswith((pre + 'attn.q.', pre + 'attn.k.'))}
+
+
+def run_zegclip_train():
+    """Phase 16 (a): exp 41's ZegCLIP step at full width (VPT ViT-B/16 with
+    10 prompt tokens, ATM 3 x 8 heads x 512, 2 + 2 512^2 crops, SegLossPlus
+    for both criteria): from the model as built, one step with every packed
+    attention call held to its rounded reference on its own inputs and
+    rerun with the last key tile skipped, which must fail; that step runs
+    at ``conf_thresh`` 0, so its unlabeled SegLossPlus terms must be
+    non-zero and finite and every backward call carries a gradient (at the
+    config's 0.95 the random model keeps no pseudo-label: pass 2's
+    gradient is zero). Then timed steps at the config's threshold with the
+    launches ``launches_per_step`` derives (#3 and #4 only), peak memory,
+    frozen leaves bit-identical and every prompt and head leaf changed but
+    those no loss reaches and no weight decay moves; a profile. Returns
+    the per-call errors, the launches, the readings and the bundle."""
+    from semivl_tpu_torch.train.optim import (build_optimizer,
+                                              custom_key_mults)
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    cfg = zegclip_cfg()
+    expected = launches_per_step(cfg)
+    assert expected == dict(dict.fromkeys(EXPECTED_PER_STEP, 0),
+                            attention_fwd=36, attention_bwd=24), expected
+    t0 = time.perf_counter()
+    bundle = scaled_bundle(cfg)
+    model = bundle.model
+    keys = cfg['optimizer']['paramwise_cfg']['custom_keys']
+    unreached = unreached_leaves(model)
+    prm = dict(model.named_parameters())
+    # AdamW decays a leaf without gradient: not one without decay, nor a
+    # zero one (the built biases)
+    unmoved = {n for n in unreached if custom_key_mults(keys, n)[1] == 0
+               or not prm[n].any()}
+    trained = sorted(n for n, p in model.named_parameters()
+                     if p.requires_grad and n.startswith('backbone.'))
+    assert trained == ZEGCLIP_PROMPT_LEAVES, trained
+    assert all(p.requires_grad for n, p in model.named_parameters()
+               if n.startswith('decode_head.'))
+    prms = list(model.parameters())
+    log(f'zegclip train: built exp 41\'s ZegCLIP bundle in '
+        f'{time.perf_counter() - t0:.1f} s, '
+        f'{sum(p.numel() for p in prms) / 1e6:.1f} M params, '
+        f'{sum(p.numel() for p in prms if p.requires_grad) / 1e6:.2f} M '
+        f'trainable; launches per step from the config {expected}; '
+        f'{len(unreached)} head leaves no loss reaches, {len(unmoved)} of '
+        f'them without weight decay or zero')
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(12))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    per_call = PerCallCheck(attn_faults=True)
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    check_step = make_semivl_train_step(bundle, dict(cfg, conf_thresh=0.0),
+                                        opt, TOTAL_ITERS)
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in check_step(
+            batch, torch.Generator(device='cuda').manual_seed(13)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    del check_step, opt
+    faults = per_call.attn_fault_reads
+    log('zegclip compare: per call, kernels vs rounded (worst rel-L2, '
+        'calls): ' + json.dumps({k: [float(f'{e:.3e}'), n] for k, (e, n) in
+                                 worst.items()})
+        + f'; planted fault (last key tile skipped) at L = {ZEGCLIP_L}: '
+        f'forward rel-L2 >= {min(b for d, _, b in faults if d == "fwd"):.3e}'
+        f' (tol {ATTN_REL_TOL}), backward >= '
+        f'{min(b for d, _, b in faults if d == "bwd"):.3e} (tol '
+        f'{ATTN_BWD_REL_TOL}); loss terms at conf_thresh 0 '
+        f'{json.dumps(metrics)}')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert min(metrics['loss_s1'], metrics['loss_s2'],
+               metrics['loss_fp']) > 0, metrics
+    assert [(d, n) for d, n, _ in faults] == [('fwd', ZEGCLIP_L)] * 36 + [
+        ('bwd', ZEGCLIP_L)] * 24, [(d, n) for d, n, _ in faults]
+    assert worst['attention_fwd'][1] == 36 and worst['attention_bwd'][1] == 24
+    per_call.check(PER_CALL_TOLS, absent=('heads_fwd', 'heads_bwd',
+                                          'decoder_fwd', 'decoder_bwd'))
+    step, launches, perf = run_train(cfg, bundle, batch, expected=expected,
+                                     unmoved=unmoved)
+    prof = profile_step(step, batch)
+    del step
+    model.load_state_dict(state)
+    return worst, launches, dict(perf, **prof, losses_at_thresh_0=metrics), \
+        bundle
+
+
+def run_zegclip_eval(bundle, cfg):
+    """Phase 16 (b): ``zegclip_sliding_window`` evaluation of one synthetic
+    512x683 image (2 crops in one batch), launches read around
+    ``evaluate``; that crop batch through the kernels and the plain
+    versions; a profile of the image."""
+    from semivl_tpu_torch.evaluation.predict import (
+        Evaluator, _chunk_sizes, evaluate)
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    model = bundle.model
+    evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
+    ds = SynthImages(seed=4, sizes=((512, 683),))
+    s = ds.get(0)
+    coords = evaluator._zegclip_coords(512, 683)
+    chunks = _chunk_sizes(len(coords))
+    assert chunks == [2], chunks
+    expected = {'attention': launches_per_call(cfg)['attention'],
+                'heads': 0, 'decoder': 0}
+    evaluator.predict(s['img'][None], s['mask'].shape, cfg['eval_mode'])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.launches = fa.heads_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    miou, iou = evaluate(evaluator, ds, cfg['eval_mode'], cfg)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {'attention': fa.launches, 'heads': fa.heads_launches,
+                'decoder': fd.launches}
+    peak = torch.cuda.max_memory_allocated()
+    log(f'zegclip eval: 1 image 512x683, 2 crops in one batch: mIoU '
+        f'{miou:.4f} in {dt * 1e3:.1f} ms, peak memory {peak / 2**20:.1f} '
+        f'MiB; launches {launches} (expected {expected})')
+    assert np.isfinite(miou) and iou.shape == (21,)
+    assert launches == expected, (launches, expected)
+    img = torch.from_numpy(s['img']).cuda()
+    crops = torch.stack([img[y:y + 512, x:x + 512] for y, x in coords])
+    with torch.no_grad():
+        inp = evaluator._to_model_input(crops)
+        k_logits = model(inp, evaluator.text)
+        with mock.patch.object(fa, 'packed_attention',
+                               fa.packed_attention_plain):
+            p_logits = model(inp, evaluator.text)
+    torch.cuda.synchronize()
+    assert k_logits.shape == (2, 21, 512, 512)
+    assert torch.isfinite(k_logits).all()
+    diff = (k_logits - p_logits).abs()
+    scale = p_logits.abs().max().item()
+    agree = (k_logits.argmax(1) == p_logits.argmax(1)).float().mean().item()
+    log(f'zegclip eval: crop batch {tuple(crops.shape)} kernels vs plain: '
+        f'max_abs_err {diff.max().item():.3e} mean_abs_err '
+        f'{diff.mean().item():.3e} logit scale {scale:.4f} (tol {DEC_TOL} x '
+        f'scale) argmax agreement {agree:.5f}')
+    assert diff.max().item() <= DEC_TOL * scale
+    prof = profile_image(evaluator, s, cfg)
+    return launches, dict(ms_per_image=dt * 1e3, peak_mib=peak / 2**20,
+                          max_abs_err=diff.max().item(), logit_scale=scale,
+                          **prof)
+
+
+def run_concept():
+    """Phase 16 (d): exp 40's step and evaluation with ``text_embedding_variant
+    = pl_text = 'concept4_single'``: the VLG decoder over VOC's 98 concepts
+    a crop, max-aggregated to 21 classes. One step with every kernel call
+    held to its rounded reference on its own inputs (phase 15's limits),
+    each decoder call over 98 planes a crop (teacher 2 x 98, pass 1 6 x
+    98, pass 2 4 x 98); a step with the launches ``launches_per_step``
+    derives, and a profile; an evaluation of one 512x683 image (2 x 98
+    planes)."""
+    from semivl_tpu_torch.configs import flagship_train_cfg
+    from semivl_tpu_torch.evaluation.predict import (
+        Evaluator, _chunk_sizes, evaluate)
+    from semivl_tpu_torch.ops import flash_attention as fa
+    from semivl_tpu_torch.ops import fused_decoder as fd
+    from semivl_tpu_torch.train.optim import build_optimizer
+    from semivl_tpu_torch.train.step import make_semivl_train_step
+    cfg = dict(flagship_train_cfg(512), text_embedding_variant=
+               'concept4_single', pl_text='concept4_single')
+    expected = launches_per_step(cfg)
+    bundle = scaled_bundle(cfg)
+    model = bundle.model
+    n = bundle.text_feats.shape[0]
+    assert n == 98 and model.decode_head.num_classes == 21
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(14))
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    per_call = PerCallCheck()
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    check_step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in check_step(
+            batch, torch.Generator(device='cuda').manual_seed(15)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    del check_step, opt
+    tols = dict(PER_CALL_TOLS, decoder_bwd=STEP_DEC_BWD_TOL)
+    log(f'concept compare: {n} concept planes a crop; decoder calls over P = '
+        f'{per_call.planes}; per call, kernels vs rounded (worst rel-L2, '
+        'calls, tol): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), c, tols[k]] for k, (e, c) in
+             worst.items()}) + f'; loss terms {json.dumps(metrics)}')
+    assert per_call.planes == [2 * n, 6 * n, 4 * n], per_call.planes
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    per_call.check(tols, absent=('heads_fwd', 'heads_bwd'))
+    step, launches, perf = run_train(cfg, bundle, batch, steps=1,
+                                     expected=expected)
+    prof = profile_step(step, batch)
+    del step
+    evaluator = Evaluator(model, bundle.text_feats, cfg, device='cuda')
+    ds = SynthImages(seed=5, sizes=((512, 683),))
+    calls = len(_chunk_sizes(len(evaluator._zegclip_coords(512, 683))))
+    fwd = launches_per_call(cfg)
+    torch.cuda.synchronize()
+    fa.launches = fa.heads_launches = fd.launches = 0
+    t0 = time.perf_counter()
+    miou, iou = evaluate(evaluator, ds, cfg['eval_mode'], cfg)
+    torch.cuda.synchronize()
+    eval_ms = (time.perf_counter() - t0) * 1e3
+    ev = {'attention': fa.launches, 'heads': fa.heads_launches,
+          'decoder': fd.launches}
+    log(f'concept eval: one 512x683 image ({calls} crop batch of 2 x {n} '
+        f'planes): mIoU {miou:.4f} in {eval_ms:.1f} ms, launches {ev}')
+    assert np.isfinite(miou) and iou.shape == (21,)
+    assert ev == {'attention': fwd['attention'] * calls, 'heads': 0,
+                  'decoder': fwd['decoder'] * calls}, ev
+    return worst, launches, ev, dict(perf, **prof, eval_ms=eval_ms)
+
+
+def run_phase16(tmp, voc_paths):
+    """Phase 16 (see the module's docstring): exp 41's ZegCLIP step, its
+    evaluation and its CLI, then exp 40 over concept planes. (e), #3 and
+    #4 at (4, 1035, 768)/12, runs with phase 3's cases. Returns the
+    per-call errors, the launches by path and the readings."""
+    t_phase = time.perf_counter()
+    launches, readings, errs = {}, {}, {}
+    errs['zegclip'], launches['zegclip_train_step'], \
+        readings['zegclip_train'], bundle = run_zegclip_train()
+    launches['zegclip_eval_image'], readings['zegclip_eval'] = \
+        run_zegclip_eval(bundle, zegclip_cfg())
+    overrides = save_trained_weights(bundle,
+                                     os.path.join(tmp, 'zegclip.npz'))
+    del bundle
+    torch.cuda.empty_cache()
+    launches['zegclip_cli_two_steps_and_eval'], \
+        readings['zegclip_cli_wall_s'] = run_generated_cli(
+            'zegclip cli', zegclip_cfg(), tmp, voc_paths, overrides)
+    torch.cuda.empty_cache()
+    errs['concept'], launches['concept_train_step'], \
+        launches['concept_eval_image'], readings['concept'] = run_concept()
+    torch.cuda.empty_cache()
+    readings['phase_s'] = time.perf_counter() - t_phase
+    log(f'phase 16: {readings["phase_s"]:.1f} s')
+    return errs, launches, readings
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -3882,7 +4216,11 @@ def main():
         torch.cuda.empty_cache()
         ade_err, new_launches, new_paths = run_phase15(tmp.name, paths,
                                                        overrides)
-    log(f'phase 15: {json.dumps(new_paths)}')
+        log(f'phase 15: {json.dumps(new_paths)}')
+        torch.cuda.empty_cache()
+        p16_err, p16_launches, p16_paths = run_phase16(tmp.name, paths)
+    log(f'phase 16: {json.dumps(p16_paths)}')
+    new_launches.update(p16_launches)
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -3903,8 +4241,8 @@ def main():
                  'decoder_fwd': 'decoder'}
 
     def paths(key, flagship_eval=None, cityscapes_eval=None, tiny_eval=None):
-        # phase 15's paths: steps and CLIs count every kernel, evaluations
-        # the forward ones
+        # phase 15's and 16's paths: steps and CLIs count every kernel,
+        # evaluations the forward ones
         new = {name: (counts.get(eval_keys.get(key)) if 'eval_image' in name
                       else counts[key])
                for name, counts in new_launches.items()}
@@ -3922,7 +4260,8 @@ def main():
             **new))
 
     def worst(key):
-        return max(step_err[key][0], cs_err[key][0], ade_err[key][0])
+        return max(step_err[key][0], cs_err[key][0], ade_err[key][0],
+                   p16_err['zegclip'][key][0], p16_err['concept'][key][0])
 
     kernels = [
         row('packed_attention_fwd', 'flash_attention.cu',
@@ -3935,6 +4274,7 @@ def main():
             semantic_l81=times(attn['semantic L=81']),
             semantic_l150=times(attn['semantic L=150']),
             timm_encoder_4x1025=times(attn['timm encoder']),
+            zegclip_encoder_4x1035=times(attn['zegclip encoder']),
             **paths('attention_fwd', eval_launches['attention'],
                     cs_eval_launches['attention'])),
         row('packed_attention_bwd', 'flash_attention_heads.cu',
@@ -3944,6 +4284,7 @@ def main():
             worst('attention_bwd'), flagship_1025=times(attn_bwd['encoder']),
             semantic_l81=times(attn_bwd['semantic L=81']),
             semantic_l150=times(attn_bwd['semantic L=150']),
+            zegclip_encoder_4x1035=times(attn_bwd['zegclip encoder']),
             **paths('attention_bwd')),
         row('decoder_stage_fwd', 'fused_decoder.cu',
             'semivl_tpu/ops/fused_decoder.py:459', cs_launches['decoder_fwd'],
@@ -3963,8 +4304,9 @@ def main():
             launches['decoder_bwd_tail'], dec_tail,
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
-            'the Cityscapes banded route)', max(step_err['decoder_bwd'][0],
-                                               ade_err['decoder_bwd'][0]),
+            'the Cityscapes banded route)', max(
+                step_err['decoder_bwd'][0], ade_err['decoder_bwd'][0],
+                p16_err['concept']['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_tail['whole_bwd_ms'],
             whole_bwd_device_ms=dec_tail['whole_bwd_device_ms'],
@@ -3975,8 +4317,9 @@ def main():
             launches['decoder_bwd_input'], dec_input,
             'both stages at P=126 (ms); plain/library ms are the whole '
             'decoder backward; launches per flagship training step (0 on '
-            'the Cityscapes banded route)', max(step_err['decoder_bwd'][0],
-                                               ade_err['decoder_bwd'][0]),
+            'the Cityscapes banded route)', max(
+                step_err['decoder_bwd'][0], ade_err['decoder_bwd'][0],
+                p16_err['concept']['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_input['whole_bwd_ms'],
             whole_bwd_device_ms=dec_input['whole_bwd_device_ms'],
@@ -4019,7 +4362,7 @@ def main():
         products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
         cases={name: times(r) for name, r in up_rows.items()},
         bench=bench_rows, launches_by_path=dict(fused_up_bench=up_launches)))
-    log(f'run: phases 1-15 in {time.perf_counter() - t_run:.1f} s')
+    log(f'run: phases 1-16 in {time.perf_counter() - t_run:.1f} s')
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

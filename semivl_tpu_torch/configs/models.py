@@ -3,10 +3,11 @@
 
 Plain dicts mirroring the reference's mmseg config files; carried here are
 the flagship SemiVL model (VOC, COCO, ADE20K), its Cityscapes variant with
-the ResNet skip encoder, exp 41's three DeepLabV3+ ablation models, the
-frozen MaskCLIP guidance encoder, and the JAX package's tiny VLM family
-(``tiny-vlm-test`` and its guidance encoder ``tiny-mcvit-test``), whose
-heads of 16 and 32 take the head-split attention kernels.
+the ResNet skip encoder, exp 41's three DeepLabV3+ ablation models and its
+ZegCLIP model, the frozen MaskCLIP guidance encoder, and the JAX package's
+tiny VLM family (``tiny-vlm-test`` and its guidance encoder
+``tiny-mcvit-test``), whose heads of 16 and 32 take the head-split
+attention kernels.
 """
 
 import copy
@@ -141,6 +142,54 @@ def _vlm_dlv3p(img_size=512, freeze=True, timm=False):
     )
 
 
+def _vlm_zegclip(img_size=512):
+    """ZegCLIP ablation of exp 41: the VPT CLIP ViT-B/16 (10 prompt tokens,
+    deep prompts before layers 1-11) and the ATM head (3 layers, 8 heads,
+    width 512, the relationship descriptor, no input projection), its
+    SegLossPlus criterion, only the prompts of the backbone trained
+    (reference configs/_base_/models/vlm-zegclip-rd-pt-vitb.py; JAX
+    ``semivl_tpu/configs/models.py:144-183``)."""
+    return dict(
+        img_size=img_size,
+        model=dict(
+            type='VLM',
+            pretrained='pretrained/clip_vitb16',
+            backbone=dict(
+                type='VPTCLIPVisionTransformer',
+                patch_size=16,
+                width=768,
+                output_dim=512,
+                get_embeddings=True,
+                drop_path_rate=0.1,
+                layers=12,
+                input_resolution=img_size,
+                num_tokens=10,
+                prompt_dim=768,
+                total_d_layer=11,
+                out_indices=[11],
+            ),
+            decode_head=dict(
+                type='ATMSingleHeadSeg',
+                img_size=img_size,
+                in_channels=512,
+                channels=512,
+                num_classes=21,
+                num_layers=3,
+                num_heads=8,
+                use_proj=False,
+                use_stages=1,
+                embed_dims=512,
+                align_corners=False,
+                loss_decode=dict(
+                    type='SegLossPlus', num_classes=21, dec_layers=3,
+                    mask_weight=20.0, dice_weight=1.0, loss_weight=1.0),
+            ),
+            freeze_backbone=True,
+            exclude_keys=['prompt'],
+        ),
+    )
+
+
 def _mcvit16(img_size=512):
     """Frozen MaskCLIP guidance encoder (reference
     configs/_base_/models/mcvit16.py): out_indices None -> only the dense
@@ -195,6 +244,7 @@ _MODEL_CONFIGS = {
         lambda img_size=512: _vlm_dlv3p(img_size, freeze=False),
     'vlm-dlv3p-bn11-sk4-ft-tvit-in1k':
         lambda img_size=512: _vlm_dlv3p(img_size, freeze=False, timm=True),
+    'vlm-zegclip-rd-pt-vitb': _vlm_zegclip,
     'mcvit16': _mcvit16,
 }
 

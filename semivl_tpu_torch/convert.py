@@ -13,15 +13,18 @@ exporter (reference tools/convert_to_torch.py):
   encoder and of the DeepLabV3+ head, ``mean``/``var``) become
   ``running_mean``/``running_var``.
 
-The MaskCLIP and timm ViTs, the VLG and DeepLabV3+ heads and the ResNetV1c
-conv encoder are covered; the DeepLabV3+ head and the timm ViT keep the
-flax scope names (``aspp.b0.conv``, ``layers.3.ln1``, ``norm``).
+The MaskCLIP, timm and ZegCLIP (VPT and prompt-less) ViTs, the VLG,
+DeepLabV3+ and ATM heads and the ResNetV1c conv encoder are covered; the
+DeepLabV3+ and ATM heads and the timm and ZegCLIP ViTs keep the flax scope
+names (``aspp.b0.conv``, ``layers.3.ln1``, ``norm``, ``prompt_proj``,
+``decoder.0.attn.q``).
 
 Only numpy is needed to build the state dict. ``load_pretrained_into``
 loads a converted CLIP backbone tree (``load_flax_npz``: the npz that
 ``semivl_tpu/tools/convert_clip_weights.py`` writes) into the model's
 ``backbone`` and frozen ``clip_encoder`` alike, the position embedding
-resized per scope (``resize_pos_embed``).
+resized per scope (``resize_pos_embed``); it refuses the VPT backbone,
+whose layout JAX's loader does not take either.
 """
 
 import numpy as np
@@ -49,16 +52,17 @@ def _norm(out, key, p):
     out[key + '.bias'] = _f(p['bias'])
 
 
-def _block(out, pre, p):
-    """TransformerBlock -> mmcv TransformerEncoderLayer names."""
+def _block(out, pre, p, ffn=('layers.0.0', 'layers.1')):
+    """TransformerBlock -> mmcv TransformerEncoderLayer names (a CLIP
+    block's FFN: ``ffn=('fc1', 'fc2')``)."""
     _norm(out, pre + 'ln1', p['ln1'])
     _norm(out, pre + 'ln2', p['ln2'])
     out[pre + 'attn.attn.in_proj_weight'] = _f(
         p['attn']['in_proj']['kernel']).T
     out[pre + 'attn.attn.in_proj_bias'] = _f(p['attn']['in_proj']['bias'])
     _dense(out, pre + 'attn.attn.out_proj', p['attn']['out_proj'])
-    _dense(out, pre + 'ffn.layers.0.0', p['ffn']['fc1'])
-    _dense(out, pre + 'ffn.layers.1', p['ffn']['fc2'])
+    _dense(out, pre + 'ffn.' + ffn[0], p['ffn']['fc1'])
+    _dense(out, pre + 'ffn.' + ffn[1], p['ffn']['fc2'])
 
 
 def export_maskclip_vit(out, p, prefix='backbone.'):
@@ -90,6 +94,45 @@ def export_timm_vit(out, p, prefix='backbone.'):
     i = 0
     while f'layers_{i}' in p:
         _block(out, f'{prefix}layers.{i}.', p[f'layers_{i}'])
+        i += 1
+
+
+def export_vpt_vit(out, p, prefix='backbone.'):
+    """JAX ``VPTCLIPVisionTransformer`` params (or the prompt-less
+    ``CLIPVisionTransformer``'s, which lack the four prompt leaves) ->
+    ``models.zegclip_vit`` names."""
+    out[prefix + 'patch_embed.weight'] = _f(
+        p['patch_embed']['kernel']).transpose(3, 2, 0, 1)
+    for leaf in ('class_embedding', 'positional_embedding', 'proj',
+                 'prompt_embeddings', 'deep_prompt_embeddings'):
+        if leaf in p:
+            out[prefix + leaf] = _f(p[leaf])
+    for norm in ('ln_pre', 'ln_post', 'prompt_norm'):
+        if norm in p:
+            _norm(out, prefix + norm, p[norm])
+    if 'prompt_proj' in p:
+        _dense(out, prefix + 'prompt_proj', p['prompt_proj'])
+    i = 0
+    while f'layers_{i}' in p:
+        _block(out, f'{prefix}layers.{i}.', p[f'layers_{i}'], ('fc1', 'fc2'))
+        i += 1
+
+
+def export_atm_head(out, p, prefix='decode_head.'):
+    """JAX ``ATMSingleHeadSeg`` params -> ``models.atm_head`` names."""
+    if 'input_proj' in p:
+        _dense(out, prefix + 'input_proj', p['input_proj'])
+        _norm(out, prefix + 'proj_norm', p['proj_norm'])
+    _dense(out, prefix + 'q_proj', p['q_proj'])
+    i = 0
+    while f'decoder_{i}' in p:
+        layer, pre = p[f'decoder_{i}'], f'{prefix}decoder.{i}.'
+        for name in ('q', 'k', 'v', 'proj'):
+            _dense(out, f'{pre}attn.{name}', layer['attn'][name])
+        for name in ('norm2', 'norm3'):
+            _norm(out, pre + name, layer[name])
+        for name in ('linear1', 'linear2'):
+            _dense(out, pre + name, layer[name])
         i += 1
 
 
@@ -208,15 +251,20 @@ def vlm_state_dict(params, batch_stats=None):
     """JAX VLM params ({'backbone', 'decode_head'} and, in a training tree,
     'clip_encoder'; in the Cityscapes model 'conv_encoder') and the
     ``batch_stats`` collection -> numpy state dict. The backbone is the
-    timm ViT when it has a ``norm`` scope, the head the DeepLabV3+ one when
-    it has no ``conv1``."""
+    timm ViT when it has a ``norm`` scope, a ZegCLIP ViT when it has a
+    ``class_embedding``; the head the ATM one when it has a ``q_proj``, the
+    DeepLabV3+ one when it has no ``conv1``."""
     out = {}
     if 'norm' in params['backbone']:
         export_timm_vit(out, params['backbone'])
+    elif 'class_embedding' in params['backbone']:
+        export_vpt_vit(out, params['backbone'])
     else:
         export_maskclip_vit(out, params['backbone'])
     if 'conv1' in params['decode_head']:
         export_vlg_head(out, params['decode_head'])
+    elif 'q_proj' in params['decode_head']:
+        export_atm_head(out, params['decode_head'])
     else:
         export_dlv3p_head(out, params['decode_head'],
                           (batch_stats or {}).get('decode_head'))
@@ -298,9 +346,15 @@ def load_pretrained_into(model, path):
     ``clip_encoder`` (reference mcvit16.py loads the same checkpoint), the
     position embedding resized to each scope's grid (JAX
     ``load_pretrained_into``). Each scope must take every leaf of the tree
-    and nothing else."""
-    tree = load_flax_npz(path) if isinstance(path, str) else path
+    and nothing else. A VPT CLIP backbone (exp 41's ZegCLIP row) is refused
+    by name: JAX's loader takes the MaskCLIP layout only (it reads
+    ``pos_embed``, which the VPT tree lacks)."""
     own = model.state_dict()
+    if 'backbone.prompt_embeddings' in own:
+        raise NotImplementedError(
+            'load_pretrained_into: the VPTCLIPVisionTransformer backbone has '
+            'no pretrained loader (JAX loads the MaskCLIP layout only)')
+    tree = load_flax_npz(path) if isinstance(path, str) else path
     for scope in ('backbone', 'clip_encoder'):
         prefix = scope + '.'
         if not any(k.startswith(prefix) for k in own):

@@ -1,8 +1,9 @@
 """Model factory (counterpart of ``semivl_tpu/models/builder.py``), for the
 VLGHead / MaskClipViT family (the flagship on VOC, COCO and ADE20K, the
 Cityscapes model with its ResNetV1c skip encoder and the tiny test VLM),
-exp 41's DeepLabV3+ models (on the MaskCLIP ViT or a timm ViT) and the
-frozen guidance encoder. JAX's builder also clones a VLG model into a
+exp 41's DeepLabV3+ models (on the MaskCLIP ViT or a timm ViT) and its
+ZegCLIP model (the ATM head on the VPT CLIP ViT), and the frozen guidance
+encoder. JAX's builder also clones a VLG model into a
 forward-only variant for its fused Pallas decoder (builder.py:240-259);
 the port's kernels serve both directions from one module, so it builds one
 model for every head."""
@@ -47,13 +48,17 @@ def is_trainable(name, freeze_backbone, exclude_keys):
     return True
 
 
+EMBEDDINGS = ('cls_token', 'pos_embed', 'class_embedding',
+              'positional_embedding', 'prompt_embeddings')
+
+
 def init_weights(model, generator):
     """Seeded random weights: every matrix or kernel U(-1/sqrt(fan_in),
-    +1/sqrt(fan_in)) (torch's default bound), the cls token and positional
-    embedding N(0, 0.02), norm scales 1 and biases 0."""
+    +1/sqrt(fan_in)) (torch's default bound), the cls token, class, position
+    and prompt embeddings N(0, 0.02), norm scales 1 and biases 0."""
     with torch.no_grad():
         for name, p in model.named_parameters():
-            if name.endswith(('cls_token', 'pos_embed')):
+            if name.endswith(EMBEDDINGS):
                 p.copy_(torch.randn(p.shape, generator=generator) * 0.02)
             elif p.ndim >= 2:
                 bound = 1.0 / math.sqrt(p[0].numel())
@@ -69,8 +74,10 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     """Run-config dict -> ``ModelBundle`` with the model on ``device``.
 
     Resolves the named model config, takes num_classes and img_size from
-    the run config and the text embedding from dataset + variant
-    (reference model/builder.py:104-159). With ``cfg['clip_encoder']`` (the
+    the run config and the text embedding from dataset + variant, whose
+    asset path the decode head gets as ``text_embedding_name`` (a concept
+    text is aggregated to classes by its list; reference
+    model/builder.py:104-159). With ``cfg['clip_encoder']`` (the
     training configs) it adds the frozen guidance encoder and its text.
     The weights are random from ``seed`` (load trained ones with
     ``convert.load_jax_params``); parameters are float32, computation runs
@@ -99,8 +106,10 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
             cfg['text_embedding_variant']:
         # reference vlm.py:42: pseudo-label text == decoder text
         raise ValueError('pl_text must equal text_embedding_variant')
-    text_feats = load_text_embedding(
-        text_embedding_path(cfg['dataset'], cfg['text_embedding_variant']))
+    text_path = text_embedding_path(cfg['dataset'],
+                                    cfg['text_embedding_variant'])
+    model_cfg['decode_head']['text_embedding_name'] = text_path
+    text_feats = load_text_embedding(text_path)
     clip_cfg, mcc_text, mcc_name = None, None, ''
     if cfg.get('clip_encoder'):
         clip_cfg = get_model_config(

@@ -67,12 +67,13 @@ class DLV3PHead(nn.Module):
         self.classifier = nn.Conv2d(FUSE_CHANNELS, num_classes, 1)
 
     def forward(self, feats, text_feats=None, conv_feats=None,
-                output_size=None, train=False):
+                output_size=None, train=False, global_emb=None):
         """feats: (c1, c4) NHWC, the ViT's layer-4 map and its last map (the
         dense CLIP embedding of the MaskCLIP ViT). ``train``: BatchNorm on
-        the batch's statistics, updating the running ones. Returns float32
-        (B, num_classes, out_h, out_w) logits."""
-        del text_feats, conv_feats
+        the batch's statistics, updating the running ones; the text and the
+        global embedding are taken and ignored. Returns float32 (B,
+        num_classes, out_h, out_w) logits."""
+        del text_feats, conv_feats, global_emb
         dt = self.dtype
         c1, c4 = (f.permute(0, 3, 1, 2).to(dt) for f in feats[:2])
         c4 = self.aspp(c4, train)

@@ -97,18 +97,30 @@ def gelu_exact(x):
     return F.gelu(x, approximate='none')
 
 
-class Mlp(nn.Module):
-    """fc1 -> exact GELU -> fc2 under mmcv FFN names (``layers.0.0``,
-    ``layers.1``)."""
+def quick_gelu(x):
+    """CLIP's QuickGELU: x * sigmoid(1.702 x) (JAX ``layers.quick_gelu``)."""
+    return x * torch.sigmoid(1.702 * x)
 
-    def __init__(self, dim, hidden_dim):
+
+class Mlp(nn.Module):
+    """fc1 -> ``act`` (exact GELU) -> fc2, under mmcv FFN names
+    (``layers.0.0``, ``layers.1``) or, with ``mmcv_names=False``, JAX's
+    (``fc1``, ``fc2``: the CLIP blocks of the ZegCLIP ViTs)."""
+
+    def __init__(self, dim, hidden_dim, act=gelu_exact, mmcv_names=True):
         super().__init__()
-        self.layers = nn.Sequential(nn.Sequential(nn.Linear(dim, hidden_dim)),
-                                    nn.Linear(hidden_dim, dim))
+        self.act = act
+        self.mmcv_names = mmcv_names
+        fc1, fc2 = nn.Linear(dim, hidden_dim), nn.Linear(hidden_dim, dim)
+        if mmcv_names:
+            self.layers = nn.Sequential(nn.Sequential(fc1), fc2)
+        else:
+            self.fc1, self.fc2 = fc1, fc2
 
     def forward(self, x):
-        return linear(gelu_exact(linear(x, self.layers[0][0])),
-                      self.layers[1])
+        fc1, fc2 = ((self.layers[0][0], self.layers[1]) if self.mmcv_names
+                    else (self.fc1, self.fc2))
+        return linear(self.act(linear(x, fc1)), fc2)
 
 
 class TransformerBlock(nn.Module):
@@ -120,12 +132,13 @@ class TransformerBlock(nn.Module):
     (reference maskclip_vit.py:110-118)."""
 
     def __init__(self, dim, num_heads, mlp_hidden, norm_eps=1e-6,
-                 qkv_bias=True, dtype=torch.float32):
+                 qkv_bias=True, dtype=torch.float32, act=gelu_exact,
+                 mmcv_names=True):
         super().__init__()
         self.ln1 = LayerNorm(dim, norm_eps, dtype)
         self.ln2 = LayerNorm(dim, norm_eps, dtype)
         self.attn = Attention(dim, num_heads, qkv_bias)
-        self.ffn = Mlp(dim, mlp_hidden)
+        self.ffn = Mlp(dim, mlp_hidden, act, mmcv_names)
 
     def forward(self, x, return_v=False):
         attn_out, v = self.attn(self.ln1(x), return_v)

@@ -8,8 +8,11 @@
    pooled location, with a projected text token per class;
 4. two Up stages (transpose conv, skip conv, GN/ReLU twice) and the 3x3
    head, through ``ops.fused_decoder.fused_vlg_decoder``, whose backward
-   takes the route ``decoder_bwd`` names ('whole' or 'banded');
-5. bilinear resize to the output size.
+   takes the route ``decoder_bwd`` names ('whole' or 'banded'), over
+   B*N planes;
+5. a concept text (N != num_classes: the concept list that
+   ``text_embedding_name`` names) max-aggregated to classes;
+6. bilinear resize to the output size.
 
 Planes are NCHW inside; parameters carry the reference's torch names
 (reference model/decode_heads/vlg_head.py:140-251).
@@ -30,6 +33,10 @@ from semivl_tpu_torch.models.layers import (
 from semivl_tpu_torch.ops import fused_decoder
 from semivl_tpu_torch.ops.resize import (axis_weights, device_constant,
                                          resize_hw)
+from semivl_tpu_torch.text.embeddings import (
+    aggregate_concept_predictions,
+    get_class_to_concept_idxs,
+)
 
 
 @functools.lru_cache(maxsize=64)
@@ -155,7 +162,7 @@ class VLGHead(nn.Module):
                  skip_from_conv_feat=False, num_layers=2, num_heads=4,
                  channels=128, pool_size=(4, 4), conv1_ksize=7,
                  align_corners=False, decoder_bwd='whole',
-                 dtype=torch.float32):
+                 text_embedding_name='', dtype=torch.float32):
         super().__init__()
         if decoder_bwd not in ('whole', 'banded'):
             raise ValueError(f'decoder_bwd {decoder_bwd!r}: whole or banded')
@@ -164,6 +171,7 @@ class VLGHead(nn.Module):
         self.skip_from_conv_feat = skip_from_conv_feat
         self.decoder_bwd = decoder_bwd
         self.align_corners = align_corners
+        self.text_embedding_name = text_embedding_name
         self.dtype = dtype
         self.conv1 = nn.Conv2d(1, channels, conv1_ksize,
                                padding=(conv1_ksize - 1) // 2)
@@ -182,14 +190,15 @@ class VLGHead(nn.Module):
         self.head = nn.Conv2d(up_channels[1], 1, 3, padding=1)
 
     def forward(self, feats, text_feats, conv_feats=None, output_size=None,
-                train=False):
+                train=False, global_emb=None):
         """feats: NHWC maps (pyramid..., dense CLIP embedding last);
-        text_feats: (N, Ct) or (B, N, Ct); conv_feats: the conv encoder's
-        NHWC maps, the later skips with ``skip_from_conv_feat`` (reference
-        vlg_head.py:202-206); ``train`` is taken and ignored, as JAX's head
-        does (GroupNorm has no train mode). Returns float32 (B, num_classes,
+        text_feats: (N, Ct) or (B, N, Ct), N classes or concepts;
+        conv_feats: the conv encoder's NHWC maps, the later skips with
+        ``skip_from_conv_feat`` (reference vlg_head.py:202-206); ``train``
+        and ``global_emb`` are taken and ignored, as JAX's head does
+        (GroupNorm has no train mode). Returns float32 (B, num_classes,
         out_h, out_w) logits."""
-        del train
+        del train, global_emb
         dt = self.dtype
         img_feats = feats[-1]
         skip_feats = list(feats[:-1])[::-1]
@@ -199,10 +208,6 @@ class VLGHead(nn.Module):
         if text_feats.ndim == 2:
             text_feats = text_feats[None].expand(b, -1, -1)
         n = text_feats.shape[1]
-        if n != self.num_classes:
-            raise NotImplementedError(
-                'concept -> class aggregation (N != num_classes) is not '
-                'ported; use a single-prompt text embedding')
 
         # 1. similarity map (reference vlg_head.py:214-217)
         img_n = l2_normalize(img_feats.to(dt), dim=-1)
@@ -231,6 +236,11 @@ class VLGHead(nn.Module):
             self.up2.stage_params(), head, bwd=self.decoder_bwd)
         x = logits.reshape(b, n, 4 * h, 4 * w)
 
-        # 5. resize to the output size (reference vlg_head.py:246-249)
+        # 5. concept -> class aggregation (reference vlg_head.py:242-244)
+        if n != self.num_classes:
+            x = aggregate_concept_predictions(
+                x, get_class_to_concept_idxs(self.text_embedding_name))
+
+        # 6. resize to the output size (reference vlg_head.py:246-249)
         out_hw = output_size or (self.img_size, self.img_size)
         return resize_hw(x.float(), out_hw, 'bilinear', self.align_corners)

@@ -3,9 +3,11 @@
 CLIP encoder + VLG decoder, plus the frozen MaskCLIP guidance encoder
 (``clip_encoder``) of training and, in the Cityscapes model, the ResNetV1c
 skip encoder (``conv_encoder``); exp 41's ablation models put a DeepLabV3+
-head (BatchNorm) on the MaskCLIP ViT or on a timm ViT. Text embeddings are
-arguments. Feature perturbation (channel dropout on the encoder's feature
-maps) takes an explicit ``torch.Generator``; ``need_fp`` runs one decoder
+head (BatchNorm) on the MaskCLIP ViT or on a timm ViT, or ZegCLIP's ATM head
+on its VPT CLIP ViT. Text embeddings are arguments; every head takes the
+backbone's global (cls) embedding, which only the ATM head reads. Feature
+perturbation (channel dropout on the encoder's feature maps) takes an
+explicit ``torch.Generator``; ``need_fp`` runs one decoder
 pass over the clean batch and the perturbed slice together (reference
 model/builder.py:56-102). With ``renorm_clip_img`` the ViT and the guidance
 encoder see the image renormalised from ImageNet to CLIP statistics; the
@@ -16,11 +18,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from semivl_tpu_torch.models.atm_head import ATMSingleHeadSeg
 from semivl_tpu_torch.models.clip_vit import MaskClipViT
 from semivl_tpu_torch.models.dlv3p_head import DLV3PHead
 from semivl_tpu_torch.models.resnet import ResNetV1c
 from semivl_tpu_torch.models.timm_vit import TIMMVisionTransformer
 from semivl_tpu_torch.models.vlg_head import VLGHead
+from semivl_tpu_torch.models.zegclip_vit import VPTCLIPVisionTransformer
 from semivl_tpu_torch.ops.dropout import dropout2d
 from semivl_tpu_torch.ops.resize import device_constant, resize
 from semivl_tpu_torch.text.embeddings import (
@@ -58,6 +62,18 @@ def build_backbone(cfg, dtype):
         return TIMMVisionTransformer(
             img_size=(cfg['img_size'], cfg['img_size']),
             out_indices=tuple(cfg.get('out_indices', (4, 11))), dtype=dtype)
+    if cfg['type'] == 'VPTCLIPVisionTransformer':
+        # JAX's builder defaults (models/builder.py:69-84)
+        return VPTCLIPVisionTransformer(
+            input_resolution=cfg.get('input_resolution', 512),
+            patch_size=cfg.get('patch_size', 16),
+            width=cfg.get('width', 768), layers=cfg.get('layers', 12),
+            heads=cfg.get('heads', 12), output_dim=cfg.get('output_dim', 512),
+            num_tokens=cfg.get('num_tokens', 10),
+            prompt_dim=cfg.get('prompt_dim', 768),
+            total_d_layer=cfg.get('total_d_layer', 11),
+            out_indices=tuple(cfg.get('out_indices', (11,))),
+            drop_path_rate=cfg.get('drop_path_rate', 0.0), dtype=dtype)
     if cfg['type'] != 'MaskClipVisionTransformer':
         raise ValueError(f'Unknown backbone type {cfg["type"]!r}')
     keys = ('patch_size', 'in_channels', 'embed_dims', 'num_layers',
@@ -75,12 +91,26 @@ def build_head(cfg, dtype):
         return DLV3PHead(img_size=cfg['img_size'],
                          num_classes=cfg['num_classes'], dtype=dtype,
                          **{k: cfg[k] for k in keys if k in cfg})
+    if cfg['type'] == 'ATMSingleHeadSeg':
+        # JAX's builder defaults (models/builder.py:123-138): use_proj True
+        return ATMSingleHeadSeg(
+            img_size=cfg['img_size'], num_classes=cfg['num_classes'],
+            in_channels=cfg.get('in_channels', 512),
+            embed_dims=cfg.get('embed_dims', 512),
+            num_layers=cfg.get('num_layers', 3),
+            num_heads=cfg.get('num_heads', 8),
+            use_stages=cfg.get('use_stages', 1),
+            use_proj=cfg.get('use_proj', True), use_rd=cfg.get('use_rd', True),
+            align_corners=cfg.get('align_corners', False),
+            text_embedding_name=cfg.get('text_embedding_name', ''),
+            dtype=dtype)
     if cfg['type'] != 'VLGHead':
         raise ValueError(f'Unknown head type {cfg["type"]!r}')
     keys = ('text_in_channels', 'text_channels', 'up_channels',
             'skip_in_channels', 'skip_channels', 'skip_from_conv_feat',
             'num_layers', 'num_heads', 'channels', 'pool_size',
-            'conv1_ksize', 'align_corners', 'decoder_bwd')
+            'conv1_ksize', 'align_corners', 'decoder_bwd',
+            'text_embedding_name')
     return VLGHead(img_size=cfg['img_size'], num_classes=cfg['num_classes'],
                    dtype=dtype, **{k: cfg[k] for k in keys if k in cfg})
 
@@ -144,13 +174,14 @@ class VLM(nn.Module):
         ``need_fp``: also decode a perturbed copy of the second half of the
         batch (the unlabeled ``img_w``) with channel dropout on every
         feature map (the ViT's, then the conv encoder's), in the same
-        decoder pass; returns ``(logits, logits_fp)``. The reference
+        decoder pass, its global embedding repeated unperturbed (JAX
+        vlm.py:126-129); returns ``(logits, logits_fp)``. The reference
         perturbs the whole batch and drops the x half (builder.py:81-99 vs
         semivl.py:245-247); GroupNorm and LayerNorm are per sample, so the
         kept half is the same. ``train``: BatchNorm of the conv encoder
         normalises with batch statistics and updates its running ones (the
         student passes); otherwise it uses the running ones."""
-        feats, _, conv_feats = self.extract_feat(img, train)
+        feats, global_emb, conv_feats = self.extract_feat(img, train)
         b = img.shape[0]
         if need_fp:
             feats = tuple(torch.cat([f, dropout2d(f[b // 2:], self.fp_rate,
@@ -160,9 +191,11 @@ class VLM(nn.Module):
                 conv_feats = [torch.cat([f, dropout2d(
                     f[b // 2:], self.fp_rate, generator)])
                     for f in conv_feats]
+            if global_emb is not None:
+                global_emb = torch.cat([global_emb, global_emb[b // 2:]])
         logits = self.decode_head(feats, text_feats, conv_feats,
                                   output_size=tuple(img.shape[1:3]),
-                                  train=train)
+                                  train=train, global_emb=global_emb)
         if need_fp:
             return logits[:b], logits[b:]
         return logits

@@ -4,16 +4,18 @@
 Embeddings are precomputed with CLIP ViT-B/16's text encoder over
 ``"a photo of a {c}"`` prompts and L2-normalised (reference
 model/text_embeddings.py:156-186); the ``.npy`` assets are float16 of shape
-(num_classes_or_concepts, 512). This package carries the assets of its two
-models: for the VOC flagship ``voc12_wbg_single`` (one row per VOC class,
-the decoder's text) and ``voc12_wbg_concept4_single`` (98 concepts of the
-21 classes, the guidance labels' text, aggregated back to classes by a
-max); for Cityscapes exp 44 ``cityscapes_conceptavg3_single`` (19 rows,
-each the mean of a class's concept embeddings: the decoder's text) and
-``cityscapes_concept3_single`` (54 concepts, the guidance labels' text);
-for COCO exp 42 ``coco_single`` (81 rows) and for ADE20K exp 43
-``ade_single`` (150 rows), each the decoder's and the guidance labels'
-text.
+(num_classes_or_concepts, 512). This package carries every asset of the
+JAX package, byte for byte: for VOC ``voc12_wbg_single`` (one row per VOC
+class, the flagship decoder's text), ``voc12_wbg_concept4_single`` (98
+concepts of the 21 classes, the guidance labels' text, and a decoder text
+that the heads aggregate back to classes by a max) and
+``voc12_wbg_conceptavg4_single`` (21 rows, each the mean of a class's
+concepts); for Cityscapes ``cityscapes_conceptavg3_single`` (19 rows: exp
+44's decoder text), ``cityscapes_concept3_single`` (54 concepts, the
+guidance labels' text) and ``cityscapes_single`` (19 rows, the generator's
+default variant); for COCO exp 42 ``coco_single`` (81 rows) and for ADE20K
+exp 43 ``ade_single`` (150 rows), each the decoder's and the guidance
+labels' text.
 """
 
 import os
@@ -21,6 +23,7 @@ import os
 import numpy as np
 import torch
 
+from semivl_tpu_torch.ops.resize import device_constant
 from semivl_tpu_torch.text import concepts as _concepts
 
 _ASSET_DIR = os.path.join(
@@ -68,10 +71,11 @@ def aggregate_concept_predictions(pred, class_to_concept_idxs):
     """Max-aggregate (B, num_concepts, H, W) concept logits to
     (B, num_classes, H, W) class logits (reference
     model/text_embeddings.py:188-193), as a masked max over the membership
-    matrix."""
-    mask = torch.from_numpy(concept_aggregation_matrix(
-        class_to_concept_idxs, pred.shape[1])).to(pred.device)
+    matrix (uploaded once per device, ``device_constant``)."""
+    key = ('concepts', pred.shape[1], tuple(
+        (c, tuple(v)) for c, v in sorted(class_to_concept_idxs.items())))
+    mask = device_constant(key, lambda: concept_aggregation_matrix(
+        class_to_concept_idxs, pred.shape[1]), pred.device, torch.bool)
     masked = torch.where(mask[None, :, :, None, None], pred[:, None],
-                         torch.tensor(float('-inf'), dtype=pred.dtype,
-                                      device=pred.device))
+                         pred.new_full((), float('-inf')))
     return masked.amax(dim=2)

@@ -7,6 +7,10 @@ teacher pseudo-labels for the mixed-in images, MaskCLIP guidance labels from
 the frozen encoder, student pass 1 on ``[img_x | img_w]`` with feature
 perturbation of the w half, student pass 2 on ``[s1 | s2]``, the weighted
 loss mix, one backward and one AdamW update of the trainable parameters.
+The criteria are CELoss or, with exp 41's ATM head, 'mmseg' (SegLossPlus:
+the labeled term on the final layer's masks; the unlabeled terms on the
+pseudo-labels times this rank's kept fraction; JAX step.py:100-143,
+:201-217).
 A model with BatchNorm (the Cityscapes conv encoder, exp 41's DeepLabV3+
 head) runs it in eval mode in the teacher pass (``pleval``: the running
 statistics) and in train mode in both student passes, whose
@@ -30,6 +34,7 @@ import torch
 from semivl_tpu_torch.device import resolve_device
 from semivl_tpu_torch.losses.ce import cross_entropy
 from semivl_tpu_torch.losses.conf_weight import confidence_weighted_loss
+from semivl_tpu_torch.losses.seg_loss_plus import seg_loss_plus
 from semivl_tpu_torch.parallel import dist
 from semivl_tpu_torch.train.optim import lr_schedule
 
@@ -95,16 +100,34 @@ def _criterion_name(cfg):
     return crit['name'] if isinstance(crit, dict) else crit
 
 
+CRITERIA = ('CELoss', 'mmseg')
+
+
+def check_criteria(cfg, bundle):
+    """The criteria the port runs (OHEM is refused by name) and JAX's
+    pairing rule (``check_criterion_pairing``, step.py:100-117): 'mmseg'
+    means the model's own loss_decode, SegLossPlus, which only the ATM head
+    configures."""
+    names = (_criterion_name(cfg), cfg['criterion_u'])
+    for name in names:
+        if name not in CRITERIA:
+            raise NotImplementedError(f'criterion {name!r} is not ported to '
+                                      f'the PyTorch step ({CRITERIA})')
+    if 'mmseg' in names:
+        head = getattr(bundle.model, 'decode_head_cfg', None) or {}
+        if head.get('type') != 'ATMSingleHeadSeg':
+            raise ValueError(
+                "criterion 'mmseg' resolves to SegLossPlus, which only the "
+                f"ATM head configures; got head {head.get('type')!r} — use "
+                "'CELoss'/'OHEM' for this model")
+
+
 class SemiVLStep:
     """``step(batch, generator) -> metrics``; ``iteration`` counts the
     updates made (the JAX ``TrainState.step``)."""
 
     def __init__(self, bundle, cfg, optimizer, total_iters, device=None):
-        crits = (_criterion_name(cfg), cfg['criterion_u'])
-        if crits != ('CELoss', 'CELoss'):
-            raise NotImplementedError(
-                f'criterion {crits[0]!r}, criterion_u {crits[1]!r}: only the '
-                'CELoss criteria are ported')
+        check_criteria(cfg, bundle)
         if not cfg.get('use_fp', True):
             raise ValueError('the reference asserts use_fp (semivl.py:114)')
         for key in UNPORTED_KEYS:
@@ -134,7 +157,23 @@ class SemiVLStep:
             return a * (1 - prog) + b * prog
         return float(self.mcc_lambda)
 
+    def _labeled_loss(self, logits, mask):
+        if _criterion_name(self.cfg) == 'mmseg':
+            # the final layer only, as the reference's train loop passes no
+            # aux outputs (semivl.py:269; JAX step.py:133-142)
+            return seg_loss_plus(logits, mask, self.cfg['nclass'])
+        return cross_entropy(logits, mask)
+
     def _unlabeled_loss(self, logits, pl, conf, ignore):
+        if self.cfg['criterion_u'] == 'mmseg':
+            # SegLossPlus on the pseudo-labels times this rank's fraction of
+            # confident valid pixels, not reduced over the ranks
+            # (reference semivl.py:278-282)
+            valid = ignore != 255
+            kept = (conf >= self.cfg['conf_thresh']) & valid
+            ratio = kept.sum() / valid.sum().clamp(min=1)
+            return seg_loss_plus(logits, pl, self.cfg['nclass']) \
+                * ratio.float()
         ce = cross_entropy(logits, pl, reduction='none')
         return confidence_weighted_loss(ce, conf, ignore,
                                         self.cfg['conf_mode'],
@@ -179,7 +218,7 @@ class SemiVLStep:
         ign_m1 = cutmix_mask(ign, ign_o, box1)
         ign_m2 = cutmix_mask(ign, ign_o, box2)
         m = dict(
-            loss_x=cross_entropy(pred_x, batch['mask_x']),
+            loss_x=self._labeled_loss(pred_x, batch['mask_x']),
             loss_s1=self._unlabeled_loss(
                 pred_s1, cutmix_mask(mask_w, mask_w_other, box1),
                 cutmix_mask(conf_w, conf_w_other, box1), ign_m1),
@@ -208,10 +247,12 @@ class SemiVLStep:
     def update(self, metrics, preempt=False):
         """Average the gradients and metrics over the ranks (inside a
         process group), then one AdamW step at this iteration's rate.
-        A trainable leaf that the loss does not reach has no gradient on
-        any rank and is neither reduced nor updated."""
-        grads = [p.grad for g in self.optimizer.param_groups
-                 for p in g['params'] if p.grad is not None]
+        A trainable leaf that the loss does not reach (the ATM head's last
+        layer after its attention logits) has no gradient on any rank and
+        is not reduced; it takes a zero gradient, so that AdamW decays it
+        as JAX's optimizer does with its zero gradient."""
+        params = [p for g in self.optimizer.param_groups for p in g['params']]
+        grads = [p.grad for p in params if p.grad is not None]
         m = dict(metrics)
         if dist.active():
             dist.mean_over_ranks_(grads)
@@ -225,6 +266,9 @@ class SemiVLStep:
             m['grad_norm'] = torch.linalg.vector_norm(
                 torch.stack([torch.linalg.vector_norm(g.float())
                              for g in grads]))
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         lr = self.sched(self.iteration)
         for group in self.optimizer.param_groups:
             group['lr'] = lr * group['lr_mult']

@@ -42,9 +42,12 @@ from semivl_tpu_torch.train.step import LOSS_KEYS
 import torch_dist_worker
 from synth_data import make_synth_dataset
 from test_multihost import _is_connect_flake
-from torch_parity import (jax_step_on_mesh, pseudo_label_thresholds,
+from torch_parity import (ZEG_IMG, ZEG_NCLS, ZEG_OUT, confident_threshold,
+                          jax_step_on_mesh, pseudo_label_thresholds,
                           rel_err, semivl_batch, step_mismatches,
-                          text_embedding, tiny_train_vlm, tiny_vlm)
+                          text_embedding, tiny_train_vlm, tiny_vlm,
+                          zegclip_batch, zegclip_step_mismatches,
+                          zegclip_vlm)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TOTAL = 100
@@ -285,6 +288,76 @@ def test_cityscapes_duplicate_ranks_equal_one_process(cityscapes_pair,
                 assert torch.equal(r[key][k], alone[key][k]), (key, k)
         assert {k: v for k, v in r['metrics'].items()
                 if k != 'preempt_count'} == alone['metrics']
+
+
+# ---------------------------------- (2b) exp 41's ZegCLIP step, mmseg
+
+@pytest.fixture(scope='module')
+def zegclip_pair(tmp_path_factory):
+    """The small ZegCLIP VLM under exp 41's generated config ('mmseg' for
+    both criteria: SegLossPlus, whose mask count JAX averages over the
+    devices, and the unlabeled terms scaled by each device's own kept
+    fraction): one step on two gloo ranks (one row of the 2 + 2 batch
+    each) and JAX's step on a 2-device mesh. Rank 0's labels hold 2 of the
+    5 classes, rank 1's all 5; the pseudo-labels' kept fractions differ by
+    rank too, so a summed count or a global fraction would not match."""
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    jm, params, pm, text = zegclip_vlm(seed=5, logit_scale=100.0)
+    batch = zegclip_batch(8)
+    batch['mask_x'][0] = np.where(batch['mask_x'][0] == 255, 255,
+                                  batch['mask_x'][0] % 2)
+    keeps = [np.random.RandomState(8).rand(2, 1, 1, ZEG_OUT) < 0.5]
+    cfg = next(c for c in generate_experiment_cfgs(41)
+               if 'zegclip' in c['model'])
+    cfg = dict(cfg, crop_size=ZEG_IMG, nclass=ZEG_NCLS, log_grad_norm=True,
+               conf_thresh=confident_threshold(pm, text, batch, keeps))
+    want = jax_step_on_mesh(jm, params, None, text, batch, cfg, keeps, TOTAL,
+                            n_devices=2, exclude_keys=['prompt'])
+    before = {k: v.clone() for k, v in pm.state_dict().items()}
+    trainable = {n: p.requires_grad for n, p in pm.named_parameters()}
+    with torch.no_grad():   # each rank's kept fraction of loss_fp
+        pred_w = pm(torch.from_numpy(np.concatenate(
+            [batch['img_x'], batch['img_w']])), torch.from_numpy(text))[2:]
+    conf = torch.softmax(pred_w, 1).amax(1).numpy()
+    valid = batch['ignore_mask'] != 255
+    kept = [((conf[r] >= cfg['conf_thresh']) & valid[r]).sum()
+            / valid[r].sum() for r in range(2)]
+    present = [len(set(np.unique(batch['mask_x'][r])) - {255})
+               for r in range(2)]
+    got = launch('step', dict(model=pm, text=text, mcc=None, cfg=cfg,
+                              batch=batch, keeps=keeps, total=TOTAL),
+                 str(tmp_path_factory.mktemp('zegclip_step')))
+    return want, got, before, trainable, cfg, kept, present
+
+
+def test_zegclip_step_on_two_ranks_matches_jax_mesh(zegclip_pair):
+    """The ranks' present-class counts (2 and 5) and kept fractions differ;
+    the rank-averaged loss terms and the gradient norm within 1e-4 of
+    JAX's 2-device step; the ranks' states and gradients ``torch.equal``;
+    every trainable leaf's averaged gradient and update against JAX's
+    within 1e-3 (``zegclip_step_mismatches``: the leaves whose gradient is
+    zero in exact arithmetic held to a first AdamW step), the rest of the
+    backbone unchanged."""
+    want, got, before, trainable, cfg, kept, present = zegclip_pair
+    assert present == [2, 5]
+    assert 0 < min(kept) and abs(kept[0] - kept[1]) > 0.01, kept
+    jm, pm = want['jmetrics'], got[0]['metrics']
+    keys = ('loss_x', 'loss_s1', 'loss_s2', 'loss_fp', 'loss_all',
+            'grad_norm')
+    assert set(pm) == set(keys) | {'preempt_count'}
+    assert pm['preempt_count'] == 0.0
+    for k in keys:
+        assert np.isfinite(pm[k]), k
+        assert abs(pm[k] - jm[k]) <= 1e-4 * abs(jm[k]), (k, pm[k], jm[k])
+    for k in ('loss_s1', 'loss_s2', 'loss_fp'):
+        assert pm[k] > 0, k
+    assert got[0]['metrics'] == got[1]['metrics']
+    _assert_ranks_equal(got, ('state', 'grads'))
+    s = dict(want, **_port_side(got, before, trainable))
+    s['port_grads'].update({n: np.zeros(before[n].shape, np.float32)
+                            for n, t in trainable.items() if not t})
+    bad, n_checked, _, unreached = zegclip_step_mismatches(s, cfg)
+    assert bad == [] and n_checked == 40 and len(unreached) == 12
 
 
 # ----------------------------------------------------- (3) loader shards

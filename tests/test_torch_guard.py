@@ -49,9 +49,12 @@ def test_import_loads_no_jax():
                          env={**os.environ, 'PYTHONPATH': ROOT}).stdout
     loaded = out.split()
     for m in ('semivl_tpu_torch.evaluation.predict',
+              'semivl_tpu_torch.losses.seg_loss_plus',
+              'semivl_tpu_torch.models.atm_head',
               'semivl_tpu_torch.models.dlv3p_head',
               'semivl_tpu_torch.models.resnet',
               'semivl_tpu_torch.models.timm_vit',
+              'semivl_tpu_torch.models.zegclip_vit',
               'semivl_tpu_torch.ops.attention',
               'semivl_tpu_torch.ops.fused_decoder_banded',
               'semivl_tpu_torch.ops.fused_up',
@@ -216,6 +219,21 @@ def test_coco_ade_configs_and_text_assets(make, dataset, n):
         assert load_text_embedding(path).shape == (n, 512)
 
 
+def test_text_assets_equal_jax_bytes():
+    """Every text embedding the JAX package ships is in the port, byte for
+    byte (the port reads its own copies, never the JAX package's)."""
+    jax_dir = os.path.join(ROOT, 'semivl_tpu', 'assets', 'text_embedding')
+    port_dir = os.path.join(PKG, 'assets', 'text_embedding')
+    names = sorted(n for n in os.listdir(jax_dir) if n.endswith('.npy'))
+    assert len(names) == 8
+    assert sorted(n for n in os.listdir(port_dir)
+                  if n.endswith('.npy')) == names
+    for name in names:
+        with open(os.path.join(jax_dir, name), 'rb') as a, \
+                open(os.path.join(port_dir, name), 'rb') as b:
+            assert a.read() == b.read(), name
+
+
 def test_kernel_sources_and_build_keys():
     """Each kernel source has its own library, keyed by its content."""
     assert _build.sources() == ['flash_attention', 'flash_attention_heads',
@@ -233,10 +251,12 @@ def test_kernel_sources_and_build_keys():
 
 # the trainer entry point's modules (data pipeline, configs, loop, CLI,
 # the process group and the multi-rank dry run) and the exp-41 models it
-# builds
+# builds (DeepLabV3+, ZegCLIP with its SegLossPlus)
 TRAINER_MODULES = (
     'semivl_tpu_torch.configs.experiments', 'semivl_tpu_torch.data.dataset',
     'semivl_tpu_torch.models.dlv3p_head', 'semivl_tpu_torch.models.timm_vit',
+    'semivl_tpu_torch.models.zegclip_vit', 'semivl_tpu_torch.models.atm_head',
+    'semivl_tpu_torch.losses.seg_loss_plus',
     'semivl_tpu_torch.data.loader', 'semivl_tpu_torch.data.transforms',
     'semivl_tpu_torch.datasets.classes', 'semivl_tpu_torch.datasets.palettes',
     'semivl_tpu_torch.native.build', 'semivl_tpu_torch.native.loader',

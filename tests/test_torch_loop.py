@@ -244,27 +244,30 @@ def test_param_overrides_merge_after_init(loop_cfg, tmp_path):
 @pytest.mark.parametrize('exp_id', [40, 41, 42, 43, 44])
 def test_generated_configs_run_or_are_refused_by_name(exp_id):
     """Every generated config either passes what the port's loop, model
-    builder and step check before any work (exps 40, 42, 43 and 44; exp
-    41's VLG and DeepLabV3+ ablations) or is refused, naming what the port
-    lacks: exp 41's ZegCLIP model and its ``mmseg`` criteria."""
+    builder and step check before any work (every config of exps 40-44,
+    exp 41's VLG, DeepLabV3+ and ZegCLIP ablations among them, the step's
+    criteria checked against the config's decode head) or is refused,
+    naming what the port lacks."""
     from semivl_tpu_torch.configs.models import get_model_config
     from semivl_tpu_torch.models.builder import ModelBundle
     from semivl_tpu_torch.train.step import make_semivl_train_step
-    bundle = ModelBundle(model=torch.nn.Identity(),
-                         text_feats=np.zeros((21, 512)),
-                         mcc_text_feats=np.zeros((98, 512)))
     ran = 0
     for cfg in generate_experiment_cfgs(exp_id):
         try:
             loop._refuse_unported(cfg)
-            get_model_config(cfg['model'], img_size=cfg['crop_size'])
+            model = torch.nn.Identity()
+            model.decode_head_cfg = get_model_config(
+                cfg['model'], img_size=cfg['crop_size'])['model'][
+                    'decode_head']
+            bundle = ModelBundle(model=model, text_feats=np.zeros((21, 512)),
+                                 mcc_text_feats=np.zeros((98, 512)))
             make_semivl_train_step(bundle, cfg, None, 10, device='cpu')
             ran += 1
         except (NotImplementedError, ValueError) as exc:
             named = (cfg['dataset'], cfg['model'].replace('mmseg.', ''),
                      repr(cfg['criterion_u']))
             assert any(n in str(exc) for n in named), (cfg['name'], exc)
-    assert ran == {40: 5, 41: 10, 42: 5, 43: 5, 44: 5}[exp_id]
+    assert ran == {40: 5, 41: 12, 42: 5, 43: 5, 44: 5}[exp_id]
 
 
 def test_profile_window_writes_a_trace(loop_cfg, tmp_path, monkeypatch):

@@ -1,9 +1,10 @@
 """Shared fixtures for the PyTorch port's parity tests (tests/test_torch_*.py):
 a small flagship-shaped VLM (with the frozen guidance encoder for
-training), random JAX parameters made with numpy, the port model carrying
-the same weights through ``semivl_tpu_torch.convert``, and the helpers of
-the whole-step comparisons (``semivl_batch``, ``pseudo_label_thresholds``,
-``semivl_step_pair``)."""
+training) and a small ZegCLIP VLM (VPT ViT + ATM head), random JAX
+parameters made with numpy, the port model carrying the same weights
+through ``semivl_tpu_torch.convert``, and the helpers of the whole-step
+comparisons (``semivl_batch``, ``pseudo_label_thresholds``,
+``semivl_step_pair``, ``step_mismatches``)."""
 
 import dataclasses
 from typing import Any, Optional
@@ -201,6 +202,52 @@ class SharedReluMasks:
         return torch.where(keep, x, torch.zeros((), dtype=x.dtype))
 
 
+class SharedConceptMax:
+    """The VLG head's concept -> class max through the JAX step and then the
+    port's, the port taking each class's max over the concepts that won
+    JAX's (its largest, ties included). Concepts of a class whose logits lie
+    within the frameworks' float32 difference (~1e-6 of the scale) of each
+    other are common over 98 concepts and many pixels, and a max that picks
+    another concept sends the gradient to another plane. ``jax`` stands in
+    for ``aggregate_concept_predictions`` in ``semivl_tpu.models.vlg_head``
+    and records each call's input (in trace order, as ``SharedReluMasks``);
+    ``torch`` stands in for the port's and records, where the port's own
+    max differs from its value at JAX's winners, that difference over the
+    call's largest |logit| (``flips``)."""
+
+    def __init__(self):
+        self.inputs, self.traced, self.calls, self.flips = {}, 0, 0, []
+
+    def jax(self, pred, class_to_concept_idxs):
+        from semivl_tpu.text.embeddings import aggregate_concept_predictions
+        i = self.traced
+        self.traced += 1
+        jax.debug.callback(
+            lambda v, i=i: self.inputs.__setitem__(i, np.asarray(v)), pred)
+        return aggregate_concept_predictions(pred, class_to_concept_idxs)
+
+    def torch(self, pred, class_to_concept_idxs):
+        from semivl_tpu_torch.text.embeddings import (
+            aggregate_concept_predictions, concept_aggregation_matrix)
+        ref = self.inputs[self.calls]
+        self.calls += 1
+        assert ref.shape == tuple(pred.shape), (ref.shape, pred.shape)
+        member = concept_aggregation_matrix(class_to_concept_idxs,
+                                           pred.shape[1])[None, :, :, None,
+                                                          None]
+        ref = np.where(member, ref[:, None], -np.inf)
+        won = torch.from_numpy(ref == ref.max(axis=2, keepdims=True))
+        out = torch.where(won, pred[:, None], torch.tensor(
+            float('-inf'), dtype=pred.dtype)).amax(dim=2)
+        own = aggregate_concept_predictions(pred.detach(),
+                                            class_to_concept_idxs)
+        diff = own - out.detach()
+        if diff.any():
+            self.flips += (diff[diff != 0] / pred.detach().abs().max()
+                           ).tolist()
+        return out
+
+
 def masked_grads(opt_state, params):
     """JAX gradients from the first Adam moment after one update (mu =
     (1 - b1) g); frozen leaves (no moment) as zeros."""
@@ -287,7 +334,8 @@ def pseudo_label_thresholds(pm, text, mcc, batch):
 
 def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
                      total=100, stats=None, freeze_backbone=True,
-                     exclude_keys=('attn', 'pos_embed'), relu_masks=None):
+                     exclude_keys=('attn', 'pos_embed'), relu_masks=None,
+                     concept_max=None):
     """One SemiVL step in JAX (1-device mesh) and in the port (CPU), from
     the same weights (and BatchNorm running statistics ``stats``), batch,
     boxes and injected feature-perturbation masks ``keeps``, under the
@@ -295,7 +343,8 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     gradients and updated parameters and statistics under the port's
     names, the port's gradients and its state before and after. Given
     ``relu_masks`` (a ``SharedReluMasks``), the VLG head's ReLUs of both
-    steps go through it."""
+    steps go through it; given ``concept_max`` (a ``SharedConceptMax``),
+    its concept -> class max."""
     import contextlib
     from unittest import mock
 
@@ -304,13 +353,20 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     from semivl_tpu_torch.train import optim
     from semivl_tpu_torch.train.step import make_semivl_train_step
 
+    import semivl_tpu_torch.models.vlg_head as port_vlg
+
     def shared(side):
-        if relu_masks is None:
-            return contextlib.nullcontext()
-        if side == 'jax':
-            return mock.patch.object(jax_vlg.nn, 'relu', relu_masks.jax)
-        return mock.patch.object(torch.nn.functional, 'relu',
-                                 relu_masks.torch)
+        stack = contextlib.ExitStack()
+        if relu_masks is not None:
+            stack.enter_context(
+                mock.patch.object(jax_vlg.nn, 'relu', relu_masks.jax)
+                if side == 'jax' else mock.patch.object(
+                    torch.nn.functional, 'relu', relu_masks.torch))
+        if concept_max is not None:
+            stack.enter_context(mock.patch.object(
+                jax_vlg if side == 'jax' else port_vlg,
+                'aggregate_concept_predictions', getattr(concept_max, side)))
+        return stack
 
     with shared('jax'):
         out = jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps,
@@ -326,8 +382,9 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
             shared('torch'):
         pmetrics = {k: float(v) for k, v in step(batch).items()}
     assert fake.calls == len(keeps) and step.iteration == 1
-    if relu_masks is not None:
-        assert relu_masks.calls == len(relu_masks.inputs) > 0
+    for shared_op in (relu_masks, concept_max):
+        if shared_op is not None:
+            assert shared_op.calls == len(shared_op.inputs) > 0
     port_grads = {n: (p.grad.numpy() if p.grad is not None
                       else np.zeros(p.shape, np.float32))
                   for n, p in pm.named_parameters()}
@@ -499,3 +556,127 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
                 jax_grads=convert.vlm_state_dict(
                     masked_grads(new_state.opt_state, params)),
                 bn_batch_stats=[recorded[i] for i in sorted(recorded)])
+
+
+# ------------------------------------------------- the small ZegCLIP VLM
+
+# exp 41's ZegCLIP structure at small widths: a VPT ViT of width 128 with 2
+# heads of 64, 2 layers and 3 prompt tokens, whose 64-px position grid is
+# resized to 128^2 inputs, in the 512-d CLIP space; an ATM head of width 64
+# with 2 heads and 2 layers over 5 classes
+ZEG_IMG, ZEG_NCLS, ZEG_OUT = 128, 5, 512
+ZEG_BACKBONE = dict(
+    type='VPTCLIPVisionTransformer', input_resolution=64, patch_size=16,
+    width=128, layers=2, heads=2, output_dim=ZEG_OUT, num_tokens=3,
+    prompt_dim=128, total_d_layer=1, out_indices=[1])
+ZEG_HEAD = dict(
+    type='ATMSingleHeadSeg', img_size=ZEG_IMG, num_classes=ZEG_NCLS,
+    in_channels=ZEG_OUT, embed_dims=64, num_layers=2, num_heads=2,
+    use_stages=1, use_proj=False, use_rd=True, align_corners=False,
+    text_embedding_name='')
+
+
+def zegclip_vlm(seed=0, text=None, head=ZEG_HEAD, logit_scale=1.0):
+    """(jax module, numpy params, port model, text) of the small ZegCLIP
+    VLM, the port's trainable leaves as the model's freeze rule
+    (``exclude_keys=['prompt']``) says. ``logit_scale`` multiplies the
+    last decoder layer's query projection, and so the masks, to give the
+    random model confident pseudo-labels."""
+    from semivl_tpu_torch.configs.models import get_model_config
+    from semivl_tpu_torch.models.builder import is_trainable
+    text = text_embedding(ZEG_NCLS, ZEG_OUT) if text is None else text
+    jm = JaxVLM(backbone_cfg=ZEG_BACKBONE, decode_head_cfg=head)
+    params = init_params(jm, seed, jnp.zeros((1, ZEG_IMG, ZEG_IMG, 3)),
+                         jnp.asarray(text))
+    q = params['decode_head'][f'decoder_{head["num_layers"] - 1}']['attn'][
+        'q']
+    for k in ('kernel', 'bias'):
+        q[k] = q[k] * np.float32(logit_scale)
+    pm = load_jax_params(VLM(ZEG_BACKBONE, head), params).eval()
+    ref = get_model_config('vlm-zegclip-rd-pt-vitb')['model']
+    for n, p in pm.named_parameters():
+        p.requires_grad_(is_trainable(n, ref['freeze_backbone'],
+                                      ref['exclude_keys']))
+    return jm, params, pm, text
+
+
+def zegclip_batch(seed, b=2, nclass=ZEG_NCLS):
+    """``semivl_batch`` at 128^2 (5 classes by default), CutMix boxes
+    inside the crop."""
+    batch = semivl_batch(seed, b, ZEG_IMG, nclass=nclass)
+    batch['cutmix_box1'] = np.array([[10, 5, 60, 70], [0, 0, 128, 40]],
+                                    np.int32)[:b]
+    batch['cutmix_box2'] = np.array([[64, 64, 50, 60], [5, 80, 100, 40]],
+                                    np.int32)[:b]
+    return batch
+
+
+def confident_threshold(pm, text, batch, keeps):
+    """A confidence threshold away from every pseudo-label confidence of a
+    model without guidance encoder (teacher and student w half), after
+    checking that no pseudo-label sits within MARGIN of an argmax tie."""
+    from unittest import mock
+    fake = InjectedDropout(keeps)
+    b = batch['img_x'].shape[0]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a))
+
+    with torch.no_grad(), mock.patch(
+            'semivl_tpu_torch.models.vlm.dropout2d', fake.torch):
+        teacher = pm(t(batch['img_w_other']), t(text))
+        student = pm(t(np.concatenate([batch['img_x'], batch['img_w']])),
+                     t(text), need_fp=True)[0][b:]
+    confs = []
+    for logits in (teacher, student):
+        top2 = np.sort(logits.numpy(), axis=1)[:, -2:]
+        assert (top2[:, 1] - top2[:, 0]).min() > MARGIN
+        confs.append(torch.softmax(logits, 1).amax(1).numpy().ravel())
+    thresh, margin = gap_threshold(np.concatenate(confs))
+    assert margin > MARGIN
+    return thresh
+
+
+def zegclip_step_mismatches(s, cfg):
+    """``step_mismatches`` of a ZegCLIP step, but for the leaves whose
+    gradient is zero in exact arithmetic: the ATM head's last layer after
+    its attention logits, which the loss does not reach (no gradient on
+    either side: AdamW decays it, or leaves it where the ``norm`` key sets
+    no decay, on both), and the key bias of every earlier layer, whose
+    logits only its softmax reads (float32 rounding on both sides). Those
+    are held to a first AdamW step of either sign from their old values on
+    both sides, the port's gradient to 1e-6 of the largest, and where
+    JAX's gradient is exactly zero to JAX's value. Returns the mismatches,
+    the trainable leaves checked, the vanishing leaves and the unreached
+    ones."""
+    from semivl_tpu_torch.train import optim
+    keys = cfg['optimizer']['paramwise_cfg']['custom_keys']
+    lr = cfg['optimizer']['lr']
+    wd = cfg['optimizer']['weight_decay']
+    top = max(np.abs(g).max() for g in s['jax_grads'].values())
+    vanishing = {n for n, t in s['trainable'].items()
+                 if t and np.abs(s['jax_grads'][n]).max() <= 1e-6 * top}
+    unreached = {n for n in vanishing if not np.abs(s['jax_grads'][n]).any()}
+    bad, n_checked = step_mismatches(s)
+    bad = [b for b in bad if b[0] not in vanishing]
+    for name in sorted(vanishing):
+        before = s['before'][name].numpy()
+        lr_mult, decay_mult = optim.custom_key_mults(keys, name)
+        size = np.abs(before).max()
+        step = (lr * lr_mult * (1 + wd * decay_mult * size) * (1 + 1e-4)
+                + np.spacing(np.float32(size)))
+        if np.abs(s['port_grads'][name]).max() > 1e-6 * top:
+            bad.append((name, 'vanishing',
+                        np.abs(s['port_grads'][name]).max()))
+        for new in (s['after'][name], s['jax_new'][name]):
+            if np.abs(new - before).max() > step:
+                bad.append((name, 'unresolved step', step))
+        if name in unreached:
+            if np.abs(s['port_grads'][name]).any():
+                bad.append((name, 'reached', 0.0))
+            if rel_err(s['after'][name], s['jax_new'][name]) > 1e-6:
+                bad.append((name, 'decay', rel_err(s['after'][name],
+                                                   s['jax_new'][name])))
+            if np.array_equal(s['after'][name], before) == (decay_mult > 0):
+                bad.append((name, 'decayed', decay_mult))
+    return bad, n_checked, vanishing, unreached
