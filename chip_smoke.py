@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``semivl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # one card: phases 1-17
+    python3 chip_smoke.py             # one card: phases 1-18
     python3 chip_smoke.py --cards N   # N cards: phase 14 across them
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -195,8 +195,31 @@ Phases, each of which fails the run (non-zero exit, no result line):
    profile, the evaluation of one image; (e) #3 and #4 at (4, 1035, 768)/12 run with
    phase 3's cases (timed by events and device-only beside SDPA, the
    planted fault), before any profile;
-17. a ``kernels`` JSON line (all eleven kernels, with the launches of
-   phase 14's, 15's and 16's runs by path), and last ``{"ok": true,
+17. the baselines SemiVL is compared with, launch counts derived from
+   each run config: (a) exp 40's model as the supervised baseline (one
+   train pass over 2 labeled 512^2 crops: #3 x 14, #4 x 13, #5 x 2, #6 and
+   #7 x 2) and as UniMatch (the SemiVL step without the guidance encoder,
+   2 + 2 crops: #3 x 42, #4 x 26, #5 x 6, #6 and #7 x 4), each with one
+   step whose every kernel call is held to its rounded reference (planted
+   faults in the decoder backward and the last key tile skipped must
+   fail), timed steps, peak memory and a profile; (b) the UniMatch
+   DeepLabV3+ on the dilated ResNet-101 (``dlv3p-r101``, the ``original``
+   SGD): a step of 2 + 2 512^2 VOC crops and one of 1 + 1 801^2 Cityscapes
+   crops with OHEM, BatchNorm in train mode in the student passes and on
+   the running statistics in the teacher pass, no kernel launched; (c)
+   ``dlv3p-xc65``'s step on VOC; (d) (a)'s UniMatch step with
+   ``strong_aug_on_device`` and ``labeled_photometric_distortion`` on
+   uint8 transport, and the card's augmented views against the same apply
+   functions on the CPU on the same draws (``AUG_TOL``); (e) (b)'s model
+   on one 512x683 image in ``original``, ``center_crop`` and
+   ``padded_sliding_window`` (crop 512, stride 426), with ``predict(...,
+   return_logits=True)``; (f) the CLI over phase 13's dataset for 2 steps
+   and an evaluation: ``dlv3p-r101`` supervised with ``eval_mode =
+   'original'``, and exp 40's config as UniMatch with
+   ``strong_aug_on_device``, preempted after step 0 and resumed, which
+   must end bit-equal to the straight run;
+18. a ``kernels`` JSON line (all eleven kernels, with the launches of
+   phase 14's, 15's, 16's and 17's runs by path), and last ``{"ok": true,
    "device": ...}``.
 
 ``--cards N`` runs phase 14's full-width paths on N cards, one NCCL rank a
@@ -306,6 +329,9 @@ EXPECTED_CITYSCAPES = dict(EXPECTED_PER_STEP, decoder_bwd_tail=0,
 PER_CALL_TOLS = dict(attention_fwd=ATTN_REL_TOL,
                      attention_bwd=ATTN_BWD_REL_TOL, heads_fwd=ATTN_REL_TOL,
                      heads_bwd=ATTN_BWD_REL_TOL, decoder_fwd=DEC_REL_TOL)
+AUG_TOL = 1e-4             # the card's augmented views vs the CPU's on the
+                           # same draws, of the output scale (float32 both;
+                           # exp, division and remainder round apart)
 PASS_TOL = 5e-3             # each banded pass vs its plain pass on the same
                             # inputs, relative L2 of every output (the same
                             # bf16 rounding points: float32 sum order only)
@@ -1698,6 +1724,14 @@ def scaled_bundle(cfg):
     return bundle
 
 
+def make_step(cfg):
+    """The step factory of the run config's method."""
+    from semivl_tpu_torch.train import step
+    return (step.make_supervised_train_step
+            if cfg.get('method') == 'supervised'
+            else step.make_semivl_train_step)
+
+
 def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP,
               unmoved=()):
     """A training main path: a warm-up step, then ``steps`` timed steps
@@ -1706,10 +1740,9 @@ def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP,
     frozen leaves must not, nor the trainable leaves ``unmoved`` (which no
     loss reaches and no weight decay moves)."""
     from semivl_tpu_torch.train.optim import build_optimizer
-    from semivl_tpu_torch.train.step import make_semivl_train_step
     model = bundle.model
     opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
-    step = make_semivl_train_step(bundle, cfg, opt, TOTAL_ITERS)
+    step = make_step(cfg)(bundle, cfg, opt, TOTAL_ITERS)
     gen = torch.Generator(device='cuda').manual_seed(3)
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
     buffers = {n: t.clone() for n, t in model.named_buffers()}
@@ -1728,11 +1761,13 @@ def run_train(cfg, bundle, batch, steps=3, expected=EXPECTED_PER_STEP,
     launches = _counters()
     peak = torch.cuda.max_memory_allocated()
     metrics = {k: float(v) for k, v in metrics.items()}
-    b, size = batch['mask_x'].shape[:2]
-    imgs = 2 * b    # labeled + unlabeled (bench.py)
-    log(f'train: {steps} steps at {size}^2, batch {b} labeled + {b} '
-        f'unlabeled: {dt * 1e3:.1f} ms/step, {imgs / dt:.2f} images/s, '
-        f'peak memory {peak / 2**20:.1f} MiB')
+    semi = 'mask_x' in batch
+    b, size = batch['mask_x' if semi else 'mask'].shape[:2]
+    imgs = (2 if semi else 1) * b    # labeled + unlabeled (bench.py)
+    log(f'train: {steps} steps at {size}^2, batch {b} labeled'
+        + (f' + {b} unlabeled' if semi else '') + f': {dt * 1e3:.1f} '
+        f'ms/step, {imgs / dt:.2f} images/s, peak memory '
+        f'{peak / 2**20:.1f} MiB')
     log(f'train: metrics {json.dumps(metrics)}')
     log(f'train: launches over {steps} steps {launches} (expected per step '
         f'{expected})')
@@ -1930,8 +1965,9 @@ class PerCallCheck:
     amplifies, moves the whole backward of stage 2. ``faults``: each call is
     rerun under DECODER_FAULTS (or the given dict of them), which must
     exceed the decoder's limit. ``attn_faults``: each packed attention call
-    (forward and backward) is rerun with phase 3's planted fault, its last
-    key tile skipped, which must exceed the attention's limits."""
+    (forward and backward) over more than one key tile is rerun with phase
+    3's planted fault, its last key tile skipped, which must exceed the
+    attention's limits."""
 
     def __init__(self, bwd='whole', faults=False, attn_faults=False):
         from semivl_tpu_torch.ops import flash_attention as fa
@@ -1969,8 +2005,9 @@ class PerCallCheck:
             out, lse = real_fwd(q, k, v, heads, valid_len, with_lse)
             ref = fa._fwd_rounded(q, k, v, heads, valid_len)
             self.note('attention_fwd', _rel_l2(out, ref))
-            if self.attn_faults and valid_len == q.shape[1]:
-                length = q.shape[1]
+            length = q.shape[1]
+            if self.attn_faults and valid_len == length \
+                    and self._last_tile_skipped(length):
                 bad = real_fwd(q, k, v, heads,
                                self._last_tile_skipped(length), False)[0]
                 self.attn_fault_reads.append(('fwd', length,
@@ -1981,8 +2018,9 @@ class PerCallCheck:
             got = real_bwd(qkv, out, lse, g, heads, valid_len)
             ref = fa.flash_mha_bwd_plain(qkv, out, g, heads, valid_len)
             self.note('attention_bwd', _rel_l2(got, ref))
-            if self.attn_faults and valid_len in (None, qkv.shape[1]):
-                length = qkv.shape[1]
+            length = qkv.shape[1]
+            if self.attn_faults and valid_len in (None, length) \
+                    and self._last_tile_skipped(length):
                 bad = fa._bwd_kernel(qkv, out, lse, g, heads,
                                      self._last_tile_skipped(length))
                 self.attn_fault_reads.append(('bwd', length,
@@ -3478,8 +3516,12 @@ def launches_per_call(cfg):
     per ViT block and SemanticTransformer layer, the decoder forward twice
     (a VLG head's two Up stages, over all B x N planes: N classes or
     concepts; a DeepLabV3+ or ATM head has none, the ATM head's
-    cross-attention being plain products)."""
+    cross-attention being plain products). The UniMatch DeepLabV3+
+    (``model = 'deeplabv3plus'``) launches none: convolutions and
+    BatchNorm, as JAX computes it outside any Pallas kernel."""
     from semivl_tpu_torch.configs.models import get_model_config
+    if cfg['model'] == 'deeplabv3plus':
+        return dict(attention=0, decoder=0)
     model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
     head = model['decode_head']
     vlg = head['type'] == 'VLGHead'
@@ -3489,35 +3531,42 @@ def launches_per_call(cfg):
 
 
 def launches_per_step(cfg):
-    """A SemiVL step's launches derived from the run config: the forward
-    of the teacher pass and both student passes (``launches_per_call``), the
-    guidance encoder's blocks when the consistency loss is on; the
-    attention backward once per layer the loss reaches in each student
-    pass (a MaskCLIP ViT's last block feeds its attention output only to
-    the cls embedding, which no head reads; the timm ViT's last block feeds
-    the final maps; the VPT ViT's trained prompts enter every block); the
-    decoder backward twice per student pass, on the config's route (whole
-    plane: tail and input; banded: passes A, B, C)."""
+    """A step's launches derived from the run config. SemiVL and UniMatch:
+    the forward of the teacher pass and both student passes
+    (``launches_per_call``), the guidance encoder's blocks when the
+    consistency loss is on; the attention backward once per layer the loss
+    reaches in each student pass (a MaskCLIP ViT's last block feeds its
+    attention output only to the cls embedding, which no head reads; the
+    timm ViT's last block feeds the final maps; the VPT ViT's trained
+    prompts enter every block); the decoder backward twice per student
+    pass, on the config's route (whole plane: tail and input; banded:
+    passes A, B, C). The supervised baseline: one train pass, forward and
+    backward. The UniMatch DeepLabV3+: none."""
     from semivl_tpu_torch.configs.models import get_model_config
+    out = dict.fromkeys(EXPECTED_PER_STEP, 0)
+    if cfg['model'] == 'deeplabv3plus':
+        return out
     model = get_model_config(cfg['model'], img_size=cfg['crop_size'])['model']
     vit, head = model['backbone'], model['decode_head']
     fwd = launches_per_call(cfg)
     sem = fwd['attention'] - vit_blocks(vit)
+    semi = cfg.get('method', 'semivl') != 'supervised'
+    fwd_passes, bwd_passes = (3, 2) if semi else (1, 1)
     clip = 0
-    if cfg.get('clip_encoder') and cfg.get('maskclip_consistency_lambda'):
+    if semi and cfg.get('clip_encoder') and cfg.get(
+            'maskclip_consistency_lambda'):
         clip = get_model_config(cfg['clip_encoder'])['backbone'].get(
             'num_layers', 12)
     unread = vit['type'] == 'MaskClipVisionTransformer'
-    out = dict.fromkeys(EXPECTED_PER_STEP, 0)
-    out.update(attention_fwd=3 * fwd['attention'] + clip,
-               attention_bwd=2 * (vit_blocks(vit) - unread + sem),
-               decoder_fwd=3 * fwd['decoder'])
+    out.update(attention_fwd=fwd_passes * fwd['attention'] + clip,
+               attention_bwd=bwd_passes * (vit_blocks(vit) - unread + sem),
+               decoder_fwd=fwd_passes * fwd['decoder'])
     if fwd['decoder']:
         route = cfg.get('decoder_bwd', head.get('decoder_bwd', 'whole'))
         for k in (('decoder_bwd_tail', 'decoder_bwd_input')
                   if route == 'whole' else
                   ('banded_pass_a', 'banded_pass_b', 'banded_pass_c')):
-            out[k] = 4
+            out[k] = 2 * bwd_passes
     return out
 
 
@@ -3672,26 +3721,30 @@ def write_geometry_dataset(root, dataset, seed=0,
     return paths
 
 
-def run_generated_cli(what, cfg, tmp, paths, overrides):
+def run_generated_cli(what, cfg, tmp, paths, overrides, resume=False):
     """The trainer CLI on a generated config pointed at ``paths``, for one
-    epoch from ``overrides``' weights: its launches must be 2 x
-    ``launches_per_step`` (two steps) plus its evaluation's (each crop
-    batch a ``launches_per_call``). Returns the launches and the wall."""
+    epoch from ``overrides``' weights (None: the seeded ones): its launches
+    must be 2 x ``launches_per_step`` (two steps) plus its evaluation's
+    (each crop batch a ``launches_per_call``). With ``resume``, a run
+    preempted after step 0 and resumed must end bit-equal to it. Returns
+    the launches and the wall."""
     import yaml
     from semivl_tpu_torch.data.dataset import SemiDataset
     from semivl_tpu_torch.tools import train as cli
     cfg = dict(cfg, data_root=os.path.dirname(paths['val']),
                labeled_id_path=paths['labeled'],
                unlabeled_id_path=paths['unlabeled'],
-               val_id_path=paths['val'], epochs=1, debug_images=False,
-               init_param_overrides=overrides)
+               val_id_path=paths['val'], epochs=1, debug_images=False)
+    if overrides:
+        cfg['init_param_overrides'] = overrides
     path = os.path.join(tmp, f'{what}.yaml')
     with open(path, 'w') as f:
         yaml.dump(cfg, f)
     valset = SemiDataset(cfg, 'val', id_path=paths['val'])
-    batches = eval_batches(cfg, range(len(valset)))
-    expected = with_eval(launches_per_step(cfg), 2, batches,
-                         launches_per_call(cfg))
+    per_call = launches_per_call(cfg)
+    batches = (eval_batches(cfg, range(len(valset)))
+               if any(per_call.values()) else 0)
+    expected = with_eval(launches_per_step(cfg), 2, batches, per_call)
     cwd = os.getcwd()
     os.chdir(tmp)
     try:
@@ -3721,6 +3774,26 @@ def run_generated_cli(what, cfg, tmp, paths, overrides):
     assert all(np.isfinite(v) for k, v in metrics.items()
                if k.startswith('train/loss')), metrics
     assert all(torch.isfinite(v).all() for v in state['model'].values())
+    if resume:
+        cut = os.path.join(tmp, f'{what} cut.yaml')
+        with open(cut, 'w') as f:
+            yaml.dump(dict(cfg, preempt_at_step=0), f)
+        os.chdir(tmp)
+        try:
+            _, run_b = cli.main(['--config', cut, '--seed', '0'])
+            assert _ckpt(run_b)['iteration'] == 1
+            cli.main(['--config', path, '--seed', '0', '--resume-from',
+                      run_b])
+        finally:
+            os.chdir(cwd)
+        resumed = _ckpt(os.path.join(tmp, run_b))
+        equal = resumed['iteration'] == 2 and all(
+            torch.equal(resumed['model'][k], v)
+            for k, v in state['model'].items())
+        log(f'{what}: preempted after step 0 and resumed to step 2: '
+            f'parameters and buffers {"bit-equal" if equal else "NOT equal"}'
+            ' to the straight run')
+        assert equal
     return launches, wall
 
 
@@ -4120,6 +4193,260 @@ def run_phase16(tmp, voc_paths):
     return errs, launches, readings
 
 
+# ------------------------------------------------------------ phase 17
+
+def baseline_cfg(method):
+    """Exp 40's model as the UniMatch or the supervised baseline: no
+    guidance encoder, no consistency loss (the generator's baselines)."""
+    from semivl_tpu_torch.configs import flagship_train_cfg
+    return dict(flagship_train_cfg(512), method=method, clip_encoder=None,
+                maskclip_consistency_lambda=0)
+
+
+def dlv3p_cfg(backbone='r101', dataset='pascal', method='unimatch',
+              **kw):
+    """The UniMatch DeepLabV3+ baseline's generated config (``opt =
+    'original'`` at lr 1e-3, ``lr_multi`` 10 on VOC and 1 on Cityscapes,
+    CELoss unless given; no ``img_scale``: UniMatch's own pipeline, whose
+    val images keep their size, so that ``original`` mode predicts at the
+    label's size, as JAX's tests configure it)."""
+    from semivl_tpu_torch.configs.experiments import config_from_vars
+    kw.setdefault('criterion', 'CELoss')
+    kw.setdefault('img_scale', None)
+    return config_from_vars(
+        exp_id=99, model=f'dlv3p-{backbone}', method=method, opt='original',
+        lr=1e-3, criterion_u='CELoss', dataset=dataset,
+        crop_size=801 if dataset == 'cityscapes' else 512, **kw)
+
+
+def supervised_batch(batch):
+    return dict(img=batch['img_x'], mask=batch['mask_x'])
+
+
+def checked_step(cfg, bundle, batch, what):
+    """One step of ``cfg``'s method from the model as built, every kernel
+    call held to its rounded reference on its own inputs (phase 15's
+    limits), each decoder-backward call rerun with a planted fault and
+    each packed attention call with its last key tile skipped, all of
+    which must fail; the UniMatch step at ``conf_thresh`` 0, so that every
+    unlabeled term carries gradient. The model's state is restored."""
+    from semivl_tpu_torch.train.optim import build_optimizer
+    model = bundle.model
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    per_call = PerCallCheck(faults={
+        'conv1 dgrad without its top-left tap': conv1_dgrad_without_a_tap},
+        attn_faults=True)
+    opt, _ = build_optimizer(cfg, model, TOTAL_ITERS)
+    step = make_step(cfg)(bundle, dict(cfg, conf_thresh=0.0), opt,
+                          TOTAL_ITERS)
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        metrics = {k: float(v) for k, v in step(
+            batch, torch.Generator(device='cuda').manual_seed(16)).items()}
+    worst = per_call.finish()
+    model.load_state_dict(state)
+    tols = dict(PER_CALL_TOLS, decoder_bwd=STEP_DEC_BWD_TOL)
+    log(f'{what} compare: per call, kernels vs rounded (worst rel-L2, '
+        'calls, tol): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), n, tols[k]] for k, (e, n) in
+             worst.items()}) + f'; planted decoder fault reads '
+        f'{[f"{bad:.3e}" for _, _, bad in per_call.fault_reads]}; attention '
+        f'fault reads >= '
+        f'{min(b for _, _, b in per_call.attn_fault_reads):.3e}; loss terms '
+        f'{json.dumps(metrics)}')
+    assert all(np.isfinite(v) for v in metrics.values()), metrics
+    assert all(v > 0 for v in metrics.values()), metrics
+    per_call.check(tols, absent=('heads_fwd', 'heads_bwd'))
+    return worst
+
+
+def run_baseline_steps():
+    """Phase 17 (a) and (d): exp 40's model as the supervised baseline (2
+    labeled crops) and as UniMatch (2 + 2), then UniMatch with the
+    augmentation on the card (uint8 transport); each with a checked step,
+    timed steps with the launches ``launches_per_step`` derives, peak
+    memory and a profile; the card's augmented views against the same
+    apply functions on the CPU on the same draws."""
+    from semivl_tpu_torch.ops import augment
+    launches, readings, errs = {}, {}, {}
+    cfg_u = baseline_cfg('unimatch')
+    bundle = scaled_bundle(cfg_u)
+    assert bundle.model.clip_encoder is None
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(17))
+    for method, b in (('supervised', supervised_batch(batch)),
+                      ('unimatch', batch)):
+        cfg = baseline_cfg(method)
+        expected = launches_per_step(cfg)
+        log(f'{method}: launches per step from the config {expected}')
+        errs[method] = checked_step(cfg, bundle, b, method)
+        step, launches[f'{method}_train_step'], perf = run_train(
+            cfg, bundle, b, expected=expected)
+        readings[method] = dict(perf, **profile_step(step, b))
+        del step
+        torch.cuda.empty_cache()
+
+    cfg = dict(cfg_u, strong_aug_on_device=True,
+               labeled_photometric_distortion=True)
+    gen = torch.Generator(device='cuda').manual_seed(18)
+
+    def u8(n):
+        return torch.randint(0, 256, (n, 512, 512, 3), generator=gen,
+                             device='cuda', dtype=torch.uint8)
+
+    aug = {k: v for k, v in batch.items() if k in (
+        'mask_x', 'ignore_mask', 'ignore_mask_other', 'cutmix_box1',
+        'cutmix_box2')}
+    aug.update(img_x=u8(2), img_raw=u8(2), img_raw_other=u8(2))
+    step, launches['unimatch_aug_train_step'], perf = run_train(
+        cfg, bundle, aug, expected=launches_per_step(cfg))
+    readings['unimatch_aug'] = perf
+    del step
+    raw = augment.to_unit(torch.cat([aug['img_raw'], aug['img_raw'],
+                                     aug['img_raw_other'],
+                                     aug['img_raw_other']]))
+    x = augment.to_unit(aug['img_x'])
+    for name, draw, apply, imgs in (
+            ('strong', augment.strong_draws, augment.apply_strong, raw),
+            ('photometric', augment.photometric_draws,
+             augment.apply_photometric, x)):
+        d = draw(imgs.shape[0], gen, 'cuda')
+        card = apply(imgs, d)
+        ms = cuda_ms(lambda: apply(imgs, d), iters=10)
+        cpu = apply(imgs.cpu(), {k: v.cpu() for k, v in d.items()})
+        err = (card.cpu() - cpu).abs().max().item()
+        scale = cpu.abs().max().item()
+        log(f'augment: {name} views of {tuple(imgs.shape)} on the card vs '
+            f'the CPU on the same draws: max_abs_err {err:.3e} (tol '
+            f'{AUG_TOL} x scale {scale:.3f}); {ms:.3f} ms on the card')
+        assert err <= AUG_TOL * scale
+        readings[f'augment_{name}'] = dict(max_abs_err=err, ms=ms)
+    return errs, launches, readings, bundle
+
+
+def run_dlv3p_step(what, cfg, b, size, nclass):
+    """Phase 17 (b)/(c): a step of the UniMatch DeepLabV3+ (the ``original``
+    SGD, BatchNorm in train mode in the student passes and on the running
+    statistics in the teacher pass) with no kernel launched, every
+    parameter and running statistic moved, every leaf in the ``lr_multi``
+    group; ms per step, peak memory and a profile."""
+    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.train.optim import build_optimizer
+    bundle = build_model(cfg, dtype=torch.bfloat16, device='cuda', seed=0)
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    groups = {g['lr_mult'] for g in build_optimizer(
+        cfg, bundle.model, TOTAL_ITERS)[0].param_groups}
+    assert groups == {cfg['lr_multi']}, groups
+    log(f'{what}: {cfg["name"]}: {n_params / 1e6:.1f} M params, every leaf '
+        f'at lr x lr_multi {cfg["lr_multi"]}, criterion '
+        f'{cfg["criterion"]["name"]}')
+    batch = train_batch(torch.Generator(device='cuda').manual_seed(19),
+                        b=b, size=size, nclass=nclass)
+    step, launches, perf = run_train(cfg, bundle, batch, steps=2,
+                                     expected=launches_per_step(cfg))
+    assert not any(launches.values()), launches
+    prof = profile_step(step, batch)
+    return launches, dict(perf, **prof), bundle
+
+
+EVAL_MODES = ('original', 'center_crop', 'padded_sliding_window')
+
+
+def run_dlv3p_eval(bundle, cfg):
+    """Phase 17 (e): the r101 DeepLabV3+ on one 512x683 image in each of the
+    other eval modes (crop 512, stride 426), no kernel launched, and
+    ``predict(..., return_logits=True)`` of each: finite maps of the
+    mode's size."""
+    from semivl_tpu_torch.evaluation.predict import Evaluator, evaluate
+    cfg = dict(cfg, stride=426)
+    evaluator = Evaluator(bundle.model, bundle.text_feats, cfg,
+                          device='cuda')
+    ds = SynthImages(seed=6, sizes=((512, 683),))
+    s = ds.get(0)
+    launches, readings = {}, {}
+    for mode in EVAL_MODES:
+        evaluator.predict(s['img'][None], s['mask'].shape, mode)
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        miou, iou = evaluate(evaluator, ds, mode, cfg)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = _counters()
+        pred, logits = evaluator.predict(s['img'][None], s['mask'].shape,
+                                         mode, return_logits=True)
+        hw = (512, 512) if mode == 'center_crop' else (512, 683)
+        log(f'dlv3p eval: {mode} on one 512x683 image: mIoU {miou:.4f} in '
+            f'{ms:.1f} ms; return_logits {logits.shape}; launches {counts}')
+        assert np.isfinite(miou) and iou.shape == (21,)
+        assert logits.shape == (1, 21) + hw and pred.shape == (1,) + hw
+        assert np.isfinite(logits).all()
+        assert not any(counts.values()), counts
+        launches[f'dlv3p_r101_eval_image_{mode}'] = dict(
+            attention=counts['attention_fwd'], heads=counts['heads_fwd'],
+            decoder=counts['decoder_fwd'])
+        readings[mode] = dict(ms_per_image=ms)
+    return launches, readings
+
+
+def run_baseline_clis(tmp, voc_paths, overrides):
+    """Phase 17 (f): the CLI over phase 13's dataset, 2 steps and an
+    evaluation, on a ``dlv3p-r101`` supervised config (``eval_mode =
+    'original'``, seeded weights) and on exp 40's split-92 config as
+    UniMatch with ``strong_aug_on_device`` from ``overrides``' weights,
+    preempted after step 0 and resumed."""
+    from semivl_tpu_torch.configs.experiments import generate_experiment_cfgs
+    launches, readings = {}, {}
+    launches['dlv3p_supervised_cli_two_steps_and_eval'], \
+        readings['dlv3p_supervised_cli_wall_s'] = run_generated_cli(
+            'dlv3p supervised cli', dlv3p_cfg(method='supervised',
+                                              eval_mode='original'),
+            tmp, voc_paths, None)
+    torch.cuda.empty_cache()
+    cfg = dict(generate_experiment_cfgs(40)[0], method='unimatch',
+               clip_encoder=None, maskclip_consistency_lambda=0,
+               strong_aug_on_device=True)
+    launches['unimatch_aug_cli_two_steps_and_eval'], \
+        readings['unimatch_aug_cli_wall_s'] = run_generated_cli(
+            'unimatch aug cli', cfg, tmp, voc_paths, overrides, resume=True)
+    torch.cuda.empty_cache()
+    return launches, readings
+
+
+def run_phase17(tmp, voc_paths):
+    """Phase 17 (see the module's docstring): the supervised and UniMatch
+    baselines on exp 40's model, the UniMatch DeepLabV3+ (r101 on VOC and
+    on Cityscapes with OHEM, xc65 on VOC), the other eval modes and the
+    CLI. Returns the per-call errors, the launches by path and the
+    readings."""
+    t_phase = time.perf_counter()
+    errs, launches, readings, bundle = run_baseline_steps()
+    overrides = save_trained_weights(bundle,
+                                     os.path.join(tmp, 'unimatch.npz'))
+    del bundle
+    torch.cuda.empty_cache()
+    cfg = dlv3p_cfg()
+    launches['dlv3p_r101_voc_step'], readings['dlv3p_r101_voc'], bundle = \
+        run_dlv3p_step('dlv3p r101 voc', cfg, 2, 512, 21)
+    new, readings['dlv3p_r101_eval'] = run_dlv3p_eval(bundle, cfg)
+    launches.update(new)
+    del bundle
+    torch.cuda.empty_cache()
+    launches['dlv3p_r101_cs_ohem_step'], readings['dlv3p_r101_cs_ohem'], _ \
+        = run_dlv3p_step('dlv3p r101 cityscapes', dlv3p_cfg(
+            dataset='cityscapes', criterion='OHEM'), 1, 801, 19)
+    torch.cuda.empty_cache()
+    launches['dlv3p_xc65_voc_step'], readings['dlv3p_xc65_voc'], _ = \
+        run_dlv3p_step('dlv3p xc65 voc', dlv3p_cfg('xc65'), 2, 512, 21)
+    torch.cuda.empty_cache()
+    new, cli = run_baseline_clis(tmp, voc_paths, overrides)
+    launches.update(new)
+    readings.update(cli)
+    readings['phase_s'] = time.perf_counter() - t_phase
+    log(f'phase 17: {readings["phase_s"]:.1f} s')
+    return errs, launches, readings
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -4219,8 +4546,12 @@ def main():
         log(f'phase 15: {json.dumps(new_paths)}')
         torch.cuda.empty_cache()
         p16_err, p16_launches, p16_paths = run_phase16(tmp.name, paths)
-    log(f'phase 16: {json.dumps(p16_paths)}')
+        log(f'phase 16: {json.dumps(p16_paths)}')
+        torch.cuda.empty_cache()
+        p17_err, p17_launches, p17_paths = run_phase17(tmp.name, paths)
+    log(f'phase 17: {json.dumps(p17_paths)}')
     new_launches.update(p16_launches)
+    new_launches.update(p17_launches)
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -4241,8 +4572,8 @@ def main():
                  'decoder_fwd': 'decoder'}
 
     def paths(key, flagship_eval=None, cityscapes_eval=None, tiny_eval=None):
-        # phase 15's and 16's paths: steps and CLIs count every kernel,
-        # evaluations the forward ones
+        # phase 15's, 16's and 17's paths: steps and CLIs count every
+        # kernel, evaluations the forward ones
         new = {name: (counts.get(eval_keys.get(key)) if 'eval_image' in name
                       else counts[key])
                for name, counts in new_launches.items()}
@@ -4261,7 +4592,9 @@ def main():
 
     def worst(key):
         return max(step_err[key][0], cs_err[key][0], ade_err[key][0],
-                   p16_err['zegclip'][key][0], p16_err['concept'][key][0])
+                   p16_err['zegclip'][key][0], p16_err['concept'][key][0],
+                   p17_err['supervised'][key][0],
+                   p17_err['unimatch'][key][0])
 
     kernels = [
         row('packed_attention_fwd', 'flash_attention.cu',
@@ -4306,7 +4639,9 @@ def main():
             'decoder backward; launches per flagship training step (0 on '
             'the Cityscapes banded route)', max(
                 step_err['decoder_bwd'][0], ade_err['decoder_bwd'][0],
-                p16_err['concept']['decoder_bwd'][0]),
+                p16_err['concept']['decoder_bwd'][0],
+                p17_err['supervised']['decoder_bwd'][0],
+                p17_err['unimatch']['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_tail['whole_bwd_ms'],
             whole_bwd_device_ms=dec_tail['whole_bwd_device_ms'],
@@ -4319,7 +4654,9 @@ def main():
             'decoder backward; launches per flagship training step (0 on '
             'the Cityscapes banded route)', max(
                 step_err['decoder_bwd'][0], ade_err['decoder_bwd'][0],
-                p16_err['concept']['decoder_bwd'][0]),
+                p16_err['concept']['decoder_bwd'][0],
+                p17_err['supervised']['decoder_bwd'][0],
+                p17_err['unimatch']['decoder_bwd'][0]),
             products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
             whole_bwd_ms=dec_input['whole_bwd_ms'],
             whole_bwd_device_ms=dec_input['whole_bwd_device_ms'],
@@ -4362,7 +4699,7 @@ def main():
         products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
         cases={name: times(r) for name, r in up_rows.items()},
         bench=bench_rows, launches_by_path=dict(fused_up_bench=up_launches)))
-    log(f'run: phases 1-16 in {time.perf_counter() - t_run:.1f} s')
+    log(f'run: phases 1-17 in {time.perf_counter() - t_run:.1f} s')
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

@@ -17,7 +17,13 @@ The MaskCLIP, timm and ZegCLIP (VPT and prompt-less) ViTs, the VLG,
 DeepLabV3+ and ATM heads and the ResNetV1c conv encoder are covered; the
 DeepLabV3+ and ATM heads and the timm and ZegCLIP ViTs keep the flax scope
 names (``aspp.b0.conv``, ``layers.3.ln1``, ``norm``, ``prompt_proj``,
-``decoder.0.attn.q``).
+``decoder.0.attn.q``). ``dlv3p_state_dict`` carries the UniMatch
+DeepLabV3+ segmentor (``model = 'deeplabv3plus'``): its ResNet encoder
+under mmseg's names, its Xception-65 under the flax scopes (a depthwise
+kernel (3, 3, 1, C) becomes (C, 1, 3, 3)), the head, reduction and fuse
+convs as ``ConvBNReLU``, the dense ``classifier_dense`` as the 1x1 conv
+``classifier``; ``load_jax_params`` picks the bridge by the model's
+type.
 
 Only numpy is needed to build the state dict. ``load_pretrained_into``
 loads a converted CLIP backbone tree (``load_flax_npz``: the npz that
@@ -247,6 +253,54 @@ def export_dlv3p_head(out, p, s=None, prefix='decode_head.'):
     _conv(out, prefix + 'classifier', p['classifier'])
 
 
+def _bn(out, key, p, s):
+    """A flax BatchNorm (``scale``, ``bias``; statistics ``mean``, ``var``)
+    -> ``<key>.weight/bias/running_mean/running_var``."""
+    _norm(out, key, p)
+    if s is not None:
+        out[key + '.running_mean'] = _f(s['mean'])
+        out[key + '.running_var'] = _f(s['var'])
+
+
+def export_xception(out, p, s=None, prefix='encoder.'):
+    """JAX ``Xception65`` params and batch statistics -> ``models.xception``
+    names: each scope's convolutions by their scope name, each ``_BN``
+    wrapper's BatchNorm directly under the wrapper's name."""
+    for key, node in p.items():
+        stats = None if s is None else s.get(key)
+        if 'kernel' in node:
+            _conv(out, prefix + key, node)
+        elif set(node) == {'bn'}:
+            _bn(out, prefix + key, node['bn'],
+                None if stats is None else stats['bn'])
+        else:
+            export_xception(out, node, stats, f'{prefix}{key}.')
+
+
+def dlv3p_state_dict(params, batch_stats=None):
+    """JAX ``DeepLabV3Plus`` params ({'encoder', 'head', 'reduce', 'fuse1',
+    'fuse2', 'classifier_dense'}) and ``batch_stats`` -> numpy state dict
+    of ``models.deeplabv3plus.DeepLabV3Plus``; the encoder is the ResNet
+    when it has a ``stem1``, else the Xception-65."""
+    s = batch_stats or {}
+    out = {}
+    if 'stem1' in params['encoder']:
+        export_resnet_v1c(out, params['encoder'], s.get('encoder'),
+                          prefix='encoder.')
+    else:
+        export_xception(out, params['encoder'], s.get('encoder'))
+    for name in sorted(params['head']):
+        _conv_bn(out, f'head.{name}.conv', f'head.{name}.bn',
+                 params['head'][name], s.get('head', {}).get(name))
+    for name in ('reduce', 'fuse1', 'fuse2'):
+        _conv_bn(out, f'{name}.conv', f'{name}.bn', params[name],
+                 s.get(name))
+    dense = params['classifier_dense']
+    out['classifier.weight'] = _f(dense['kernel']).T[:, :, None, None]
+    out['classifier.bias'] = _f(dense['bias'])
+    return out
+
+
 def vlm_state_dict(params, batch_stats=None):
     """JAX VLM params ({'backbone', 'decode_head'} and, in a training tree,
     'clip_encoder'; in the Cityscapes model 'conv_encoder') and the
@@ -279,11 +333,15 @@ def vlm_state_dict(params, batch_stats=None):
 
 
 def load_jax_params(model, params, batch_stats=None):
-    """Load JAX VLM params (and the BatchNorm ``batch_stats``) into
-    ``model`` (a ``models.vlm.VLM``) with ``strict=True``: every key of the
-    model must be given, and no other."""
+    """Load JAX params (and the BatchNorm ``batch_stats``) into ``model``
+    (a ``models.vlm.VLM`` or a ``models.deeplabv3plus.DeepLabV3Plus``,
+    each through its bridge) with ``strict=True``: every key of the model
+    must be given, and no other."""
+    from semivl_tpu_torch.models.deeplabv3plus import DeepLabV3Plus
+    bridge = (dlv3p_state_dict if isinstance(model, DeepLabV3Plus)
+              else vlm_state_dict)
     sd = {k: torch.from_numpy(np.ascontiguousarray(v))
-          for k, v in vlm_state_dict(params, batch_stats).items()}
+          for k, v in bridge(params, batch_stats).items()}
     model.load_state_dict(sd, strict=True)
     return model
 

@@ -1,5 +1,5 @@
-"""Sliding-window inference and evaluation (counterpart of
-``semivl_tpu/evaluation/predict.py``), two modes.
+"""Inference and evaluation (counterpart of
+``semivl_tpu/evaluation/predict.py``) in the reference's five modes.
 
 ``zegclip_sliding_window`` (VOC): windows lie on an edge-aligned grid
 (crop, stride); their logits are averaged by visit count, resized to the
@@ -16,6 +16,17 @@ probabilities of every window are summed on the device and reduced by
 argmax at image size (reference supervised.py:104-117; JAX
 ``_sliding_device``). A 1024x2048 image at crop 801 gives 8 windows of
 4 shapes (801^2, 801x446, 490x801, 490x446).
+
+``original`` runs the whole image; ``center_crop`` its central crop, with
+the reference's negative-offset sliver for an image smaller than the crop
+(``evaluate`` crops the label map with the same arithmetic;
+supervised.py:120-124); ``padded_sliding_window`` zero-pads each window
+to the crop in normalised space (a uint8 image is normalised on the host
+first) and sums the windows' softmax probabilities (supervised.py:41-67).
+These three, ``sliding_window``'s host route (JAX ``_sliding``) and every
+``predict(..., return_logits=True)`` run on the host route: the windows'
+logits are fetched and the canvas kept in numpy, as JAX's host routes
+keep it.
 
 Crops of one shape run through the model in exact power-of-two batches of
 at most 32.
@@ -38,6 +49,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from semivl_tpu_torch.data import transforms as T
 from semivl_tpu_torch.device import resolve_device
 from semivl_tpu_torch.evaluation.metrics import (
     intersection_and_union,
@@ -56,6 +68,20 @@ def _np_resize_bilinear(x, out_hw, align_corners):
     ww = _axis_weights(out_hw[1], x.shape[3], 'bilinear', align_corners,
                        'float32')
     return np.matmul(np.matmul(wh[None, None], x), ww.T[None, None])
+
+
+def _np_softmax(x, axis):
+    e = np.exp(x - x.max(axis=axis, keepdims=True))
+    return e / e.sum(axis=axis, keepdims=True)
+
+
+def center_crop_box(h, w, size):
+    """The rows and columns of ``center_crop`` mode (reference
+    supervised.py:120-124): offsets (h - size) // 2 and (w - size) // 2,
+    negative for an image smaller than the crop, so that numpy's slicing
+    keeps an edge sliver as torch's does there."""
+    sh, sw = (h - size) // 2, (w - size) // 2
+    return slice(sh, sh + size), slice(sw, sw + size)
 
 
 def _chunk_sizes(n, max_chunk=32):
@@ -200,16 +226,36 @@ class Evaluator:
         return (mode == 'zegclip_sliding_window'
                 and min(img.shape[1:3]) >= self.cfg['crop_size'])
 
-    def predict(self, img, mask_shape, mode, img_dev=None):
+    def predict(self, img, mask_shape, mode, img_dev=None,
+                return_logits=False):
         """img: (1, H, W, 3) numpy, uint8 or normalised float; ``img_dev``:
         it uploaded (``preupload``). Returns the (1, h_mask, w_mask) int64
-        prediction."""
-        if mode not in ('sliding_window', 'zegclip_sliding_window'):
-            raise NotImplementedError(f'eval mode {mode!r} is not ported')
-        if self.use_device(img, mode):
+        prediction; with ``return_logits`` also the accumulated (1, C, h,
+        w) float32 score map (reference supervised.py:129-132), from the
+        host route."""
+        if mode == 'padded_sliding_window' and img.dtype == np.uint8:
+            # zero padding must be zero in normalised space (JAX
+            # predict.py:570-578)
+            img = T.normalize(img[0])[None]
+        if self.use_device(img, mode) and not return_logits:
             return self.predict_device(img, mask_shape, mode, img_dev)[
                 None].cpu().numpy()
-        return self._zegclip_sliding(img, mask_shape)
+        if mode == 'zegclip_sliding_window':
+            pred, logits = self._zegclip_sliding(img, mask_shape)
+        elif mode == 'sliding_window':
+            pred, logits = self._sliding(img, mask_shape)
+        elif mode == 'padded_sliding_window':
+            pred, logits = self._padded_sliding(img, mask_shape)
+        elif mode in ('original', 'center_crop'):
+            if mode == 'center_crop':
+                rows, cols = center_crop_box(*img.shape[1:3],
+                                             self.cfg['crop_size'])
+                img = img[:, rows, cols]
+            logits = self._host_forward(img)
+            pred = logits.argmax(axis=1)
+        else:
+            raise ValueError(mode)
+        return (pred, logits) if return_logits else pred
 
     def predict_device(self, img, mask_shape, mode, img_dev=None):
         """The (h_mask, w_mask) int64 prediction on the device, of a mode and
@@ -290,6 +336,11 @@ class Evaluator:
                 canvas[:, y:y + ch, x:x + cw] += probs[i]
         return canvas.argmax(dim=0)
 
+    def _host_forward(self, crops):
+        """(n, h, w, 3) numpy crops -> (n, C, h, w) float32 numpy logits."""
+        return self._forward(torch.from_numpy(np.require(
+            crops, requirements=('C', 'W'))).to(self.device)).cpu().numpy()
+
     def _zegclip_sliding(self, img, mask_shape):
         """Host route: windows at their clipped size, canvas in numpy."""
         crop = self.cfg['crop_size']
@@ -297,8 +348,7 @@ class Evaluator:
         coords = self._zegclip_coords(h_img, w_img)
         crops = np.concatenate([img[:, y:y + crop, x:x + crop]
                                 for y, x in coords])
-        logits = self._forward(torch.from_numpy(crops).to(self.device))
-        logits = logits.cpu().numpy()
+        logits = self._host_forward(crops)
         preds = np.zeros((1, self.nclass, h_img, w_img), np.float32)
         count = np.zeros((1, 1, h_img, w_img), np.float32)
         for i, (y, x) in enumerate(coords):
@@ -306,7 +356,48 @@ class Evaluator:
             count[0, :, y:y + crop, x:x + crop] += 1
         preds /= count
         final = _np_resize_bilinear(preds, mask_shape, align_corners=True)
-        return final.argmax(axis=1)
+        return final.argmax(axis=1), final
+
+    def _sliding(self, img, mask_shape):
+        """Host route of ``sliding_window`` (JAX ``_sliding``): the softmax
+        probabilities of each window, crops of one shape batched, summed
+        into a numpy canvas at image size."""
+        h, w = img.shape[1:3]
+        if tuple(mask_shape) != (h, w):
+            raise ValueError(f'sliding_window predicts at image size {(h, w)}'
+                             f', the label is {tuple(mask_shape)}')
+        final = np.zeros((1, self.nclass, h, w), np.float32)
+        for (ch, cw), coords in self.sliding_windows(h, w).items():
+            probs = _np_softmax(self._host_forward(np.concatenate(
+                [img[:, y:y + ch, x:x + cw] for y, x in coords])), axis=1)
+            for i, (y, x) in enumerate(coords):
+                final[0, :, y:y + ch, x:x + cw] += probs[i]
+        return final.argmax(axis=1), final
+
+    def _padded_sliding(self, img, mask_shape):
+        """Windows every ``stride`` pixels (a fraction of the crop if below
+        1) from the top-left corner, each zero-padded to the crop at its
+        bottom and right, one batch; the softmax probabilities of each
+        window's own pixels summed at image size (reference
+        supervised.py:41-67)."""
+        grid = self.cfg['crop_size']
+        stride = self.cfg['stride']
+        if stride < 1:
+            stride = int(grid * stride)
+        h, w = img.shape[1:3]
+        if tuple(mask_shape) != (h, w):
+            raise ValueError(f'padded_sliding_window predicts at image size '
+                             f'{(h, w)}, the label is {tuple(mask_shape)}')
+        boxes = [(y, x, min(h, y + grid), min(w, x + grid))
+                 for y in range(0, h, stride) for x in range(0, w, stride)]
+        crops = np.zeros((len(boxes), grid, grid, 3), img.dtype)
+        for i, (y1, x1, y2, x2) in enumerate(boxes):
+            crops[i, :y2 - y1, :x2 - x1] = img[0, y1:y2, x1:x2]
+        probs = _np_softmax(self._host_forward(crops), axis=1)
+        final = np.zeros((1, self.nclass, h, w), np.float32)
+        for i, (y1, x1, y2, x2) in enumerate(boxes):
+            final[0, :, y1:y2, x1:x2] += probs[i, :, :y2 - y1, :x2 - x1]
+        return final.argmax(axis=1), final
 
 
 def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
@@ -328,8 +419,10 @@ def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
       fetched every ``cfg['eval_hist_flush_every']`` images (default 256:
       below the int32 bound at 1024 x 2048);
     - an image that takes the host route (zegclip with a short side below
-      the crop) is predicted and counted on the host, and their number is
-      logged as a warning at the end.
+      the crop, and every image of the ``original``, ``center_crop`` and
+      ``padded_sliding_window`` modes) is predicted and counted on the
+      host, and their number is logged as a warning at the end;
+    - ``center_crop`` crops the label map as it crops the image.
 
     ``progress(i)`` is called after each image."""
     nclass = cfg['nclass']
@@ -349,6 +442,8 @@ def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
     def load(i):
         sample = dataset.get(i)
         img, mask = sample['img'][None], sample['mask']
+        if mode == 'center_crop':
+            mask = mask[center_crop_box(*mask.shape, cfg['crop_size'])]
         img_dev = mask_dev = None
         if evaluator.use_device(img, mode):
             img_dev = evaluator.preupload(img)
@@ -401,8 +496,9 @@ def evaluate_histograms(evaluator, dataset, mode, cfg, indices=None,
     if n_host:
         logging.getLogger('global').warning(
             'evaluate: %d/%d images routed to the slow host predict path '
-            '(image min side < crop_size=%s) - check img_scale/val resize if '
-            'this is unexpected', n_host, len(idxs), cfg.get('crop_size'))
+            '(image min side < crop_size=%s, or a mode/geometry without '
+            'device support) - check img_scale/val resize if this is '
+            'unexpected', n_host, len(idxs), cfg.get('crop_size'))
     if process_count > 1:
         both = dist.all_reduce_sum_(torch.from_numpy(
             np.stack([inter_sum, union_sum])).to(evaluator.device))

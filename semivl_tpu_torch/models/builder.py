@@ -2,11 +2,12 @@
 VLGHead / MaskClipViT family (the flagship on VOC, COCO and ADE20K, the
 Cityscapes model with its ResNetV1c skip encoder and the tiny test VLM),
 exp 41's DeepLabV3+ models (on the MaskCLIP ViT or a timm ViT) and its
-ZegCLIP model (the ATM head on the VPT CLIP ViT), and the frozen guidance
-encoder. JAX's builder also clones a VLG model into a
-forward-only variant for its fused Pallas decoder (builder.py:240-259);
-the port's kernels serve both directions from one module, so it builds one
-model for every head."""
+ZegCLIP model (the ATM head on the VPT CLIP ViT), the frozen guidance
+encoder, and the UniMatch DeepLabV3+ baselines (``model =
+'deeplabv3plus'``: ``dlv3p-r101``, ``dlv3p-xc65``). JAX's builder also
+clones a VLG model into a forward-only variant for its fused Pallas
+decoder (builder.py:240-259); the port's kernels serve both directions
+from one module, so it builds one model for every head."""
 
 import dataclasses
 import math
@@ -17,6 +18,7 @@ import torch
 
 from semivl_tpu_torch.configs.models import get_model_config
 from semivl_tpu_torch.device import resolve_device
+from semivl_tpu_torch.models.deeplabv3plus import DeepLabV3Plus
 from semivl_tpu_torch.models.layers import set_attention_impl
 from semivl_tpu_torch.models.vlm import VLM
 from semivl_tpu_torch.text.embeddings import (
@@ -91,10 +93,22 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
     'pallas') every attention layer (JAX sets it globally in
     ``train/loop.py:245-247``; here the model carries it). With
     ``cfg['mcc_fix_resize_pos']`` the guidance encoder is built at the crop
-    size, else at 512 (its positional grid resized). ``device`` defaults to
-    the CUDA card and raises without one."""
+    size, else at 512 (its positional grid resized). A set
+    ``cfg['model_args']['maskclip_class_filter']``, a dead option of the
+    reference, is refused by name, as JAX asserts it off (builder.py:224).
+    ``model = 'deeplabv3plus'`` builds the UniMatch baseline from
+    ``backbone``, ``replace_stride_with_dilation`` and ``dilations``, with
+    zeros (nclass, 1) as its unused text, no guidance encoder and nothing
+    frozen (JAX builder.py:171-193). ``device`` defaults to the CUDA card
+    and raises without one."""
+    model_args = cfg.get('model_args') or {}
+    if model_args.get('maskclip_class_filter') is not None:
+        raise ValueError('model_args.maskclip_class_filter is a dead option '
+                         'of the reference; JAX refuses it (set it to None)')
     device = resolve_device(device)
     model_type = cfg['model']
+    if model_type == 'deeplabv3plus':
+        return _build_deeplabv3plus(cfg, dtype, device, seed)
     if not model_type.startswith('mmseg.'):
         raise ValueError(model_type)
     mcfg = get_model_config(model_type, img_size=cfg['crop_size'])
@@ -119,7 +133,6 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
         mcc_name = text_embedding_path(cfg['dataset'], cfg['mcc_text'])
         mcc_text = load_text_embedding(mcc_name)
 
-    model_args = cfg.get('model_args') or {}
     model = VLM(model_cfg['backbone'], model_cfg['decode_head'],
                 clip_encoder_cfg=clip_cfg,
                 conv_encoder_cfg=model_cfg.get('conv_encoder'),
@@ -138,3 +151,15 @@ def build_model(cfg, dtype=torch.float32, device=None, seed=0):
         freeze_backbone=freeze,
         exclude_keys=exclude,
         mcc_text_feats=mcc_text)
+
+
+def _build_deeplabv3plus(cfg, dtype, device, seed):
+    model = DeepLabV3Plus(
+        cfg['nclass'], backbone=cfg['backbone'],
+        replace_stride_with_dilation=tuple(cfg.get(
+            'replace_stride_with_dilation', (False, False, True))),
+        dilations=tuple(cfg.get('dilations', (6, 12, 18))),
+        fp_rate=cfg.get('fp_rate', 0.5), dtype=dtype)
+    init_weights(model, torch.Generator().manual_seed(seed))
+    return ModelBundle(model=model.to(device).eval(),
+                       text_feats=np.zeros((cfg['nclass'], 1), np.float32))

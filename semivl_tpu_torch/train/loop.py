@@ -4,7 +4,11 @@ the ranks of a process group.
 
 Equivalent of the reference trainer entry points (semivl.py:61-433): read
 the labeled and unlabeled splits through ``data.SemiDataset`` and
-``data.ShardedLoader``, run the SemiVL step (``train.step``) on the card,
+``data.ShardedLoader``, run the step of the config's ``method``
+(``train.step``: 'semivl' and 'unimatch' on labeled and unlabeled
+batches, an epoch of ``len(loader_u)`` steps of ``2 x bs`` images; the
+'supervised' baseline on the labeled batches alone, ``len(loader_l)``
+steps of ``bs`` images; JAX loop.py:296-317, :420-425, :499) on the card,
 evaluate every ``eval_every_n_epochs`` epochs through ``evaluation.evaluate``
 and keep ``best`` and ``latest`` checkpoints with exact mid-epoch resume
 (``train.checkpoint``). One process drives one card; the run directory, its
@@ -24,7 +28,8 @@ sums the ranks' flags, read every ``preempt_check_every`` steps (10), so
 every rank stops after the same step; with one rank the flag acts at once.
 
 The step's randomness is a pure function of the global step: each step's
-feature-perturbation generator is seeded from (seed + 1234, iteration,
+generator (the on-device augmentation's draws, then the feature
+perturbation's) is seeded from (seed + 1234, iteration,
 rank) (``step_generator``), as the JAX step folds its base key
 ``PRNGKey(seed + 1234)`` with ``state.step`` and ``axis_index('data')``
 (loop.py:357-363, step.py:231, :453); rank 0's stream is the one-process
@@ -55,7 +60,10 @@ from semivl_tpu_torch.models.builder import build_model
 from semivl_tpu_torch.parallel import dist
 from semivl_tpu_torch.train.checkpoint import CheckpointManager
 from semivl_tpu_torch.train.optim import build_optimizer
-from semivl_tpu_torch.train.step import make_semivl_train_step
+from semivl_tpu_torch.train.step import (
+    make_semivl_train_step,
+    make_supervised_train_step,
+)
 from semivl_tpu_torch.utils.logging_utils import (
     DictAverageMeter,
     MetricWriter,
@@ -68,20 +76,20 @@ METRIC_WINDOW = 100   # steps between metric fetches (JAX loop.py:488)
 
 
 PORTED_DATASETS = ('pascal', 'cityscapes', 'coco', 'ade')   # lists, text
+SEMI_METHODS = ('semivl', 'unimatch')
+METHODS = SEMI_METHODS + ('supervised',)
 
 
 def _refuse_unported(cfg):
-    """What the port's loop does not run yet, refused by name: a dataset
-    without split lists and text embeddings here, a method other than
-    'semivl' (``supervised``, ``unimatch``) and the parameter EMA (the step
-    refuses it too)."""
+    """What the port's loop does not run, refused by name: a dataset
+    without split lists and text embeddings here, a method that is none of
+    JAX's three and the parameter EMA (the steps refuse it too)."""
     if cfg['dataset'] not in PORTED_DATASETS:
         raise NotImplementedError(f'dataset {cfg["dataset"]!r} is not ported '
                                   f'to the PyTorch trainer ({PORTED_DATASETS})')
     method = cfg.get('method', 'semivl')
-    if method != 'semivl':
-        raise NotImplementedError(f'method {method!r} is not ported to the '
-                                  'PyTorch trainer (only semivl)')
+    if method not in METHODS:
+        raise ValueError(f'method {method!r} ({METHODS})')
     if cfg.get('ema_decay'):
         raise NotImplementedError('ema_decay is not ported to the PyTorch '
                                   'trainer')
@@ -256,11 +264,12 @@ def save_debug_grid_for_batch(cfg, bundle, bl, bu, save_path, iters,
                     grid, rows=rows, cols=cols)
 
 
-def _log_window(keys, pending, iter_times, window_t0, bs, log_avg, writer,
-                logger, i, iters):
+def _log_window(keys, pending, iter_times, window_t0, imgs_per_iter,
+                log_avg, writer, logger, i, iters):
     """The windowed metric fetch (JAX loop.py:488-530): one transfer of
     the window's stacked metrics (``keys``), their means, the iteration
-    time and the throughput over the window's wall time."""
+    time and the throughput (``imgs_per_iter`` images a step) over the
+    window's wall time."""
     fetch_t0 = time.time()
     mat = torch.stack(pending).cpu().numpy()
     fetch_s = time.time() - fetch_t0
@@ -268,10 +277,10 @@ def _log_window(keys, pending, iter_times, window_t0, bs, log_avg, writer,
                                                       mat.mean(axis=0))}
     stacked['train/metric_fetch_time'] = fetch_s
     stacked['train/iter_time'] = float(np.mean(iter_times))
-    # labeled + unlabeled images per step, over the window's wall time
-    # (after the fetch, which waits for the window's last step)
+    # images per step, over the window's wall time (after the fetch, which
+    # waits for the window's last step)
     stacked['train/imgs_per_sec_per_chip'] = (
-        2 * bs * len(iter_times) / max(time.time() - window_t0, 1e-9))
+        imgs_per_iter * len(iter_times) / max(time.time() - window_t0, 1e-9))
     log_avg.update(stacked)
     logger.info('Iters: %d %s', i, str(log_avg))
     if writer is not None:
@@ -293,6 +302,7 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
     ``resume_from``: an existing run dir, whose ``latest`` checkpoint is
     restored (a save made mid-epoch resumes at the same batch)."""
     _refuse_unported(cfg)
+    semi = cfg.get('method', 'semivl') in SEMI_METHODS
     rank, world, device = dist.setup_distributed(cfg, device)
     is_main = rank == 0
     grouped = dist.active()
@@ -330,7 +340,7 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                              process_index=rank, process_count=world)
     loader_u = ShardedLoader(trainset_u, bs, world, seed=seed, pair=True,
                              process_index=rank, process_count=world)
-    steps_per_epoch = len(loader_u)
+    steps_per_epoch = len(loader_u) if semi else len(loader_l)
     if cfg.get('iters') is not None:
         assert cfg.get('epochs') is None
         cfg = dict(cfg, epochs=math.ceil(cfg['iters'] / steps_per_epoch))
@@ -341,8 +351,9 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                 total_iters)
 
     optimizer, sched = init_state(bundle, cfg, total_iters, pretrained)
-    step_fn = make_semivl_train_step(bundle, cfg, optimizer, total_iters,
-                                     device)
+    make_step = (make_semivl_train_step if semi
+                 else make_supervised_train_step)
+    step_fn = make_step(bundle, cfg, optimizer, total_iters, device)
     ckpt = CheckpointManager(save_path)
     previous_best, start_epoch, resume_skip = 0.0, 0, 0
     if ckpt.exists('latest'):
@@ -398,13 +409,18 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
         logger.info('===========> Epoch: %d, LR: %.5f, Previous best: %.2f',
                     epoch, sched(step_fn.iteration), previous_best)
         skip = resume_skip if epoch == start_epoch else 0
-        raw = zip(loader_l.epoch(epoch, start_step=skip),
-                  loader_u.epoch(epoch, start_step=skip))
-        batches = device_prefetch(raw, device, lambda pair: step_batch(*pair))
+        if semi:
+            batches = device_prefetch(
+                zip(loader_l.epoch(epoch, start_step=skip),
+                    loader_u.epoch(epoch, start_step=skip)),
+                device, lambda pair: step_batch(*pair))
+        else:
+            batches = device_prefetch(loader_l.epoch(epoch, start_step=skip),
+                                      device, dict)
         epoch_start_step = step_fn.iteration
         pending, iter_times = [], []
         window_t0 = time.time()
-        for i, ((bl, bu), batch) in enumerate(batches):
+        for i, (host, batch) in enumerate(batches):
             t0 = time.time()
             cur_step = epoch_start_step + i
             if cfg.get('profile_dir'):
@@ -426,15 +442,16 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
                 [metrics[k].float() for k in metric_keys]))
             iter_times.append(time.time() - t0)
             if i % METRIC_WINDOW == 0:
-                _log_window(metric_keys, pending, iter_times, window_t0, bs,
-                            log_avg, writer, logger, i, iters)
+                _log_window(metric_keys, pending, iter_times, window_t0,
+                            (2 if semi else 1) * bs, log_avg, writer, logger,
+                            i, iters)
                 window_t0 = time.time()
                 pending.clear()
                 iter_times.clear()
-            if i == 0 and is_main and cfg.get('debug_images', True):
+            if i == 0 and is_main and semi and cfg.get('debug_images', True):
                 try:
-                    save_debug_grid_for_batch(cfg, bundle, bl, bu,
-                                              save_path, iters, device)
+                    save_debug_grid_for_batch(cfg, bundle, *host, save_path,
+                                              iters, device)
                 except Exception as exc:
                     logger.warning('debug images failed: %s', exc)
             # one rank acts on its own flag at once; ranks read the summed

@@ -51,11 +51,14 @@ def test_import_loads_no_jax():
     for m in ('semivl_tpu_torch.evaluation.predict',
               'semivl_tpu_torch.losses.seg_loss_plus',
               'semivl_tpu_torch.models.atm_head',
+              'semivl_tpu_torch.models.deeplabv3plus',
               'semivl_tpu_torch.models.dlv3p_head',
               'semivl_tpu_torch.models.resnet',
               'semivl_tpu_torch.models.timm_vit',
+              'semivl_tpu_torch.models.xception',
               'semivl_tpu_torch.models.zegclip_vit',
               'semivl_tpu_torch.ops.attention',
+              'semivl_tpu_torch.ops.augment',
               'semivl_tpu_torch.ops.fused_decoder_banded',
               'semivl_tpu_torch.ops.fused_up',
               'semivl_tpu_torch.tools.fused_up_bench'):
@@ -110,8 +113,7 @@ def test_entry_points_need_a_device_on_a_host_without_card():
         make_semivl_train_step(bundle, flagship_train_cfg(), None, 10)
 
 
-@pytest.mark.parametrize('key', ['ema_decay', 'strong_aug_on_device',
-                                 'labeled_photometric_distortion'])
+@pytest.mark.parametrize('key', ['ema_decay'])
 def test_train_step_refuses_unported_switches(key):
     """A truthy switch of the JAX step that the port does not implement
     raises, naming it, before any device is touched; a falsy one is
@@ -122,7 +124,7 @@ def test_train_step_refuses_unported_switches(key):
                          text_feats=np.zeros((21, 512)),
                          mcc_text_feats=np.zeros((98, 512)))
     cfg = flagship_train_cfg()
-    value = 0.999 if key == 'ema_decay' else True
+    value = 0.999
     with pytest.raises(NotImplementedError, match=key):
         make_semivl_train_step(bundle, dict(cfg, **{key: value}), None, 10)
     step = make_semivl_train_step(bundle, dict(cfg, **{key: False}), None,
@@ -250,13 +252,16 @@ def test_kernel_sources_and_build_keys():
 
 
 # the trainer entry point's modules (data pipeline, configs, loop, CLI,
-# the process group and the multi-rank dry run) and the exp-41 models it
-# builds (DeepLabV3+, ZegCLIP with its SegLossPlus)
+# the process group and the multi-rank dry run), the exp-41 models it
+# builds (DeepLabV3+, ZegCLIP with its SegLossPlus) and the baselines'
+# (the UniMatch DeepLabV3+ and its Xception-65, the on-device augmentation)
 TRAINER_MODULES = (
     'semivl_tpu_torch.configs.experiments', 'semivl_tpu_torch.data.dataset',
     'semivl_tpu_torch.models.dlv3p_head', 'semivl_tpu_torch.models.timm_vit',
     'semivl_tpu_torch.models.zegclip_vit', 'semivl_tpu_torch.models.atm_head',
     'semivl_tpu_torch.losses.seg_loss_plus',
+    'semivl_tpu_torch.models.deeplabv3plus',
+    'semivl_tpu_torch.models.xception', 'semivl_tpu_torch.ops.augment',
     'semivl_tpu_torch.data.loader', 'semivl_tpu_torch.data.transforms',
     'semivl_tpu_torch.datasets.classes', 'semivl_tpu_torch.datasets.palettes',
     'semivl_tpu_torch.native.build', 'semivl_tpu_torch.native.loader',

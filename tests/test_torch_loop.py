@@ -207,8 +207,6 @@ def test_step_generator_is_a_function_of_the_step():
 
 
 @pytest.mark.parametrize('change,words', [
-    (dict(method='supervised'), 'supervised'),
-    (dict(method='unimatch'), 'unimatch'),
     (dict(ema_decay=0.999), 'ema_decay')])
 def test_loop_refuses_unported(loop_cfg, tmp_path, monkeypatch, change,
                                words):

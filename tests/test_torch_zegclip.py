@@ -478,8 +478,9 @@ def test_builder_makes_exp41_zegclip(split):
 
 
 def test_step_checks_the_criteria():
-    """'mmseg' with another head than ATM raises JAX's message; OHEM is
-    refused by name; exp 41's ZegCLIP config passes with the ATM head."""
+    """'mmseg' with another head than ATM raises JAX's message; OHEM with a
+    non-ATM head is taken; exp 41's ZegCLIP config passes with the ATM
+    head."""
     from semivl_tpu_torch.models.builder import ModelBundle
 
     def bundle(head_type):
@@ -495,10 +496,11 @@ def test_step_checks_the_criteria():
                        "got head 'VLGHead'"):
         make_semivl_train_step(bundle('VLGHead'), cfg, None, 10,
                                device='cpu')
-    with pytest.raises(NotImplementedError, match="'OHEM'"):
-        make_semivl_train_step(
-            bundle('VLGHead'), dict(flagship_train_cfg(), criterion=dict(
-                name='OHEM')), None, 10, device='cpu')
+    step = make_semivl_train_step(
+        bundle('VLGHead'), dict(flagship_train_cfg(), criterion=dict(
+            name='OHEM'), maskclip_consistency_lambda=0), None, 10,
+        device='cpu')
+    assert step.iteration == 0
 
 
 # ------------------------------- concept -> class aggregation in VLG

@@ -250,12 +250,18 @@ class SharedConceptMax:
 
 def masked_grads(opt_state, params):
     """JAX gradients from the first Adam moment after one update (mu =
-    (1 - b1) g); frozen leaves (no moment) as zeros."""
-    adam = opt_state.inner_state[0]
+    (1 - b1) g), or under the ``original`` SGD from the momentum trace
+    after one update (g + 1e-4 p); frozen leaves (no moment) as zeros."""
+    first = opt_state.inner_state[0]
+    if hasattr(first, 'mu'):
+        moment, unscale = first.mu, lambda m, p: np.asarray(m) / 0.1
+    else:
+        moment = opt_state.inner_state[1].trace
+        unscale = lambda m, p: np.asarray(m) - np.float32(1e-4) * p
     mu = jax.tree_util.tree_leaves(
-        adam.mu, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
+        moment, is_leaf=lambda x: isinstance(x, optax.MaskedNode))
     leaves = [np.zeros(np.shape(p), np.float32) if isinstance(
-        m, optax.MaskedNode) else np.asarray(m) / 0.1
+        m, optax.MaskedNode) else unscale(m, np.asarray(p))
         for m, p in zip(mu, jax.tree_util.tree_leaves(params))]
     return jax.tree_util.tree_unflatten(
         jax.tree_util.tree_structure(params), leaves)
@@ -335,7 +341,7 @@ def pseudo_label_thresholds(pm, text, mcc, batch):
 def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
                      total=100, stats=None, freeze_backbone=True,
                      exclude_keys=('attn', 'pos_embed'), relu_masks=None,
-                     concept_max=None):
+                     concept_max=None, module='vlm'):
     """One SemiVL step in JAX (1-device mesh) and in the port (CPU), from
     the same weights (and BatchNorm running statistics ``stats``), batch,
     boxes and injected feature-perturbation masks ``keeps``, under the
@@ -344,7 +350,9 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     names, the port's gradients and its state before and after. Given
     ``relu_masks`` (a ``SharedReluMasks``), the VLG head's ReLUs of both
     steps go through it; given ``concept_max`` (a ``SharedConceptMax``),
-    its concept -> class max."""
+    its concept -> class max. ``module``: the models' module whose
+    ``dropout2d`` the masks replace ('vlm', or 'deeplabv3plus' for the
+    UniMatch segmentor)."""
     import contextlib
     from unittest import mock
 
@@ -372,14 +380,14 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
         out = jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps,
                                total, stats=stats,
                                freeze_backbone=freeze_backbone,
-                               exclude_keys=exclude_keys)
+                               exclude_keys=exclude_keys, module=module)
     fake = InjectedDropout(keeps)
     before = {k: v.clone() for k, v in pm.state_dict().items()}
     opt, _ = optim.build_optimizer(cfg, pm, total)
     step = make_semivl_train_step(PortBundle(pm, text, mcc), cfg, opt,
                                   total, device='cpu')
-    with mock.patch('semivl_tpu_torch.models.vlm.dropout2d', fake.torch), \
-            shared('torch'):
+    with mock.patch(f'semivl_tpu_torch.models.{module}.dropout2d',
+                    fake.torch), shared('torch'):
         pmetrics = {k: float(v) for k, v in step(batch).items()}
     assert fake.calls == len(keeps) and step.iteration == 1
     for shared_op in (relu_masks, concept_max):
@@ -391,7 +399,8 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     return dict(jmetrics=out['jmetrics'], pmetrics=pmetrics,
                 jax_new=out['jax_new'], jax_grads=out['jax_grads'],
                 port_grads=port_grads, before=before,
-                after={k: v.numpy() for k, v in pm.state_dict().items()},
+                after={k: v.numpy().copy()
+                       for k, v in pm.state_dict().items()},
                 trainable={n: p.requires_grad
                            for n, p in pm.named_parameters()})
 
@@ -485,7 +494,8 @@ def resolved_step_mismatches(s, cfg, tol=1e-3, stats_tol=1e-5):
 
 def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
                      n_devices=1, stats=None, bn_batch_stats=None,
-                     freeze_backbone=True, exclude_keys=('attn', 'pos_embed')):
+                     freeze_backbone=True, exclude_keys=('attn', 'pos_embed'),
+                     module='vlm'):
     """One JAX SemiVL step over an ``n_devices`` data mesh: the global
     ``batch`` split by rows over the devices, each device taking its rows
     of the injected perturbation masks ``keeps`` (``jax_rows``); ``stats``
@@ -498,7 +508,7 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
     Given ``bn_batch_stats``, each train-mode BatchNorm takes those
     values for its statistics, their gradients still JAX's own (through
     the ``pmean`` it computes): the step's gradients at another rounding
-    of the statistics."""
+    of the statistics. ``module``: as ``semivl_step_pair``'s."""
     from unittest import mock
 
     import flax.linen.normalization as flax_norm
@@ -541,7 +551,8 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
             i, (np.asarray(m), np.asarray(v))), *out)
         return out
 
-    with mock.patch('semivl_tpu.models.vlm.dropout2d', fake.jax_rows), \
+    with mock.patch(f'semivl_tpu.models.{module}.dropout2d',
+                    fake.jax_rows), \
             mock.patch.object(flax_norm, '_compute_stats', batchnorm_stats):
         fn = jax_step(bundle, cfg, tx, mesh, total, mask)
         new_state, jmetrics = fn(replicate(state, mesh),
@@ -550,11 +561,11 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
         jmetrics = {k: float(v) for k, v in jmetrics.items()}
     assert fake.calls == len(keeps)
     new = jax.tree.map(np.asarray, new_state.params)
+    names = (convert.dlv3p_state_dict if module == 'deeplabv3plus'
+             else convert.vlm_state_dict)
     return dict(jmetrics=jmetrics,
-                jax_new=convert.vlm_state_dict(new['params'],
-                                               new.get('batch_stats')),
-                jax_grads=convert.vlm_state_dict(
-                    masked_grads(new_state.opt_state, params)),
+                jax_new=names(new['params'], new.get('batch_stats')),
+                jax_grads=names(masked_grads(new_state.opt_state, params)),
                 bn_batch_stats=[recorded[i] for i in sorted(recorded)])
 
 
