@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``semivl_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py             # one card: phases 1-18
+    python3 chip_smoke.py             # one card: phases 1-19
     python3 chip_smoke.py --cards N   # N cards: phase 14 across them
 
 Phases, each of which fails the run (non-zero exit, no result line):
@@ -218,9 +218,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
    'original'``, and exp 40's config as UniMatch with
    ``strong_aug_on_device``, preempted after step 0 and resumed, which
    must end bit-equal to the straight run;
-18. a ``kernels`` JSON line (all eleven kernels, with the launches of
-   phase 14's, 15's, 16's and 17's runs by path), and last ``{"ok": true,
-   "device": ...}``.
+18. the last modules: (a) exp 40's CLI with ``ema_decay`` 0.999 for 2
+   steps and an evaluation (launches phase 13's), preempted after step 0
+   and resumed (model, optimizer state and parameter EMA bit-equal to the
+   straight run), the EMA after each step equal to its float32
+   recomputation from the parameters; (b) ``tools/eval.py`` on (a)'s slot
+   with and without ``--ema`` and on (c)'s reference ``.pth``, each
+   histogram equal to ``evaluate_histograms``' on the same weights and its
+   launches those of the crop batches, then with ``--pred-path`` and
+   ``--logit-path``; (c) full-size synthetic OpenAI and ``clip2mmseg``
+   ViT-B/16 checkpoints into exp 40's backbone and guidance encoder
+   (``load_pretrained_into`` through ``convert_clip_weights``), a timm
+   ViT-B/16 into the timm ViT (``convert_timm_weights``), every leaf equal
+   to its source after the position grid's resize, and (a)'s slot through
+   ``convert_to_torch`` and back through ``convert_reference_ckpt``; (d) a
+   ViT-B/16 block with LoRA attention (rank 8, targets qkvo) on (4, 1025,
+   768): forward and every gradient on #3/#4 against the plain route
+   within phase 3's limits, every kernel call against its rounded
+   reference with its last key tile skipped failing, #3 and #4 once each,
+   their times beside SDPA's; (e) the CLIP text encoder at full width over
+   the 21 VOC prompts and ``MaskClipHead`` with both refinements on (2,
+   32, 32, 768) features, the card against the CPU
+   (``CARD_VS_CPU_TOL``); (f) both CPU-scale demos once at their smallest
+   setting on the card, their seconds and launches (the tiny VLM's
+   decoder kernels #5-#7; its attention takes the plain route);
+19. a ``kernels`` JSON line (all eleven kernels, with the launches of
+   phase 14's-18's runs by path), and last ``{"ok": true, "device":
+   ...}``.
 
 ``--cards N`` runs phase 14's full-width paths on N cards, one NCCL rank a
 card, and nothing else: the kernels' build, then (i) exp 40's trainer CLI
@@ -4447,6 +4471,576 @@ def run_phase17(tmp, voc_paths):
     return errs, launches, readings
 
 
+# ------------------------------------------------------------ phase 18
+
+EMA_DECAY = 0.999          # JAX's default (step.py:382)
+LORA_RANK = 8
+# the text encoder and the MaskCLIP head on the card against the CPU, of
+# the output's scale: float32 on both sides with TF32 off, sums in other
+# orders through 12 blocks (text) or one (HW, HW) affinity (head)
+CARD_VS_CPU_TOL = 1e-4
+DEMO_ARGS = dict(
+    semi_effect_demo=['--n-labeled', '2', '--n-unlabeled', '4', '--n-val',
+                      '2', '--sup-epochs', '1', '--semi-epochs', '1',
+                      '--eval-every', '1', '--seeds', '1',
+                      '--pretrain-steps', '20'],
+    pseudo_label_quality=['--seeds', '1', '--warmup-steps', '20',
+                          '--pretrain-steps', '20'])
+
+
+def _float_state(sd):
+    return {k: v.float() for k, v in sd.items()}
+
+
+def _ema_recomputed(ema, params):
+    """``d e + (1 - d) p`` in float32 on the CPU: the two products rounded,
+    then the sum (``train.step.ema_update_``'s arithmetic)."""
+    return {k: e * EMA_DECAY + params[k].float() * (1.0 - EMA_DECAY)
+            for k, e in ema.items()}
+
+
+def run_ema_cli(tmp, paths, overrides, trainer_launches):
+    """Phase 18 (a): exp 40's CLI with ``ema_decay`` for 2 steps and an
+    evaluation (launches: phase 13's), preempted after step 0 and resumed
+    (model, optimizer state and EMA bit-equal to the straight run); the
+    EMA after steps 1 and 2 equal to its float32 recomputation from the
+    initial parameters and the parameters after each step. Returns the
+    launches, the readings, the run dir and its config path."""
+    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.tools import train as cli
+    from semivl_tpu_torch.train.loop import init_state
+    cfg, path = trainer_cfg(tmp, paths, overrides, ema_decay=EMA_DECAY)
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    try:
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        _, run = cli.main(['--config', path, '--seed', '0'])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counters()
+        _, cut = trainer_cfg(tmp, paths, overrides, ema_decay=EMA_DECAY,
+                             preempt_at_step=0)
+        _, run_b = cli.main(['--config', cut, '--seed', '0'])
+        mid = _ckpt(run_b)
+        cli.main(['--config', path, '--seed', '0', '--resume-from', run_b])
+    finally:
+        os.chdir(cwd)
+    run, run_b = os.path.join(tmp, run), os.path.join(tmp, run_b)
+    straight, resumed = _ckpt(run), _ckpt(run_b)
+    log(f'ema cli: exp 40 with ema_decay {EMA_DECAY}, 2 steps and an '
+        f'evaluation in {wall:.1f} s; launches {launches} (expected phase '
+        f'13\'s {trainer_launches})')
+    assert launches == trainer_launches, (launches, trainer_launches)
+    assert straight['iteration'] == resumed['iteration'] == 2
+    assert mid['iteration'] == 1 and 'ema' in mid
+    equal = (straight['model'].keys() == resumed['model'].keys()
+             and straight['ema'].keys() == resumed['ema'].keys()
+             and all(torch.equal(v, resumed['model'][k])
+                     for k, v in straight['model'].items())
+             and all(torch.equal(v, resumed['ema'][k])
+                     for k, v in straight['ema'].items()))
+    sa, sb = straight['optimizer']['state'], resumed['optimizer']['state']
+    equal = equal and all(torch.equal(sa[i][k], sb[i][k])
+                          for i in sa for k in sa[i])
+    # the parameters the run starts from: the seeded build, then the
+    # overrides (loop.init_state)
+    bundle = build_model(cfg, device='cpu', seed=0)
+    init_state(bundle, cfg, 2)
+    p0 = {n: p.detach().float() for n, p in
+          bundle.model.named_parameters()}
+    del bundle
+    e1 = _ema_recomputed(p0, _float_state(mid['model']))
+    e2 = _ema_recomputed(e1, _float_state(straight['model']))
+    dist = {name: max((got[k] - want[k]).abs().max().item() for k in want)
+            for name, got, want in (('step 1', mid['ema'], e1),
+                                    ('step 2', straight['ema'], e2))}
+    moved = sum(not torch.equal(straight['ema'][k], p0[k]) for k in p0)
+    log(f'ema cli: preempted after step 0 and resumed to step 2: model, '
+        f'optimizer state and EMA {"bit-equal" if equal else "NOT equal"} '
+        f'to the straight run; the EMA against its float32 recomputation '
+        f'(max abs difference) {json.dumps(dist)}; {moved} of {len(p0)} '
+        'EMA leaves left their start')
+    assert equal
+    assert all(d == 0.0 for d in dist.values()), dist
+    return launches, dict(wall_s=wall, resumed_bit_equal=equal,
+                          ema_vs_recomputed=dist), run, path
+
+
+def _eval_model(cfg):
+    """The evaluation model of a run config: no guidance encoder, bf16."""
+    from semivl_tpu_torch.models.builder import build_model
+    return build_model(dict(cfg, clip_encoder=None), dtype=torch.bfloat16,
+                       device='cuda')
+
+
+def run_eval_cli(tmp, paths, run, cfg_path, pth):
+    """Phase 18 (b): ``tools/eval.py`` on (a)'s ``latest`` slot, with and
+    without ``--ema``, and on (c)'s reference ``.pth``: its histograms
+    equal ``evaluate_histograms``' on the same weights, its launches those
+    of the evaluation's crop batches; then once with ``--pred-path`` and
+    ``--logit-path`` (the host route): a paletted PNG and a logit map per
+    image, the PNG the logits' argmax."""
+    import yaml
+    from PIL import Image
+    from semivl_tpu_torch.data.dataset import SemiDataset
+    from semivl_tpu_torch.evaluation.predict import (Evaluator,
+                                                     evaluate_histograms)
+    from semivl_tpu_torch.tools import eval as eval_cli
+    with open(cfg_path) as f:
+        cfg = yaml.load(f, Loader=yaml.Loader)
+    valset = SemiDataset(cfg, 'val', id_path=paths['val'])
+    batches = eval_batches(cfg, range(len(valset)))
+    expected = with_eval(dict.fromkeys(EXPECTED_PER_STEP, 0), 0, batches)
+    slot = os.path.join(run, 'ckpt', 'latest')
+    state = _ckpt(run)
+    bundle = _eval_model(cfg)
+    own = bundle.model.state_dict()
+
+    def histograms(weights):
+        bundle.model.load_state_dict({k: weights[k] for k in own})
+        return evaluate_histograms(
+            Evaluator(bundle.model, bundle.text_feats, cfg, 'cuda'), valset,
+            cfg['eval_mode'], cfg)
+
+    want = {'slot': histograms(state['model']),
+            'slot --ema': histograms({**state['model'], **state['ema']})}
+    want['reference .pth'] = want['slot']
+    launches, readings = {}, {}
+    for name, save, extra in (('slot', slot, []),
+                              ('slot --ema', slot, ['--ema']),
+                              ('reference .pth', pth, [])):
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        miou, hist = eval_cli.main(['--config', cfg_path, '--save-path',
+                                    save, *extra])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        key = 'eval_cli_' + name.replace(' --', '_').replace(' .', '_')
+        launches[key] = _counters()
+        equal = all(np.array_equal(a, b) for a, b in zip(hist, want[name]))
+        log(f'eval cli ({name}): {len(valset)} images in {wall:.1f} s, mIoU '
+            f'{miou:.4f}, histograms {"equal" if equal else "NOT equal"} to '
+            f'evaluate_histograms\' on the same weights; launches '
+            f'{launches[key]} (expected {expected})')
+        assert equal and launches[key] == expected, (name, launches[key])
+        readings[key + '_s'] = wall
+    assert not all(np.array_equal(a, b) for a, b in zip(want['slot'],
+                                                        want['slot --ema']))
+    preds, logits = os.path.join(tmp, 'preds'), os.path.join(tmp, 'logits')
+    _, hist = eval_cli.main(['--config', cfg_path, '--save-path', slot,
+                             '--pred-path', preds, '--logit-path', logits])
+    for i in range(len(valset)):
+        name = valset.get(i)['id'].split(' ')[1].split('/')[-1]
+        png = np.asarray(Image.open(os.path.join(preds, name)))
+        lg = np.load(os.path.join(logits, name.replace('.png', '.npy')))
+        assert lg.shape == (1, 21) + png.shape and lg.dtype == np.float32
+        assert np.array_equal(png, lg[0].argmax(0)), name
+    agree = float(np.minimum(hist[0], want['slot'][0]).sum()
+                  / max(want['slot'][0].sum(), 1))
+    log(f'eval cli (--pred-path, --logit-path: the host route): '
+        f'{len(valset)} PNGs, each the argmax of its (1, 21, H, W) float32 '
+        f'logits; its intersections against the device route\'s: '
+        f'{agree:.6f} of them shared')
+    readings['host_route_intersection_share'] = agree
+    return launches, readings
+
+
+def _openai_visual_state(gen, grid=14, width=768, layers=12, out=512):
+    """A full-size OpenAI CLIP ViT-B/16 visual tower (``visual.*``), seeded
+    N(0, 0.02) leaves on the CPU."""
+    def r(*s):
+        return torch.randn(*s, generator=gen) * 0.02
+
+    sd = {'visual.class_embedding': r(width),
+          'visual.positional_embedding': r(grid * grid + 1, width),
+          'visual.conv1.weight': r(width, 3, 16, 16),
+          'visual.proj': r(width, out)}
+    for ln in ('ln_pre', 'ln_post'):
+        sd[f'visual.{ln}.weight'] = 1 + r(width)
+        sd[f'visual.{ln}.bias'] = r(width)
+    for i in range(layers):
+        pre = f'visual.transformer.resblocks.{i}.'
+        for key, shape in (('ln_1', (width,)), ('ln_2', (width,)),
+                           ('attn.in_proj', (3 * width, width)),
+                           ('attn.out_proj', (width, width)),
+                           ('mlp.c_fc', (4 * width, width)),
+                           ('mlp.c_proj', (width, 4 * width))):
+            if key.startswith('attn.in_proj'):
+                sd[pre + 'attn.in_proj_weight'] = r(*shape)
+                sd[pre + 'attn.in_proj_bias'] = r(shape[0])
+            else:
+                sd[pre + key + '.weight'] = r(*shape) + (len(shape) == 1)
+                sd[pre + key + '.bias'] = r(shape[0])
+    return sd
+
+
+def _check_pretrained(model, flat, what):
+    """Every ``backbone`` and ``clip_encoder`` leaf of ``model`` equals the
+    mmseg-style source ``flat`` (the projection as its 1x1 conv, the
+    position embedding resized to the scope's grid); returns the count."""
+    from semivl_tpu_torch.convert import resize_pos_embed
+    sd = model.state_dict()
+    n = 0
+    for scope in ('backbone', 'clip_encoder'):
+        keys = {k for k in sd if k.startswith(scope + '.')}
+        assert keys == {f'{scope}.{k}' for k in flat}, (what, scope)
+        for k, v in flat.items():
+            got = sd[f'{scope}.{k}'].cpu()
+            want = torch.from_numpy(np.asarray(v, np.float32))
+            if k == 'pos_embed':
+                want = torch.from_numpy(resize_pos_embed(
+                    np.asarray(v, np.float32), got.shape[1]))
+            assert torch.equal(got, want.reshape(got.shape)), (what, k)
+            n += 1
+    return n
+
+
+def run_converters(tmp, run):
+    """Phase 18 (c): a full-size OpenAI ViT-B/16 checkpoint and its
+    ``clip2mmseg`` form through ``convert_clip_weights`` into exp 40's
+    training model (``load_pretrained_into``: backbone and guidance
+    encoder, every leaf equal to the source after the position-embedding
+    resize); a timm ViT-B/16 state dict through ``convert_timm_weights``
+    into the timm ViT (every leaf equal to the source, the position grid
+    resized); (a)'s slot through ``convert_to_torch`` and back through
+    ``convert_reference_ckpt`` into the evaluation model (the slot's
+    parameters). Returns the readings and the ``.pth``."""
+    from semivl_tpu_torch import convert
+    from semivl_tpu_torch.configs import flagship_train_cfg
+    from semivl_tpu_torch.models.builder import build_model
+    from semivl_tpu_torch.models.timm_vit import TIMMVisionTransformer
+    from semivl_tpu_torch.tools import convert_clip_weights as pclip
+    from semivl_tpu_torch.tools import convert_reference_ckpt as pref
+    from semivl_tpu_torch.tools import convert_timm_weights as ptimm
+    from semivl_tpu_torch.tools import convert_to_torch as pto
+    readings = {}
+    gen = torch.Generator().manual_seed(18)
+    sd = _openai_visual_state(gen)
+    flat = pclip.convert_openai_visual({k: v.numpy() for k, v in sd.items()})
+    mmseg = dict(flat, **{'proj.weight': flat['proj.weight'][:, :, None,
+                                                             None]})
+    model = build_model(flagship_train_cfg(512), dtype=torch.bfloat16,
+                        device='cuda').model
+    for what, src in (('openai', sd),
+                      ('clip2mmseg', {'backbone.' + k: torch.from_numpy(v)
+                                      for k, v in mmseg.items()})):
+        path = os.path.join(tmp, f'{what}.pth')
+        torch.save(src, path)
+        t0 = time.perf_counter()
+        convert.load_pretrained_into(model, path)
+        readings[f'{what}_load_s'] = time.perf_counter() - t0
+        n = _check_pretrained(model, flat, what)
+        os.remove(path)
+        log(f'converters: a full-size {what} ViT-B/16 checkpoint into exp '
+            f'40\'s backbone and guidance encoder in '
+            f'{readings[f"{what}_load_s"]:.1f} s: {n} leaves equal to the '
+            'source (the 14x14 position grid resized to 32x32)')
+    del model
+
+    def r(*s):
+        return torch.randn(*s, generator=gen) * 0.02
+
+    timm = {'cls_token': r(1, 1, 768), 'pos_embed': r(1, 197, 768),
+            'patch_embed.proj.weight': r(768, 3, 16, 16),
+            'patch_embed.proj.bias': r(768), 'norm.weight': 1 + r(768),
+            'norm.bias': r(768)}
+    for i in range(12):
+        for key, shape in (('norm1', (768,)), ('norm2', (768,)),
+                           ('attn.qkv', (2304, 768)),
+                           ('attn.proj', (768, 768)),
+                           ('mlp.fc1', (3072, 768)),
+                           ('mlp.fc2', (768, 3072))):
+            timm[f'blocks.{i}.{key}.weight'] = r(*shape) + (len(shape) == 1)
+            timm[f'blocks.{i}.{key}.bias'] = r(shape[0])
+    src, npz = os.path.join(tmp, 'timm.pth'), os.path.join(tmp, 'timm.npz')
+    torch.save(timm, src)
+    t0 = time.perf_counter()
+    ptimm.main(['--src', src, '--out', npz, '--img-size', '512'])
+    tree = convert.load_flax_npz(npz)['params']
+    vit = TIMMVisionTransformer(img_size=(512, 512)).cuda()
+    out = {}
+    convert.export_timm_vit(out, tree, prefix='')
+    vit.load_state_dict({k: torch.from_numpy(np.array(v))
+                         for k, v in out.items()}, strict=True)
+    readings['timm_s'] = time.perf_counter() - t0
+    got = vit.state_dict()
+    same = [torch.equal(got[f'layers.{i}.attn.attn.in_proj_weight'].cpu(),
+                        timm[f'blocks.{i}.attn.qkv.weight'])
+            and torch.equal(got[f'layers.{i}.ffn.layers.1.weight'].cpu(),
+                            timm[f'blocks.{i}.mlp.fc2.weight'])
+            for i in range(12)]
+    pos = torch.from_numpy(ptimm.resize_timm_pos_embed(
+        timm['pos_embed'].numpy(), (32, 32)))
+    assert all(same) and torch.equal(got['pos_embed'].cpu(), pos)
+    assert torch.equal(got['patch_embed.weight'].cpu(),
+                       timm['patch_embed.proj.weight'])
+    log(f'converters: a timm ViT-B/16 state dict into the timm ViT at 512 '
+        f'in {readings["timm_s"]:.1f} s: {len(out)} leaves, the blocks\' '
+        'and the patch embedding\'s equal to the source, the position grid '
+        '14x14 -> 32x32')
+    del vit
+
+    pth = os.path.join(tmp, 'reference.pth')
+    t0 = time.perf_counter()
+    pto.main(['--run-dir', run, '--slot', 'latest', '--out', pth])
+    slot = _ckpt(run)['model']
+    bundle = build_model(dict(flagship_train_cfg(512), clip_encoder=None),
+                         dtype=torch.bfloat16, device='cuda')
+    assert pref.load_reference_into(bundle.model, pth) == 0
+    back = bundle.model.state_dict()
+    equal = all(torch.equal(v.cpu(), slot[k]) for k, v in back.items())
+    readings['round_trip_s'] = time.perf_counter() - t0
+    log(f'converters: (a)\'s slot through convert_to_torch and back through '
+        f'convert_reference_ckpt in {readings["round_trip_s"]:.1f} s: '
+        f'{len(back)} leaves {"equal" if equal else "NOT equal"} to the '
+        'slot\'s')
+    assert equal
+    return readings, pth
+
+
+def run_lora_block(gen):
+    """Phase 18 (d): a ViT-B/16 block whose attention carries LoRA adapters
+    (rank 8, targets qkvo) on (4, 1025, 768): forward and every gradient
+    (input, block and adapter leaves) on #3/#4 against the plain route
+    (``impl='xla'``) within phase 3's limits, each kernel call held to its
+    rounded reference with the last key tile skipped failing (per-call
+    limits), #3 and #4 once each per call; the layer's attention kernels
+    timed beside SDPA's on its own q, k, v."""
+    from semivl_tpu_torch.models.builder import init_weights
+    from semivl_tpu_torch.models.layers import Attention, TransformerBlock
+    from semivl_tpu_torch.ops import flash_attention as fa
+    blk = TransformerBlock(768, 12, 3072, dtype=torch.bfloat16)
+    blk.attn = Attention(768, 12, lora_rank=LORA_RANK, lora_scaling=2.0)
+    init_weights(blk, torch.Generator().manual_seed(19))
+    with torch.no_grad():
+        for t in 'qkvo':
+            getattr(blk.attn, f'lora_{t}').lora_b.normal_(
+                0, 0.02, generator=torch.Generator().manual_seed(20))
+    blk = blk.cuda()
+    x = torch.randn(4, 1025, 768, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+    g = torch.randn(4, 1025, 768, generator=gen, device='cuda',
+                    dtype=torch.bfloat16)
+
+    def run(impl):
+        blk.attn.impl = impl
+        blk.zero_grad(set_to_none=True)
+        xi = x.detach().requires_grad_(True)
+        out = blk(xi)[0]
+        out.backward(g)
+        return [out.detach(), xi.grad] + [p.grad for p in blk.parameters()]
+
+    _reset_counters()
+    got = run('auto')
+    torch.cuda.synchronize()
+    launches = _counters()
+    per_call = PerCallCheck(attn_faults=True)   # its reruns count launches
+    with contextlib.ExitStack() as stack:
+        for patch in per_call.patches():
+            stack.enter_context(patch)
+        run('auto')
+    want = run('xla')
+    names = ['output', 'input'] + [n for n, _ in blk.named_parameters()]
+    errs = {n: ((a.float() - b.float()).abs().max()
+                / b.float().abs().max().clamp(min=1e-30)).item()
+            for n, a, b in zip(names, got, want)}
+    worst_fwd = errs['output']
+    worst_bwd = max(v for k, v in errs.items() if k != 'output')
+    lora = {k: v for k, v in errs.items() if 'lora' in k}
+    per_call.check(PER_CALL_TOLS, absent=('heads_fwd', 'heads_bwd',
+                                          'decoder_fwd', 'decoder_bwd'))
+    log(f'lora block (4, 1025, 768)/12, rank {LORA_RANK}, targets qkvo: '
+        f'launches {launches}; kernels vs the plain route, max abs error of '
+        f'the scale: output {worst_fwd:.3e} (tol {ATTN_TOL}), worst '
+        f'gradient {worst_bwd:.3e} (tol {ATTN_BWD_TOL}), the adapters\' '
+        f'{json.dumps({k: float(f"{v:.3e}") for k, v in lora.items()})}; '
+        'per call vs rounded (worst rel-L2, calls): ' + json.dumps(
+            {k: [float(f'{e:.3e}'), n] for k, (e, n) in
+             per_call.worst.items() if n}) + '; last key tile skipped: '
+        f'{[f"{b:.3e}" for _, _, b in per_call.attn_fault_reads]}')
+    assert launches['attention_fwd'] == launches['attention_bwd'] == 1
+    assert sum(launches.values()) == 2, launches
+    assert worst_fwd <= ATTN_TOL and worst_bwd <= ATTN_BWD_TOL, errs
+    assert len(lora) == 8 and all(
+        p.grad.abs().max() > 0 for n, p in blk.named_parameters()
+        if 'lora' in n)
+
+    # the layer's attention on its own inputs, beside SDPA
+    with torch.no_grad():
+        y = blk.ln1(x)
+        qkv = torch.cat([
+            part + getattr(blk.attn, f'lora_{t}')(y)
+            for t, part in zip('qkv', torch.nn.functional.linear(
+                y, blk.attn.attn.in_proj_weight.to(y.dtype),
+                blk.attn.attn.in_proj_bias.to(y.dtype)).chunk(3, dim=-1))],
+            dim=-1).contiguous()
+        out, lse = fa._fwd_kernel(*qkv.split(768, dim=-1), 12, 1025, True)
+    go = torch.randn_like(out)
+    flops = 4 * 4 * 12 * 1025 * 1025 * 64
+    row = dict(
+        fwd_ms=cuda_ms(lambda: fa.packed_attention(qkv, 12, None)),
+        fwd_device_ms=device_ms(lambda: fa.packed_attention(qkv, 12, None)),
+        plain_fwd_ms=cuda_ms(lambda: fa.packed_attention_plain(qkv, 12,
+                                                               None)),
+        sdpa_fwd_ms=_sdpa_ms(qkv, 12, None),
+        sdpa_fwd_device_ms=_sdpa_ms(qkv, 12, None, timer=device_ms),
+        bwd_ms=cuda_ms(lambda: fa.flash_mha_bwd(qkv, out, lse, go, 12)),
+        bwd_device_ms=device_ms(
+            lambda: fa.flash_mha_bwd(qkv, out, lse, go, 12)),
+        plain_bwd_ms=cuda_ms(
+            lambda: fa.flash_mha_bwd_plain(qkv, out, go, 12), 5),
+        sdpa_bwd_ms=_sdpa_ms(qkv, 12, None, go),
+        sdpa_bwd_device_ms=_sdpa_ms(qkv, 12, None, go, timer=device_ms),
+        fwd_bound_ms=bound(flops, 4 * 4 * 1025 * 768 * 2)[0],
+        bwd_bound_ms=bound(2 * flops, 2 * 8 * 4 * 1025 * 768
+                           + 4 * 4 * 12 * 1025)[0],
+        block_ms=cuda_ms(lambda: run('auto'), 5),
+        block_plain_ms=cuda_ms(lambda: run('xla'), 5),
+        output_err=worst_fwd, worst_grad_err=worst_bwd)
+    log('lora block: attention kernels on the layer\'s q, k, v (ms; '
+        'device-only from the profiler) and the block\'s forward + backward '
+        'on the kernels and on the plain route: ' + json.dumps(
+            {k: (None if v is None else float(f'{v:.4f}'))
+             for k, v in row.items()}))
+    return launches, per_call.worst, row
+
+
+def _gap(values, lo=0.2, hi=0.8):
+    """A threshold in the widest gap of the sorted values between two
+    quantiles, and its distance to the nearest value."""
+    v = np.sort(np.asarray(values, np.float64).ravel())
+    a, b = int(lo * len(v)), int(hi * len(v))
+    i = a + int(np.argmax(np.diff(v[a:b])))
+    return float((v[i] + v[i + 1]) / 2), float((v[i + 1] - v[i]) / 2)
+
+
+def run_text_and_heads(tmp):
+    """Phase 18 (e): the CLIP text encoder at full width (12 layers, width
+    512, 77 tokens, seeded weights) over the 21 VOC prompts, tokenized by
+    the stdlib tokenizer (a merges file without merges: the bytes' own
+    tokens), on the card against the CPU, directly and through
+    ``generate_text_embeddings``; ``MaskClipHead`` with prompt denoising
+    and key smoothing on (2, 32, 32, 768) features, on the card against
+    the CPU, its thresholds in gaps of the confidences they compare."""
+    import gzip
+    from semivl_tpu_torch.datasets.classes import CLASSES
+    from semivl_tpu_torch.models.maskclip_heads import MaskClipHead
+    from semivl_tpu_torch.text.embeddings import (load_text_embedding,
+                                                  text_embedding_path)
+    from semivl_tpu_torch.text.text_encoder import (CLIPTextTransformer,
+                                                    SimpleTokenizer,
+                                                    generate_text_embeddings)
+    bpe = os.path.join(tmp, 'bytes_only_bpe.txt.gz')
+    with gzip.open(bpe, 'wb') as f:
+        f.write(b'#version: 0.2\n')
+    tok = SimpleTokenizer(bpe)
+    names = CLASSES['pascal']
+    tokens = torch.from_numpy(tok.tokenize(
+        [f'a photo of a {c}' for c in names])).long()
+    torch.manual_seed(21)
+    text_model = CLIPTextTransformer()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        cpu = text_model(tokens)
+        card = text_model.cuda()(tokens.cuda()).cpu()
+    torch.cuda.synchronize()
+    text_s = time.perf_counter() - t0
+    err = (card - cpu).abs().max().item() / cpu.abs().max().item()
+    sd = {k: v.cpu() for k, v in text_model.state_dict().items()}
+    emb_card = generate_text_embeddings(names, sd, tok)
+    emb_cpu = generate_text_embeddings(names, sd, tok, device='cpu')
+    emb_err = float(np.abs(emb_card - emb_cpu).max())
+    log(f'text encoder: 21 VOC prompts ({int((tokens > 0).sum(1).max())} '
+        f'tokens at most of 77), width 512, 12 layers: card vs CPU max abs '
+        f'error of the scale {err:.3e}, generate_text_embeddings '
+        f'{emb_err:.3e} (tol {CARD_VS_CPU_TOL}); {text_s:.2f} s')
+    assert err <= CARD_VS_CPU_TOL and emb_err <= CARD_VS_CPU_TOL
+    assert np.allclose(np.linalg.norm(emb_card, axis=-1), 1.0, atol=1e-5)
+
+    g = torch.Generator().manual_seed(22)
+    v = torch.randn(2, 32, 32, 768, generator=g)
+    k = torch.randn(2, 32, 32, 768, generator=g)
+    text = torch.from_numpy(load_text_embedding(
+        text_embedding_path('pascal', 'single')))
+    head = MaskClipHead(768, 512)
+    with torch.no_grad():
+        head.proj.weight.normal_(0, 768 ** -0.5, generator=g)
+        logits = head(v, text)
+        probs = torch.softmax(logits * 100.0, dim=1)
+        pd, m1 = _gap(probs.flatten(2).amax(-1))
+        head.pd_thresh = pd
+        probs = torch.softmax(head(v, text) * 100.0, dim=1)
+        ks, m2 = _gap(probs.amax(1))
+        head.ks_thresh = ks
+        cpu = head(v, text, k)
+        card = head.cuda()(v.cuda(), text.cuda(), k.cuda()).cpu()
+    head_err = (card - cpu).abs().max().item() / cpu.abs().max().item()
+    log(f'maskclip head (2, 32, 32, 768) -> 21 classes, pd_thresh {pd:.4f} '
+        f'(margin {m1:.2e}), ks_thresh {ks:.4f} (margin {m2:.2e}): card vs '
+        f'CPU max abs error of the scale {head_err:.3e} (tol '
+        f'{CARD_VS_CPU_TOL})')
+    assert head_err <= CARD_VS_CPU_TOL
+    return dict(text_err=err, text_embeddings_err=emb_err,
+                maskclip_head_err=head_err)
+
+
+def run_demos(tmp):
+    """Phase 18 (f): each demo once at its smallest setting (one seed; one
+    epoch a method, each with an evaluation; a short guidance pretraining
+    and warm-up) on the card: its seconds, its launches (the tiny VLM's
+    decoder, #5-#7; its attention heads of 16 and 32 take the plain route
+    under 'auto' at L = 17) and its parsed JSON line."""
+    import importlib
+    launches, readings = {}, {}
+    for name, args in DEMO_ARGS.items():
+        mod = importlib.import_module(f'semivl_tpu_torch.tools.{name}')
+        torch.cuda.synchronize()
+        _reset_counters()
+        t0 = time.perf_counter()
+        out = mod.main(['--out-root', os.path.join(tmp, name), *args])
+        torch.cuda.synchronize()
+        readings[f'{name}_s'] = time.perf_counter() - t0
+        launches[name] = _counters()
+        log(f'{name}: {readings[f"{name}_s"]:.1f} s on the card; launches '
+            f'{launches[name]}; result {json.dumps(out)[:400]}')
+        n = launches[name]
+        assert n['decoder_fwd'] > 0 and n['decoder_bwd_tail'] > 0
+        assert n['decoder_bwd_tail'] == n['decoder_bwd_input']
+        assert n['attention_fwd'] == n['heads_fwd'] == 0, n
+    return launches, readings
+
+
+def run_phase18(tmp, voc_paths, overrides, trainer_launches):
+    """Phase 18 (see the module's docstring): the parameter EMA through the
+    CLI, the evaluation CLI, the checkpoint converters, LoRA attention, the
+    text encoder and the MaskCLIP head, the demos. Returns the per-call
+    errors, the launches by path and the readings."""
+    t_phase = time.perf_counter()
+    launches, readings = {}, {}
+    launches['ema_cli_two_steps_and_eval'], readings['ema_cli'], run, \
+        cfg_path = run_ema_cli(tmp, voc_paths, overrides, trainer_launches)
+    torch.cuda.empty_cache()
+    readings['converters'], pth = run_converters(tmp, run)
+    torch.cuda.empty_cache()
+    new, readings['eval_cli'] = run_eval_cli(tmp, voc_paths, run, cfg_path,
+                                             pth)
+    launches.update(new)
+    torch.cuda.empty_cache()
+    launches['lora_block_fwd_bwd'], errs, readings['lora'] = run_lora_block(
+        torch.Generator(device='cuda').manual_seed(18))
+    torch.cuda.empty_cache()
+    readings['text_and_heads'] = run_text_and_heads(tmp)
+    new, readings['demos'] = run_demos(tmp)
+    launches.update(new)
+    torch.cuda.empty_cache()
+    readings['phase_s'] = time.perf_counter() - t_phase
+    log(f'phase 18: {readings["phase_s"]:.1f} s')
+    return errs, launches, readings
+
+
 def main():
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -4549,9 +5143,14 @@ def main():
         log(f'phase 16: {json.dumps(p16_paths)}')
         torch.cuda.empty_cache()
         p17_err, p17_launches, p17_paths = run_phase17(tmp.name, paths)
-    log(f'phase 17: {json.dumps(p17_paths)}')
+        log(f'phase 17: {json.dumps(p17_paths)}')
+        torch.cuda.empty_cache()
+        p18_err, p18_launches, p18_paths = run_phase18(
+            tmp.name, paths, overrides, trainer_launches)
+    log(f'phase 18: {json.dumps(p18_paths)}')
     new_launches.update(p16_launches)
     new_launches.update(p17_launches)
+    new_launches.update(p18_launches)
 
     keys = ('max_abs_err', 'rel_err', 'tol', 'ms', 'plain_ms', 'bound_ms',
             'bound_by', 'library_ms', 'device_ms', 'library_device_ms',
@@ -4572,7 +5171,7 @@ def main():
                  'decoder_fwd': 'decoder'}
 
     def paths(key, flagship_eval=None, cityscapes_eval=None, tiny_eval=None):
-        # phase 15's, 16's and 17's paths: steps and CLIs count every
+        # phase 15's-18's paths: steps, CLIs and demos count every
         # kernel, evaluations the forward ones
         new = {name: (counts.get(eval_keys.get(key)) if 'eval_image' in name
                       else counts[key])
@@ -4594,7 +5193,8 @@ def main():
         return max(step_err[key][0], cs_err[key][0], ade_err[key][0],
                    p16_err['zegclip'][key][0], p16_err['concept'][key][0],
                    p17_err['supervised'][key][0],
-                   p17_err['unimatch'][key][0])
+                   p17_err['unimatch'][key][0],
+                   p18_err.get(key, [0.0])[0])
 
     kernels = [
         row('packed_attention_fwd', 'flash_attention.cu',
@@ -4608,6 +5208,9 @@ def main():
             semantic_l150=times(attn['semantic L=150']),
             timm_encoder_4x1025=times(attn['timm encoder']),
             zegclip_encoder_4x1035=times(attn['zegclip encoder']),
+            lora_layer_4x1025={k: v for k, v in p18_paths['lora'].items()
+                               if k.startswith(('fwd', 'plain_fwd',
+                                                'sdpa_fwd'))},
             **paths('attention_fwd', eval_launches['attention'],
                     cs_eval_launches['attention'])),
         row('packed_attention_bwd', 'flash_attention_heads.cu',
@@ -4618,6 +5221,9 @@ def main():
             semantic_l81=times(attn_bwd['semantic L=81']),
             semantic_l150=times(attn_bwd['semantic L=150']),
             zegclip_encoder_4x1035=times(attn_bwd['zegclip encoder']),
+            lora_layer_4x1025={k: v for k, v in p18_paths['lora'].items()
+                               if k.startswith(('bwd', 'plain_bwd',
+                                                'sdpa_bwd'))},
             **paths('attention_bwd')),
         row('decoder_stage_fwd', 'fused_decoder.cu',
             'semivl_tpu/ops/fused_decoder.py:459', cs_launches['decoder_fwd'],
@@ -4699,7 +5305,7 @@ def main():
         products='semivl_tpu_torch/csrc/decoder_igemm.cuh',
         cases={name: times(r) for name, r in up_rows.items()},
         bench=bench_rows, launches_by_path=dict(fused_up_bench=up_launches)))
-    log(f'run: phases 1-17 in {time.perf_counter() - t_run:.1f} s')
+    log(f'run: phases 1-18 in {time.perf_counter() - t_run:.1f} s')
     log(json.dumps({'kernels': kernels}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

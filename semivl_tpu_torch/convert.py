@@ -27,7 +27,8 @@ type.
 
 Only numpy is needed to build the state dict. ``load_pretrained_into``
 loads a converted CLIP backbone tree (``load_flax_npz``: the npz that
-``semivl_tpu/tools/convert_clip_weights.py`` writes) into the model's
+``tools/convert_clip_weights.py`` or JAX's tool writes, or a raw OpenAI or
+``clip2mmseg`` checkpoint converted on the way) into the model's
 ``backbone`` and frozen ``clip_encoder`` alike, the position embedding
 resized per scope (``resize_pos_embed``); it refuses the VPT backbone,
 whose layout JAX's loader does not take either.
@@ -58,15 +59,26 @@ def _norm(out, key, p):
     out[key + '.bias'] = _f(p['bias'])
 
 
+def export_attention(out, pre, p):
+    """JAX ``Attention`` params -> ``models.layers.Attention`` names under
+    ``pre``: ``attn.in_proj_weight``/``_bias``, ``attn.out_proj`` and the
+    adapters of an ``Attention(lora_rank=...)``, ``lora_<t>.lora_a`` /
+    ``lora_b`` in JAX's layout."""
+    out[pre + 'attn.in_proj_weight'] = _f(p['in_proj']['kernel']).T
+    out[pre + 'attn.in_proj_bias'] = _f(p['in_proj']['bias'])
+    _dense(out, pre + 'attn.out_proj', p['out_proj'])
+    for t in 'qkvo':
+        if f'lora_{t}' in p:
+            for leaf in ('lora_a', 'lora_b'):
+                out[f'{pre}lora_{t}.{leaf}'] = _f(p[f'lora_{t}'][leaf])
+
+
 def _block(out, pre, p, ffn=('layers.0.0', 'layers.1')):
     """TransformerBlock -> mmcv TransformerEncoderLayer names (a CLIP
     block's FFN: ``ffn=('fc1', 'fc2')``)."""
     _norm(out, pre + 'ln1', p['ln1'])
     _norm(out, pre + 'ln2', p['ln2'])
-    out[pre + 'attn.attn.in_proj_weight'] = _f(
-        p['attn']['in_proj']['kernel']).T
-    out[pre + 'attn.attn.in_proj_bias'] = _f(p['attn']['in_proj']['bias'])
-    _dense(out, pre + 'attn.attn.out_proj', p['attn']['out_proj'])
+    export_attention(out, pre + 'attn.', p['attn'])
     _dense(out, pre + 'ffn.' + ffn[0], p['ffn']['fc1'])
     _dense(out, pre + 'ffn.' + ffn[1], p['ffn']['fc2'])
 
@@ -177,6 +189,28 @@ def export_vlg_head(out, p, prefix='decode_head.'):
                  up['conv1'])
         _conv_gn(out, f'{prefix}{name}.conv.3', f'{prefix}{name}.conv.4',
                  up['conv2'])
+
+
+def clip_text_state_dict(p):
+    """JAX ``CLIPTextTransformer`` params (``convert_openai_text``'s
+    layout) -> ``text.text_encoder.CLIPTextTransformer`` names, which are
+    OpenAI CLIP's."""
+    out = {'token_embedding.weight': _f(p['token_embedding']),
+           'positional_embedding': _f(p['positional_embedding']),
+           'text_projection': _f(p['text_projection'])}
+    _norm(out, 'ln_final', p['ln_final'])
+    i = 0
+    while f'layers_{i}_ln1' in p:
+        pre, attn = f'transformer.resblocks.{i}.', p[f'layers_{i}_attn']
+        _norm(out, pre + 'ln_1', p[f'layers_{i}_ln1'])
+        _norm(out, pre + 'ln_2', p[f'layers_{i}_ln2'])
+        out[pre + 'attn.in_proj_weight'] = _f(attn['in_proj']['kernel']).T
+        out[pre + 'attn.in_proj_bias'] = _f(attn['in_proj']['bias'])
+        _dense(out, pre + 'attn.out_proj', attn['out_proj'])
+        _dense(out, pre + 'mlp.c_fc', p[f'layers_{i}_ffn']['fc1'])
+        _dense(out, pre + 'mlp.c_proj', p[f'layers_{i}_ffn']['fc2'])
+        i += 1
+    return out
 
 
 def up_stage_params(up, head=None):
@@ -399,7 +433,9 @@ def copy_into(model, sd, what='state dict'):
 
 
 def load_pretrained_into(model, path):
-    """A converted CLIP backbone tree (a path to its npz, or the tree) into
+    """A converted CLIP backbone tree (a path to its npz, a raw OpenAI or
+    ``clip2mmseg`` checkpoint, ``.pt``/``.pth``, converted on the way by
+    ``tools.convert_clip_weights.load_clip_tree``, or the tree) into
     ``model``'s ``backbone`` and, where the model has one, its frozen
     ``clip_encoder`` (reference mcvit16.py loads the same checkpoint), the
     position embedding resized to each scope's grid (JAX
@@ -412,7 +448,11 @@ def load_pretrained_into(model, path):
         raise NotImplementedError(
             'load_pretrained_into: the VPTCLIPVisionTransformer backbone has '
             'no pretrained loader (JAX loads the MaskCLIP layout only)')
-    tree = load_flax_npz(path) if isinstance(path, str) else path
+    if isinstance(path, str) and path.endswith(('.pt', '.pth')):
+        from semivl_tpu_torch.tools.convert_clip_weights import load_clip_tree
+        tree = load_clip_tree(path)
+    else:
+        tree = load_flax_npz(path) if isinstance(path, str) else path
     for scope in ('backbone', 'clip_encoder'):
         prefix = scope + '.'
         if not any(k.startswith(prefix) for k in own):

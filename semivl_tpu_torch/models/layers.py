@@ -8,6 +8,8 @@ computes in its ``dtype`` (bfloat16 on the card), with LayerNorm statistics
 and the attention softmax in float32.
 """
 
+import math
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -40,6 +42,25 @@ class LayerNorm(nn.LayerNorm):
                             self.bias, self.eps).to(self.dtype)
 
 
+class LoRAAdapter(nn.Module):
+    """Low-rank adapter x -> scaling * (x A) B (JAX ``layers.LoRAAdapter``,
+    reference model/backbone/lora.py:21-58): ``lora_a`` (C, rank) he-uniform
+    over fan-in C, ``lora_b`` (rank, C) zero, so the adapter starts as the
+    identity of its layer; the leaves keep JAX's layout and names."""
+
+    def __init__(self, dim, rank, scaling=1.0):
+        super().__init__()
+        self.scaling = scaling
+        bound = math.sqrt(6.0 / dim)   # flax he_uniform: variance 2 / fan_in
+        self.lora_a = nn.Parameter(torch.empty(dim, rank).uniform_(-bound,
+                                                                    bound))
+        self.lora_b = nn.Parameter(torch.zeros(rank, dim))
+
+    def forward(self, x):
+        return self.scaling * ((x @ self.lora_a.to(x.dtype))
+                               @ self.lora_b.to(x.dtype))
+
+
 class _PackedProj(nn.Module):
     """``nn.MultiheadAttention``'s parameter names: one (3C, C) in_proj and
     an out_proj ``Linear``."""
@@ -61,20 +82,39 @@ class Attention(nn.Module):
     multi_head_attention`` does: to the packed kernels, the head-split
     kernels or the plain math. The kernels
     read q, k and v in place from the one in_proj output (row stride 3C) and
-    return one (B, L, 3C) gradient for it."""
+    return one (B, L, 3C) gradient for it.
 
-    def __init__(self, dim, num_heads, qkv_bias=True):
+    ``lora_rank`` > 0 adds low-rank adapters ``lora_q``, ``lora_k``,
+    ``lora_v``, ``lora_o`` for the targets in ``lora_targets`` (JAX
+    ``Attention``; no config or builder sets them): the q, k and v deltas,
+    taken from the layer's input, are added to the in_proj output before
+    the attention, which reads them in place there; the o delta, taken from
+    the attention's output, is added after ``out_proj``."""
+
+    def __init__(self, dim, num_heads, qkv_bias=True, lora_rank=0,
+                 lora_scaling=1.0, lora_targets='qkvo'):
         super().__init__()
         self.num_heads = num_heads
         self.impl = 'auto'
         self.attn = _PackedProj(dim, qkv_bias)
+        self.lora_targets = lora_targets if lora_rank > 0 else ''
+        for t in self.lora_targets:
+            setattr(self, f'lora_{t}', LoRAAdapter(dim, lora_rank,
+                                                   lora_scaling))
 
     def forward(self, x, return_v=False):
         p = self.attn
         b = None if p.in_proj_bias is None else p.in_proj_bias.to(x.dtype)
         qkv = F.linear(x, p.in_proj_weight.to(x.dtype), b)
-        out = linear(attention.qkv_attention(qkv, self.num_heads, self.impl),
-                     p.out_proj)
+        if set(self.lora_targets) & set('qkv'):
+            qkv = torch.cat([
+                part + getattr(self, f'lora_{t}')(x)
+                if t in self.lora_targets else part
+                for t, part in zip('qkv', qkv.chunk(3, dim=-1))], dim=-1)
+        attn_out = attention.qkv_attention(qkv, self.num_heads, self.impl)
+        out = linear(attn_out, p.out_proj)
+        if 'o' in self.lora_targets:
+            out = out + self.lora_o(attn_out)
         if return_v:
             v = qkv[..., 2 * qkv.shape[-1] // 3:]
             return out, linear(v, p.out_proj)

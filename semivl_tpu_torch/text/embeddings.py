@@ -35,7 +35,11 @@ EMB_DATASET_PREFIX = {'pascal': 'voc12_wbg', 'cityscapes': 'cityscapes',
 
 
 def text_embedding_path(dataset, variant):
-    """Path of the bundled text-embedding asset for (dataset, variant)."""
+    """Path of the bundled text-embedding asset for (dataset, variant). An
+    absolute ``.npy`` path passes through unchanged (custom guidance text,
+    e.g. ``tools/semi_effect_demo.py``'s synthetic CLIP text)."""
+    if os.path.isabs(str(variant)):
+        return variant
     return os.path.join(_ASSET_DIR,
                         f'{EMB_DATASET_PREFIX[dataset]}_{variant}.npy')
 

@@ -11,9 +11,13 @@ batches, an epoch of ``len(loader_u)`` steps of ``2 x bs`` images; the
 steps of ``bs`` images; JAX loop.py:296-317, :420-425, :499) on the card,
 evaluate every ``eval_every_n_epochs`` epochs through ``evaluation.evaluate``
 and keep ``best`` and ``latest`` checkpoints with exact mid-epoch resume
-(``train.checkpoint``). One process drives one card; the run directory, its
-``all_args.yaml``, ``config.yaml``, ``debug.log``, ``metrics.jsonl`` and the
-windowed metrics follow the JAX loop.
+(``train.checkpoint``). With ``ema_decay`` the step keeps the parameter
+EMA from the parameters it starts with (after ``pretrained`` and
+``init_param_overrides``, JAX loop.py:138-143) and the slots carry it;
+the evaluations read the live parameters, as JAX's loop does. One process
+drives one card; the run directory, its ``all_args.yaml``,
+``config.yaml``, ``debug.log``, ``metrics.jsonl`` and the windowed metrics
+follow the JAX loop.
 
 Launched by torchrun (``parallel.dist.setup_distributed``), every rank runs
 this loop as JAX's processes run theirs (loop.py:240-632): rank 0's run
@@ -82,17 +86,14 @@ METHODS = SEMI_METHODS + ('supervised',)
 
 def _refuse_unported(cfg):
     """What the port's loop does not run, refused by name: a dataset
-    without split lists and text embeddings here, a method that is none of
-    JAX's three and the parameter EMA (the steps refuse it too)."""
+    without split lists and text embeddings here and a method that is none
+    of JAX's three."""
     if cfg['dataset'] not in PORTED_DATASETS:
         raise NotImplementedError(f'dataset {cfg["dataset"]!r} is not ported '
                                   f'to the PyTorch trainer ({PORTED_DATASETS})')
     method = cfg.get('method', 'semivl')
     if method not in METHODS:
         raise ValueError(f'method {method!r} ({METHODS})')
-    if cfg.get('ema_decay'):
-        raise NotImplementedError('ema_decay is not ported to the PyTorch '
-                                  'trainer')
 
 
 def _make_run_name(cfg):
@@ -358,7 +359,7 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
     previous_best, start_epoch, resume_skip = 0.0, 0, 0
     if ckpt.exists('latest'):
         step_fn.iteration, extra = ckpt.restore('latest', bundle.model,
-                                                optimizer)
+                                                optimizer, step_fn.ema)
         saved_epoch = int(extra.get('epoch', -1))
         resume_skip = int(extra.get('epoch_step', 0))
         # a save made mid-epoch (preemption) resumes inside that epoch
@@ -373,7 +374,7 @@ def train(cfg, args_dict=None, max_iters_override=None, pretrained=None,
         if is_main:
             for name in names:
                 ckpt.save(name, bundle.model, optimizer, step_fn.iteration,
-                          extra)
+                          extra, step_fn.ema)
         if grouped:
             dist.barrier()
 

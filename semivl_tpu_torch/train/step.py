@@ -43,6 +43,13 @@ preemption flags summed in one more (step.py:238, :369), ``grad_norm`` is
 taken after the mean (:373), and every rank applies the same update
 (AdamW, or the ``original`` SGD). Without a process group no collective
 is issued.
+
+With ``ema_decay`` set, each step keeps an exponential moving average of
+every parameter, trainable and frozen (JAX's whole ``params`` collection,
+not the BatchNorm statistics; step.py:25-39, :380-385, :446-452): after
+the update, ``decay * e + (1 - decay) * p`` in float32, two products and
+one sum as JAX rounds them. It starts from the parameters the step is
+made with (JAX loop.py:138-143); every rank holds the same one.
 """
 
 import torch
@@ -66,9 +73,6 @@ from semivl_tpu_torch.train.optim import lr_schedule
 
 LOSS_KEYS = ('loss_x', 'loss_s1', 'loss_s2', 'loss_fp', 'loss_mc_s1',
              'loss_mc_s2', 'loss_mc_fp', 'loss_all')
-# switches of the JAX step that the port does not implement yet: the
-# parameter EMA (JAX train/loop.py:139, step.py:382)
-UNPORTED_KEYS = ('ema_decay',)
 
 
 def cutmix_image(img, img_other, box):
@@ -187,17 +191,32 @@ def labeled_view(cfg, img, generator):
     return normalize_imagenet(x)
 
 
-def _check_unported(cfg):
-    for key in UNPORTED_KEYS:
-        if cfg.get(key):
-            raise NotImplementedError(f'{key} is not ported to the PyTorch '
-                                      'step')
+def init_ema(model):
+    """The EMA's start: a float32 copy of every parameter of ``model``,
+    by name (JAX ``jax.tree.map(jnp.array, variables['params'])``)."""
+    return {n: p.detach().float().clone()
+            for n, p in model.named_parameters()}
+
+
+@torch.no_grad()
+def ema_update_(ema, model, decay):
+    """``ema <- decay * ema + (1 - decay) * params`` (JAX
+    ``_ema_update``): the two products rounded to float32 before the sum,
+    so a leaf that did not move drifts as JAX's does (``lerp`` rounds
+    ``e + w (p - e)`` instead)."""
+    params = dict(model.named_parameters())
+    old = list(ema.values())
+    new = torch._foreach_mul([params[n].detach().float() for n in ema],
+                             1.0 - decay)
+    torch._foreach_mul_(old, decay)
+    torch._foreach_add_(old, new)
 
 
 class _Step:
     """What both steps share: the schedule, the text and the update;
     ``step(batch, generator) -> metrics``, ``iteration`` counts the updates
-    made (the JAX ``TrainState.step``)."""
+    made (the JAX ``TrainState.step``), ``ema`` is the parameter EMA
+    (name -> float32 tensor; None without ``ema_decay``)."""
 
     def __init__(self, bundle, cfg, optimizer, total_iters, device):
         self.device = resolve_device(device)
@@ -208,6 +227,7 @@ class _Step:
         self.sched = lr_schedule(cfg, total_iters)
         self.text = torch.as_tensor(bundle.text_feats).to(self.device)
         self.iteration = 0
+        self.ema = init_ema(self.model) if cfg.get('ema_decay') else None
 
     def __call__(self, batch, generator=None, preempt=False):
         """One iteration: ``backward`` then ``update``; the metrics (with
@@ -244,6 +264,8 @@ class _Step:
         for group in self.optimizer.param_groups:
             group['lr'] = lr * group['lr_mult']
         self.optimizer.step()
+        if self.ema is not None:
+            ema_update_(self.ema, self.model, self.cfg.get('ema_decay', 0.999))
         self.iteration += 1
         return m
 
@@ -255,7 +277,6 @@ class SemiVLStep(_Step):
         check_criteria(cfg, bundle)
         if not cfg.get('use_fp', True):
             raise ValueError('the reference asserts use_fp (semivl.py:114)')
-        _check_unported(cfg)
         super().__init__(bundle, cfg, optimizer, total_iters, device)
         self.mcc_lambda = cfg.get('maskclip_consistency_lambda', 0)
         self.use_mcc = self.mcc_lambda != 0
@@ -373,7 +394,6 @@ class SupervisedStep(_Step):
 
     def __init__(self, bundle, cfg, optimizer, total_iters, device=None):
         check_criteria(cfg, bundle, unlabeled=False)
-        _check_unported(cfg)
         super().__init__(bundle, cfg, optimizer, total_iters, device)
 
     def backward(self, batch, generator=None):

@@ -44,7 +44,7 @@ from semivl_tpu_torch.train.step import make_supervised_train_step
 
 import torch_parity
 from torch_parity import (MARGIN, PortBundle, confident_threshold,
-                          gap_threshold, rel_err, semivl_batch,
+                          ema_mismatches, gap_threshold, rel_err, semivl_batch,
                           semivl_step_pair, step_mismatches, text_embedding,
                           tiny_train_vlm)
 from torch_unimatch import as_tensor, dlv3p_setup
@@ -52,6 +52,7 @@ from torch_unimatch import as_tensor, dlv3p_setup
 from synth_data import make_synth_dataset
 
 IMG, TOTAL = torch_parity.IMG, 100
+EMA_DECAY = 0.999   # the supervised steps keep the parameter EMA
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -179,7 +180,9 @@ def _jax_supervised_step(jm, params, text, batch, cfg, stats=None,
     if stats is not None:
         variables['batch_stats'] = stats
     state = TrainState(params=variables, opt_state=tx.init(params),
-                       step=jnp.zeros((), jnp.int32))
+                       step=jnp.zeros((), jnp.int32),
+                       ema_params=(jax.tree.map(jnp.array, params)
+                                   if cfg.get('ema_decay') else None))
     mesh = Mesh(np.array(jax.devices()[:1]), ('data',))
     fn = jstep(bundle, cfg, tx, mesh, mask)
     new_state, metrics = fn(replicate(state, mesh), shard_batch(batch, mesh),
@@ -188,7 +191,8 @@ def _jax_supervised_step(jm, params, text, batch, cfg, stats=None,
     return dict(jmetrics={k: float(v) for k, v in metrics.items()},
                 jax_new=names(new['params'], new.get('batch_stats')),
                 jax_grads=names(torch_parity.masked_grads(
-                    new_state.opt_state, params)))
+                    new_state.opt_state, params)),
+                jax_ema=torch_parity.jax_ema(new_state, names))
 
 
 def _supervised_cfg(criterion, pm, text, batch):
@@ -197,7 +201,8 @@ def _supervised_cfg(criterion, pm, text, batch):
     float32 rounding of it would be kept on one side only) and its
     ``min_kept`` below the pixels under it, so the threshold decides."""
     cfg = dict(flagship_train_cfg(IMG), method='supervised',
-               criterion=dict(name=criterion, kwargs=dict(ignore_index=255)))
+               criterion=dict(name=criterion, kwargs=dict(ignore_index=255)),
+               ema_decay=EMA_DECAY)
     if criterion == 'OHEM':
         mask = batch['mask']
         with torch.no_grad():
@@ -217,7 +222,8 @@ def test_supervised_step_matches_jax(tiny, criterion):
     labeled loss, one AdamW update) against ``make_supervised_train_step``:
     ``loss_all`` and ``loss_x`` within 1e-4 relative, every trainable
     leaf's gradient and updated value within 1e-4 of its scale, frozen
-    leaves unchanged on both sides."""
+    leaves unchanged on both sides; the parameter EMA (``ema_decay``)
+    as ``torch_parity.ema_mismatches`` holds it."""
     jm, params, pm, _ = tiny
     text = text_embedding()
     b = semivl_batch(21, 2, IMG)
@@ -231,6 +237,7 @@ def test_supervised_step_matches_jax(tiny, criterion):
                                           opt, TOTAL, device='cpu')
         pmetrics = {k: float(v) for k, v in step(batch).items()}
         s = dict(out, pmetrics=pmetrics, before=state,
+                 port_ema={k: v.numpy().copy() for k, v in step.ema.items()},
                  after={k: v.numpy().copy()
                         for k, v in pm.state_dict().items()},
                  port_grads={n: (p.grad.numpy() if p.grad is not None
@@ -247,6 +254,7 @@ def test_supervised_step_matches_jax(tiny, criterion):
     assert grad_mismatches(s, 1e-4) == []
     bad, n_checked = step_mismatches(s, tol=1e-3)
     assert bad == [] and n_checked > 20
+    assert ema_mismatches(s, EMA_DECAY) == []
 
 
 @pytest.fixture(scope='module')

@@ -3,6 +3,7 @@ package), runs on the card unless told otherwise, and builds its kernels
 from the sources in the repository."""
 
 import ast
+import functools
 import os
 import pkgutil
 import subprocess
@@ -61,7 +62,7 @@ def test_import_loads_no_jax():
               'semivl_tpu_torch.ops.augment',
               'semivl_tpu_torch.ops.fused_decoder_banded',
               'semivl_tpu_torch.ops.fused_up',
-              'semivl_tpu_torch.tools.fused_up_bench'):
+              'semivl_tpu_torch.tools.fused_up_bench') + NEW_MODULES:
         assert m in loaded, m
     assert [m for m in loaded if _forbidden(m)] == []
 
@@ -111,25 +112,6 @@ def test_entry_points_need_a_device_on_a_host_without_card():
                          mcc_text_feats=np.zeros((98, 512)))
     with pytest.raises(RuntimeError, match='no CUDA device'):
         make_semivl_train_step(bundle, flagship_train_cfg(), None, 10)
-
-
-@pytest.mark.parametrize('key', ['ema_decay'])
-def test_train_step_refuses_unported_switches(key):
-    """A truthy switch of the JAX step that the port does not implement
-    raises, naming it, before any device is touched; a falsy one is
-    accepted (the CPU step runs)."""
-    from semivl_tpu_torch.models.builder import ModelBundle
-    from semivl_tpu_torch.train.step import make_semivl_train_step
-    bundle = ModelBundle(model=torch.nn.Identity(),
-                         text_feats=np.zeros((21, 512)),
-                         mcc_text_feats=np.zeros((98, 512)))
-    cfg = flagship_train_cfg()
-    value = 0.999
-    with pytest.raises(NotImplementedError, match=key):
-        make_semivl_train_step(bundle, dict(cfg, **{key: value}), None, 10)
-    step = make_semivl_train_step(bundle, dict(cfg, **{key: False}), None,
-                                  10, device='cpu')
-    assert step.iteration == 0
 
 
 def test_attention_bench_needs_a_card():
@@ -251,6 +233,19 @@ def test_kernel_sources_and_build_keys():
         assert 'semivl_tpu_torch/_build/' in f.read().split()
 
 
+# the LoRA attention (models.layers), the MaskCLIP heads, the CLIP text
+# encoder, the evaluation CLI, the checkpoint converters and the demos
+NEW_MODULES = (
+    'semivl_tpu_torch.models.maskclip_heads',
+    'semivl_tpu_torch.text.text_encoder',
+    'semivl_tpu_torch.tools.convert_clip_weights',
+    'semivl_tpu_torch.tools.convert_timm_weights',
+    'semivl_tpu_torch.tools.convert_reference_ckpt',
+    'semivl_tpu_torch.tools.convert_to_torch',
+    'semivl_tpu_torch.tools.eval', 'semivl_tpu_torch.tools.parity_check',
+    'semivl_tpu_torch.tools.semi_effect_demo',
+    'semivl_tpu_torch.tools.pseudo_label_quality')
+
 # the trainer entry point's modules (data pipeline, configs, loop, CLI,
 # the process group and the multi-rank dry run), the exp-41 models it
 # builds (DeepLabV3+, ZegCLIP with its SegLossPlus) and the baselines'
@@ -270,7 +265,8 @@ TRAINER_MODULES = (
     'semivl_tpu_torch.tools.experiments', 'semivl_tpu_torch.tools.train',
     'semivl_tpu_torch.train.checkpoint', 'semivl_tpu_torch.train.loop',
     'semivl_tpu_torch.utils.code_archive',
-    'semivl_tpu_torch.utils.logging_utils', 'semivl_tpu_torch.utils.plotting')
+    'semivl_tpu_torch.utils.logging_utils', 'semivl_tpu_torch.utils.plotting'
+) + NEW_MODULES
 
 
 @pytest.mark.parametrize('module', TRAINER_MODULES)
@@ -313,3 +309,34 @@ def test_trainer_entry_points_need_a_device(tmp_path, monkeypatch):
                          text=True, env={**os.environ, 'PYTHONPATH': ROOT})
     assert out.returncode != 0 and 'no CUDA device' in out.stderr
     assert not os.path.exists('exp')
+
+
+@pytest.mark.parametrize('entry', [
+    'eval', 'parity_check', 'semi_effect_demo', 'pseudo_label_quality',
+    'pretrain_guidance', 'generate_text_embeddings'])
+def test_new_entry_points_need_a_device(entry, tmp_path, monkeypatch):
+    """Without a card the evaluation CLI, ``parity_check``, both demos,
+    the guidance pretraining and the text-embedding generation raise
+    before they read or write anything; ``--device cpu`` (``device='cpu'``)
+    is the way to the plain path."""
+    if torch.cuda.is_available():
+        pytest.skip('this host has a card: the default device exists')
+    import importlib
+    monkeypatch.chdir(tmp_path)
+    if entry == 'pretrain_guidance':
+        from semivl_tpu_torch.tools.semi_effect_demo import pretrain_guidance
+        call = functools.partial(pretrain_guidance, str(tmp_path), (72, 88))
+    elif entry == 'generate_text_embeddings':
+        from semivl_tpu_torch.text.text_encoder import (
+            generate_text_embeddings)
+        call = functools.partial(generate_text_embeddings, ['cat'], {})
+    else:
+        main = importlib.import_module(f'semivl_tpu_torch.tools.{entry}').main
+        args = {'eval': ['--config', 'missing.yaml', '--save-path', 'none'],
+                'parity_check': ['--config', 'missing.yaml', '--ckpt',
+                                 'missing.pth']}.get(
+                                     entry, ['--out-root', 'out'])
+        call = functools.partial(main, args)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        call()
+    assert os.listdir(tmp_path) == []

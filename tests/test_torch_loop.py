@@ -144,6 +144,7 @@ def test_loop_batches_match_jax(loop_cfg, tmp_path, monkeypatch):
 
     class Recorder:
         iteration = 0
+        ema = None   # the step's parameter EMA: none without ema_decay
 
         def __call__(self, batch, generator, preempt=False):
             seen.append({k: v.numpy() for k, v in batch.items()})
@@ -204,18 +205,6 @@ def test_step_generator_is_a_function_of_the_step():
     d = torch.rand(4, generator=loop.step_generator(1, 5, 'cpu'))
     assert torch.equal(a, b) and not torch.equal(a, c)
     assert not torch.equal(a, d)
-
-
-@pytest.mark.parametrize('change,words', [
-    (dict(ema_decay=0.999), 'ema_decay')])
-def test_loop_refuses_unported(loop_cfg, tmp_path, monkeypatch, change,
-                               words):
-    """What the loop does not run yet raises, by name, before it writes
-    anything."""
-    monkeypatch.chdir(tmp_path)
-    with pytest.raises(NotImplementedError, match=words):
-        loop.train(dict(loop_cfg, **change), device='cpu')
-    assert not os.path.exists('exp')
 
 
 def test_param_overrides_merge_after_init(loop_cfg, tmp_path):

@@ -35,12 +35,13 @@ from semivl_tpu_torch.train.step import (LOSS_KEYS, cutmix_box_from_coords,
                                          cutmix_image)
 
 import torch_parity
-from torch_parity import (MARGIN, gap_threshold, leaf_names,
+from torch_parity import (MARGIN, ema_mismatches, gap_threshold, leaf_names,
                           pseudo_label_thresholds, rel_err, semivl_batch,
                           semivl_step_pair, step_mismatches, text_embedding,
                           tiny_train_vlm)
 
 B, IMG, TOTAL = 2, torch_parity.IMG, 100
+EMA_DECAY = 0.999   # the step pair keeps the parameter EMA (JAX's default)
 
 
 def _t(a):
@@ -194,7 +195,8 @@ def step_pair(tiny):
     batch = semivl_batch(7, B, IMG)
     conf_thresh, mcc_thresh = pseudo_label_thresholds(pm, text, mcc, batch)
     cfg = dict(flagship_train_cfg(IMG), conf_thresh=conf_thresh,
-               mcc_conf_thresh=mcc_thresh, log_grad_norm=True)
+               mcc_conf_thresh=mcc_thresh, log_grad_norm=True,
+               ema_decay=EMA_DECAY)
     rs = np.random.RandomState(8)
     keeps = [rs.rand(B, 1, 1, c) < 0.5 for c in (128, 128, 512)]
     return semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
@@ -220,3 +222,11 @@ def test_semivl_step_grads_and_update_match_jax(step_pair):
     bad, n_checked = step_mismatches(step_pair)
     assert bad == []
     assert n_checked > 20
+
+
+def test_semivl_step_ema_matches_jax(step_pair):
+    """With ``ema_decay`` the step keeps an EMA of every parameter (JAX
+    step.py:380-385): after one step it equals the float32 recomputation
+    from the parameters before and after, and JAX's within 1e-6 of each
+    leaf's scale (1 - decay times the updates' 1e-3)."""
+    assert ema_mismatches(step_pair, EMA_DECAY) == []

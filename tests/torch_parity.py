@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import optax
+import pytest
 import torch
 
 from semivl_tpu.models.vlm import VLM as JaxVLM
@@ -36,6 +37,17 @@ HEAD = dict(
 # the guidance encoder: the same small ViT, only the dense CLIP embedding
 CLIP = dict(BACKBONE, out_indices=None)
 MCC_TEXT = 'voc12_wbg_concept4_single'
+
+
+@pytest.fixture(scope='module', autouse=True)
+def few_threads():
+    """A test module's torch work on 2 threads (autouse in a module that
+    imports it): the suite runs several test processes on one host, and
+    torch's default of one thread a core oversubscribes it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
 
 
 def random_tree(shapes, seed):
@@ -347,9 +359,10 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
     boxes and injected feature-perturbation masks ``keeps``, under the
     freeze rule ``freeze_backbone``/``exclude_keys``: the metrics, the JAX
     gradients and updated parameters and statistics under the port's
-    names, the port's gradients and its state before and after. Given
-    ``relu_masks`` (a ``SharedReluMasks``), the VLG head's ReLUs of both
-    steps go through it; given ``concept_max`` (a ``SharedConceptMax``),
+    names, the port's gradients and its state before and after, and, with
+    ``cfg['ema_decay']``, both parameter EMAs (``jax_ema``, ``port_ema``).
+    Given ``relu_masks`` (a ``SharedReluMasks``), the VLG head's ReLUs of
+    both steps go through it; given ``concept_max`` (a ``SharedConceptMax``),
     its concept -> class max. ``module``: the models' module whose
     ``dropout2d`` the masks replace ('vlm', or 'deeplabv3plus' for the
     UniMatch segmentor)."""
@@ -398,6 +411,9 @@ def semivl_step_pair(jm, params, pm, mcc, text, batch, cfg, keeps,
                   for n, p in pm.named_parameters()}
     return dict(jmetrics=out['jmetrics'], pmetrics=pmetrics,
                 jax_new=out['jax_new'], jax_grads=out['jax_grads'],
+                jax_ema=out['jax_ema'],
+                port_ema=(None if step.ema is None else
+                          {k: v.numpy().copy() for k, v in step.ema.items()}),
                 port_grads=port_grads, before=before,
                 after={k: v.numpy().copy()
                        for k, v in pm.state_dict().items()},
@@ -434,6 +450,26 @@ def step_mismatches(s, tol=1e-3):
         if np.array_equal(s['after'][name], s['before'][name].numpy()):
             bad.append((name, 'unchanged', 0.0))
     return bad, n_checked
+
+
+def ema_mismatches(s, decay, tol=1e-6):
+    """The parameter EMA after one step (``semivl_step_pair``'s or a step
+    of that layout), frozen leaves included: the port's equal to ``decay *
+    before + (1 - decay) * after`` in float32 (two products rounded, one
+    sum) at every leaf, and within ``tol`` of each leaf's scale of JAX's
+    (whose jitted step may fuse the product and the sum: a frozen leaf
+    then drifts by another rounding, ~6e-8). Returns the mismatches."""
+    assert set(s['port_ema']) == set(s['jax_ema']) == set(s['trainable'])
+    bad = []
+    for name in s['trainable']:
+        got, want = s['port_ema'][name], s['jax_ema'][name]
+        recomputed = (np.float32(decay) * s['before'][name].numpy()
+                      + np.float32(1.0 - decay) * s['after'][name])
+        if not np.array_equal(got, recomputed):
+            bad.append((name, 'recomputed', rel_err(got, recomputed)))
+        if rel_err(got, want) > tol:
+            bad.append((name, 'ema', rel_err(got, want)))
+    return bad
 
 
 def resolved_step_mismatches(s, cfg, tol=1e-3, stats_tol=1e-5):
@@ -533,7 +569,9 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
     if stats is not None:
         variables['batch_stats'] = stats
     state = TrainState(params=variables, opt_state=tx.init(params),
-                       step=jnp.zeros((), jnp.int32))
+                       step=jnp.zeros((), jnp.int32),
+                       ema_params=(jax.tree.map(jnp.array, params)
+                                   if cfg.get('ema_decay') else None))
     mesh = Mesh(np.array(jax.devices()[:n_devices]), ('data',))
     compute_stats = flax_norm._compute_stats
     recorded, calls = {}, [0]
@@ -566,7 +604,16 @@ def jax_step_on_mesh(jm, params, mcc, text, batch, cfg, keeps, total,
     return dict(jmetrics=jmetrics,
                 jax_new=names(new['params'], new.get('batch_stats')),
                 jax_grads=names(masked_grads(new_state.opt_state, params)),
+                jax_ema=jax_ema(new_state, names),
                 bn_batch_stats=[recorded[i] for i in sorted(recorded)])
+
+
+def jax_ema(state, names=convert.vlm_state_dict):
+    """A JAX ``TrainState``'s parameter EMA under the port's names (None
+    without one)."""
+    if state.ema_params is None:
+        return None
+    return names(jax.tree.map(np.asarray, state.ema_params))
 
 
 # ------------------------------------------------- the small ZegCLIP VLM
