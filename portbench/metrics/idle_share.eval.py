@@ -1,0 +1,8 @@
+"""idle_share.eval: the share of the traced window in which no operation
+ran on the device."""
+
+
+def read(t):
+    if t.kind != 'eval' or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s / t.window_s)
